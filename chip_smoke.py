@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (mom6_torch) on one CUDA card and check it.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, in
+order; any failure ends the script with a non-zero exit:
+
+1. device: require a CUDA card; print its name and power limit;
+2. build: compile the kernels of mom6_torch/csrc with nvcc (one process
+   per source, in parallel) into mom6_torch/_build;
+3. kernels against their plain PyTorch versions on the card, on seeded
+   random inputs: K1 (continuity sweep, both orders) and K2 (BT_cont
+   fit) at 25x520x520 and 25x1096x1448, K3 (barotropic subcycle,
+   linear and curve transports) at 25x520x520; fp64 and fp32;
+4. the slice at 64x64x8 in fp64 for 3 steps, on the card (kernels)
+   against the CPU (plain versions);
+5. the slice at full width, 512x512x25 fp32: 2 warm-up steps, then 10
+   timed steps with every launch counter zeroed just before and read
+   just after; each kernel's own time beside its bound and its plain
+   version's time.
+
+The line before the last is the JSON ``kernels`` record; the last line
+is ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+DEV = "cuda"
+MAIN = (512, 512, 25)          # (ni, nj, nk) of the slice
+WIDE = (1440, 1088, 25)        # the OM4-class width for K1 and K2
+SMALL = (64, 64, 8)            # the slice checked against the CPU
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
+
+# Operations per point, counted from the kernel sources (arithmetic,
+# comparisons and selects; csrc/ppm.cuh, continuity.cu, barotropic.cu):
+# the PPM edge values ~100 per cell; one layer's flux and derivative
+# with the correction applied ~57; the K1 sweep does 6 Newton passes,
+# the final flux (~55) and the divergence (~4) per cell-layer; K2 does
+# 3 Newton passes, 3 probes and the probe limits (~12) per cell-layer
+# and direction; a K3 substep with curve transports ~162 per point.
+OPS_EDGES, OPS_FLUX = 100, 57
+OPS_K1 = OPS_EDGES + 6 * OPS_FLUX + 55 + 4
+OPS_K2 = 2 * (OPS_EDGES + 6 * OPS_FLUX + 12)
+OPS_K3_SUBSTEP = 162
+
+KERNELS = {
+    "K1": dict(name="continuity_sweep", route="cuda",
+               source="mom6_torch/csrc/continuity.cu",
+               replaces="mom6_tpu/core/continuity_pallas.py:193"),
+    "K2": dict(name="bt_cont_fit", route="cuda",
+               source="mom6_torch/csrc/continuity.cu",
+               replaces="mom6_tpu/core/continuity_pallas.py:377"),
+    "K3": dict(name="barotropic_subcycle", route="cuda",
+               source="mom6_torch/csrc/barotropic.cu",
+               replaces="mom6_tpu/core/barotropic_pallas.py:164"),
+}
+TOL = {  # relative to each field's max on the compute domain
+    "K1": {"float64": 1e-12, "float32": 1e-5},
+    "K2": {"float64": 1e-12, "float32": 1e-3},
+    # u_turn divides by the near-cancelling FA_far - FA_0, so summation
+    # order noise is magnified (fp32 additionally has no degenerate-fit
+    # guard that ever fires at |denom| <= 1e-12 |FA_0|)
+    "K2_turn": {"float64": 1e-8, "float32": 2e-2},
+    "K3": {"float64": 1e-10, "float32": 5e-5},
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def rel_err(ref, out, H=4):
+    a = ref[..., H:-H, H:-H].double()
+    b = out[..., H:-H, H:-H].double()
+    scale = float(a.abs().max())
+    diff = float((a - b).abs().max())
+    return diff / scale if scale > 0 else diff, diff
+
+
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds of ``fn`` over ``reps`` calls, by CUDA events
+    on the current stream."""
+    import torch
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class Results:
+    def __init__(self):
+        self.err = {k: {} for k in KERNELS}      # dtype -> (rel, abs)
+
+    def check(self, kernel, dtype, label, ref, out, tol_key=None):
+        rel, diff = rel_err(ref, out)
+        tol = TOL[tol_key or kernel][dtype]
+        log(f"  {kernel} {label} {dtype}: max rel err {rel:.3e} "
+            f"(limit {tol:.0e}), max abs err {diff:.3e}")
+        if not rel <= tol:
+            raise AssertionError(f"{kernel} {label} {dtype}: {rel:.3e} > "
+                                 f"{tol:.0e}")
+        old = self.err[kernel].get(dtype, (0.0, 0.0))
+        self.err[kernel][dtype] = (max(old[0], rel), max(old[1], diff))
+
+
+def make_grid(ni, nj, nk, dtype, device=None):
+    import torch
+    from mom6_torch.core.grid import cartesian_grid
+    from mom6_torch.core.vertical_grid import VerticalGrid
+    from mom6_torch.parallel.domain import Domain
+    device = device or DEV
+    d = Domain(ni=ni, nj=nj, halo=4, reentrant_x=True, reentrant_y=False)
+    g = cartesian_grid(d, lenlon_km=ni * 10.0, lenlat_km=nj * 10.0,
+                       f0=1e-4, beta=2e-11, max_depth=4000.0,
+                       device=device, dtype=dtype)
+    vg = VerticalGrid.uniform(nk=nk, gint=0.005, device=device,
+                              dtype=dtype)
+    return d, g, vg
+
+
+def continuity_inputs(ni, nj, nk, dtype, seed):
+    """Random layered state in the style of the JAX package's continuity
+    tests: h ~ 160 +- 16 m, u/v ~ 0.3 m/s, visc_rem in [0.5, 1], and
+    barotropic transports within 10% of the layer sum."""
+    import numpy as np
+    import torch
+    d, g, vg = make_grid(ni, nj, nk, dtype)
+    rng = np.random.default_rng(seed)
+    shape = (nk, d.njh, d.nih)
+
+    def t(a):
+        return d.fill_halos(torch.as_tensor(a, dtype=dtype, device=DEV))
+
+    h = t(160.0 + 16.0 * rng.standard_normal(shape))
+    u = t(0.3 * rng.standard_normal(shape)) * g.mask2dCu
+    v = t(0.3 * rng.standard_normal(shape)) * g.mask2dCv
+    vr_u = t(rng.uniform(0.5, 1.0, shape))
+    vr_v = t(rng.uniform(0.5, 1.0, shape))
+    noise = t(rng.uniform(0.9, 1.1, shape[1:]))
+    uhbt = torch.sum(u * h, 0) * g.dyCu * noise
+    vhbt = torch.sum(v * h, 0) * g.dxCv * noise
+    return d, g, vg, dict(u=u, v=v, h=h, vr_u=vr_u, vr_v=vr_v, uhbt=uhbt,
+                          vhbt=vhbt)
+
+
+def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
+    from mom6_torch.core import continuity_cuda as cc
+    from mom6_torch.core.continuity_ppm import (ContinuityCfg,
+                                                continuity_ppm,
+                                                set_up_bt_cont)
+    d, g, vg, x = continuity_inputs(ni, nj, nk, dtype, seed=1)
+    cfg = ContinuityCfg()
+    dt = 600.0
+    dn = str(dtype).split(".")[-1]
+    shape = f"{nk}x{d.njh}x{d.nih}"
+    for x_first in (True, False):
+        args = (g, vg, x["u"], x["v"], x["h"], dt, cfg)
+        kw = dict(uhbt=x["uhbt"], vhbt=x["vhbt"], visc_rem_u=x["vr_u"],
+                  visc_rem_v=x["vr_v"], x_first=x_first)
+        ref = continuity_ppm(*args, **kw)
+        out = cc.continuity_ppm_cuda(*args, x["uhbt"], x["vhbt"],
+                                     x["vr_u"], x["vr_v"], x_first=x_first)
+        for name in ("h", "uh", "vh", "u_cor", "v_cor"):
+            res.check("K1", dn, f"{shape} x_first={x_first} {name}",
+                      getattr(ref, name), getattr(out, name))
+        if timing is not None and x_first:
+            timing["K1"] = (
+                cuda_ms(lambda: cc.continuity_ppm_cuda(
+                    *args, x["uhbt"], x["vhbt"], x["vr_u"], x["vr_v"]),
+                    20) / 2,
+                cuda_ms(lambda: continuity_ppm(*args, **kw), 3) / 2,
+                x)
+    bargs = (g, vg, x["u"], x["v"], x["h"], dt, cfg, x["vr_u"], x["vr_v"])
+    ref = set_up_bt_cont(*bargs)
+    out = cc.set_up_bt_cont_cuda(*bargs)
+    for name in ref._fields:
+        turn = name.startswith(("uBT", "vBT"))
+        res.check("K2", dn, f"{shape} {name}", getattr(ref, name),
+                  getattr(out, name), "K2_turn" if turn else None)
+    if timing is not None:
+        timing["K2"] = (cuda_ms(lambda: cc.set_up_bt_cont_cuda(*bargs), 20),
+                        cuda_ms(lambda: set_up_bt_cont(*bargs), 3), x)
+
+
+def subcycle_case(ni, nj, nk, dtype, curve, seed=5):
+    """btstep's set-up on random inputs (as in the JAX package's
+    subcycle tests), returning the subcycle's inputs."""
+    import numpy as np
+    import torch
+    from mom6_torch.core.barotropic import (BarotropicCfg, set_dtbt,
+                                            subcycle_inputs)
+    from mom6_torch.core.continuity_ppm import set_up_bt_cont
+    d, g, vg = make_grid(ni, nj, nk, dtype)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return d.fill_halos(d.pad(torch.as_tensor(a, dtype=dtype,
+                                                  device=DEV)))
+
+    h = t(rng.uniform(150.0, 170.0, (nk, nj, ni)))
+    u = t(0.05 * rng.standard_normal((nk, nj, ni)))
+    v = t(0.05 * rng.standard_normal((nk, nj, ni)))
+    eta = t(0.05 * rng.standard_normal((nj, ni)))
+    acc = t(1e-6 * rng.standard_normal((nk, nj, ni)))
+    ecor = t(0.01 * rng.standard_normal((nj, ni)))
+    pbce = torch.full_like(h, 9.8 / nk)
+    nstep = set_dtbt(d, g, vg, BarotropicCfg(), 600.0)
+    bc = uh0 = vh0 = None
+    if curve:
+        bc = set_up_bt_cont(g, vg, u, v, h, 600.0)
+        uh0 = torch.sum(h * 0.01, 0)
+        vh0 = torch.sum(h * 0.005, 0)
+    cfg = BarotropicCfg(nstep=nstep, use_bt_cont=curve)
+    inp = subcycle_inputs(d, g, vg, u, v, eta, h, acc, acc, pbce, u, v,
+                          600.0, cfg, taux=0.1 * g.mask2dCu, bt_cont=bc,
+                          eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0)
+    return d, inp
+
+
+def check_k3(res, ni, nj, nk, dtype, timing=None):
+    from mom6_torch.core import barotropic_cuda as bc
+    dn = str(dtype).split(".")[-1]
+    for curve in (False, True):
+        d, inp = subcycle_case(ni, nj, nk, dtype, curve)
+        _, _, _, ref = bc.subcycle_plain(*inp, d)
+        _, _, _, out = bc.subcycle_cuda(*inp, d)
+        form = "curve" if curve else "linear"
+        for name in bc.SUM_NAMES:
+            res.check("K3", dn, f"{nk}x{d.njh}x{d.nih} {form} {name}",
+                      ref[name], out[name])
+        if timing is not None and curve:
+            timing["K3"] = (cuda_ms(lambda: bc.subcycle_cuda(*inp, d), 10),
+                            cuda_ms(lambda: bc.subcycle_plain(*inp, d), 2),
+                            inp)
+
+
+def bounds(timing, nk, njh, nih, item, dtn):
+    """(bound_ms, bound_by) for each kernel at the main path's shape:
+    the larger of the bytes each input read once and each output
+    written once over HBM bandwidth, and the operations over the fp
+    peak."""
+    P = njh * nih
+    total = timing["K3"][2].wts.shape[1]
+    nconst = 20 + (22 if timing["K3"][2].use_curve else 0)
+    work = {
+        # u, h, visc_rem, hbt + 6 grid planes in; h, flux, u_cor out
+        "K1": ((6 * nk) * P + 7 * P, OPS_K1 * nk * P),
+        # u, v, h, 2 visc_rem + 9 grid planes in; 12 planes out
+        "K2": ((5 * nk) * P + 21 * P, OPS_K2 * nk * P),
+        # eta, ubt, vbt, the constant planes, weights in; 7 sums + 3 out
+        "K3": ((3 + nconst + 10) * P + 4 * total,
+               OPS_K3_SUBSTEP * total * P),
+    }
+    out = {}
+    for k, (elems, ops) in work.items():
+        t_bytes = elems * item / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S[dtn] * 1e3
+        out[k] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                              "operations")
+    return out
+
+
+def run_slice(ni, nj, nk, dtype, device, nsteps):
+    from mom6_torch import entry
+    from mom6_torch.core.dynamics_split_rk2 import step_dyn_split_rk2
+    s = entry.build(ni, nj, nk, device=device, dtype=dtype)
+    st, sp = s.state, s.split
+    for _ in range(nsteps):
+        st, sp, _ = step_dyn_split_rk2(s.domain, s.grid, s.vgrid, st, sp,
+                                       s.forces, s.dt, s.cfg)
+    return s, st, sp
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script runs on a CUDA card only")
+    if not (ROOT / "mom6_torch" / "csrc").is_dir():
+        raise SystemExit("chip_smoke: run from the root of a checkout "
+                         "(mom6_torch/ not found beside this script)")
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 1 device: {kind}, count {torch.cuda.device_count()}")
+
+    # 2. build
+    from mom6_torch import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(cuda_build.SOURCES)})")
+
+    # 3. kernels against their plain versions
+    log("phase 3 kernels vs plain")
+    res = Results()
+    timing = {}
+    for dtype in (torch.float64, torch.float32):
+        main_shape = dtype == torch.float32
+        check_k1_k2(res, *MAIN, dtype, timing if main_shape else None)
+        check_k3(res, *MAIN, dtype, timing if main_shape else None)
+        check_k1_k2(res, *WIDE, dtype)
+        torch.cuda.empty_cache()
+
+    # 4. the slice at 64x64x8 fp64: card against CPU
+    log("phase 4 slice %dx%dx%d fp64, 3 steps: card vs cpu" % SMALL)
+    _, gst, gsp = run_slice(*SMALL, torch.float64, DEV, 3)
+    _, cst, csp = run_slice(*SMALL, torch.float64, "cpu", 3)
+    for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
+                       ("v", cst.v, gst.v), ("eta", csp.eta, gsp.eta)):
+        rel, diff = rel_err(a, b.cpu())
+        log(f"  slice {name}: max rel err {rel:.3e} (limit 1e-09)")
+        if not rel <= 1e-9:
+            raise AssertionError(f"slice {name}: {rel:.3e} > 1e-9")
+
+    # 5. the slice at full width, fp32
+    log("phase 5 slice %dx%dx%d fp32" % MAIN)
+    from mom6_torch import entry
+    from mom6_torch.core import barotropic_cuda, continuity_cuda
+    from mom6_torch.core.dynamics_split_rk2 import step_dyn_split_rk2
+    wrappers = {"K1": continuity_cuda.continuity_ppm_cuda,
+                "K2": continuity_cuda.set_up_bt_cont_cuda,
+                "K3": barotropic_cuda.subcycle_cuda}
+    s = entry.build(*MAIN, device=DEV, dtype=torch.float32)
+    cur = [s.state, s.split]
+
+    def step():
+        st, sp, _ = step_dyn_split_rk2(s.domain, s.grid, s.vgrid, *cur,
+                                       s.forces, s.dt, s.cfg)
+        cur[:] = [st, sp]
+
+    for _ in range(2):
+        step()
+    nsteps = 10
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    ms_step = cuda_ms(step, nsteps, warm=False)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    st, sp = cur
+    shape = (MAIN[2], MAIN[1] + 8, MAIN[0] + 8)
+    for name, f in (("h", st.h), ("u", st.u), ("v", st.v),
+                    ("eta", sp.eta), ("u_av", sp.u_av), ("uh", sp.uh)):
+        if f.shape[-2:] != shape[1:] or (f.dim() == 3 and f.shape != shape):
+            raise AssertionError(f"slice field {name} has shape "
+                                 f"{tuple(f.shape)}, expected {shape}")
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"slice field {name} is not finite")
+    expect = {"K1": 4 * nsteps, "K2": nsteps, "K3": 2 * nsteps}
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches}, expected {expect}")
+    pts = MAIN[0] * MAIN[1] * MAIN[2] / (ms_step / 1e3)
+    log(f"  {nsteps} steps: {ms_step:.3f} ms/step (CUDA events), "
+        f"{wall / nsteps * 1e3:.3f} ms/step (host clock), "
+        f"{pts:.4e} points/s, launches {launches}")
+    log(f"  h range [{float(s.domain.interior(st.h).min()):.3f}, "
+        f"{float(s.domain.interior(st.h).max()):.3f}] m, "
+        f"max |u| {float(st.u.abs().max()):.4f} m/s, "
+        f"max |eta| {float(sp.eta.abs().max()):.4f} m")
+
+    nk, njh, nih = st.h.shape
+    bnd = bounds(timing, nk, njh, nih, 4, "float32")
+    log(f"  kernel times at {nk}x{njh}x{nih} fp32 (no single PyTorch "
+        "call computes any of these functions: library_ms is null)")
+    records = []
+    for k, meta in KERNELS.items():
+        ms, plain_ms, _ = timing[k]
+        b_ms, b_by = bnd[k]
+        unit = {"K1": "per sweep", "K2": "per call",
+                "K3": "per subcycle"}[k]
+        log(f"  {k} {meta['name']}: {ms:.4f} ms {unit}, bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+            f"launches {launches[k]}")
+        records.append(dict(
+            meta, launches=launches[k],
+            max_abs_err=res.err[k]["float32"][1],
+            max_rel_err_fp32=res.err[k]["float32"][0],
+            max_rel_err_fp64=res.err[k]["float64"][0],
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, unit=unit))
+    print(smi, flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

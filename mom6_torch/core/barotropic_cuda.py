@@ -1,0 +1,174 @@
+"""Kernel K3, the barotropic subcycle: dispatch and plain version.
+
+``subcycle_cuda`` is the port's counterpart of ``subcycle_pallas``
+(mom6_tpu/core/barotropic_pallas.py:345), called from ``btstep`` where
+the JAX package calls the Pallas kernel.  A CUDA tensor runs the whole
+subcycle through ``csrc/barotropic.cu`` (four launches per substep,
+issued by one host loop in C); a CPU tensor runs ``subcycle_plain``,
+the ``_one``/``block`` loop of mom6_tpu/core/barotropic.py:624-698.
+``subcycle_cuda.launches`` grows by one per subcycle.  See
+csrc/barotropic.cu for what bounds the kernel on an H100 and how its
+design answers it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from mom6_torch import cuda_build
+from mom6_torch.core.barotropic import BT_HALO, find_uhbt
+from mom6_torch.parallel.domain import Domain
+from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
+
+__all__ = ["subcycle_cuda", "subcycle_plain", "SUM_NAMES"]
+
+# constant planes in the kernel's order (csrc/barotropic.cu enum)
+CONST_NAMES = ("gtot_E", "gtot_W", "gtot_N", "gtot_S", "q", "Du_q",
+               "Dv_q", "Cor_ref_u", "Cor_ref_v", "bt_rem_u", "bt_rem_v",
+               "BT_force_u", "BT_force_v", "eta_pf", "IdxCu", "IdyCv",
+               "IareaT", "eta_src", "Datu", "Datv")
+SUM_NAMES = ("uhbt", "vhbt", "eta", "accel_u", "accel_v", "ubt", "vbt")
+
+
+def subcycle_plain(eta, ubt, vbt, consts: dict, use_curve: bool,
+                   wts: np.ndarray, dtbt: float, bebt: float,
+                   domain: Domain):
+    """``wts.shape[1]`` forward-backward substeps, u first on even ones,
+    with a width-3 halo refresh after each and the seven weighted sums
+    (wts rows: vel, eta, trans, accel).  Returns (eta, ubt, vbt, sums)."""
+    c = consts
+    if use_curve:
+        def trans_u(u):
+            return find_uhbt(u, *c["cu"]) + c["uhbt0"]
+
+        def trans_v(v):
+            return find_uhbt(v, *c["cv"]) + c["vhbt0"]
+    else:
+        def trans_u(u):
+            return c["Datu"] * u
+
+        def trans_v(v):
+            return c["Datv"] * v
+
+    def cor_u(vb):
+        dvv = c["Dv_q"] * vb
+        A = c["q"] * (ip1(dvv) + dvv)
+        return A + jm1(A)
+
+    def cor_v(ub):
+        duu = c["Du_q"] * ub
+        B = c["q"] * (duu + jp1(duu))
+        return -(B + im1(B))
+
+    def div(uh, vh):
+        return ((uh - im1(uh)) + (vh - jm1(vh))) * c["IareaT"]
+
+    sums = {k: torch.zeros_like(eta) for k in SUM_NAMES}
+    for n in range(wts.shape[1]):
+        w_v, w_e, w_t, w_a = (float(x) for x in wts[:, n])
+        eta_pred = (eta + c["eta_src"]) - dtbt * div(trans_u(ubt),
+                                                     trans_v(vbt))
+        d_eta = ((1.0 - bebt) * eta + bebt * eta_pred) - c["eta_pf"]
+        pf_u = (d_eta * c["gtot_E"] - ip1(d_eta * c["gtot_W"])) \
+            * c["IdxCu"]
+        pf_v = (d_eta * c["gtot_N"] - jp1(d_eta * c["gtot_S"])) \
+            * c["IdyCv"]
+        if n % 2 == 0:
+            cu = cor_u(vbt) - c["Cor_ref_u"]
+            ubt2 = c["bt_rem_u"] * (ubt + dtbt * ((c["BT_force_u"] + cu)
+                                                  + pf_u))
+            cv = cor_v(ubt2) - c["Cor_ref_v"]
+            vbt2 = c["bt_rem_v"] * (vbt + dtbt * ((c["BT_force_v"] + cv)
+                                                  + pf_v))
+        else:
+            cv = cor_v(ubt) - c["Cor_ref_v"]
+            vbt2 = c["bt_rem_v"] * (vbt + dtbt * ((c["BT_force_v"] + cv)
+                                                  + pf_v))
+            cu = cor_u(vbt2) - c["Cor_ref_u"]
+            ubt2 = c["bt_rem_u"] * (ubt + dtbt * ((c["BT_force_u"] + cu)
+                                                  + pf_u))
+        uhbt2 = trans_u(ubt2)
+        vhbt2 = trans_v(vbt2)
+        eta2 = (eta + c["eta_src"]) - dtbt * div(uhbt2, vhbt2)
+        eta, ubt, vbt = domain.fill_halos((eta2, ubt2, vbt2),
+                                          width=BT_HALO)
+        sums = dict(uhbt=sums["uhbt"] + w_t * uhbt2,
+                    vhbt=sums["vhbt"] + w_t * vhbt2,
+                    eta=sums["eta"] + w_e * eta,
+                    accel_u=sums["accel_u"] + w_a * (cu + pf_u),
+                    accel_v=sums["accel_v"] + w_a * (cv + pf_v),
+                    ubt=sums["ubt"] + w_v * ubt,
+                    vbt=sums["vbt"] + w_v * vbt)
+    return eta, ubt, vbt, sums
+
+
+@functools.cache
+def _lib():
+    lib = cuda_build.load("barotropic")
+    for t in ("f32", "f64"):
+        fn = getattr(lib, f"bt_subcycle_{t}")
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                       + [ctypes.c_double] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def subcycle_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
+                  wts: np.ndarray, dtbt: float, bebt: float,
+                  domain: Domain):
+    """The barotropic subcycle: K3 on CUDA tensors, ``subcycle_plain``
+    on CPU tensors.  Same arguments and result as ``subcycle_plain``."""
+    if not eta.is_cuda:
+        return subcycle_plain(eta, ubt, vbt, consts, use_curve, wts, dtbt,
+                              bebt, domain)
+    if eta.dtype == torch.float32:
+        suffix = "f32"
+    elif eta.dtype == torch.float64:
+        suffix = "f64"
+    else:
+        raise NotImplementedError(f"barotropic kernel for {eta.dtype}")
+    planes = [consts[k] for k in CONST_NAMES]
+    if use_curve:
+        planes += list(consts["cu"]) + list(consts["cv"]) \
+            + [consts["uhbt0"], consts["vhbt0"]]
+    planes = [p.contiguous() for p in planes]
+    if any(p.shape != eta.shape or p.dtype != eta.dtype
+           or p.device != eta.device for p in planes):
+        raise ValueError("subcycle constants must match eta's shape, "
+                         "dtype and device")
+    const_ptrs = [p.data_ptr() for p in planes]
+    const_ptrs += [None] * (42 - len(const_ptrs))
+
+    nj, ni = eta.shape
+    eta_a = eta.contiguous().clone()
+    eta_b = torch.empty_like(eta_a)
+    ubt_s = ubt.contiguous().clone()
+    vbt_s = vbt.contiguous().clone()
+    scratch = torch.empty((3, nj, ni), dtype=eta.dtype, device=eta.device)
+    sums = torch.zeros((len(SUM_NAMES), nj, ni), dtype=eta.dtype,
+                       device=eta.device)
+    total = wts.shape[1]
+    wt = torch.as_tensor(np.ascontiguousarray(wts), dtype=eta.dtype,
+                         device=eta.device)
+    state = [eta_a, eta_b, ubt_s, vbt_s, scratch[0], scratch[1],
+             scratch[2], sums]
+    rc = getattr(_lib(), f"bt_subcycle_{suffix}")(
+        (ctypes.c_void_p * 42)(*const_ptrs),
+        (ctypes.c_void_p * 8)(*(t.data_ptr() for t in state)),
+        wt.data_ptr(), nj, ni, domain.halo, domain.ni, domain.nj, BT_HALO,
+        int(domain.reentrant_x), int(domain.reentrant_y), int(use_curve),
+        total, float(dtbt), float(bebt),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"barotropic subcycle kernel failed: CUDA error "
+                           f"{rc}")
+    subcycle_cuda.launches += 1
+    eta_f = eta_a if total % 2 == 0 else eta_b
+    return eta_f, ubt_s, vbt_s, dict(zip(SUM_NAMES, sums.unbind(0)))
+
+
+subcycle_cuda.launches = 0

@@ -1,0 +1,232 @@
+"""Split barotropic/baroclinic RK2 dynamics step.
+
+Counterpart of ``mom6_tpu.core.dynamics_split_rk2``
+(step_MOM_dyn_split_RK2):
+
+  PREDICTOR: pressure force on h; Coriolis/advection on the previous
+  time-mean velocities and transports; BT_cont curves; btstep; the
+  predicted velocities with implicit vertical viscosity; continuity
+  over the full dt with the predictor's mean barotropic transports.
+
+  CORRECTOR: pressure force on the predicted h; horizontal viscosity
+  and Coriolis/advection on the time-mean state; btstep; the new
+  velocities with vertical viscosity and truncation; continuity to
+  h(n+1) and the next time-mean velocities.
+
+The continuity sweeps, the BT_cont fit and the barotropic subcycle go
+through the dispatching wrappers: hand-written CUDA kernels on CUDA
+tensors, their plain PyTorch versions on CPU tensors.  OBC, tides,
+stochastic EOS, a shear-driven viscosity, GME and an equation of state
+are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from mom6_torch.core.barotropic import BarotropicCfg, btstep
+from mom6_torch.core.continuity_cuda import (continuity_ppm_cuda,
+                                             set_up_bt_cont_cuda)
+from mom6_torch.core.continuity_ppm import ContinuityCfg
+from mom6_torch.core.coriolis_adv import CoriolisCfg, coriolis_adv
+from mom6_torch.core.forcing import MechForcing
+from mom6_torch.core.grid import Grid
+from mom6_torch.core.pressure_force import (PressureForceCfg,
+                                            interface_heights,
+                                            pressure_force)
+from mom6_torch.core.state import State
+from mom6_torch.core.vert_friction import (VertViscCfg, set_viscous_bbl,
+                                           vertvisc,
+                                           vertvisc_coef,
+                                           vertvisc_limit_vel,
+                                           vertvisc_remnant)
+from mom6_torch.core.vertical_grid import VerticalGrid
+from mom6_torch.param.lateral.hor_visc import (HorViscCfg,
+                                               horizontal_viscosity)
+from mom6_torch.parallel.domain import Domain
+
+__all__ = ["SplitCfg", "SplitDynState", "SplitDiags", "init_split_state",
+           "step_dyn_split_rk2"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitCfg:
+    be: float = 0.6                  # BE predictor weight
+    continuity: ContinuityCfg = ContinuityCfg()
+    coriolis: CoriolisCfg = CoriolisCfg()
+    pressure: PressureForceCfg = PressureForceCfg()
+    vertvisc: VertViscCfg = VertViscCfg()
+    horvisc: HorViscCfg = HorViscCfg()
+    barotropic: BarotropicCfg = BarotropicCfg()
+    tides_fn: object = None          # tides (not ported)
+    stoch_eos_a: float = 0.0         # STOCH_EOS (not ported)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitDynState:
+    """Auxiliary prognostic state of the split scheme."""
+    u_av: torch.Tensor
+    v_av: torch.Tensor
+    h_av: torch.Tensor
+    uh: torch.Tensor
+    vh: torch.Tensor
+    eta: torch.Tensor          # free surface [m]
+    diffu: torch.Tensor        # previous corrector's hor. viscosity
+    diffv: torch.Tensor
+
+
+class SplitDiags(NamedTuple):
+    uh: torch.Tensor
+    vh: torch.Tensor
+    uhtr: torch.Tensor
+    vhtr: torch.Tensor
+    truncs: torch.Tensor
+    eta_av: torch.Tensor
+
+
+def init_split_state(domain: Domain, grid: Grid, vgrid: VerticalGrid,
+                     state: State, horvisc_cfg: HorViscCfg | None = None
+                     ) -> SplitDynState:
+    """Bootstrap the split state from the instantaneous state; with
+    ``horvisc_cfg`` diffu/diffv start from one horizontal_viscosity
+    evaluation, otherwise zeros."""
+    e = interface_heights(vgrid, state.h, grid.bathyT)
+    z = torch.zeros_like(state.h)
+    diffu = diffv = z
+    if horvisc_cfg is not None:
+        u, v, h = domain.fill_halos((state.u, state.v, state.h))
+        diffu, diffv = horizontal_viscosity(grid, u, v, h, horvisc_cfg)
+    return SplitDynState(u_av=state.u, v_av=state.v, h_av=state.h,
+                         uh=z, vh=z, eta=e[0], diffu=diffu, diffv=diffv)
+
+
+def _check_unported(cfg: SplitCfg, eos, obc, stoch_pattern, kh_scale,
+                    kh_extra, kv_shear):
+    for name, bad in (("OBC: open boundary segments", obc is not None),
+                      ("tides: tidal/SAL forcing", cfg.tides_fn is not None),
+                      ("stoch_eos: stochastic EOS",
+                       cfg.stoch_eos_a != 0.0 and stoch_pattern is not None),
+                      ("kv_shear: shear-driven viscosity",
+                       kv_shear is not None),
+                      ("GME: USE_GME backscatter", cfg.horvisc.use_gme),
+                      ("EOS: equation of state (eos is not None)",
+                       eos is not None),
+                      ("kh_scale/kh_extra viscosity inputs",
+                       kh_scale is not None or kh_extra is not None)):
+        if bad:
+            raise NotImplementedError(name)
+
+
+def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
+                       state: State, split: SplitDynState,
+                       forces: MechForcing, dt: float, cfg: SplitCfg,
+                       eos=None, x_first: bool = True, obc=None,
+                       t=None, stoch_pattern=None, kh_scale=None,
+                       kh_extra=None, kv_shear=None,
+                       ) -> tuple[State, SplitDynState, SplitDiags]:
+    """One split RK2 dynamics step (step_MOM_dyn_split_RK2)."""
+    _check_unported(cfg, eos, obc, stoch_pattern, kh_scale, kh_extra,
+                    kv_shear)
+    fill = domain.fill_halos_group
+    rho0 = vgrid.Rho0
+
+    ((u, v), h, (u_av, v_av), h_av, eta) = fill(
+        ((state.u, state.v), state.h, (split.u_av, split.v_av),
+         split.h_av, split.eta))
+    uh, vh = fill((split.uh, split.vh), width=2)
+
+    def run_continuity(uu, vv, hh, uhbt, vhbt, vr_u, vr_v):
+        return continuity_ppm_cuda(grid, vgrid, uu, vv, hh, dt,
+                                   cfg.continuity, uhbt, vhbt, vr_u, vr_v,
+                                   x_first=x_first)
+
+    # ---- PREDICTOR ----
+    diffu, diffv = fill((split.diffu, split.diffv))
+    pf = pressure_force(grid, vgrid, h, state.T, state.S, eos,
+                        p_atm=forces.p_surf, cfg=cfg.pressure)
+    ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
+    u_bc_accel = (ca.CAu + pf.PFu) + diffu
+    v_bc_accel = (ca.CAv + pf.PFv) + diffv
+
+    dt_pred = dt * cfg.be
+    bbl = set_viscous_bbl(grid, u, v, h, cfg.vertvisc, vgrid)
+    coefs = vertvisc_coef(grid, u_av, v_av, h, cfg=cfg.vertvisc, bbl=bbl)
+    visc_rem_u, visc_rem_v = vertvisc_remnant(grid, coefs, dt_pred)
+
+    eta_cor = grid.mask2dT * ((torch.sum(h, dim=0) - grid.bathyT) - eta)
+    bt_cont = None
+    uhbt_in = vhbt_in = None
+    if cfg.barotropic.use_bt_cont:
+        bt_cont = set_up_bt_cont_cuda(grid, vgrid, u, v, h, dt,
+                                      cfg.continuity, visc_rem_u,
+                                      visc_rem_v)
+        uhbt_in = torch.sum(uh, dim=0)
+        vhbt_in = torch.sum(vh, dim=0)
+
+    bt = btstep(domain, grid, vgrid, u, v, eta, h,
+                u_bc_accel, v_bc_accel, pf.pbce, u_av, v_av, dt,
+                cfg.barotropic, visc_rem_u, visc_rem_v,
+                forces.taux, forces.tauy, eta_pf=pf.eta_pf,
+                bt_cont=bt_cont, eta_cor=eta_cor,
+                uhbt_in=uhbt_in, vhbt_in=vhbt_in)
+
+    up = grid.mask2dCu * (u + dt_pred * (u_bc_accel + bt.accel_layer_u))
+    vp = grid.mask2dCv * (v + dt_pred * (v_bc_accel + bt.accel_layer_v))
+    coefs = vertvisc_coef(grid, up, vp, h, cfg=cfg.vertvisc, bbl=bbl)
+    up, vp = vertvisc(grid, up, vp, h, coefs, dt_pred, forces.taux,
+                      forces.tauy, rho0)
+    visc_rem_u, visc_rem_v = vertvisc_remnant(grid, coefs, dt_pred)
+    ((up, vp), (visc_rem_u, visc_rem_v)) = fill(
+        ((up, vp), (visc_rem_u, visc_rem_v)))
+
+    res = run_continuity(up, vp, h, bt.uhbtav, bt.vhbtav,
+                         visc_rem_u, visc_rem_v)
+    (hp, (uh, vh), (u_av, v_av)) = fill(
+        (res.h, (res.uh, res.vh), (res.u_cor, res.v_cor)))
+    h_av = 0.5 * (h + hp)
+
+    # ---- CORRECTOR ----
+    pf = pressure_force(grid, vgrid, hp, state.T, state.S, eos,
+                        p_atm=forces.p_surf, cfg=cfg.pressure)
+    diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av,
+                                        cfg.horvisc)
+    ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
+    u_bc_accel = (ca.CAu + pf.PFu) + diffu
+    v_bc_accel = (ca.CAv + pf.PFv) + diffv
+    if cfg.barotropic.use_bt_cont:
+        uhbt_in = torch.sum(uh, dim=0)
+        vhbt_in = torch.sum(vh, dim=0)
+    bt = btstep(domain, grid, vgrid, u, v, eta, h,
+                u_bc_accel, v_bc_accel, pf.pbce, u_av, v_av, dt,
+                cfg.barotropic, visc_rem_u, visc_rem_v,
+                forces.taux, forces.tauy, eta_pf=pf.eta_pf,
+                bt_cont=bt_cont, eta_cor=eta_cor,
+                uhbt_in=uhbt_in, vhbt_in=vhbt_in)
+
+    u_new = grid.mask2dCu * (u + dt * (u_bc_accel + bt.accel_layer_u))
+    v_new = grid.mask2dCv * (v + dt * (v_bc_accel + bt.accel_layer_v))
+    coefs = vertvisc_coef(grid, u_new, v_new, h, cfg=cfg.vertvisc,
+                          bbl=bbl)
+    u_new, v_new = vertvisc(grid, u_new, v_new, h, coefs, dt, forces.taux,
+                            forces.tauy, rho0)
+    visc_rem_u, visc_rem_v = vertvisc_remnant(grid, coefs, dt)
+    u_new, v_new, truncs = vertvisc_limit_vel(grid, u_new, v_new, dt,
+                                              cfg.vertvisc)
+    ((u_new, v_new), (visc_rem_u, visc_rem_v)) = fill(
+        ((u_new, v_new), (visc_rem_u, visc_rem_v)))
+
+    res = run_continuity(u_new, v_new, h, bt.uhbtav, bt.vhbtav,
+                         visc_rem_u, visc_rem_v)
+    (h_new, (uh, vh), (u_av, v_av)) = fill(
+        (res.h, (res.uh, res.vh), (res.u_cor, res.v_cor)))
+
+    new_state = state.replace(u=u_new, v=v_new, h=h_new)
+    new_split = SplitDynState(u_av=u_av, v_av=v_av,
+                              h_av=0.5 * (h + h_new), uh=uh, vh=vh,
+                              eta=bt.eta, diffu=diffu, diffv=diffv)
+    diags = SplitDiags(uh=uh, vh=vh, uhtr=dt * uh, vhtr=dt * vh,
+                       truncs=truncs, eta_av=bt.eta_av)
+    return new_state, new_split, diags

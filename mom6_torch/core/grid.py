@@ -1,0 +1,169 @@
+"""Horizontal grid metrics on the Arakawa C-grid.
+
+Counterpart of ``mom6_tpu.core.grid``: a frozen dataclass of
+halo-padded ``(njh, nih)`` metric tensors.  Metrics are computed
+analytically in float64 numpy over the padded index space (halo rings
+included), exactly as the JAX package does, and only then cast to the
+requested device and dtype.
+
+Positional staggering: for cell (j, i), h/T points at centres, Cu on
+the east face, Cv on the north face, Bu at the north-east corner.
+Reciprocal metrics follow the Adcroft rule (1/x where x > 0, else 0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mom6_torch.parallel.domain import Domain
+
+__all__ = ["Grid", "cartesian_grid"]
+
+
+def _adcroft_recip(x: np.ndarray) -> np.ndarray:
+    return np.where(x > 0, 1.0 / np.where(x > 0, x, 1.0), 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """Halo-padded metrics; every field is an (njh, nih) tensor."""
+
+    domain: Domain
+    dxT: torch.Tensor
+    dyT: torch.Tensor
+    IdxT: torch.Tensor
+    IdyT: torch.Tensor
+    areaT: torch.Tensor
+    IareaT: torch.Tensor
+    dxCu: torch.Tensor
+    dyCu: torch.Tensor
+    IdxCu: torch.Tensor
+    IdyCu: torch.Tensor
+    areaCu: torch.Tensor
+    IareaCu: torch.Tensor
+    dxCv: torch.Tensor
+    dyCv: torch.Tensor
+    IdxCv: torch.Tensor
+    IdyCv: torch.Tensor
+    areaCv: torch.Tensor
+    IareaCv: torch.Tensor
+    dxBu: torch.Tensor
+    dyBu: torch.Tensor
+    IdxBu: torch.Tensor
+    IdyBu: torch.Tensor
+    areaBu: torch.Tensor
+    IareaBu: torch.Tensor
+    mask2dT: torch.Tensor
+    mask2dCu: torch.Tensor
+    mask2dCv: torch.Tensor
+    mask2dBu: torch.Tensor
+    CoriolisBu: torch.Tensor      # f at corners [s-1]
+    bathyT: torch.Tensor          # positive depth at T points [m]
+    geoLatT: torch.Tensor
+    geoLonT: torch.Tensor
+    geoLatCu: torch.Tensor
+    geoLonCu: torch.Tensor
+    geoLatCv: torch.Tensor
+    geoLonCv: torch.Tensor
+    geoLatBu: torch.Tensor
+    geoLonBu: torch.Tensor
+    # porous-barrier face depths (not ported: continuity raises when a
+    # grid carries them)
+    porous_DavgU: Optional[torch.Tensor] = None
+    porous_DavgV: Optional[torch.Tensor] = None
+
+
+def _padded_index(domain: Domain):
+    H = domain.halo
+    return np.arange(-H, domain.nj + H), np.arange(-H, domain.ni + H)
+
+
+def _build(domain: Domain, lon_c, lat_c, lon_f, lat_f, dx_fn, dy_fn,
+           f_fn, depth_fn, min_depth: float, device, dtype) -> Grid:
+    """Assemble a Grid from 1D padded centre/face coordinates and metric
+    callables (mom6_tpu.core.grid._build)."""
+    LaT, LoT = np.meshgrid(lat_c, lon_c, indexing="ij")
+    LaCu, LoCu = np.meshgrid(lat_c, lon_f, indexing="ij")
+    LaCv, LoCv = np.meshgrid(lat_f, lon_c, indexing="ij")
+    LaBu, LoBu = np.meshgrid(lat_f, lon_f, indexing="ij")
+    dlon = lon_c[1] - lon_c[0]
+    dlat = lat_c[1] - lat_c[0]
+    dxT, dyT = dx_fn(dlon, LaT), dy_fn(dlat, LaT)
+    dxCu, dyCu = dx_fn(dlon, LaCu), dy_fn(dlat, LaCu)
+    dxCv, dyCv = dx_fn(dlon, LaCv), dy_fn(dlat, LaCv)
+    dxBu, dyBu = dx_fn(dlon, LaBu), dy_fn(dlat, LaBu)
+    return _assemble(
+        domain, depth_fn(LoT, LaT), min_depth, f_fn(LoBu, LaBu),
+        dict(dxT=dxT, dyT=dyT, areaT=dxT * dyT,
+             dxCu=dxCu, dyCu=dyCu, areaCu=dxCu * dyCu,
+             dxCv=dxCv, dyCv=dyCv, areaCv=dxCv * dyCv,
+             dxBu=dxBu, dyBu=dyBu, areaBu=dxBu * dyBu),
+        dict(geoLatT=LaT, geoLonT=LoT, geoLatCu=LaCu, geoLonCu=LoCu,
+             geoLatCv=LaCv, geoLonCv=LoCv, geoLatBu=LaBu,
+             geoLonBu=LoBu),
+        device, dtype)
+
+
+def _assemble(domain: Domain, depth, min_depth: float, f_Bu,
+              metrics: dict, coords: dict, device, dtype) -> Grid:
+    """Masks, Adcroft reciprocals and packing: the domain's boundary
+    semantics are applied to the topography first, so halo cells beyond
+    a wall are land and wall faces get mask 0."""
+    depth = domain.fill_halos(torch.from_numpy(
+        np.asarray(depth, np.float64))).numpy()
+    maskT = (depth > min_depth).astype(np.float64)
+    maskCu = maskT * np.roll(maskT, -1, axis=-1)
+    maskCv = maskT * np.roll(maskT, -1, axis=-2)
+    maskBu = maskCu * np.roll(maskCu, -1, axis=-2)
+    depth = np.where(maskT > 0, depth, 0.0)
+
+    fields = {}
+    for name in ("T", "Cu", "Cv", "Bu"):
+        dx, dy = metrics["dx" + name], metrics["dy" + name]
+        area = metrics["area" + name]
+        fields.update({"dx" + name: dx, "dy" + name: dy,
+                       "Idx" + name: _adcroft_recip(dx),
+                       "Idy" + name: _adcroft_recip(dy),
+                       "area" + name: area,
+                       "Iarea" + name: _adcroft_recip(area)})
+    fields.update(mask2dT=maskT, mask2dCu=maskCu, mask2dCv=maskCv,
+                  mask2dBu=maskBu, CoriolisBu=f_Bu, bathyT=depth,
+                  **coords)
+    return Grid(domain=domain, **{
+        k: torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                           device=device) for k, v in fields.items()})
+
+
+def cartesian_grid(domain: Domain, lenlon_km: float, lenlat_km: float,
+                   f0: float = 0.0, beta: float = 0.0,
+                   max_depth: float = 4000.0, *, device,
+                   dtype: torch.dtype) -> Grid:
+    """Uniform Cartesian grid in km from (0, 0), flat bottom at
+    ``max_depth``, f/beta plane about latitude 0
+    (mom6_tpu.core.grid.cartesian_grid with its defaults)."""
+    j, i = _padded_index(domain)
+    dxi = lenlon_km / domain.ni
+    deta = lenlat_km / domain.nj
+    lon_c = (i + 0.5) * dxi
+    lat_c = (j + 0.5) * deta
+    lon_f = (i + 1.0) * dxi       # east face of cell i
+    lat_f = (j + 1.0) * deta      # north face of cell j
+
+    def dx_fn(dlon, lat):
+        return np.full_like(lat, dlon * 1e3)
+
+    def dy_fn(dlat, lat):
+        return np.full_like(lat, dlat * 1e3)
+
+    def f_fn(lon, lat):
+        return f0 + beta * lat * 1e3
+
+    def depth_fn(lon, lat):
+        return np.full_like(lat, max_depth)
+
+    return _build(domain, lon_c, lat_c, lon_f, lat_f, dx_fn, dy_fn,
+                  f_fn, depth_fn, 0.0, device, dtype)

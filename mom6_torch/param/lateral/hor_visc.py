@@ -1,0 +1,146 @@
+"""Horizontal (along-layer) viscosity.
+
+Counterpart of ``mom6_tpu.param.lateral.hor_visc``: stress-tensor
+Laplacian and biharmonic friction with constant and Smagorinsky
+coefficients (their maximum) under the CFL stability bounds, free slip,
+with the land mask applied to cell thicknesses.  Tension sh_xx lives at
+h points, shearing strain sh_xy at q points; the divergence of the
+thickness-weighted stress gives (diffu, diffv).  The JAX package's
+other options (velocity-scale and Leith coefficients,
+ADD_LES_VISCOSITY, anisotropic viscosity, NOSLIP, ZB2020, the
+VarMix/MEKE coefficient inputs, open boundaries) are not ported yet;
+GME raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from mom6_torch.core.grid import Grid
+from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
+
+__all__ = ["HorViscCfg", "HorViscResult", "horizontal_viscosity"]
+
+_H_NEGLECT = 1e-20
+
+
+@dataclasses.dataclass(frozen=True)
+class HorViscCfg:
+    kh: float = 0.0               # KH background Laplacian [m2 s-1]
+    ah: float = 0.0               # AH background biharmonic [m4 s-1]
+    smag_lap_const: float = 0.0   # SMAG_LAP_CONST
+    smag_bi_const: float = 0.0    # SMAG_BI_CONST
+    laplacian: bool = False       # LAPLACIAN
+    biharmonic: bool = False      # BIHARMONIC
+    dt: float = 3600.0            # used only for the stability bounds
+    use_gme: bool = False         # USE_GME (not ported: raises)
+
+
+class HorViscResult(NamedTuple):
+    diffu: torch.Tensor
+    diffv: torch.Tensor
+
+
+def _strains(grid: Grid, u, v):
+    """Tension at h points and free-slip shearing strain at q points."""
+    DY_dxT = grid.dyT * grid.IdxT
+    DX_dyT = grid.dxT * grid.IdyT
+    DY_dxBu = grid.dyBu * grid.IdxBu
+    DX_dyBu = grid.dxBu * grid.IdyBu
+    dudx = DY_dxT * (grid.IdyCu * u - im1(grid.IdyCu * u))
+    dvdy = DX_dyT * (grid.IdxCv * v - jm1(grid.IdxCv * v))
+    dvdx = DY_dxBu * (ip1(grid.IdyCv * v) - grid.IdyCv * v)
+    dudy = DX_dyBu * (jp1(grid.IdxCu * u) - grid.IdxCu * u)
+    return dudx - dvdy, grid.mask2dBu * (dvdx + dudy)
+
+
+def horizontal_viscosity(grid: Grid, u, v, h,
+                         cfg: HorViscCfg = HorViscCfg()) -> HorViscResult:
+    """(diffu, diffv) [m s-2]; u, v need 2 valid halo rings, h one."""
+    if cfg.use_gme:
+        raise NotImplementedError("GME: USE_GME backscatter")
+    if not (cfg.laplacian or cfg.biharmonic):
+        z = torch.zeros_like(u)
+        return HorViscResult(z, z)
+
+    dy2h = grid.dyT * grid.dyT
+    dx2h = grid.dxT * grid.dxT
+    dy2q = grid.dyBu * grid.dyBu
+    dx2q = grid.dxBu * grid.dxBu
+    sh_xx, sh_xy = _strains(grid, u, v)
+    grid_sp_h2 = (2.0 * dx2h * dy2h) / (dx2h + dy2h + _H_NEGLECT)
+    grid_sp_q2 = (2.0 * dx2q * dy2q) / (dx2q + dy2q + _H_NEGLECT)
+
+    def shear_mag_h():
+        s2 = sh_xy * sh_xy
+        xy2 = 0.25 * ((s2 + im1(jm1(s2))) + (im1(s2) + jm1(s2)))
+        return torch.sqrt(sh_xx * sh_xx + xy2)
+
+    def shear_mag_q():
+        s2 = sh_xx * sh_xx
+        xx2 = 0.25 * ((s2 + ip1(jp1(s2))) + (ip1(s2) + jp1(s2)))
+        return torch.sqrt(sh_xy * sh_xy + xx2)
+
+    def background(x, like):
+        return torch.full_like(like, x)
+
+    str_xx = torch.zeros_like(sh_xx)
+    str_xy = torch.zeros_like(sh_xy)
+    if cfg.laplacian:
+        Kh_h = background(cfg.kh, grid_sp_h2)
+        Kh_q = background(cfg.kh, grid_sp_q2)
+        if cfg.smag_lap_const > 0.0:
+            Kh_h = torch.maximum(Kh_h, cfg.smag_lap_const * grid_sp_h2
+                                 * shear_mag_h())
+            Kh_q = torch.maximum(Kh_q, cfg.smag_lap_const * grid_sp_q2
+                                 * shear_mag_q())
+        Kh_h = torch.minimum(Kh_h, 0.2 * grid_sp_h2 / cfg.dt)
+        Kh_q = torch.minimum(Kh_q, 0.2 * grid_sp_q2 / cfg.dt)
+        str_xx = str_xx - Kh_h * sh_xx
+        str_xy = str_xy - Kh_q * sh_xy
+
+    if cfg.biharmonic:
+        Idxdy2u = grid.IdxCu * grid.IdyCu * grid.IdyCu
+        Idx2dyCu = grid.IdxCu * grid.IdxCu * grid.IdyCu
+        Idxdy2v = grid.IdxCv * grid.IdyCv * grid.IdyCv
+        Idx2dyCv = grid.IdxCv * grid.IdxCv * grid.IdyCv
+        Del2u = (Idxdy2u * (ip1(dy2h * sh_xx) - dy2h * sh_xx)
+                 + Idx2dyCu * (dx2q * sh_xy - jm1(dx2q * sh_xy)))
+        Del2v = (Idxdy2v * (dy2q * sh_xy - im1(dy2q * sh_xy))
+                 - Idx2dyCv * (jp1(dx2h * sh_xx) - dx2h * sh_xx))
+        bh_xx, bh_xy = _strains(grid, Del2u, Del2v)
+        Ah_h = background(cfg.ah, grid_sp_h2)
+        Ah_q = background(cfg.ah, grid_sp_q2)
+        if cfg.smag_bi_const > 0.0:
+            Ah_h = torch.maximum(Ah_h, cfg.smag_bi_const * grid_sp_h2
+                                 * grid_sp_h2 / 16.0 * shear_mag_h())
+            Ah_q = torch.maximum(Ah_q, cfg.smag_bi_const * grid_sp_q2
+                                 * grid_sp_q2 / 16.0 * shear_mag_q())
+        Ah_h = torch.minimum(Ah_h, 0.012 * grid_sp_h2 ** 2 / cfg.dt)
+        Ah_q = torch.minimum(Ah_q, 0.012 * grid_sp_q2 ** 2 / cfg.dt)
+        str_xx = str_xx + Ah_h * bh_xx
+        str_xy = str_xy + Ah_q * bh_xy
+
+    # hq: harmonic-style mean of the four face thicknesses around a
+    # corner, so vanished layers receive no stress divergence
+    h_m = grid.mask2dT * h
+    h_u = 0.5 * (h_m + ip1(h_m))
+    h_v = 0.5 * (h_m + jp1(h_m))
+    h2uq = 4.0 * h_u * jp1(h_u)
+    h2vq = 4.0 * h_v * ip1(h_v)
+    hq = (2.0 * h2uq * h2vq) / (
+        _H_NEGLECT + (h2uq + h2vq)
+        * ((h_u + jp1(h_u)) + (h_v + ip1(h_v))))
+    str_xx_h = str_xx * h
+    str_xy_h = str_xy * hq
+    diffu = ((grid.IdyCu * (dy2h * str_xx_h - ip1(dy2h * str_xx_h))
+              + grid.IdxCu * (jm1(dx2q * str_xy_h) - dx2q * str_xy_h))
+             * grid.IareaCu) / (h_u + _H_NEGLECT)
+    diffv = ((grid.IdyCv * (im1(dy2q * str_xy_h) - dy2q * str_xy_h)
+              - grid.IdxCv * (dx2h * str_xx_h - jp1(dx2h * str_xx_h)))
+             * grid.IareaCv) / (h_v + _H_NEGLECT)
+    return HorViscResult(diffu=diffu * grid.mask2dCu,
+                         diffv=diffv * grid.mask2dCv)
