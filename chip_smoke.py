@@ -10,13 +10,22 @@ order; any failure ends the script with a non-zero exit:
 3. kernels against their plain PyTorch versions on the card, on seeded
    random inputs: K1 (continuity sweep, both orders) and K2 (BT_cont
    fit) at 25x520x520 and 25x1096x1448, K3 (barotropic subcycle,
-   linear and curve transports) at 25x520x520; fp64 and fp32;
-4. the slice at 64x64x8 in fp64 for 3 steps, on the card (kernels)
-   against the CPU (plain versions);
-5. the slice at full width, 512x512x25 fp32: 2 warm-up steps, then 10
+   linear and curve transports) at 25x520x520, K3m (the wide-halo
+   march: periods 2 and 4, walled and reentrant y, linear and curve
+   transports) on 512x512 planes widened to a halo of 3*period; fp64
+   and fp32;
+4. slice 1 (the split RK2 dynamics step) at 64x64x8 in fp64 for 3
+   steps, on the card (kernels) against the CPU (plain versions);
+5. slice 1 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
    timed steps with every launch counter zeroed just before and read
-   just after; each kernel's own time beside its bound and its plain
-   version's time.
+   just after;
+6. slice 2 (the full ocean step of bench.py's CONFIG, layered, with the
+   wide-halo barotropic march) at 32x32x6 in fp64 for 4 steps from a
+   seeded perturbation of its initial state, card against CPU;
+7. slice 2 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
+   timed steps (5 thermodynamic, 5 dynamics-only) with every launch
+   counter zeroed just before and read just after; each kernel's own
+   time beside its bound and its plain version's time.
 
 The line before the last is the JSON ``kernels`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -32,7 +41,8 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 MAIN = (512, 512, 25)          # (ni, nj, nk) of the slice
 WIDE = (1440, 1088, 25)        # the OM4-class width for K1 and K2
-SMALL = (64, 64, 8)            # the slice checked against the CPU
+SMALL = (64, 64, 8)            # slice 1 checked against the CPU
+SMALL_FULL = (32, 32, 6)       # slice 2 checked against the CPU
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
 
@@ -42,7 +52,8 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
 # with the correction applied ~57; the K1 sweep does 6 Newton passes,
 # the final flux (~55) and the divergence (~4) per cell-layer; K2 does
 # 3 Newton passes, 3 probes and the probe limits (~12) per cell-layer
-# and direction; a K3 substep with curve transports ~162 per point.
+# and direction; a K3 or K3m substep with curve transports ~162 per
+# point.
 OPS_EDGES, OPS_FLUX = 100, 57
 OPS_K1 = OPS_EDGES + 6 * OPS_FLUX + 55 + 4
 OPS_K2 = 2 * (OPS_EDGES + 6 * OPS_FLUX + 12)
@@ -58,6 +69,9 @@ KERNELS = {
     "K3": dict(name="barotropic_subcycle", route="cuda",
                source="mom6_torch/csrc/barotropic.cu",
                replaces="mom6_tpu/core/barotropic_pallas.py:164"),
+    "K3m": dict(name="barotropic_march", route="cuda",
+                source="mom6_torch/csrc/barotropic.cu",
+                replaces="mom6_tpu/core/barotropic_pallas.py:232"),
 }
 TOL = {  # relative to each field's max on the compute domain
     "K1": {"float64": 1e-12, "float32": 1e-5},
@@ -67,6 +81,7 @@ TOL = {  # relative to each field's max on the compute domain
     # guard that ever fires at |denom| <= 1e-12 |FA_0|)
     "K2_turn": {"float64": 1e-8, "float32": 2e-2},
     "K3": {"float64": 1e-10, "float32": 5e-5},
+    "K3m": {"float64": 1e-10, "float32": 5e-5},
 }
 
 
@@ -103,8 +118,8 @@ class Results:
     def __init__(self):
         self.err = {k: {} for k in KERNELS}      # dtype -> (rel, abs)
 
-    def check(self, kernel, dtype, label, ref, out, tol_key=None):
-        rel, diff = rel_err(ref, out)
+    def check(self, kernel, dtype, label, ref, out, tol_key=None, H=4):
+        rel, diff = rel_err(ref, out, H)
         tol = TOL[tol_key or kernel][dtype]
         log(f"  {kernel} {label} {dtype}: max rel err {rel:.3e} "
             f"(limit {tol:.0e}), max abs err {diff:.3e}")
@@ -114,14 +129,31 @@ class Results:
         old = self.err[kernel].get(dtype, (0.0, 0.0))
         self.err[kernel][dtype] = (max(old[0], rel), max(old[1], diff))
 
+    def check_all(self, kernel, dtype, label, ref: dict, out: dict, H=4):
+        """Every field of ``ref`` against ``out``, logged as one line
+        naming the worst field."""
+        tol = TOL[kernel][dtype]
+        errs = {k: rel_err(ref[k], out[k], H) for k in ref}
+        worst = max(errs, key=lambda k: errs[k][0])
+        rel, diff = errs[worst]
+        log(f"  {kernel} {label} {dtype}: {len(errs)} fields, max rel err "
+            f"{rel:.3e} ({worst}; limit {tol:.0e}), max abs err "
+            f"{max(e[1] for e in errs.values()):.3e}")
+        if not rel <= tol:
+            raise AssertionError(f"{kernel} {label} {worst} {dtype}: "
+                                 f"{rel:.3e} > {tol:.0e}")
+        old = self.err[kernel].get(dtype, (0.0, 0.0))
+        self.err[kernel][dtype] = (
+            max(old[0], rel), max(old[1], *(e[1] for e in errs.values())))
 
-def make_grid(ni, nj, nk, dtype, device=None):
-    import torch
+
+def make_grid(ni, nj, nk, dtype, device=None, reentrant_y=False):
     from mom6_torch.core.grid import cartesian_grid
     from mom6_torch.core.vertical_grid import VerticalGrid
     from mom6_torch.parallel.domain import Domain
     device = device or DEV
-    d = Domain(ni=ni, nj=nj, halo=4, reentrant_x=True, reentrant_y=False)
+    d = Domain(ni=ni, nj=nj, halo=4, reentrant_x=True,
+               reentrant_y=reentrant_y)
     g = cartesian_grid(d, lenlon_km=ni * 10.0, lenlat_km=nj * 10.0,
                        f0=1e-4, beta=2e-11, max_depth=4000.0,
                        device=device, dtype=dtype)
@@ -194,15 +226,18 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
                         cuda_ms(lambda: set_up_bt_cont(*bargs), 3), x)
 
 
-def subcycle_case(ni, nj, nk, dtype, curve, seed=5):
+def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
+                  period=1):
     """btstep's set-up on random inputs (as in the JAX package's
-    subcycle tests), returning the subcycle's inputs."""
+    subcycle tests), returning the subcycle's inputs: on the model's
+    domain for ``period`` 1 (K3), widened to a halo of 3*period for the
+    march (K3m)."""
     import numpy as np
     import torch
     from mom6_torch.core.barotropic import (BarotropicCfg, set_dtbt,
                                             subcycle_inputs)
     from mom6_torch.core.continuity_ppm import set_up_bt_cont
-    d, g, vg = make_grid(ni, nj, nk, dtype)
+    d, g, vg = make_grid(ni, nj, nk, dtype, reentrant_y=reentrant_y)
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -222,28 +257,56 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5):
         bc = set_up_bt_cont(g, vg, u, v, h, 600.0)
         uh0 = torch.sum(h * 0.01, 0)
         vh0 = torch.sum(h * 0.005, 0)
-    cfg = BarotropicCfg(nstep=nstep, use_bt_cont=curve)
-    inp = subcycle_inputs(d, g, vg, u, v, eta, h, acc, acc, pbce, u, v,
-                          600.0, cfg, taux=0.1 * g.mask2dCu, bt_cont=bc,
-                          eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0)
-    return d, inp
+    cfg = BarotropicCfg(nstep=nstep, use_bt_cont=curve,
+                        wide_halo_period=period)
+    return subcycle_inputs(d, g, vg, u, v, eta, h, acc, acc, pbce, u, v,
+                           600.0, cfg, taux=0.1 * g.mask2dCu, bt_cont=bc,
+                           eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0)
 
 
 def check_k3(res, ni, nj, nk, dtype, timing=None):
     from mom6_torch.core import barotropic_cuda as bc
     dn = str(dtype).split(".")[-1]
     for curve in (False, True):
-        d, inp = subcycle_case(ni, nj, nk, dtype, curve)
-        _, _, _, ref = bc.subcycle_plain(*inp, d)
-        _, _, _, out = bc.subcycle_cuda(*inp, d)
+        inp = subcycle_case(ni, nj, nk, dtype, curve)
+        args = inp[:-1]          # K3 takes no exchange period
+        d = inp.domain
+        _, _, _, ref = bc.subcycle_plain(*args)
+        _, _, _, out = bc.subcycle_cuda(*args)
         form = "curve" if curve else "linear"
         for name in bc.SUM_NAMES:
             res.check("K3", dn, f"{nk}x{d.njh}x{d.nih} {form} {name}",
                       ref[name], out[name])
         if timing is not None and curve:
-            timing["K3"] = (cuda_ms(lambda: bc.subcycle_cuda(*inp, d), 10),
-                            cuda_ms(lambda: bc.subcycle_plain(*inp, d), 2),
+            timing["K3"] = (cuda_ms(lambda: bc.subcycle_cuda(*args), 10),
+                            cuda_ms(lambda: bc.subcycle_plain(*args), 2),
                             inp)
+
+
+def check_k3m(res, ni, nj, nk, dtype, timing=None):
+    """K3m against its plain version, on the whole widened array's
+    compute domain; timed at the main path's case (period 2, walled y,
+    curve transports)."""
+    from mom6_torch.core import barotropic_cuda as bc
+    dn = str(dtype).split(".")[-1]
+    for period in (2, 4):
+        for reentrant_y in (False, True):
+            for curve in (False, True):
+                inp = subcycle_case(ni, nj, nk, dtype, curve,
+                                    reentrant_y=reentrant_y, period=period)
+                _, _, _, ref = bc.subcycle_march_plain(*inp)
+                _, _, _, out = bc.subcycle_march_cuda(*inp)
+                d = inp.domain
+                label = (f"{d.njh}x{d.nih} period {period} "
+                         f"{'reentrant' if reentrant_y else 'walled'} y "
+                         f"{'curve' if curve else 'linear'}")
+                res.check_all("K3m", dn, label, ref, out, H=d.halo)
+                if (timing is not None and period == 2 and curve
+                        and not reentrant_y):
+                    timing["K3m"] = (
+                        cuda_ms(lambda: bc.subcycle_march_cuda(*inp), 10),
+                        cuda_ms(lambda: bc.subcycle_march_plain(*inp), 2),
+                        inp)
 
 
 def bounds(timing, nk, njh, nih, item, dtn):
@@ -252,16 +315,23 @@ def bounds(timing, nk, njh, nih, item, dtn):
     written once over HBM bandwidth, and the operations over the fp
     peak."""
     P = njh * nih
-    total = timing["K3"][2].wts.shape[1]
-    nconst = 20 + (22 if timing["K3"][2].use_curve else 0)
+
+    def subcycle(inp):
+        # eta, ubt, vbt, the constant planes, weights in; 7 sums + 3
+        # out, on the arrays the kernel runs on (widened for K3m)
+        total = inp.wts.shape[1]
+        nconst = 20 + (22 if inp.use_curve else 0)
+        p = inp.eta.numel()
+        return ((3 + nconst + 10) * p + 4 * total,
+                OPS_K3_SUBSTEP * total * p)
+
     work = {
         # u, h, visc_rem, hbt + 6 grid planes in; h, flux, u_cor out
         "K1": ((6 * nk) * P + 7 * P, OPS_K1 * nk * P),
         # u, v, h, 2 visc_rem + 9 grid planes in; 12 planes out
         "K2": ((5 * nk) * P + 21 * P, OPS_K2 * nk * P),
-        # eta, ubt, vbt, the constant planes, weights in; 7 sums + 3 out
-        "K3": ((3 + nconst + 10) * P + 4 * total,
-               OPS_K3_SUBSTEP * total * P),
+        "K3": subcycle(timing["K3"][2]),
+        "K3m": subcycle(timing["K3m"][2]),
     }
     out = {}
     for k, (elems, ops) in work.items():
@@ -283,6 +353,30 @@ def run_slice(ni, nj, nk, dtype, device, nsteps):
     return s, st, sp
 
 
+def run_full(ni, nj, nk, dtype, device, nsteps, seed):
+    """``nsteps`` full steps from the configuration's initial state plus
+    the seeded perturbation of ``entry.build_full``: the configuration
+    starts at rest and horizontally uniform, where a comparison of the
+    first steps' v and eta would compare roundoff."""
+    from mom6_torch import entry
+    m = entry.build_full(ni, nj, nk, seed=seed, device=device, dtype=dtype)
+    step = m.step_fn()
+    st, sp, tr = m.state, m.split, m.tracers
+    for n in range(nsteps):
+        st, sp, tr = step(st, sp, tr, n)
+    return st, sp, tr
+
+
+def check_finite(fields, shape):
+    import torch
+    for name, f in fields:
+        if f.shape[-2:] != shape[1:] or (f.dim() == 3 and f.shape != shape):
+            raise AssertionError(f"field {name} has shape "
+                                 f"{tuple(f.shape)}, expected {shape}")
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"field {name} is not finite")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -294,6 +388,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -318,28 +413,31 @@ def main():
         main_shape = dtype == torch.float32
         check_k1_k2(res, *MAIN, dtype, timing if main_shape else None)
         check_k3(res, *MAIN, dtype, timing if main_shape else None)
+        check_k3m(res, *MAIN, dtype, timing if main_shape else None)
         check_k1_k2(res, *WIDE, dtype)
         torch.cuda.empty_cache()
 
-    # 4. the slice at 64x64x8 fp64: card against CPU
-    log("phase 4 slice %dx%dx%d fp64, 3 steps: card vs cpu" % SMALL)
+    # 4. slice 1 at 64x64x8 fp64: card against CPU
+    log("phase 4 slice 1 %dx%dx%d fp64, 3 steps: card vs cpu" % SMALL)
     _, gst, gsp = run_slice(*SMALL, torch.float64, DEV, 3)
     _, cst, csp = run_slice(*SMALL, torch.float64, "cpu", 3)
     for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
                        ("v", cst.v, gst.v), ("eta", csp.eta, gsp.eta)):
         rel, diff = rel_err(a, b.cpu())
-        log(f"  slice {name}: max rel err {rel:.3e} (limit 1e-09)")
+        log(f"  slice 1 {name}: max rel err {rel:.3e} (limit 1e-09)")
         if not rel <= 1e-9:
-            raise AssertionError(f"slice {name}: {rel:.3e} > 1e-9")
+            raise AssertionError(f"slice 1 {name}: {rel:.3e} > 1e-9")
 
-    # 5. the slice at full width, fp32
-    log("phase 5 slice %dx%dx%d fp32" % MAIN)
     from mom6_torch import entry
     from mom6_torch.core import barotropic_cuda, continuity_cuda
     from mom6_torch.core.dynamics_split_rk2 import step_dyn_split_rk2
     wrappers = {"K1": continuity_cuda.continuity_ppm_cuda,
                 "K2": continuity_cuda.set_up_bt_cont_cuda,
-                "K3": barotropic_cuda.subcycle_cuda}
+                "K3": barotropic_cuda.subcycle_cuda,
+                "K3m": barotropic_cuda.subcycle_march_cuda}
+
+    # 5. slice 1 at full width, fp32
+    log("phase 5 slice 1 %dx%dx%d fp32" % MAIN)
     s = entry.build(*MAIN, device=DEV, dtype=torch.float32)
     cur = [s.state, s.split]
 
@@ -356,48 +454,120 @@ def main():
     t0 = time.perf_counter()
     ms_step = cuda_ms(step, nsteps, warm=False)
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches_s1 = {k: w.launches for k, w in wrappers.items()}
     st, sp = cur
     shape = (MAIN[2], MAIN[1] + 8, MAIN[0] + 8)
-    for name, f in (("h", st.h), ("u", st.u), ("v", st.v),
-                    ("eta", sp.eta), ("u_av", sp.u_av), ("uh", sp.uh)):
-        if f.shape[-2:] != shape[1:] or (f.dim() == 3 and f.shape != shape):
-            raise AssertionError(f"slice field {name} has shape "
-                                 f"{tuple(f.shape)}, expected {shape}")
-        if not bool(torch.isfinite(f).all()):
-            raise AssertionError(f"slice field {name} is not finite")
-    expect = {"K1": 4 * nsteps, "K2": nsteps, "K3": 2 * nsteps}
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches}, expected {expect}")
+    check_finite((("h", st.h), ("u", st.u), ("v", st.v), ("eta", sp.eta),
+                  ("u_av", sp.u_av), ("uh", sp.uh)), shape)
+    expect = {"K1": 4 * nsteps, "K2": nsteps, "K3": 2 * nsteps, "K3m": 0}
+    if launches_s1 != expect:
+        raise AssertionError(f"slice 1 launch counts {launches_s1}, "
+                             f"expected {expect}")
     pts = MAIN[0] * MAIN[1] * MAIN[2] / (ms_step / 1e3)
     log(f"  {nsteps} steps: {ms_step:.3f} ms/step (CUDA events), "
         f"{wall / nsteps * 1e3:.3f} ms/step (host clock), "
-        f"{pts:.4e} points/s, launches {launches}")
+        f"{pts:.4e} points/s, launches {launches_s1}")
     log(f"  h range [{float(s.domain.interior(st.h).min()):.3f}, "
         f"{float(s.domain.interior(st.h).max()):.3f}] m, "
         f"max |u| {float(st.u.abs().max()):.4f} m/s, "
         f"max |eta| {float(sp.eta.abs().max()):.4f} m")
+    del s, cur, st, sp
+    torch.cuda.empty_cache()
+
+    # 6. slice 2 at 32x32x6 fp64: card against CPU
+    log("phase 6 slice 2 %dx%dx%d fp64, 4 steps: card vs cpu" % SMALL_FULL)
+    gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, 4, seed=3)
+    cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", 4, seed=3)
+    for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
+                       ("v", cst.v, gst.v), ("T", cst.T, gst.T),
+                       ("S", cst.S, gst.S), ("age", ctr["age"], gtr["age"]),
+                       ("eta", csp.eta, gsp.eta)):
+        rel, diff = rel_err(a, b.cpu())
+        log(f"  slice 2 {name}: max rel err {rel:.3e} (limit 1e-09)")
+        if not rel <= 1e-9:
+            raise AssertionError(f"slice 2 {name}: {rel:.3e} > 1e-9")
+
+    # 7. slice 2 at full width, fp32
+    log("phase 7 slice 2 %dx%dx%d fp32" % MAIN)
+    m = entry.build_full(*MAIN, device=DEV, dtype=torch.float32)
+    full_step = m.step_fn()
+    cur = [m.state, m.split, m.tracers]
+    n_done = [0]
+
+    def fstep():
+        cur[:] = full_step(*cur, n_done[0])
+        n_done[0] += 1
+
+    for _ in range(2):
+        fstep()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(nsteps + 1)]
+    kinds = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(nsteps):
+        kinds.append("thermo" if (n_done[0] + 1) % m.cfg.n_dyn_per_therm
+                     == 0 else "dynamics-only")
+        fstep()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    st, sp, tr = cur
+    check_finite((("h", st.h), ("u", st.u), ("v", st.v), ("T", st.T),
+                  ("S", st.S), ("age", tr["age"]), ("eta", sp.eta),
+                  ("u_av", sp.u_av), ("uh", sp.uh)), shape)
+    expect = {"K1": 4 * nsteps, "K2": nsteps, "K3": 0, "K3m": 2 * nsteps}
+    if launches != expect:
+        raise AssertionError(f"slice 2 launch counts {launches}, "
+                             f"expected {expect}")
+    per = [events[i].elapsed_time(events[i + 1]) for i in range(nsteps)]
+    by_kind = {k: [t for t, kk in zip(per, kinds) if kk == k]
+               for k in ("thermo", "dynamics-only")}
+    ms_full = sum(per) / nsteps
+    pts = MAIN[0] * MAIN[1] * MAIN[2] / (ms_full / 1e3)
+    log(f"  {nsteps} steps: {ms_full:.3f} ms/step mean (CUDA events), "
+        + ", ".join(f"{k} {sum(v) / len(v):.3f} ms/step over {len(v)}"
+                    for k, v in by_kind.items())
+        + f"; {wall / nsteps * 1e3:.3f} ms/step (host clock), "
+        f"{pts:.4e} points/s, launches {launches}")
+    log(f"  h range [{float(m.domain.interior(st.h).min()):.3f}, "
+        f"{float(m.domain.interior(st.h).max()):.3f}] m, "
+        f"T range [{float(m.domain.interior(st.T).min()):.3f}, "
+        f"{float(m.domain.interior(st.T).max()):.3f}] degC, "
+        f"max |u| {float(st.u.abs().max()):.4f} m/s, "
+        f"max |eta| {float(sp.eta.abs().max()):.4f} m, "
+        f"max age {float(tr['age'].max()):.3e} yr")
 
     nk, njh, nih = st.h.shape
     bnd = bounds(timing, nk, njh, nih, 4, "float32")
     log(f"  kernel times at {nk}x{njh}x{nih} fp32 (no single PyTorch "
         "call computes any of these functions: library_ms is null)")
     records = []
+    units = {"K1": "per sweep", "K2": "per call", "K3": "per subcycle",
+             "K3m": "per subcycle"}
     for k, meta in KERNELS.items():
         ms, plain_ms, _ = timing[k]
         b_ms, b_by = bnd[k]
-        unit = {"K1": "per sweep", "K2": "per call",
-                "K3": "per subcycle"}[k]
-        log(f"  {k} {meta['name']}: {ms:.4f} ms {unit}, bound "
+        # each kernel's count on the path it serves: slice 2's full step
+        # for K1, K2 and K3m, slice 1's dynamics step for K3
+        n_launch = launches_s1[k] if k == "K3" else launches[k]
+        log(f"  {k} {meta['name']}: {ms:.4f} ms {units[k]}, bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
-            f"launches {launches[k]}")
+            f"launches {n_launch}")
         records.append(dict(
-            meta, launches=launches[k],
+            meta, launches=n_launch,
+            launches_by_path={"slice1_dynamics_step": launches_s1[k],
+                              "slice2_full_step": launches[k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, unit=unit))
+            library_ms=None, unit=units[k]))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,29 @@
-"""Carry state between numpy and the port's containers.
+"""Carry state and configuration between numpy / plain values and the
+port's containers.
 
 Each ``*_from_numpy`` takes a dict of numpy arrays keyed by the field
 names of the matching ``mom6_tpu`` container (Grid, State,
 SplitDynState, BTContFaces) and returns the port's container on the
-given device and dtype; ``to_numpy`` goes back.  Fields that are None
-or missing (optional fields only) stay None.
+given device and dtype; ``tracers_from_numpy`` does the same for a
+tracer dict; ``to_numpy`` goes back.  Fields that are None or missing
+(optional fields only) stay None.
+
+``config_from_values`` builds one of the port's configuration
+dataclasses from a nested dict of plain values keyed like the JAX
+package's (``dataclasses.asdict`` of a ``mom6_tpu`` config): the
+fields the port has are taken over, and every other key must hold its
+default (the matching entry of ``defaults``), unless it belongs to a
+sub-configuration whose switch, itself a port field, is off, or is
+one of the JAX package's switches between a Pallas kernel and its jnp
+path (the port's kernel wrappers choose by the tensor's device).  A
+key that sets an option the port lacks raises ``NotImplementedError``
+naming it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
@@ -21,7 +35,8 @@ from mom6_torch.core.state import State
 from mom6_torch.parallel.domain import Domain
 
 __all__ = ["grid_from_numpy", "state_from_numpy", "split_state_from_numpy",
-           "bt_cont_from_numpy", "to_numpy"]
+           "bt_cont_from_numpy", "tracers_from_numpy", "config_from_values",
+           "to_numpy"]
 
 
 def _fields(cls):
@@ -64,6 +79,55 @@ def split_state_from_numpy(arrays: dict, *, device,
 def bt_cont_from_numpy(arrays: dict, *, device,
                        dtype: torch.dtype) -> BTContFaces:
     return _build(BTContFaces, arrays, device, dtype)
+
+
+def tracers_from_numpy(arrays: dict, *, device,
+                       dtype: torch.dtype) -> dict:
+    return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+            for k, v in arrays.items()}
+
+
+_KERNEL_SWITCHES = ("use_pallas", "use_pallas_fused")
+
+
+def _dataclass_type(hint):
+    """The dataclass in a field's type hint (``X`` or ``Optional[X]``),
+    else None."""
+    for t in (hint, *typing.get_args(hint)):
+        if isinstance(t, type) and dataclasses.is_dataclass(t):
+            return t
+    return None
+
+
+def config_from_values(cls, values: dict, defaults: dict, path: str = ""):
+    """An instance of the port's config dataclass ``cls`` from the nested
+    plain ``values``; ``defaults`` holds the JAX package's default for
+    every key of ``values`` (nested alike)."""
+    hints = typing.get_type_hints(cls)
+    names = {f.name for f in dataclasses.fields(cls)}
+    inert = getattr(cls, "_INERT", {})
+    kw = {}
+    for key, val in values.items():
+        where = f"{path}{key}"
+        if key in names:
+            sub = _dataclass_type(hints[key])
+            if sub is not None and isinstance(val, dict):
+                val = config_from_values(sub, val, defaults.get(key) or {},
+                                         where + ".")
+            elif isinstance(val, list):
+                val = tuple(val)
+            kw[key] = val
+        elif key in inert and not any(
+                values.get(g) for g in ((inert[key],)
+                                        if isinstance(inert[key], str)
+                                        else inert[key])):
+            continue
+        elif key in _KERNEL_SWITCHES:
+            continue
+        elif val != defaults.get(key, object()):
+            raise NotImplementedError(
+                f"{where} = {val!r}: option not ported")
+    return cls(**kw)
 
 
 def to_numpy(obj) -> dict:

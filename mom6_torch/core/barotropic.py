@@ -8,8 +8,14 @@ barotropic anomaly accelerations.  The substep loop itself lives in
 ``barotropic_cuda.py``: kernel K3 on CUDA tensors, its plain PyTorch
 loop on CPU tensors.
 
-Only the exchange-every-substep path (``wide_halo_period == 1``) is
-ported; the wide-halo march needs multi-device halo exchange.
+With ``wide_halo_period > 1`` (rounded up to an even period) btstep
+runs the communication-avoiding march of the JAX package on one
+device: the constants and the initial state are re-embedded in a
+domain whose halo is ``3 * period`` wide, ``period`` substeps run with
+no halo refresh while the valid region shrinks 3 rings per substep,
+the wide halos are refreshed on each chunk's last substep, and the
+weighted sums are narrowed back at the end (kernel K3m on CUDA
+tensors, its plain loop on CPU tensors).
 """
 
 from __future__ import annotations
@@ -23,11 +29,12 @@ import torch
 
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.vertical_grid import VerticalGrid
-from mom6_torch.parallel.domain import Domain
+from mom6_torch.parallel.domain import Domain, tree_map
 from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
 
 __all__ = ["BarotropicCfg", "BTResult", "SubcycleInputs", "btcalc",
-           "btstep", "find_uhbt", "set_dtbt", "subcycle_inputs"]
+           "btstep", "find_uhbt", "march_period", "set_dtbt",
+           "subcycle_inputs"]
 
 _H_NEGLECT = 1e-20
 BT_HALO = 3       # rings refreshed after every substep
@@ -37,7 +44,7 @@ BT_HALO = 3       # rings refreshed after every substep
 class BarotropicCfg:
     bebt: float = 0.2          # BEBT dissipative backward-Euler weight
     nstep: int = 32            # substeps per baroclinic dt (set_dtbt)
-    wide_halo_period: int = 1  # only 1 (exchange every substep) ported
+    wide_halo_period: int = 1  # BT_WIDE_HALO_PERIOD (>1: wide-halo march)
     dt_bt_filter: float = -0.25    # DT_BT_FILTER
     use_bt_cont: bool = True   # USE_BT_CONT_TYPE
     hvel_scheme: str = "FROM_BT_CONT"  # BT_THICK_SCHEME
@@ -159,8 +166,12 @@ def _filter_weights(nstep: int, nfilt: int, total: int, dt_filt: float,
 
 class SubcycleInputs(NamedTuple):
     """Everything the substep loop reads: the initial (eta, ubt, vbt)
-    with 3 valid halo rings, the 2D constant planes, the transport form
-    and the (4, total) filter weights."""
+    with valid halo rings, the 2D constant planes, the transport form,
+    the (4, total) filter weights, the domain the loop runs on and the
+    exchange period.  With ``period == 1`` the arrays have 3 valid
+    rings on the model's domain (kernel K3, ``subcycle_cuda(*inp[:-1])``);
+    with ``period > 1`` they are widened to ``domain.halo == 3 * period``
+    (kernel K3m, ``subcycle_march_cuda(*inp)``)."""
     eta: torch.Tensor
     ubt: torch.Tensor
     vbt: torch.Tensor
@@ -169,6 +180,34 @@ class SubcycleInputs(NamedTuple):
     wts: np.ndarray
     dtbt: float
     bebt: float
+    domain: Domain
+    period: int
+
+
+def march_period(cfg: BarotropicCfg) -> int:
+    """The exchange period: BT_WIDE_HALO_PERIOD rounded up to an even
+    count when above 1 (barotropic.py:505-519 of the JAX package)."""
+    period = max(1, int(cfg.wide_halo_period))
+    if period % 2:
+        period = period + 1 if period > 1 else 1
+    return period
+
+
+def _widen(domain: Domain, dw: Domain, f):
+    """Re-embed halo-padded fields (a tensor or a nest of them) into the
+    wider padding of ``dw`` and refresh the wide halos."""
+    H = dw.halo
+    return dw.fill_halos(tree_map(
+        lambda a: torch.nn.functional.pad(domain.interior(a),
+                                          (H, H, H, H)), f))
+
+
+def _narrow(domain: Domain, dw: Domain, f):
+    """Back from the wide padding of ``dw`` to ``domain``'s, refreshed."""
+    H = domain.halo
+    return domain.fill_halos(tree_map(
+        lambda a: torch.nn.functional.pad(dw.interior(a), (H, H, H, H)),
+        f))
 
 
 def subcycle_inputs(domain: Domain, grid: Grid, vgrid: VerticalGrid,
@@ -183,11 +222,20 @@ def subcycle_inputs(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     """The set-up half of btstep: projections onto the barotropic mode,
     effective gravities, Coriolis weights, viscous decay, curve
     constants and filter weights.  Arguments as for ``btstep``."""
+    return _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
+                  bc_accel_v, pbce, u_cor, v_cor, dt, cfg, visc_rem_u,
+                  visc_rem_v, taux, tauy, eta_pf, nstep, obc, bt_cont,
+                  eta_cor, uhbt_in, vhbt_in)[0]
+
+
+def _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
+           bc_accel_v, pbce, u_cor, v_cor, dt, cfg, visc_rem_u, visc_rem_v,
+           taux, tauy, eta_pf, nstep, obc, bt_cont, eta_cor, uhbt_in,
+           vhbt_in):
+    """(SubcycleInputs, the constant planes on ``domain`` before any
+    widening), the latter for the per-layer accelerations."""
     if obc is not None:
         raise NotImplementedError("OBC: open boundary segments")
-    if cfg.wide_halo_period != 1:
-        raise NotImplementedError(
-            "wide_halo_period > 1: wide-halo barotropic march")
     nstep = cfg.nstep if nstep is None else nstep
     dtbt = dt / nstep
     if visc_rem_u is None:
@@ -286,9 +334,10 @@ def subcycle_inputs(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         consts["eta_src"] = torch.zeros_like(eta_in)
 
     # DT_BT_FILTER window adds nfilt substeps past dt; the count is
-    # padded to an even total (u-first/v-first parity pairs) with zero
-    # weights on the padding
-    chunk = 2
+    # padded to a whole number of chunks (u-first/v-first parity pairs,
+    # or the march's exchange period) with zero weights on the padding
+    period = march_period(cfg)
+    chunk = max(2, period)
     if cfg.dt_bt_filter >= 0.0:
         dt_filt = 0.5 * max(0.0, min(cfg.dt_bt_filter, 2.0 * dt))
     else:
@@ -298,10 +347,16 @@ def subcycle_inputs(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     wts = _filter_weights(nstep, nfilt, total, dt_filt, dtbt,
                           eta_in.dtype)
 
-    eta_r, ubt_r, vbt_r = domain.fill_halos((eta_in, ubt0, vbt0),
-                                            width=BT_HALO)
-    return SubcycleInputs(eta_r, ubt_r, vbt_r, consts, use_curve, wts,
-                          dtbt, cfg.bebt)
+    if period > 1:
+        dom_run = dataclasses.replace(domain, halo=3 * period)
+        run_consts = _widen(domain, dom_run, consts)
+        eta_r, ubt_r, vbt_r = _widen(domain, dom_run, (eta_in, ubt0, vbt0))
+    else:
+        dom_run, run_consts = domain, consts
+        eta_r, ubt_r, vbt_r = domain.fill_halos((eta_in, ubt0, vbt0),
+                                                width=BT_HALO)
+    return SubcycleInputs(eta_r, ubt_r, vbt_r, run_consts, use_curve, wts,
+                          dtbt, cfg.bebt, dom_run, period), consts
 
 
 def btstep(domain: Domain, grid: Grid, vgrid: VerticalGrid,
@@ -314,19 +369,23 @@ def btstep(domain: Domain, grid: Grid, vgrid: VerticalGrid,
            bt_cont=None, eta_cor=None,
            uhbt_in=None, vhbt_in=None) -> BTResult:
     """One barotropic solve over the baroclinic step dt (btstep of the
-    JAX package, exchange-every-substep path): set-up, the subcycle
-    (kernel K3 on CUDA tensors) and the per-layer accelerations."""
-    from mom6_torch.core.barotropic_cuda import subcycle_cuda
-    inp = subcycle_inputs(domain, grid, vgrid, u_in, v_in, eta_in, h,
-                          bc_accel_u, bc_accel_v, pbce, u_cor, v_cor, dt,
-                          cfg, visc_rem_u, visc_rem_v, taux, tauy, eta_pf,
-                          nstep, obc, bt_cont, eta_cor, uhbt_in, vhbt_in)
-    _, _, _, sums = subcycle_cuda(*inp, domain)
-    # the substep sums were taken before each substep's halo refresh;
-    # consumers need valid rings, so refresh them here
-    sums = domain.fill_halos(sums, width=BT_HALO)
+    JAX package): set-up, the subcycle (kernel K3 on CUDA tensors, or
+    the wide-halo march K3m when ``wide_halo_period > 1``) and the
+    per-layer accelerations."""
+    from mom6_torch.core.barotropic_cuda import (subcycle_cuda,
+                                                 subcycle_march_cuda)
+    inp, c = _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
+                    bc_accel_v, pbce, u_cor, v_cor, dt, cfg, visc_rem_u,
+                    visc_rem_v, taux, tauy, eta_pf, nstep, obc, bt_cont,
+                    eta_cor, uhbt_in, vhbt_in)
+    if inp.period > 1:
+        _, _, _, sums = subcycle_march_cuda(*inp)
+        sums = _narrow(domain, inp.domain, sums)
+    else:
+        _, _, _, sums = subcycle_cuda(*inp[:-1])
+        # consumers need valid rings at the wrap faces: refresh them
+        sums = domain.fill_halos(sums, width=BT_HALO)
 
-    c = inp.consts
     eta_pf, gtot_E, gtot_W = c["eta_pf"], c["gtot_E"], c["gtot_W"]
     gtot_N, gtot_S = c["gtot_N"], c["gtot_S"]
     e_anom = sums["eta"] - eta_pf

@@ -1,14 +1,19 @@
-"""Kernel K3, the barotropic subcycle: dispatch and plain version.
+"""Kernels K3 and K3m, the barotropic subcycle: dispatch and plain
+versions.
 
-``subcycle_cuda`` is the port's counterpart of ``subcycle_pallas``
-(mom6_tpu/core/barotropic_pallas.py:345), called from ``btstep`` where
-the JAX package calls the Pallas kernel.  A CUDA tensor runs the whole
-subcycle through ``csrc/barotropic.cu`` (four launches per substep,
-issued by one host loop in C); a CPU tensor runs ``subcycle_plain``,
-the ``_one``/``block`` loop of mom6_tpu/core/barotropic.py:624-698.
-``subcycle_cuda.launches`` grows by one per subcycle.  See
-csrc/barotropic.cu for what bounds the kernel on an H100 and how its
-design answers it.
+``subcycle_cuda`` (K3) is the port's counterpart of ``subcycle_pallas``
+(mom6_tpu/core/barotropic_pallas.py:345) with ``march=False``: a halo
+refresh of width 3 after every substep.  ``subcycle_march_cuda`` (K3m)
+is the same call with ``march=True`` (barotropic_pallas.py:232-240,
+from barotropic.py:704-721): on arrays widened to a halo of
+``3 * period``, ``period`` substeps run with no refresh and the wide
+halos are refreshed on each chunk's last substep.  A CUDA tensor runs
+the whole subcycle through ``csrc/barotropic.cu`` (four launches per
+substep, issued by one host loop in C); a CPU tensor runs
+``subcycle_plain`` / ``subcycle_march_plain``, the ``_one``/``block``
+loop of mom6_tpu/core/barotropic.py:624-698.  Each wrapper's
+``launches`` grows by one per subcycle.  See csrc/barotropic.cu for
+what bounds the kernels on an H100 and how their design answers it.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from mom6_torch.core.barotropic import BT_HALO, find_uhbt
 from mom6_torch.parallel.domain import Domain
 from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
 
-__all__ = ["subcycle_cuda", "subcycle_plain", "SUM_NAMES"]
+__all__ = ["subcycle_cuda", "subcycle_plain", "subcycle_march_cuda",
+           "subcycle_march_plain", "SUM_NAMES"]
 
 # constant planes in the kernel's order (csrc/barotropic.cu enum)
 CONST_NAMES = ("gtot_E", "gtot_W", "gtot_N", "gtot_S", "q", "Du_q",
@@ -40,6 +46,33 @@ def subcycle_plain(eta, ubt, vbt, consts: dict, use_curve: bool,
     """``wts.shape[1]`` forward-backward substeps, u first on even ones,
     with a width-3 halo refresh after each and the seven weighted sums
     (wts rows: vel, eta, trans, accel).  Returns (eta, ubt, vbt, sums)."""
+    return _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
+                       domain, 1, BT_HALO)
+
+
+def subcycle_march_plain(eta, ubt, vbt, consts: dict, use_curve: bool,
+                         wts: np.ndarray, dtbt: float, bebt: float,
+                         domain: Domain, period: int):
+    """The wide-halo march: as ``subcycle_plain`` on arrays padded to
+    ``domain.halo == 3 * period``, but the whole halo is refreshed only
+    after substeps ``period - 1, 2 * period - 1, ...``; the sums of the
+    other substeps take the unrefreshed values."""
+    _check_march(domain, period, wts)
+    return _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
+                       domain, period, domain.halo)
+
+
+def _check_march(domain: Domain, period: int, wts: np.ndarray):
+    if period < 2 or period % 2 or domain.halo != 3 * period \
+            or wts.shape[1] % period:
+        raise ValueError(f"wide-halo march needs an even period >= 2, "
+                         f"halo 3*period and whole chunks; got period "
+                         f"{period}, halo {domain.halo}, {wts.shape[1]} "
+                         f"substeps")
+
+
+def _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
+                domain: Domain, every: int, width: int):
     c = consts
     if use_curve:
         def trans_u(u):
@@ -94,8 +127,9 @@ def subcycle_plain(eta, ubt, vbt, consts: dict, use_curve: bool,
         uhbt2 = trans_u(ubt2)
         vhbt2 = trans_v(vbt2)
         eta2 = (eta + c["eta_src"]) - dtbt * div(uhbt2, vhbt2)
-        eta, ubt, vbt = domain.fill_halos((eta2, ubt2, vbt2),
-                                          width=BT_HALO)
+        eta, ubt, vbt = eta2, ubt2, vbt2
+        if n % every == every - 1:
+            eta, ubt, vbt = domain.fill_halos((eta, ubt, vbt), width=width)
         sums = dict(uhbt=sums["uhbt"] + w_t * uhbt2,
                     vhbt=sums["vhbt"] + w_t * vhbt2,
                     eta=sums["eta"] + w_e * eta,
@@ -110,10 +144,12 @@ def subcycle_plain(eta, ubt, vbt, consts: dict, use_curve: bool,
 def _lib():
     lib = cuda_build.load("barotropic")
     for t in ("f32", "f64"):
-        fn = getattr(lib, f"bt_subcycle_{t}")
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
-                       + [ctypes.c_double] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for name in ("bt_subcycle", "bt_march"):
+            fn = getattr(lib, f"{name}_{t}")
+            fn.argtypes = ([ctypes.c_void_p] * 3
+                           + [ctypes.c_int] * (10 + (name == "bt_march"))
+                           + [ctypes.c_double] * 2 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -125,6 +161,30 @@ def subcycle_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
     if not eta.is_cuda:
         return subcycle_plain(eta, ubt, vbt, consts, use_curve, wts, dtbt,
                               bebt, domain)
+    out = _launch("bt_subcycle", eta, ubt, vbt, consts, use_curve, wts,
+                  dtbt, bebt, domain, BT_HALO, ())
+    subcycle_cuda.launches += 1
+    return out
+
+
+def subcycle_march_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
+                        wts: np.ndarray, dtbt: float, bebt: float,
+                        domain: Domain, period: int):
+    """The wide-halo march: K3m on CUDA tensors,
+    ``subcycle_march_plain`` on CPU tensors.  Same arguments and result
+    as ``subcycle_march_plain``."""
+    if not eta.is_cuda:
+        return subcycle_march_plain(eta, ubt, vbt, consts, use_curve, wts,
+                                    dtbt, bebt, domain, period)
+    _check_march(domain, period, wts)
+    out = _launch("bt_march", eta, ubt, vbt, consts, use_curve, wts, dtbt,
+                  bebt, domain, domain.halo, (period,))
+    subcycle_march_cuda.launches += 1
+    return out
+
+
+def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
+            domain, width, extra):
     if eta.dtype == torch.float32:
         suffix = "f32"
     elif eta.dtype == torch.float64:
@@ -156,19 +216,19 @@ def subcycle_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
                          device=eta.device)
     state = [eta_a, eta_b, ubt_s, vbt_s, scratch[0], scratch[1],
              scratch[2], sums]
-    rc = getattr(_lib(), f"bt_subcycle_{suffix}")(
+    rc = getattr(_lib(), f"{entry}_{suffix}")(
         (ctypes.c_void_p * 42)(*const_ptrs),
         (ctypes.c_void_p * 8)(*(t.data_ptr() for t in state)),
-        wt.data_ptr(), nj, ni, domain.halo, domain.ni, domain.nj, BT_HALO,
+        wt.data_ptr(), nj, ni, domain.halo, domain.ni, domain.nj, width,
         int(domain.reentrant_x), int(domain.reentrant_y), int(use_curve),
-        total, float(dtbt), float(bebt),
+        total, *extra, float(dtbt), float(bebt),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"barotropic subcycle kernel failed: CUDA error "
+        raise RuntimeError(f"barotropic {entry} kernel failed: CUDA error "
                            f"{rc}")
-    subcycle_cuda.launches += 1
     eta_f = eta_a if total % 2 == 0 else eta_b
     return eta_f, ubt_s, vbt_s, dict(zip(SUM_NAMES, sums.unbind(0)))
 
 
 subcycle_cuda.launches = 0
+subcycle_march_cuda.launches = 0

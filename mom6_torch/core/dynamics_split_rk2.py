@@ -15,9 +15,10 @@ Counterpart of ``mom6_tpu.core.dynamics_split_rk2``
 
 The continuity sweeps, the BT_cont fit and the barotropic subcycle go
 through the dispatching wrappers: hand-written CUDA kernels on CUDA
-tensors, their plain PyTorch versions on CPU tensors.  OBC, tides,
-stochastic EOS, a shear-driven viscosity, GME and an equation of state
-are not ported yet and raise ``NotImplementedError``.
+tensors, their plain PyTorch versions on CPU tensors.  With T/S and an
+equation of state the pressure force and pbce take in-situ densities.
+OBC, tides, stochastic EOS, a shear-driven viscosity, GME and
+BBL_USE_EOS are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -112,8 +113,9 @@ def _check_unported(cfg: SplitCfg, eos, obc, stoch_pattern, kh_scale,
                       ("kv_shear: shear-driven viscosity",
                        kv_shear is not None),
                       ("GME: USE_GME backscatter", cfg.horvisc.use_gme),
-                      ("EOS: equation of state (eos is not None)",
-                       eos is not None),
+                      ("BBL_USE_EOS: bottom boundary layer stratification "
+                       "from the equation of state",
+                       eos is not None and cfg.vertvisc.bbl_use_eos),
                       ("kh_scale/kh_extra viscosity inputs",
                        kh_scale is not None or kh_extra is not None)):
         if bad:
@@ -145,7 +147,8 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
     # ---- PREDICTOR ----
     diffu, diffv = fill((split.diffu, split.diffv))
-    pf = pressure_force(grid, vgrid, h, state.T, state.S, eos,
+    T, S = state.T, state.S
+    pf = pressure_force(grid, vgrid, h, T, S, eos,
                         p_atm=forces.p_surf, cfg=cfg.pressure)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
@@ -189,7 +192,7 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     h_av = 0.5 * (h + hp)
 
     # ---- CORRECTOR ----
-    pf = pressure_force(grid, vgrid, hp, state.T, state.S, eos,
+    pf = pressure_force(grid, vgrid, hp, T, S, eos,
                         p_atm=forces.p_surf, cfg=cfg.pressure)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av,
                                         cfg.horvisc)

@@ -1,6 +1,6 @@
-"""Mechanical forcing (counterpart of
-``mom6_tpu.core.forcing.MechForcing``): halo-padded (njh, nih) tensors
-or None."""
+"""Surface forcing containers (counterparts of
+``mom6_tpu.core.forcing.MechForcing`` and ``Fluxes``): halo-padded
+(njh, nih) tensors or None."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["MechForcing"]
+__all__ = ["MechForcing", "Fluxes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,3 +17,16 @@ class MechForcing:
     taux: Optional[torch.Tensor] = None      # zonal stress at u [Pa]
     tauy: Optional[torch.Tensor] = None      # meridional stress at v [Pa]
     p_surf: Optional[torch.Tensor] = None    # surface pressure at h [Pa]
+
+
+@dataclasses.dataclass(frozen=True)
+class Fluxes:
+    """Buoyancy fluxes into the ocean surface."""
+    sw: Optional[torch.Tensor] = None        # shortwave [W m-2]
+    lw: Optional[torch.Tensor] = None        # longwave [W m-2]
+    latent: Optional[torch.Tensor] = None    # [W m-2]
+    sensible: Optional[torch.Tensor] = None  # [W m-2]
+    evap: Optional[torch.Tensor] = None      # [kg m-2 s-1]
+    lprec: Optional[torch.Tensor] = None     # [kg m-2 s-1]
+    fprec: Optional[torch.Tensor] = None     # [kg m-2 s-1]
+    salt_flux: Optional[torch.Tensor] = None  # [kg m-2 s-1 of salt]

@@ -40,6 +40,7 @@ class VertViscCfg:
     cfl_trunc: float = 0.5        # CFL_TRUNCATE
     bbl_thick_min: float = 0.1    # BBL_THICK_MIN [m]
     kv_bbl_min: float = 1e-4      # KV_BBL_MIN [m2 s-1]
+    bbl_use_eos: bool = False     # BBL_USE_EOS (not ported: raises)
 
 
 class ViscCoefs(NamedTuple):

@@ -1,10 +1,17 @@
-// K3: the barotropic subcycle for Hopper (sm_90a).
+// K3 and K3m: the barotropic subcycle for Hopper (sm_90a).
 //
-// Replaces the Pallas subcycle kernel built by _make_kernel
-// (mom6_tpu/core/barotropic_pallas.py:164-342, launched by
-// subcycle_pallas, :345).  Plain twin: subcycle_plain in
-// mom6_torch/core/barotropic_cuda.py, the _one/block loop of
-// mom6_tpu/core/barotropic.py:624-698.
+// K3 (bt_subcycle_*) replaces the Pallas subcycle kernel built by
+// _make_kernel with march=False (mom6_tpu/core/barotropic_pallas.py:
+// 164-342, launched by subcycle_pallas, :345): a width-3 halo refresh
+// after every substep.  K3m (bt_march_*) replaces the same kernel with
+// march=True (barotropic_pallas.py:232-240, called from
+// mom6_tpu/core/barotropic.py:704-721): the arrays are widened to a
+// halo of 3*period, the substeps of a chunk of ``period`` run with no
+// refresh while the valid region shrinks 3 rings per substep, and the
+// whole wide halo is refreshed on the chunk's last substep (the JAX
+// package's fill_fn between chunks).  Plain twins: subcycle_plain and
+// subcycle_march_plain in mom6_torch/core/barotropic_cuda.py, the
+// _one/block loop of mom6_tpu/core/barotropic.py:624-698.
 //
 // What bounds it on an H100: a substep is ~160 operations per point
 // over ~25 plane reads, and the constant planes (1 MB each at 512x512)
@@ -20,7 +27,11 @@
 // returning to Python: (1) eta predictor -> d_eta; (2) first velocity;
 // (3) second velocity (u first on even substeps, v first on odd ones);
 // (4) eta corrector, the width-w halo refresh and the seven weighted
-// sums.  The refresh reproduces Domain.fill_halos (x first, then y):
+// sums.  K3m is the same host loop with the refresh width set per
+// substep: the full wide halo on a chunk's last substep, 0 (no
+// refresh; the sums take the unrefreshed values, as the march's _one
+// does with do_fill=False) on the others.  The refresh reproduces
+// Domain.fill_halos (x first, then y):
 // a halo cell recomputes eta2 at the interior cell it copies from, so
 // no extra launch is needed; eta is double-buffered because a halo
 // thread reads the old eta of another cell.  Neighbours wrap at the
@@ -218,12 +229,13 @@ __global__ void corrector_kernel(const T* __restrict__ eta_old,
 }
 
 // state: eta_a, eta_b, ubt, vbt, ubt2, vbt2, d_eta, sums (7 planes);
-// the final eta lands in eta_a when ``total`` is even
+// the final eta lands in eta_a when ``total`` is even.  The halo is
+// refreshed (width w) after substeps every-1, 2*every-1, ...
 template <typename T>
 int run_subcycle(const void* const* consts, void* const* state,
                  const void* wt, int nj, int ni, int H, int nic, int njc,
-                 int w, int rx, int ry, int curve, int total, double dtbt,
-                 double bebt, void* stream) {
+                 int w, int rx, int ry, int curve, int total, int every,
+                 double dtbt, double bebt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Consts<T> C;
   for (int k = 0; k < NCONST; ++k) C.f[k] = (const T*)consts[k];
@@ -261,8 +273,10 @@ int run_subcycle(const void* const* consts, void* const* state,
                                          sums + S_ACCEL_U * plane, C, g,
                                          tdt, w_accel);
     }
+    Geo gn = g;
+    gn.w = (n % every == every - 1) ? w : 0;
     corrector_kernel<T><<<grid, block, 0, s>>>(e_old, e_new, ubt2, vbt2,
-                                               ubt, vbt, sums, C, g, tdt,
+                                               ubt, vbt, sums, C, gn, tdt,
                                                wts + n, total);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -279,8 +293,23 @@ int run_subcycle(const void* const* consts, void* const* state,
                       int total, double dtbt, double bebt,                \
                       void* stream) {                                     \
     return run_subcycle<T>(consts, state, wt, nj, ni, H, nic, njc, w, rx, \
-                           ry, curve, total, dtbt, bebt, stream);         \
+                           ry, curve, total, 1, dtbt, bebt, stream);      \
+  }
+
+// K3m: ``period`` substeps per chunk, the whole halo (w = H = 3*period)
+// refreshed on each chunk's last one
+#define MARCH_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const void* const* consts, void* const* state,     \
+                      const void* wt, int nj, int ni, int H, int nic,     \
+                      int njc, int w, int rx, int ry, int curve,          \
+                      int total, int period, double dtbt, double bebt,    \
+                      void* stream) {                                     \
+    if (period < 2 || total % period != 0) return cudaErrorInvalidValue;  \
+    return run_subcycle<T>(consts, state, wt, nj, ni, H, nic, njc, w, rx, \
+                           ry, curve, total, period, dtbt, bebt, stream); \
   }
 
 SUBCYCLE_ENTRY(bt_subcycle_f32, float)
 SUBCYCLE_ENTRY(bt_subcycle_f64, double)
+MARCH_ENTRY(bt_march_f32, float)
+MARCH_ENTRY(bt_march_f64, double)

@@ -38,6 +38,10 @@ class HorViscCfg:
     dt: float = 3600.0            # used only for the stability bounds
     use_gme: bool = False         # USE_GME (not ported: raises)
 
+    # the JAX package's GME settings, inert while USE_GME is off
+    _INERT = {"gme_h0": "use_gme", "gme_efficiency": "use_gme",
+              "gme_limiter": "use_gme", "gme_kh": "use_gme"}
+
 
 class HorViscResult(NamedTuple):
     diffu: torch.Tensor

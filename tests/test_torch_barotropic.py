@@ -133,10 +133,6 @@ def test_filter_weights_match_jax():
 
 
 def test_btstep_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="wide_halo_period"):
-        tbt.btstep(None, None, None, None, None, None, None, None, None,
-                   None, None, None, 600.0,
-                   tbt.BarotropicCfg(wide_halo_period=2))
     with pytest.raises(NotImplementedError, match="OBC"):
         tbt.btstep(None, None, None, None, None, None, None, None, None,
                    None, None, None, 600.0, tbt.BarotropicCfg(),

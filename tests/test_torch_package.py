@@ -21,6 +21,7 @@ from mom6_torch.core import continuity_cuda, barotropic_cuda
 from mom6_torch.core.continuity_ppm import (ContinuityCfg, continuity_ppm,
                                             set_up_bt_cont)
 from mom6_torch.core.dynamics_split_rk2 import SplitCfg, step_dyn_split_rk2
+from mom6_torch.core.vert_friction import VertViscCfg
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mom6_torch").rglob("*.py")) \
@@ -93,7 +94,8 @@ def test_kernel_gate_names_the_option(option):
 
 @pytest.mark.parametrize("kw,name", [
     (dict(obc=object()), "OBC"),
-    (dict(eos=object()), "EOS"),
+    (dict(eos=object(),
+          cfg=SplitCfg(vertvisc=VertViscCfg(bbl_use_eos=True))), "EOS"),
     (dict(kv_shear=object()), "kv_shear"),
     (dict(stoch_pattern=object()), "stoch_eos"),
     (dict(cfg=SplitCfg(tides_fn=lambda e, t: e)), "tides"),
