@@ -10,22 +10,27 @@ order; any failure ends the script with a non-zero exit:
 3. kernels against their plain PyTorch versions on the card, on seeded
    random inputs: K1 (continuity sweep, both orders) and K2 (BT_cont
    fit) at 25x520x520 and 25x1096x1448, K3 (barotropic subcycle,
-   linear and curve transports) at 25x520x520, K3m (the wide-halo
-   march: periods 2 and 4, walled and reentrant y, linear and curve
-   transports) on 512x512 planes widened to a halo of 3*period; fp64
-   and fp32;
+   linear and curve transports) at 25x520x520 and 25x1096x1448, K3m
+   (the wide-halo march: periods 2 and 4, walled and reentrant y,
+   linear and curve transports) on 512x512 planes widened to a halo of
+   3*period, and at period 2 on 1440x1088 planes; fp64 and fp32.
+   First it prints the band plan of the persistent K3/K3m launch at
+   those shapes (blocks, points, rows and tiles a block, shared memory
+   a block per dtype);
 4. slice 1 (the split RK2 dynamics step) at 64x64x8 in fp64 for 3
    steps, on the card (kernels) against the CPU (plain versions);
 5. slice 1 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
    timed steps with every launch counter zeroed just before and read
-   just after;
+   just after (K3's device launches too: one per subcycle);
 6. slice 2 (the full ocean step of bench.py's CONFIG, layered, with the
    wide-halo barotropic march) at 32x32x6 in fp64 for 4 steps from a
    seeded perturbation of its initial state, card against CPU;
 7. slice 2 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
    timed steps (5 thermodynamic, 5 dynamics-only) with every launch
-   counter zeroed just before and read just after; each kernel's own
-   time beside its bound and its plain version's time.
+   counter zeroed just before and read just after (K3m's device
+   launches too); each kernel's own time beside its bound and its plain
+   version's time, and for K3 and K3m the device kernels that one
+   subcycle launches as torch.profiler traces them.
 
 The line before the last is the JSON ``kernels`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -40,7 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 MAIN = (512, 512, 25)          # (ni, nj, nk) of the slice
-WIDE = (1440, 1088, 25)        # the OM4-class width for K1 and K2
+WIDE = (1440, 1088, 25)        # the OM4-class width of the kernel checks
 SMALL = (64, 64, 8)            # slice 1 checked against the CPU
 SMALL_FULL = (32, 32, 6)       # slice 2 checked against the CPU
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -73,6 +78,7 @@ KERNELS = {
                 source="mom6_torch/csrc/barotropic.cu",
                 replaces="mom6_tpu/core/barotropic_pallas.py:232"),
 }
+DEVICE_COUNTED = ("K3", "K3m")   # wrappers that count device launches
 TOL = {  # relative to each field's max on the compute domain
     "K1": {"float64": 1e-12, "float32": 1e-5},
     "K2": {"float64": 1e-12, "float32": 1e-3},
@@ -264,7 +270,9 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
                            eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0)
 
 
-def check_k3(res, ni, nj, nk, dtype, timing=None):
+def check_k3(res, ni, nj, nk, dtype, timing=None, key="K3"):
+    """K3 against its plain version, linear and curve transports; the
+    curve case timed into ``timing[key]``."""
     from mom6_torch.core import barotropic_cuda as bc
     dn = str(dtype).split(".")[-1]
     for curve in (False, True):
@@ -274,23 +282,22 @@ def check_k3(res, ni, nj, nk, dtype, timing=None):
         _, _, _, ref = bc.subcycle_plain(*args)
         _, _, _, out = bc.subcycle_cuda(*args)
         form = "curve" if curve else "linear"
-        for name in bc.SUM_NAMES:
-            res.check("K3", dn, f"{nk}x{d.njh}x{d.nih} {form} {name}",
-                      ref[name], out[name])
+        res.check_all("K3", dn, f"{nk}x{d.njh}x{d.nih} {form}", ref, out)
         if timing is not None and curve:
-            timing["K3"] = (cuda_ms(lambda: bc.subcycle_cuda(*args), 10),
-                            cuda_ms(lambda: bc.subcycle_plain(*args), 2),
-                            inp)
+            timing[key] = (cuda_ms(lambda: bc.subcycle_cuda(*args), 10),
+                           cuda_ms(lambda: bc.subcycle_plain(*args), 2),
+                           inp)
 
 
-def check_k3m(res, ni, nj, nk, dtype, timing=None):
+def check_k3m(res, ni, nj, nk, dtype, timing=None, periods=(2, 4),
+              walls=(False, True)):
     """K3m against its plain version, on the whole widened array's
     compute domain; timed at the main path's case (period 2, walled y,
     curve transports)."""
     from mom6_torch.core import barotropic_cuda as bc
     dn = str(dtype).split(".")[-1]
-    for period in (2, 4):
-        for reentrant_y in (False, True):
+    for period in periods:
+        for reentrant_y in walls:
             for curve in (False, True):
                 inp = subcycle_case(ni, nj, nk, dtype, curve,
                                     reentrant_y=reentrant_y, period=period)
@@ -307,6 +314,77 @@ def check_k3m(res, ni, nj, nk, dtype, timing=None):
                         cuda_ms(lambda: bc.subcycle_march_cuda(*inp), 10),
                         cuda_ms(lambda: bc.subcycle_march_plain(*inp), 2),
                         inp)
+
+
+def log_band_plans():
+    """The persistent K3/K3m launch's band plan at the shapes phase 3
+    runs: K3 on the model's planes, K3m on planes widened to a halo of
+    3*period."""
+    import torch
+    from mom6_torch.core import barotropic_cuda as bc
+    sms, smem = bc.device_limits(torch.cuda.current_device())
+    log(f"  K3/K3m band plan: {sms} SMs, {smem} B of shared memory a "
+        f"block, {bc.THREADS} threads a block, tiles of "
+        f"{bc.THREADS * bc.POINTS_PER_THREAD} points")
+    for label, (ni, nj, _), pad in (
+            ("K3", MAIN, 0), ("K3m period 2", MAIN, 2),
+            ("K3m period 4", MAIN, 8), ("K3", WIDE, 0),
+            ("K3m period 2", WIDE, 2)):
+        ni, nj = ni + 8 + 2 * pad, nj + 8 + 2 * pad
+        cells = []
+        for dn, item in (("fp32", 4), ("fp64", 8)):
+            for curve in (True, False):
+                p = bc.band_plan(nj, ni, item, curve, sms, smem)
+                cells.append(
+                    f"{dn} {'curve' if curve else 'linear'} {p.blocks} "
+                    f"blocks x {p.points_per_block} points "
+                    f"({p.points_per_block / ni:.2f} rows, {p.tiles} "
+                    f"tile{'s' if p.tiles > 1 else ''}), {p.smem_bytes} B "
+                    f"shared ({p.placement})")
+        log(f"  {label} {nj}x{ni}: " + "; ".join(cells))
+
+
+def log_resources(ptxas_log, kernel):
+    """ptxas's registers, stack and spills of each instance of
+    ``kernel`` (empty when the library was already built)."""
+    current = None
+    for line in ptxas_log.splitlines():
+        if "Function properties for" in line:
+            current = line.split("for", 1)[1].strip()
+        elif current and kernel in current and (
+                "spill" in line or "Used" in line):
+            log(f"  ptxas {current}: {line.split(':', 1)[-1].strip()}")
+
+
+def bc_plan(inp):
+    """A short description of the band plan of ``inp``'s subcycle."""
+    from mom6_torch.core import barotropic_cuda as bc
+    p = bc.launch_plan(inp.eta, inp.use_curve)
+    return (f"{p.blocks} blocks x {p.points_per_block} points, {p.tiles} "
+            f"tile{'s' if p.tiles > 1 else ''}, {p.placement} transport "
+            "constants")
+
+
+def profiled_kernels(fn):
+    """The device kernels one call of ``fn`` launches, as torch.profiler
+    traces them: (those of the persistent subcycle kernel, all)."""
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events
+             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return sum("subcycle_kernel" in n for n in names), len(names)
 
 
 def bounds(timing, nk, njh, nih, item, dtn):
@@ -340,6 +418,16 @@ def bounds(timing, nk, njh, nih, item, dtn):
         out[k] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                               "operations")
     return out
+
+
+def check_device_launches(label, device, launches):
+    """K3 and K3m issue one device launch per subcycle."""
+    for k, n in device.items():
+        if n != launches[k]:
+            raise AssertionError(f"{label}: {k} issued {n} device launches "
+                                 f"for {launches[k]} subcycles, expected "
+                                 "one each")
+    log(f"  {label} device launches {device}")
 
 
 def run_slice(ni, nj, nk, dtype, device, nsteps):
@@ -401,9 +489,11 @@ def main():
     # 2. build
     from mom6_torch import cuda_build
     t0 = time.perf_counter()
-    cuda_build.build()
+    logs = cuda_build.build()
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(cuda_build.SOURCES)})")
+    log_resources(logs.get("barotropic", ""), "subcycle_kernel")
+    log_band_plans()
 
     # 3. kernels against their plain versions
     log("phase 3 kernels vs plain")
@@ -415,7 +505,15 @@ def main():
         check_k3(res, *MAIN, dtype, timing if main_shape else None)
         check_k3m(res, *MAIN, dtype, timing if main_shape else None)
         check_k1_k2(res, *WIDE, dtype)
+        check_k3(res, *WIDE, dtype, timing if main_shape else None,
+                 key="K3 wide")
+        check_k3m(res, *WIDE, dtype, periods=(2,), walls=(False,))
         torch.cuda.empty_cache()
+    ms, plain_ms, inp = timing.pop("K3 wide")
+    log(f"  K3 at {inp.eta.shape[0]}x{inp.eta.shape[1]} fp32 curve "
+        f"({bc_plan(inp)}): {ms:.4f} ms per subcycle, plain "
+        f"{plain_ms:.4f} ms")
+    del inp
 
     # 4. slice 1 at 64x64x8 fp64: card against CPU
     log("phase 4 slice 1 %dx%dx%d fp64, 3 steps: card vs cpu" % SMALL)
@@ -451,10 +549,13 @@ def main():
     nsteps = 10
     for w in wrappers.values():
         w.launches = 0
+    for k in DEVICE_COUNTED:
+        wrappers[k].device_launches = 0
     t0 = time.perf_counter()
     ms_step = cuda_ms(step, nsteps, warm=False)
     wall = time.perf_counter() - t0
     launches_s1 = {k: w.launches for k, w in wrappers.items()}
+    device_s1 = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
     st, sp = cur
     shape = (MAIN[2], MAIN[1] + 8, MAIN[0] + 8)
     check_finite((("h", st.h), ("u", st.u), ("v", st.v), ("eta", sp.eta),
@@ -463,6 +564,7 @@ def main():
     if launches_s1 != expect:
         raise AssertionError(f"slice 1 launch counts {launches_s1}, "
                              f"expected {expect}")
+    check_device_launches("slice 1", device_s1, launches_s1)
     pts = MAIN[0] * MAIN[1] * MAIN[2] / (ms_step / 1e3)
     log(f"  {nsteps} steps: {ms_step:.3f} ms/step (CUDA events), "
         f"{wall / nsteps * 1e3:.3f} ms/step (host clock), "
@@ -503,6 +605,8 @@ def main():
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
+    for k in DEVICE_COUNTED:
+        wrappers[k].device_launches = 0
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(nsteps + 1)]
     kinds = []
@@ -516,6 +620,7 @@ def main():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    device = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
     st, sp, tr = cur
     check_finite((("h", st.h), ("u", st.u), ("v", st.v), ("T", st.T),
                   ("S", st.S), ("age", tr["age"]), ("eta", sp.eta),
@@ -524,6 +629,7 @@ def main():
     if launches != expect:
         raise AssertionError(f"slice 2 launch counts {launches}, "
                              f"expected {expect}")
+    check_device_launches("slice 2", device, launches)
     per = [events[i].elapsed_time(events[i + 1]) for i in range(nsteps)]
     by_kind = {k: [t for t, kk in zip(per, kinds) if kk == k]
                for k in ("thermo", "dynamics-only")}
@@ -550,11 +656,28 @@ def main():
     units = {"K1": "per sweep", "K2": "per call", "K3": "per subcycle",
              "K3m": "per subcycle"}
     for k, meta in KERNELS.items():
-        ms, plain_ms, _ = timing[k]
+        ms, plain_ms, inp = timing[k]
         b_ms, b_by = bnd[k]
         # each kernel's count on the path it serves: slice 2's full step
         # for K1, K2 and K3m, slice 1's dynamics step for K3
         n_launch = launches_s1[k] if k == "K3" else launches[k]
+        extra = {}
+        if k in DEVICE_COUNTED:
+            n_dev = device_s1[k] if k == "K3" else device[k]
+            call = wrappers[k]
+            n_prof, n_all = profiled_kernels(
+                lambda: call(*(inp[:-1] if k == "K3" else inp)))
+            if n_prof != 1:
+                raise AssertionError(f"{k}: torch.profiler traced {n_prof} "
+                                     "subcycle kernels in one subcycle, "
+                                     "expected 1")
+            extra = dict(device_launches=n_dev,
+                         device_launches_per_subcycle=n_dev / n_launch,
+                         profiled_subcycle_kernels_per_subcycle=n_prof)
+            log(f"  {k}: {n_dev} device launches for {n_launch} "
+                f"subcycles; torch.profiler traces {n_prof} subcycle "
+                f"kernel and {n_all} device kernels in all in one "
+                f"subcycle ({bc_plan(inp)})")
         log(f"  {k} {meta['name']}: {ms:.4f} ms {units[k]}, bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
             f"launches {n_launch}")
@@ -566,7 +689,7 @@ def main():
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, unit=units[k]))
+            library_ms=None, unit=units[k], **extra))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -8,18 +8,22 @@ is the same call with ``march=True`` (barotropic_pallas.py:232-240,
 from barotropic.py:704-721): on arrays widened to a halo of
 ``3 * period``, ``period`` substeps run with no refresh and the wide
 halos are refreshed on each chunk's last substep.  A CUDA tensor runs
-the whole subcycle through ``csrc/barotropic.cu`` (four launches per
-substep, issued by one host loop in C); a CPU tensor runs
-``subcycle_plain`` / ``subcycle_march_plain``, the ``_one``/``block``
-loop of mom6_tpu/core/barotropic.py:624-698.  Each wrapper's
-``launches`` grows by one per subcycle.  See csrc/barotropic.cu for
-what bounds the kernels on an H100 and how their design answers it.
+the whole subcycle through ``csrc/barotropic.cu`` in one persistent
+cooperative launch (one block per SM, each owning a fixed band of
+points for every substep, of any length; ``band_plan`` cuts the bands);
+a CPU tensor runs ``subcycle_plain`` / ``subcycle_march_plain``, the
+``_one``/``block`` loop of mom6_tpu/core/barotropic.py:624-698.  Each
+wrapper's ``launches`` grows by one per subcycle and its
+``device_launches`` by the device launches that subcycle issued.  See
+csrc/barotropic.cu for what bounds the kernels on an H100 and how their
+design answers it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ from mom6_torch.parallel.domain import Domain
 from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
 
 __all__ = ["subcycle_cuda", "subcycle_plain", "subcycle_march_cuda",
-           "subcycle_march_plain", "SUM_NAMES"]
+           "subcycle_march_plain", "SUM_NAMES", "band_plan"]
 
 # constant planes in the kernel's order (csrc/barotropic.cu enum)
 CONST_NAMES = ("gtot_E", "gtot_W", "gtot_N", "gtot_S", "q", "Du_q",
@@ -140,6 +144,59 @@ def _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
     return eta, ubt, vbt, sums
 
 
+# the launch geometry of csrc/barotropic.cu: THREADS threads a block,
+# one block per SM, a band cut into tiles of POINTS_PER_THREAD points a
+# thread (a band of one tile keeps its points' state and sums in
+# registers for the whole launch); at most MAX_SUBSTEPS filter weights
+# a row fit the kernel's parameters
+THREADS, POINTS_PER_THREAD, MAX_SUBSTEPS = 768, 3, 96
+N_CURVE = 22        # curve and anchor planes; linear transports use 2
+
+
+class BandPlan(NamedTuple):
+    """How one subcycle launch cuts the padded (nj, ni) array: block b
+    owns the flat points ``[b * points_per_block, (b + 1) *
+    points_per_block)``, in ``tiles`` tiles of THREADS *
+    POINTS_PER_THREAD points; ``smem_bytes`` holds their transport
+    constants in shared memory, 0 when they do not fit and are read from
+    global memory."""
+    blocks: int
+    points_per_block: int
+    tiles: int
+    smem_bytes: int
+
+    @property
+    def placement(self) -> str:
+        return "shared" if self.smem_bytes else "global"
+
+
+def band_plan(nj: int, ni: int, itemsize: int, curve: bool, sm_count: int,
+              smem_limit: int) -> BandPlan:
+    """The band plan of a subcycle launch on a card with ``sm_count`` SMs
+    and ``smem_limit`` bytes of shared memory a block.  Raises when the
+    array's flat indices do not fit the kernel's 32-bit ints."""
+    points = nj * ni
+    if points > 2**31 - 1:
+        raise ValueError(f"barotropic subcycle: {nj}x{ni} points, above "
+                         f"the kernel's 32-bit flat indices")
+    npb = -(-points // sm_count)
+    tiles = -(-npb // (THREADS * POINTS_PER_THREAD))
+    smem = (N_CURVE if curve else 2) * npb * itemsize
+    return BandPlan(-(-points // npb), npb, tiles,
+                    smem if smem <= smem_limit else 0)
+
+
+def _weights(wts: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """The (4, total) filter weights as the kernel's parameters take
+    them: contiguous, in the working type, at most MAX_SUBSTEPS."""
+    if wts.shape[1] > MAX_SUBSTEPS:
+        raise ValueError(f"barotropic subcycle: {wts.shape[1]} substeps, "
+                         f"above the kernel's MAX_SUBSTEPS = "
+                         f"{MAX_SUBSTEPS}")
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    return np.ascontiguousarray(wts, dtype=npdt)
+
+
 @functools.cache
 def _lib():
     lib = cuda_build.load("barotropic")
@@ -148,9 +205,36 @@ def _lib():
             fn = getattr(lib, f"{name}_{t}")
             fn.argtypes = ([ctypes.c_void_p] * 3
                            + [ctypes.c_int] * (10 + (name == "bt_march"))
-                           + [ctypes.c_double] * 2 + [ctypes.c_void_p])
+                           + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
             fn.restype = ctypes.c_int
+    lib.bt_device_info.argtypes = [ctypes.c_int] \
+        + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.bt_device_info.restype = ctypes.c_int
+    lib.bt_error_name.argtypes = [ctypes.c_int]
+    lib.bt_error_name.restype = ctypes.c_char_p
     return lib
+
+
+def _check(rc: int, what: str):
+    if rc != 0:
+        name = _lib().bt_error_name(rc).decode()
+        raise RuntimeError(f"barotropic {what}: CUDA error {rc} ({name})")
+
+
+@functools.cache
+def device_limits(device: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory bytes of a block) of a card."""
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    _check(_lib().bt_device_info(device, ctypes.byref(sms),
+                                 ctypes.byref(smem)), "device query")
+    return sms.value, smem.value
+
+
+def launch_plan(eta: torch.Tensor, use_curve: bool) -> BandPlan:
+    """The band plan of a subcycle on ``eta``'s card."""
+    return band_plan(*eta.shape, eta.element_size(), use_curve,
+                     *device_limits(eta.device.index))
 
 
 def subcycle_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
@@ -161,9 +245,10 @@ def subcycle_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
     if not eta.is_cuda:
         return subcycle_plain(eta, ubt, vbt, consts, use_curve, wts, dtbt,
                               bebt, domain)
-    out = _launch("bt_subcycle", eta, ubt, vbt, consts, use_curve, wts,
-                  dtbt, bebt, domain, BT_HALO, ())
+    out, n_dev = _launch("bt_subcycle", eta, ubt, vbt, consts, use_curve,
+                         wts, dtbt, bebt, domain, BT_HALO, ())
     subcycle_cuda.launches += 1
+    subcycle_cuda.device_launches += n_dev
     return out
 
 
@@ -177,14 +262,17 @@ def subcycle_march_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
         return subcycle_march_plain(eta, ubt, vbt, consts, use_curve, wts,
                                     dtbt, bebt, domain, period)
     _check_march(domain, period, wts)
-    out = _launch("bt_march", eta, ubt, vbt, consts, use_curve, wts, dtbt,
-                  bebt, domain, domain.halo, (period,))
+    out, n_dev = _launch("bt_march", eta, ubt, vbt, consts, use_curve, wts,
+                         dtbt, bebt, domain, domain.halo, (period,))
     subcycle_march_cuda.launches += 1
+    subcycle_march_cuda.device_launches += n_dev
     return out
 
 
 def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
             domain, width, extra):
+    """One persistent launch; returns (the subcycle's result, the device
+    launches issued)."""
     if eta.dtype == torch.float32:
         suffix = "f32"
     elif eta.dtype == torch.float64:
@@ -201,34 +289,34 @@ def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
         raise ValueError("subcycle constants must match eta's shape, "
                          "dtype and device")
     const_ptrs = [p.data_ptr() for p in planes]
-    const_ptrs += [None] * (42 - len(const_ptrs))
+    const_ptrs += [None] * (len(CONST_NAMES) + N_CURVE - len(const_ptrs))
+    wt = _weights(wts, eta.dtype)
+    plan = launch_plan(eta, use_curve)
 
     nj, ni = eta.shape
     eta_a = eta.contiguous().clone()
     eta_b = torch.empty_like(eta_a)
     ubt_s = ubt.contiguous().clone()
     vbt_s = vbt.contiguous().clone()
-    scratch = torch.empty((3, nj, ni), dtype=eta.dtype, device=eta.device)
-    sums = torch.zeros((len(SUM_NAMES), nj, ni), dtype=eta.dtype,
+    # d_eta and the face transports, two buffers each for u and v
+    scratch = torch.empty((5, nj, ni), dtype=eta.dtype, device=eta.device)
+    sums = torch.empty((len(SUM_NAMES), nj, ni), dtype=eta.dtype,
                        device=eta.device)
-    total = wts.shape[1]
-    wt = torch.as_tensor(np.ascontiguousarray(wts), dtype=eta.dtype,
-                         device=eta.device)
-    state = [eta_a, eta_b, ubt_s, vbt_s, scratch[0], scratch[1],
-             scratch[2], sums]
+    state = [eta_a, eta_b, ubt_s, vbt_s, *scratch.unbind(0), sums]
+    n_dev = ctypes.c_int(0)
     rc = getattr(_lib(), f"{entry}_{suffix}")(
-        (ctypes.c_void_p * 42)(*const_ptrs),
-        (ctypes.c_void_p * 8)(*(t.data_ptr() for t in state)),
-        wt.data_ptr(), nj, ni, domain.halo, domain.ni, domain.nj, width,
+        (ctypes.c_void_p * len(const_ptrs))(*const_ptrs),
+        (ctypes.c_void_p * len(state))(*(t.data_ptr() for t in state)),
+        wt.ctypes.data, nj, ni, domain.halo, domain.ni, domain.nj, width,
         int(domain.reentrant_x), int(domain.reentrant_y), int(use_curve),
-        total, *extra, float(dtbt), float(bebt),
-        torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"barotropic {entry} kernel failed: CUDA error "
-                           f"{rc}")
-    eta_f = eta_a if total % 2 == 0 else eta_b
-    return eta_f, ubt_s, vbt_s, dict(zip(SUM_NAMES, sums.unbind(0)))
+        wt.shape[1], *extra, float(dtbt), float(bebt), plan.blocks,
+        plan.points_per_block, plan.smem_bytes,
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(n_dev))
+    _check(rc, f"{entry}_{suffix} launch")
+    eta_f = eta_a if wt.shape[1] % 2 == 0 else eta_b
+    return (eta_f, ubt_s, vbt_s, dict(zip(SUM_NAMES, sums.unbind(0)))), \
+        n_dev.value
 
 
-subcycle_cuda.launches = 0
-subcycle_march_cuda.launches = 0
+subcycle_cuda.launches = subcycle_cuda.device_launches = 0
+subcycle_march_cuda.launches = subcycle_march_cuda.device_launches = 0

@@ -10,7 +10,8 @@ libraries at once (one ``nvcc`` process each, all started together).
 ``-fmad=false`` keeps the compiler from contracting a*b+c into one
 fused multiply-add: the kernels then round operation for operation
 like their plain PyTorch versions, which is what the tolerances of the
-kernel checks rely on.
+kernel checks rely on.  ``-Xptxas -v`` puts each kernel's registers,
+stack and spills into the build log that ``build`` returns.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("continuity", "barotropic")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -53,9 +55,10 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES) -> None:
+def build(names=SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all running at once."""
+    ``nvcc`` process per source, all running at once; returns the build
+    log of each source compiled."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
@@ -68,15 +71,16 @@ def build(names=SOURCES) -> None:
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    failed = []
+    failed, logs = [], {}
     for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
+        logs[name], _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{name}:\n{logs[name]}")
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -23,6 +23,7 @@ from mom6_tpu.core.continuity_ppm import ContinuityCfg, set_up_bt_cont
 
 from mom6_torch.convert import bt_cont_from_numpy, grid_from_numpy
 from mom6_torch.core import barotropic as tbt
+from mom6_torch.core import barotropic_cuda as bcu
 from mom6_torch.core.vertical_grid import VerticalGrid
 from mom6_torch.parallel.domain import Domain
 
@@ -137,3 +138,47 @@ def test_btstep_rejects_unported_options():
         tbt.btstep(None, None, None, None, None, None, None, None, None,
                    None, None, None, 600.0, tbt.BarotropicCfg(),
                    obc=object())
+
+
+@pytest.mark.parametrize("nj,ni,sms", [(520, 520, 132), (524, 524, 132),
+                                       (536, 536, 132), (520, 520, 114),
+                                       (1096, 1448, 132)])
+def test_subcycle_band_plan(nj, ni, sms):
+    """The persistent K3/K3m launch's band plan on a card of ``sms`` SMs
+    and 227 KB of shared memory a block (H100 SXM: 132, PCIe: 114):
+    every point owned once, in as many tiles as a band needs; the
+    transport planes of a band in shared memory while they fit (curve
+    planes in fp32 at the main path's shapes), from global memory
+    otherwise (fp64 curve mode, the OM4-class width); arrays past the
+    kernel's 32-bit indices and weights past its parameter room
+    raise."""
+    smem_limit = 232448
+    tile = bcu.THREADS * bcu.POINTS_PER_THREAD
+    points = nj * ni
+    for itemsize in (4, 8):
+        for curve in (False, True):
+            plan = bcu.band_plan(nj, ni, itemsize, curve, sms, smem_limit)
+            npb = plan.points_per_block
+            assert (plan.tiles - 1) * tile < npb <= plan.tiles * tile
+            assert plan.blocks <= sms
+            owned = np.zeros(points, np.int64)
+            for b in range(plan.blocks):
+                band = owned[b * npb:(b + 1) * npb]
+                assert band.size > 0
+                band += 1
+            assert (owned == 1).all()
+            want = (22 if curve else 2) * npb * itemsize
+            assert plan.smem_bytes == (want if want <= smem_limit else 0)
+            assert plan.placement == ("shared" if plan.smem_bytes
+                                      else "global")
+            if nj * ni <= 536 * 536 and curve:
+                assert plan.placement == ("shared" if itemsize == 4
+                                          else "global")
+    # one tile a band at the main path's shapes on 132 SMs; more on a
+    # card with fewer SMs or at the OM4-class width
+    assert (plan.tiles == 1) == (sms == 132 and points <= 536 * 536)
+    with pytest.raises(ValueError, match="32-bit"):
+        bcu.band_plan(50000, 50000, 4, True, sms, smem_limit)
+    with pytest.raises(ValueError, match="MAX_SUBSTEPS"):
+        bcu._weights(np.zeros((4, bcu.MAX_SUBSTEPS + 1)), torch.float32)
+    assert bcu._weights(np.zeros((4, 32)), torch.float32).dtype == np.float32
