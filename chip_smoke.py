@@ -6,10 +6,12 @@ order; any failure ends the script with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
 2. build: compile the kernels of mom6_torch/csrc with nvcc (one process
-   per source, in parallel) into mom6_torch/_build;
+   per source, in parallel) into mom6_torch/_build; print ptxas's
+   registers and spills of every K1, K2, K3 and K3m instance;
 3. kernels against their plain PyTorch versions on the card, on seeded
    random inputs: K1 (continuity sweep, both orders) and K2 (BT_cont
-   fit) at 25x520x520 and 25x1096x1448, K3 (barotropic subcycle,
+   fit) at 25x520x520, 25x1096x1448 and the deep column 75x264x264
+   (each with its tile plan printed), K3 (barotropic subcycle,
    linear and curve transports) at 25x520x520 and 25x1096x1448, K3m
    (the wide-halo march: periods 2 and 4, walled and reentrant y,
    linear and curve transports) on 512x512 planes widened to a halo of
@@ -29,13 +31,15 @@ order; any failure ends the script with a non-zero exit:
    timed steps (5 thermodynamic, 5 dynamics-only) with every launch
    counter zeroed just before and read just after (K3m's device
    launches too); each kernel's own time beside its bound and its plain
-   version's time, and for K3 and K3m the device kernels that one
-   subcycle launches as torch.profiler traces them.
+   version's time, and the device kernels that one K1 sweep, one K2
+   call and one K3 or K3m subcycle launch as torch.profiler traces
+   them, with their device time from that trace.
 
 The line before the last is the JSON ``kernels`` record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -46,6 +50,7 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 MAIN = (512, 512, 25)          # (ni, nj, nk) of the slice
 WIDE = (1440, 1088, 25)        # the OM4-class width of the kernel checks
+DEEP = (256, 256, 75)          # MOM6's 75-layer depth for K1 and K2
 SMALL = (64, 64, 8)            # slice 1 checked against the CPU
 SMALL_FULL = (32, 32, 6)       # slice 2 checked against the CPU
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -54,13 +59,14 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
 # Operations per point, counted from the kernel sources (arithmetic,
 # comparisons and selects; csrc/ppm.cuh, continuity.cu, barotropic.cu):
 # the PPM edge values ~100 per cell; one layer's flux and derivative
-# with the correction applied ~57; the K1 sweep does 6 Newton passes,
-# the final flux (~55) and the divergence (~4) per cell-layer; K2 does
-# 3 Newton passes, 3 probes and the probe limits (~12) per cell-layer
-# and direction; a K3 or K3m substep with curve transports ~162 per
-# point.
-OPS_EDGES, OPS_FLUX = 100, 57
-OPS_K1 = OPS_EDGES + 6 * OPS_FLUX + 55 + 4
+# with the correction applied, from the upwind cell only, ~35 (both
+# upwind branches, as the plain version evaluates them, ~57); the K1
+# sweep does 6 Newton passes, the final flux and the divergence (~4) per
+# cell-layer; K2 does 3 Newton passes, 3 probes and the probe limits
+# (~12) per cell-layer and direction; a K3 or K3m substep with curve
+# transports ~162 per point.
+OPS_EDGES, OPS_FLUX = 100, 35
+OPS_K1 = OPS_EDGES + 7 * OPS_FLUX + 4
 OPS_K2 = 2 * (OPS_EDGES + 6 * OPS_FLUX + 12)
 OPS_K3_SUBSTEP = 162
 
@@ -79,6 +85,10 @@ KERNELS = {
                 replaces="mom6_tpu/core/barotropic_pallas.py:232"),
 }
 DEVICE_COUNTED = ("K3", "K3m")   # wrappers that count device launches
+# each kernel's device-kernel name and its wrapper's launches a call
+PROFILED = {"K1": ("sweep_kernel", 2), "K2": ("bt_cont_kernel", 1),
+            "K3": ("subcycle_kernel", 1), "K3m": ("subcycle_kernel", 1)}
+PROFILE_REPS = 5
 TOL = {  # relative to each field's max on the compute domain
     "K1": {"float64": 1e-12, "float32": 1e-5},
     "K2": {"float64": 1e-12, "float32": 1e-3},
@@ -193,6 +203,22 @@ def continuity_inputs(ni, nj, nk, dtype, seed):
                           vhbt=vhbt)
 
 
+def log_tile_plans(h):
+    """K1's and K2's tile plans for ``h``'s shape and dtype."""
+    from mom6_torch.core import continuity_cuda as cc
+
+    def fmt(p):
+        return (f"{'xy'[p.axis]} {p.faces} faces x {p.across} across, "
+                f"{p.layers} layers x {p.chunks} chunk"
+                f"{'s' if p.chunks > 1 else ''}, {p.blocks} blocks, "
+                f"{p.smem_bytes} B")
+    nk, nj, ni = h.shape
+    log(f"  K1/K2 tile plan {nk}x{nj}x{ni} {str(h.dtype)[6:]}: K1 "
+        + "; ".join(fmt(cc.launch_plan(h, (a,))[0]) for a in (0, 1))
+        + f"; K2 {cc.launch_plan(h, (0, 1))[0].threads} threads: "
+        + "; ".join(fmt(p) for p in cc.launch_plan(h, (0, 1))))
+
+
 def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
     from mom6_torch.core import continuity_cuda as cc
     from mom6_torch.core.continuity_ppm import (ContinuityCfg,
@@ -203,6 +229,8 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
     dt = 600.0
     dn = str(dtype).split(".")[-1]
     shape = f"{nk}x{d.njh}x{d.nih}"
+    if x["h"].is_cuda:             # a CPU rehearsal has no card to plan for
+        log_tile_plans(x["h"])
     for x_first in (True, False):
         args = (g, vg, x["u"], x["v"], x["h"], dt, cfg)
         kw = dict(uhbt=x["uhbt"], vhbt=x["vhbt"], visc_rem_u=x["vr_u"],
@@ -214,12 +242,13 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
             res.check("K1", dn, f"{shape} x_first={x_first} {name}",
                       getattr(ref, name), getattr(out, name))
         if timing is not None and x_first:
+            def call():
+                cc.continuity_ppm_cuda(*args, x["uhbt"], x["vhbt"],
+                                       x["vr_u"], x["vr_v"])
             timing["K1"] = (
-                cuda_ms(lambda: cc.continuity_ppm_cuda(
-                    *args, x["uhbt"], x["vhbt"], x["vr_u"], x["vr_v"]),
-                    20) / 2,
+                cuda_ms(call, 20) / 2,
                 cuda_ms(lambda: continuity_ppm(*args, **kw), 3) / 2,
-                x)
+                call)
     bargs = (g, vg, x["u"], x["v"], x["h"], dt, cfg, x["vr_u"], x["vr_v"])
     ref = set_up_bt_cont(*bargs)
     out = cc.set_up_bt_cont_cuda(*bargs)
@@ -229,7 +258,8 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
                   getattr(out, name), "K2_turn" if turn else None)
     if timing is not None:
         timing["K2"] = (cuda_ms(lambda: cc.set_up_bt_cont_cuda(*bargs), 20),
-                        cuda_ms(lambda: set_up_bt_cont(*bargs), 3), x)
+                        cuda_ms(lambda: set_up_bt_cont(*bargs), 3),
+                        lambda: cc.set_up_bt_cont_cuda(*bargs))
 
 
 def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
@@ -365,9 +395,10 @@ def bc_plan(inp):
             "constants")
 
 
-def profiled_kernels(fn):
-    """The device kernels one call of ``fn`` launches, as torch.profiler
-    traces them: (those of the persistent subcycle kernel, all)."""
+def profiled_kernels(fn, kernel, reps=1):
+    """The device kernels ``reps`` calls of ``fn`` launch, as
+    torch.profiler traces them: (those whose name holds ``kernel``, all,
+    mean device milliseconds a call of the ``kernel`` ones)."""
     import os
     import tempfile
     import torch
@@ -375,16 +406,18 @@ def profiled_kernels(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    names = [e["name"] for e in events
-             if e.get("ph") == "X" and e.get("cat") == "kernel"]
-    return sum("subcycle_kernel" in n for n in names), len(names)
+    kern = [e for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    mine = [e["dur"] for e in kern if kernel in e["name"]]
+    return len(mine), len(kern), sum(mine) / 1e3 / reps
 
 
 def bounds(timing, nk, njh, nih, item, dtn):
@@ -492,6 +525,8 @@ def main():
     logs = cuda_build.build()
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(cuda_build.SOURCES)})")
+    log_resources(logs.get("continuity", ""), "sweep_kernel")
+    log_resources(logs.get("continuity", ""), "bt_cont_kernel")
     log_resources(logs.get("barotropic", ""), "subcycle_kernel")
     log_band_plans()
 
@@ -508,6 +543,7 @@ def main():
         check_k3(res, *WIDE, dtype, timing if main_shape else None,
                  key="K3 wide")
         check_k3m(res, *WIDE, dtype, periods=(2,), walls=(False,))
+        check_k1_k2(res, *DEEP, dtype)
         torch.cuda.empty_cache()
     ms, plain_ms, inp = timing.pop("K3 wide")
     log(f"  K3 at {inp.eta.shape[0]}x{inp.eta.shape[1]} fp32 curve "
@@ -661,24 +697,38 @@ def main():
         # each kernel's count on the path it serves: slice 2's full step
         # for K1, K2 and K3m, slice 1's dynamics step for K3
         n_launch = launches_s1[k] if k == "K3" else launches[k]
-        extra = {}
+        # the device kernels of PROFILE_REPS wrapper calls in one trace:
+        # one per launch unit, and for K1 and K2 nothing else
+        name, per_call = PROFILED[k]
+        if callable(inp):
+            call = inp
+        else:
+            wrap = wrappers[k]
+            call = functools.partial(wrap, *(inp[:-1] if k == "K3" else inp))
+        n_prof, n_all, dev_ms = profiled_kernels(call, name, PROFILE_REPS)
+        units_traced = PROFILE_REPS * per_call
+        if n_prof != units_traced or (k not in DEVICE_COUNTED
+                                      and n_all != n_prof):
+            raise AssertionError(f"{k}: torch.profiler traced {n_prof} "
+                                 f"{name} kernels ({n_all} device kernels "
+                                 f"in all) in {units_traced} launches, "
+                                 "expected one each")
+        extra = dict(profiled_kernels_per_call=n_prof / units_traced,
+                     profiled_device_ms=dev_ms / per_call)
+        log(f"  {k}: torch.profiler traces {n_prof} {name} kernels and "
+            f"{n_all} device kernels in all in {units_traced} launches "
+            f"({units[k]}), {dev_ms / per_call:.4f} ms of device time "
+            f"{units[k]}")
         if k in DEVICE_COUNTED:
             n_dev = device_s1[k] if k == "K3" else device[k]
-            call = wrappers[k]
-            n_prof, n_all = profiled_kernels(
-                lambda: call(*(inp[:-1] if k == "K3" else inp)))
-            if n_prof != 1:
-                raise AssertionError(f"{k}: torch.profiler traced {n_prof} "
-                                     "subcycle kernels in one subcycle, "
-                                     "expected 1")
-            extra = dict(device_launches=n_dev,
+            extra.update(device_launches=n_dev,
                          device_launches_per_subcycle=n_dev / n_launch,
-                         profiled_subcycle_kernels_per_subcycle=n_prof)
+                         profiled_subcycle_kernels_per_subcycle=(
+                             n_prof / units_traced))
             log(f"  {k}: {n_dev} device launches for {n_launch} "
-                f"subcycles; torch.profiler traces {n_prof} subcycle "
-                f"kernel and {n_all} device kernels in all in one "
-                f"subcycle ({bc_plan(inp)})")
-        log(f"  {k} {meta['name']}: {ms:.4f} ms {units[k]}, bound "
+                f"subcycles ({bc_plan(inp)})")
+        log(f"  {k} {meta['name']}: {ms:.4f} ms {units[k]} (CUDA events), "
+            f"{dev_ms / per_call:.4f} ms (profiler), bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
             f"launches {n_launch}")
         records.append(dict(

@@ -9,16 +9,17 @@ configuration the kernels do not cover raises ``NotImplementedError``.
 
 Each wrapper counts its kernel launches in a plain integer attribute:
 ``continuity_ppm_cuda.launches`` grows by one per directional sweep
-(two per call; a sweep is an edge pass, a flux pass and a divergence
-pass), ``set_up_bt_cont_cuda.launches`` by one per call (an edge pass
-per direction, then one fit launch for both directions).  See csrc/continuity.cu for what bounds
-the kernels on an H100 and how their design answers it.
+(two per call), ``set_up_bt_cont_cuda.launches`` by one per call (both
+directions); each is one device kernel.  ``tile_plan`` cuts the array
+into the tiles the kernels keep on chip.  See csrc/continuity.cu for
+what bounds the kernels on an H100 and how their design answers it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,10 +30,12 @@ from mom6_torch.core.continuity_ppm import (BTContFaces, ContinuityCfg,
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.vertical_grid import VerticalGrid
 
-__all__ = ["continuity_ppm_cuda", "set_up_bt_cont_cuda"]
+__all__ = ["continuity_ppm_cuda", "set_up_bt_cont_cuda", "tile_plan",
+           "TilePlan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
 _D = ctypes.c_double
 
 
@@ -41,12 +44,156 @@ def _lib():
     lib = cuda_build.load("continuity")
     for t in ("f32", "f64"):
         sweep = getattr(lib, f"ppm_sweep_{t}")
-        sweep.argtypes = [_P] * 15 + [_I] * 5 + [_D] * 3 + [_P]
+        sweep.argtypes = [_P] + [_I] * 5 + [_D] * 3 + [_P, _L, _P]
         sweep.restype = _I
         fit = getattr(lib, f"bt_cont_{t}")
-        fit.argtypes = [_P, _I, _I, _I, _D, _D, _D, _P]
+        fit.argtypes = [_P] + [_I] * 3 + [_D] * 3 + [_P, _L, _P]
         fit.restype = _I
+    lib.cont_device_info.argtypes = [_I, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_I)]
+    lib.cont_device_info.restype = _I
+    lib.cont_error_name.argtypes = [_I]
+    lib.cont_error_name.restype = ctypes.c_char_p
     return lib
+
+
+def _check(rc: int, what: str):
+    if rc != 0:
+        name = _lib().cont_error_name(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({name})")
+
+
+@functools.cache
+def device_limits(device: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory bytes of a block) of a card."""
+    sms, smem = _I(), _I()
+    _check(_lib().cont_device_info(device, ctypes.byref(sms),
+                                   ctypes.byref(smem)), "device query")
+    return sms.value, smem.value
+
+
+# the launch geometry of csrc/continuity.cu: at most MAX_THREADS threads
+# a block, one per face column; an SM holds SM_THREADS threads and
+# shared memory of a block's opt-in limit plus BLOCK_RESERVED bytes, the
+# runtime's share of each block (H100: 232,448 + 1,024 = 228 KB).  The
+# plan's cost model, fitted to tiles timed one by one on an H100 (PERF.md):
+# the work of a tile is UNITS_COLUMN per face column (six Newton passes
+# and the final one, the edge values and the stores, in units of one
+# Newton pass) and UNITS_STAGE per staged cell column (the copies, halo
+# included); an SM's rate grows with its resident threads.  A block
+# alone on its SM overlaps its copies with no other block's work: such
+# tiles timed slowest, so they are taken only where nothing else fits.
+MAX_THREADS, SM_THREADS, BLOCK_RESERVED = 512, 2048, 1024
+UNITS_COLUMN, UNITS_STAGE = 14.5, 5.0
+RECORD = 5          # values staged per cell and layer
+
+
+class TilePlan(NamedTuple):
+    """One direction's tiles of a K1 sweep or a K2 call.  A block owns
+    ``faces`` faces along the sweep, the first of which only feeds the
+    divergence of the next cell (a tile updates ``faces - 1`` cells), by
+    ``across`` face columns across it, one thread per face column; it
+    stages ``layers`` layers at once, in ``chunks`` chunks (1: the
+    whole column stays on chip for every pass), in ``smem_bytes`` of
+    shared memory; ``blocks`` tiles cover the array."""
+    axis: int
+    faces: int
+    across: int
+    layers: int
+    chunks: int
+    blocks: int
+    smem_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return self.faces * self.across
+
+    def tile(self) -> tuple[int, int, int, int]:
+        """The four ints the kernel takes (csrc/continuity.cu Tile)."""
+        return self.faces, self.across, self.layers, self.blocks
+
+
+def stage_bytes(faces: int, across: int, layers: int, itemsize: int) -> int:
+    """Shared bytes of a tile: a record of each of its faces+5 cells and
+    staged layers (h, its two edge values, u and visc_rem of its face),
+    and the cell mask."""
+    return itemsize * across * (faces + 5) * (RECORD * layers + 1)
+
+
+def _shapes(axis: int, threads: int):
+    """(faces, across) of the tiles of ``threads`` threads.  The lanes
+    run along i: an x tile is rows of 32 or more faces, a y tile 8 to 64
+    columns of i (8 fp32 values fill a 32-byte sector; the narrow ones
+    let a deep column fit)."""
+    if axis == 0:
+        return [(f, threads // f) for f in (32, 64, 128) if threads % f == 0]
+    return [(threads // q, q) for q in (8, 16, 32, 64)
+            if threads % q == 0 and threads // q >= 2]
+
+
+def _plan(nk, n, m, itemsize, axis, faces, across, smem_limit):
+    fixed = stage_bytes(faces, across, 0, itemsize)
+    layers = min(nk, (smem_limit - fixed)
+                 // (itemsize * across * (faces + 5) * RECORD))
+    if layers < 1:
+        return None
+    return TilePlan(axis, faces, across, layers, -(-nk // layers),
+                    -(-n // (faces - 1)) * -(-m // across),
+                    stage_bytes(faces, across, layers, itemsize))
+
+
+def _cost(plans, sm_count: int, smem_limit: int):
+    """Sort key of one launch's plans: the fewest chunks, then more than
+    one block an SM, then the least modelled time, then the most
+    resident threads."""
+    threads = plans[0].threads
+    smem = max(p.smem_bytes for p in plans)
+    per_sm = min(32, SM_THREADS // threads,
+                 (smem_limit + BLOCK_RESERVED) // (smem + BLOCK_RESERVED))
+    resident = per_sm * threads
+    work = sum(p.blocks * p.across * (UNITS_COLUMN * p.faces
+                                      + UNITS_STAGE * (p.faces + 5))
+               for p in plans)
+    return (max(p.chunks for p in plans), per_sm == 1,
+            work / (sm_count * resident), -resident)
+
+
+@functools.cache
+def tile_plan(nk: int, nj: int, ni: int, itemsize: int,
+              axes: tuple[int, ...], sm_count: int,
+              smem_limit: int) -> tuple[TilePlan, ...]:
+    """The tiles of one launch on a (nk, nj, ni) array of ``itemsize``
+    bytes, on a card of ``sm_count`` SMs and ``smem_limit`` bytes of
+    shared memory a block: one plan per axis of ``axes`` ((0,) or (1,)
+    for a K1 sweep, (0, 1) for K2), all of one block size.  A column
+    that fits no tile is staged in chunks of layers, so every shape has
+    a plan; raises only when not one layer of the smallest tile fits."""
+    best = None
+    for threads in range(32, MAX_THREADS + 1, 32):
+        plans = []
+        for axis in axes:
+            n, m = (ni, nj) if axis == 0 else (nj, ni)
+            cands = [p for f, q in _shapes(axis, threads)
+                     if (p := _plan(nk, n, m, itemsize, axis, f, q,
+                                    smem_limit)) is not None]
+            if not cands:
+                break
+            plans.append(min(cands, key=lambda p: _cost((p,), sm_count,
+                                                        smem_limit)))
+        else:
+            key = _cost(plans, sm_count, smem_limit)
+            if best is None or key < best[0]:
+                best = key, tuple(plans)
+    if best is None:
+        raise ValueError(f"continuity kernels: not one layer of a tile "
+                         f"fits {smem_limit} B of shared memory")
+    return best[1]
+
+
+def launch_plan(h: torch.Tensor, axes: tuple[int, ...]):
+    """``tile_plan`` for ``h``'s shape, dtype and card."""
+    return tile_plan(*h.shape, h.element_size(), axes,
+                     *device_limits(h.device.index))
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -77,10 +224,6 @@ def _prep(ref: torch.Tensor, *tensors):
     return out
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -96,6 +239,14 @@ def _grid_y(grid: Grid):
             grid.mask2dT)
 
 
+def _ptrs(tensors):
+    return (_P * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _ints(values):
+    return (_I * len(values))(*values)
+
+
 def _sweep(grid: Grid, vgrid: VerticalGrid, vel, h, vr, hbt, dt,
            cfg: ContinuityCfg, axis: int):
     """One directional sweep through K1: (h_new, flux, vel_cor)."""
@@ -103,17 +254,15 @@ def _sweep(grid: Grid, vgrid: VerticalGrid, vel, h, vr, hbt, dt,
     vel, h, vr, hbt, *g = _prep(h, vel, h, vr, hbt, *g)
     nk, nj, ni = h.shape
     if vel.shape != h.shape or vr.shape != h.shape or \
-            hbt.shape != h.shape[1:]:
+            any(p.shape != h.shape[1:] for p in (hbt, *g)):
         raise ValueError("continuity sweep: mismatched shapes")
-    hm, hp, h_out, flux, vcor = (torch.empty_like(h) for _ in range(5))
+    plan, = launch_plan(h, (axis,))
+    h_out, flux, vcor = (torch.empty_like(h) for _ in range(3))
     fn = getattr(_lib(), f"ppm_sweep_{_suffix(h.dtype)}")
-    rc = fn(_ptr(vel), _ptr(h), _ptr(vr), _ptr(hbt), *map(_ptr, g),
-            _ptr(hm), _ptr(hp), _ptr(h_out), _ptr(flux), _ptr(vcor),
-            nk, nj, ni, axis, cfg.newton_iters, float(dt),
-            float(cfg.cfl_limit), float(vgrid.angstrom), _stream())
-    if rc != 0:
-        raise RuntimeError(f"continuity sweep kernel failed: CUDA error "
-                           f"{rc}")
+    _check(fn(_ptrs([vel, h, vr, hbt, *g, h_out, flux, vcor]), nk, nj, ni,
+              axis, cfg.newton_iters, float(dt), float(cfg.cfl_limit),
+              float(vgrid.angstrom), _ints(plan.tile()), plan.smem_bytes,
+              _stream()), "continuity sweep kernel")
     continuity_ppm_cuda.launches += 1
     return h_out, flux, vcor
 
@@ -160,22 +309,21 @@ def set_up_bt_cont_cuda(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
     h, u, v, vr_u, vr_v, *g = _prep(h, h, u, v, vr_u, vr_v, *gx, *gy)
     gx, gy = g[:6], g[6:]
     nk, nj, ni = h.shape
-    if not (u.shape == v.shape == vr_u.shape == vr_v.shape == h.shape):
+    if not (u.shape == v.shape == vr_u.shape == vr_v.shape == h.shape) \
+            or any(p.shape != h.shape[1:] for p in g):
         raise ValueError("BT_cont fit: mismatched shapes")
-    scratch = torch.empty((4,) + h.shape, dtype=h.dtype, device=h.device)
+    plans = launch_plan(h, (0, 1))
     out = torch.empty((12, nj, ni), dtype=h.dtype, device=h.device)
     ptrs = []
     for d, (vel, vr, gd) in enumerate(((u, vr_u, gx), (v, vr_v, gy))):
         dlen, Idx, _, mask_f, dx_face, _ = gd
-        ptrs += [vel, vr, dlen, Idx, mask_f, dx_face, scratch[2 * d],
-                 scratch[2 * d + 1]] + list(out[6 * d:6 * d + 6])
+        ptrs += [vel, vr, dlen, Idx, mask_f, dx_face] \
+            + list(out[6 * d:6 * d + 6])
     ptrs += [h, gx[5]]
-    arr = (ctypes.c_void_p * len(ptrs))(*(t.data_ptr() for t in ptrs))
     fn = getattr(_lib(), f"bt_cont_{_suffix(h.dtype)}")
-    rc = fn(arr, nk, nj, ni, float(dt), float(cfg.cfl_limit),
-            float(vgrid.angstrom), _stream())
-    if rc != 0:
-        raise RuntimeError(f"BT_cont kernel failed: CUDA error {rc}")
+    _check(fn(_ptrs(ptrs), nk, nj, ni, float(dt), float(cfg.cfl_limit),
+              float(vgrid.angstrom), _ints(plans[0].tile() + plans[1].tile()),
+              max(p.smem_bytes for p in plans), _stream()), "BT_cont kernel")
     set_up_bt_cont_cuda.launches += 1
     return BTContFaces(*out.unbind(0))
 

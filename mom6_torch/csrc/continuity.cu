@@ -7,25 +7,66 @@
 // (:377, :400, launched by _run_btcont).  Plain twins:
 // continuity_ppm / set_up_bt_cont in mom6_torch/core/continuity_ppm.py.
 //
-// What bounds them on an H100: K1 must move 6 layered fields (u, h,
+// What bounds them on an H100.  K1 must move 6 layered fields (u, h,
 // visc_rem in; h, uh, u_cor out: 24 bytes per layer and face in fp32)
-// and does ~500 operations per layer and face (edges ~100, 7 flux
-// evaluations ~57 each, the divergence): ~21 per byte, at the card's
-// fp32 balance point (67 TFLOP/s over 3.35 TB/s = 20 per byte), so
-// bytes and operations bound it about equally.  K2 reads 5 layered
-// fields and writes only 12 planes, with 6 flux passes per direction:
-// ~45 operations per byte, bounded by operations.  chip_smoke.py
-// computes both bounds from the shapes.
+// and does ~350 operations per layer and face (edges ~100, 7 flux
+// evaluations ~35 each from the upwind cell, the divergence): bounded
+// by bytes (chip_smoke.py: 0.051 ms at 25x520x520 fp32).  K2 reads 5
+// layered fields and writes only 12 planes, with 6 flux evaluations per
+// layer and direction: bounded by operations (0.065 ms).
 //
-// Design: one thread per face column (j, i), looping over layers, with
-// the Newton correction du kept in a register across the fixed
-// iteration count.  The edge values come from a first pass written to
-// scratch; every Newton iteration re-reads the column (u, h, visc_rem
-// and the edges) from L1/L2 instead of recomputing the 5-point
-// stencil, so device memory sees each field about once.  The y sweep
-// reads strided memory (stride ni) instead of transposing.  Neighbours
-// wrap at the array edge like torch.roll, so the kernels cover the
-// whole padded array, halos included, and need no padding to any tile.
+// What limited the first design: device-memory traffic from re-reading.
+// It ran K1 as three launches (edge values to scratch planes, a flux
+// pass of one thread per face column, a divergence pass) and K2 as three
+// (two edge passes, the fit), each Newton pass re-reading five layered
+// fields (~135 MB at 25x520x520 fp32, past the 50 MB L2) from HBM:
+// torch.profiler gave the flux pass 0.478 ms of a 0.566 ms sweep and
+// the fit 0.673 ms of a 0.784 ms call (PERF.md).
+//
+// This design: one launch per K1 sweep and one per K2 call (both
+// directions, the block index picks one), each block owning a tile of
+// face columns.  A block copies (cp.async) its tile's h and cell mask
+// with the stencil halo, u and visc_rem into shared memory, computes the
+// PPM edges there, and runs every Newton iteration and probe from shared
+// memory: each layered input leaves device memory once (the halo cells
+// a second time, from L2), each output is written once, and the edge
+// values never reach device memory.  A tile spans ``faces`` faces along
+// the sweep: faces a-1 .. a+faces-2 for the cells a .. a+faces-2, so
+// face a-1's flux, recomputed in the block, feeds the divergence of
+// cell a and K1 needs no second launch; it needs h at cells
+// a-3 .. a+faces+1.  Layout (a) of the two considered: one thread per
+// face column, looping over the layers in shared memory.  It keeps the
+// plain version's k = 0, 1, ... layer sums in one thread, so the
+// kernels stay bitwise equal to the plain versions with no reduction
+// across threads, and it needs no registers per layer: a deep column
+// costs shared memory, not registers, and shared memory is the larger
+// store (227 KB a block against 256 KB of registers an SM shared by all
+// its threads).  Across the sweep the lanes run along i in both
+// directions (x: a row of faces; y: ``across`` columns of i), so every
+// copy is coalesced and the y sweep needs no transpose.  A cell-layer is
+// one record of five values (h, its edges, u and visc_rem of its face),
+// so a thread reaches its face and both cells from one index, and each
+// thread copies its own records: no index is divided.  The plain
+// version evaluates both upwind branches of each flux and selects one;
+// ppm_flux reads only the upwind cell, without a branch, so the compiler
+// interleaves the layers.  A column that does not fit the shared memory
+// at the tile chosen is staged in chunks of ``layers`` layers,
+// re-staged (and its edges recomputed) for each pass: no shape is
+// refused.  The tile plan comes from tile_plan in
+// core/continuity_cuda.py, which the CPU tests check.  Neighbours wrap
+// at the array edge like torch.roll, so the kernels cover the whole
+// padded array, halos included.
+//
+// What limits it now (PERF.md; mom6_torch.continuity_tiles on an H100
+// at 25x520x520 fp32): the phases of a tile run one after another at
+// ~12 resident warps an SM (shared memory holds ~450 face columns of 25
+// layers) and add up: in an x / y sweep a Newton pass takes ~10 / 14
+// us, the edge values ~22 / 63 us, the copies ~47 / 90 us, the stores
+// ~30 us (the y tile's stencil halo costs it more).  Two buffers a
+// block (the next tile's copies in flight while one computes) halved
+// the resident threads and ran slower; copies cut into layer groups,
+// with each group's edges and first pass run as it lands, gained
+// nothing.
 #include <cuda_runtime.h>
 
 #include "ppm.cuh"
@@ -34,110 +75,227 @@ namespace {
 
 using namespace mom6;
 
-// face-column data for direction ``axis`` at (j, i)
-template <typename T>
-__device__ inline Face<T> make_face(const T* u, const T* h, const T* hm,
-                                    const T* hp, const T* vr,
-                                    const T* dlen, const T* Idx,
-                                    const T* mask_f, const T* dx_face,
-                                    int nk, int nj, int ni, int axis,
-                                    int i, int j, T dt, T cfl_limit) {
-  const long c = (long)j * ni + i;
-  const Line L = axis == 0 ? make_line(i, ni, 1) : make_line(j, nj, ni);
-  Face<T> F;
-  F.u = u + c;
-  F.h = h + c;
-  F.hm = hm + c;
-  F.hp = hp + c;
-  F.vr = vr + c;
-  F.dlen = dlen[c];
-  F.Idx_up = Idx[c];
-  F.Idx_dn = Idx[c + L.at(1)];
-  F.mask = mask_f[c];
-  F.du_lim = cfl_limit * dx_face[c] / dt;
-  F.dn = L.at(1);
-  F.plane = (long)nj * ni;
-  F.nk = nk;
-  return F;
+constexpr int MAX_THREADS = 512;
+
+// the tile of one direction (tile_plan in core/continuity_cuda.py)
+struct Tile {
+  int faces;    // faces along the sweep; the first only feeds the divergence
+  int across;   // face columns across the sweep (x: rows j; y: columns i)
+  int layers;   // layers staged at once
+  int blocks;   // tiles of this direction
+};
+
+// a staged cell-layer: its thickness and edge values (read by ppm_flux as
+// three consecutive values), and u and visc_rem of its face (the face at
+// the cell's own index)
+enum { H, HM, HP, U, VR, RS };
+
+// shared elements of a tile: a record of each of its faces+5 cells (a-3
+// .. a+faces+1) and staged layer, and the cell mask
+__host__ __device__ inline long stage_elems(const Tile& t) {
+  return (long)t.across * (t.faces + 5) * (RS * (long)t.layers + 1);
 }
 
-// K1 flux pass: Newton-match the column transport to hbt, then write
-// the final flux and the corrected velocity of every layer
 template <typename T>
-__global__ void sweep_flux_kernel(const T* __restrict__ u,
-                                  const T* __restrict__ h,
-                                  const T* __restrict__ hm,
-                                  const T* __restrict__ hp,
-                                  const T* __restrict__ vr,
-                                  const T* __restrict__ hbt,
-                                  const T* __restrict__ dlen,
-                                  const T* __restrict__ Idx,
-                                  const T* __restrict__ mask_f,
-                                  const T* __restrict__ dx_face,
-                                  T* __restrict__ flux_out,
-                                  T* __restrict__ ucor_out,
-                                  int nk, int nj, int ni, int axis,
-                                  int newton_iters, T dt, T cfl_limit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ni || j >= nj) return;
-  const Face<T> F = make_face(u, h, hm, hp, vr, dlen, Idx, mask_f,
-                              dx_face, nk, nj, ni, axis, i, j, dt,
-                              cfl_limit);
-  const long c = (long)j * ni + i;
-  const T target = hbt[c];
-  T du = T(0);
-  for (int it = 0; it < newton_iters; ++it) {
-    T sf, sd;
-    column_flux(F, du, dt, sf, sd);
-    du = newton_step(du, sf, sd, target, F.du_lim);
+__device__ inline void cp_async(T* dst, const T* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T)));
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// one block's tile of direction AXIS (0: x, along i; 1: y, along j) and
+// its thread's face column.  Position s along the tile is cell a-3+s;
+// face a-1+p, this thread's, is the east (north) face of the cell at
+// position p+2.  Shared records are indexed by (layer k, position s,
+// column q across), the lanes' axis fastest; each thread stages and
+// updates the records of its own position, so no index is divided.
+template <typename T, int AXIS> struct Geo {
+  int NF, Q, KC;   // faces, across, layers of the tile
+  int n, m, ni;    // cells along and across the sweep; row length
+  long plane;
+  int a, q0;       // first cell the tile updates; first column across
+  int p, q;        // this thread: face a-1+p, column q0+q
+  T *rec, *mask;
+
+  __device__ Geo(const Tile& t, int tile, int nj, int ni_, T* smem)
+      : NF(t.faces), Q(t.across), KC(t.layers), n(AXIS ? nj : ni_),
+        m(AXIS ? ni_ : nj), ni(ni_), plane((long)nj * ni_) {
+    const int along = (n + NF - 2) / (NF - 1);
+    a = (tile % along) * (NF - 1);
+    q0 = (tile / along) * Q;
+    const int tid = threadIdx.x;
+    p = AXIS ? tid / Q : tid % NF;
+    q = AXIS ? tid % Q : tid / NF;
+    rec = smem;
+    mask = rec + RS * KC * Q * (NF + 5);
   }
-  for (int k = 0; k < nk; ++k) {
-    const long o = k * F.plane;
-    T v = F.vr[o];
-    T ucor = F.u[o] + v * du;
+  // element index of (k, s, q)
+  __device__ int at(int k, int s) const {
+    return AXIS ? (k * (NF + 5) + s) * Q + q : (k * Q + q) * (NF + 5) + s;
+  }
+  // elements from one layer to the next, and to the next position along
+  __device__ int layer() const { return Q * (NF + 5); }
+  __device__ int dn() const { return AXIS ? Q : 1; }
+  // plane index of position s and this thread's column (wrapped along
+  // like torch.roll; clamped across)
+  __device__ long g2(int s) const {
+    int x = (a - 3 + s) % n;
+    x = x < 0 ? x + n : x;
+    const int y = min(q0 + q, m - 1);
+    return AXIS ? (long)x * ni + y : (long)y * ni + x;
+  }
+  // the positions other than p+2 whose h this thread stages: 0, 1 and
+  // NF+2 .. NF+4, dealt out over the threads of the row
+  __device__ int extra(int x) const { return x < 2 ? x : NF + x; }
+  // whether this thread writes its face and cell
+  __device__ bool owner() const {
+    return p >= 1 && a - 1 + p < n && q0 + q < m;
+  }
+};
+
+template <typename T, int AXIS>
+__device__ void stage_mask(const Geo<T, AXIS>& G, const T* mask_t) {
+  cp_async(G.mask + G.at(0, G.p + 2), mask_t + G.g2(G.p + 2));
+  for (int x = G.p; x < 5; x += G.NF)
+    cp_async(G.mask + G.at(0, G.extra(x)), mask_t + G.g2(G.extra(x)));
+}
+
+// the edge values of the cell at position s, layer k
+template <typename T, int AXIS>
+__device__ inline void edges_at(const Geo<T, AXIS>& G, int k, int s,
+                                T h_min2) {
+  T hv[5], mv[5];
+#pragma unroll
+  for (int d = 0; d < 5; ++d) {
+    hv[d] = G.rec[RS * G.at(k, s - 2 + d) + H];
+    mv[d] = G.mask[G.at(0, s - 2 + d)];
+  }
+  T* r = G.rec + RS * G.at(k, s);
+  ppm_edges(hv, mv, h_min2, r[HM], r[HP]);
+}
+
+// layers [c0, c0 + kc) of the tile on chip: h of positions 0 .. NF+4,
+// u and visc_rem of the faces, then the edge values of positions 2 ..
+// NF+2 (cells a-1 .. a+NF-1)
+template <typename T, int AXIS>
+__device__ void stage(const Geo<T, AXIS>& G, const T* h, const T* u,
+                      const T* vr, int c0, int kc, T h_min2) {
+  __syncthreads();   // the previous chunk is no longer read
+  const int s = G.p + 2, ls = RS * G.layer();
+  const long g = c0 * G.plane + G.g2(s);
+  T* r = G.rec + RS * G.at(0, s);
+  for (int k = 0; k < kc; ++k, r += ls) {
+    const long o = g + k * G.plane;
+    cp_async(r + H, h + o);
+    cp_async(r + U, u + o);
+    cp_async(r + VR, vr + o);
+  }
+  for (int x = G.p; x < 5; x += G.NF) {
+    const long gx = c0 * G.plane + G.g2(G.extra(x));
+    T* rx = G.rec + RS * G.at(0, G.extra(x));
+    for (int k = 0; k < kc; ++k, rx += ls)
+      cp_async(rx + H, h + gx + k * G.plane);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int k = 0; k < kc; ++k) edges_at(G, k, s, h_min2);
+  for (int k = G.p; k < kc; k += G.NF) edges_at(G, k, G.NF + 2, h_min2);
+  __syncthreads();
+}
+
+// the staged layers' flux and dflux/du at the correction du, added in
+// layer order to sf and sd
+template <typename T, int AXIS>
+__device__ inline void column_sums(const Geo<T, AXIS>& G, int kc, T du,
+                                   const FaceConst<T>& F, T dt, T& sf,
+                                   T& sd) {
+  const int dn = RS * G.dn(), ls = RS * G.layer();
+  const T* r = G.rec + RS * G.at(0, G.p + 2);
+#pragma unroll 4
+  for (int k = 0; k < kc; ++k, r += ls) {
+    const T vr = r[VR];
     T f, d;
-    ppm_flux(ucor, F.h[o], F.hm[o], F.hp[o], F.h[o + F.dn],
-             F.hm[o + F.dn], F.hp[o + F.dn], dt, F.dlen, F.Idx_up,
-             F.Idx_dn, F.mask, v, f, d);
-    flux_out[c + o] = f;
-    ucor_out[c + o] = ucor;
+    ppm_flux(r[U] + vr * du, vr, r, dn, F, dt, f, d);
+    sf = sf + f;
+    sd = sd + d;
   }
 }
 
-// K1 divergence pass: h - dt*Iarea*(F - F[-1]), floored at h_min
-template <typename T>
-__global__ void sweep_div_kernel(const T* __restrict__ h,
-                                 const T* __restrict__ flux,
-                                 const T* __restrict__ iarea,
-                                 T* __restrict__ h_out,
-                                 int nk, int nj, int ni, int axis, T dt,
-                                 T h_min) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ni || j >= nj) return;
-  const Line L = axis == 0 ? make_line(i, ni, 1) : make_line(j, nj, ni);
-  const long plane = (long)nj * ni;
-  const long c = (long)j * ni + i;
-  const T dtI = dt * iarea[c];
-  for (int k = 0; k < nk; ++k) {
-    const long o = k * plane + c;
-    h_out[o] = tmax(h[o] - dtI * (flux[o] - flux[o + L.at(-1)]), h_min);
-  }
+template <typename T, int AXIS>
+__device__ inline FaceConst<T> face_const(const Geo<T, AXIS>& G,
+                                          const T* dlen, const T* Idx,
+                                          const T* mask_f) {
+  const long c = G.g2(G.p + 2);
+  return FaceConst<T>{dlen[c], Idx[c], -Idx[G.g2(G.p + 3)], mask_f[c]};
 }
 
-// one direction of the BT_cont fit; the six outputs are, in order,
-// FA_far_neg, FA_0_neg, FA_0_pos, FA_far_pos, u_turn_neg, u_turn_pos
-template <typename T> struct BtDir {
-  const T *u, *vr, *hm, *hp, *dlen, *Idx, *mask_f, *dx_face;
-  T* out[6];
-  int axis;
+template <typename T> struct SweepArgs {
+  const T *u, *h, *vr, *hbt, *dlen, *Idx, *iarea, *mask_f, *dx_face,
+      *mask_t;
+  T *h_out, *flux, *ucor;
+  int nk, nj, ni, newton_iters;
+  T dt, cfl_limit, h_min, h_min2;
 };
 
-template <typename T> struct BtArgs {
-  BtDir<T> d[2];
-  const T* h;
-};
+// K1: Newton-match each column's transport to hbt, then write the final
+// flux, the corrected velocity and h - dt*Iarea*(F - F[-1]) >= h_min
+template <typename T, int AXIS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    sweep_kernel(SweepArgs<T> A, Tile t) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Geo<T, AXIS> G(t, blockIdx.x, A.nj, A.ni,
+                       reinterpret_cast<T*>(smem_raw));
+  stage_mask(G, A.mask_t);
+  const long c = G.g2(G.p + 2);
+  const FaceConst<T> F = face_const(G, A.dlen, A.Idx, A.mask_f);
+  const T du_lim = A.cfl_limit * A.dx_face[c] / A.dt;
+  const T target = A.hbt[c];
+  const T dtI = A.dt * A.iarea[c];
+  const bool own = G.owner();
+  const bool restage = G.KC < A.nk;
+  const int dn = RS * G.dn(), ls = RS * G.layer();
+  T du = T(0);
+  for (int it = 0; it <= A.newton_iters; ++it) {
+    T sf = T(0), sd = T(0);
+    for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
+      const int kc = min(G.KC, A.nk - c0);
+      if (restage || it == 0)
+        stage(G, A.h, A.u, A.vr, c0, kc, A.h_min2);
+      if (it < A.newton_iters) {
+        column_sums(G, kc, du, F, A.dt, sf, sd);
+        continue;
+      }
+      // final pass: the flux replaces u in shared memory for the
+      // divergence, which needs the face before as well
+      T* r = G.rec + RS * G.at(0, G.p + 2);
+      long o = c0 * G.plane + c;
+      for (int k = 0; k < kc; ++k, r += ls, o += G.plane) {
+        const T vr = r[VR];
+        const T ucor = r[U] + vr * du;
+        T f, d;
+        ppm_flux(ucor, vr, r, dn, F, A.dt, f, d);
+        if (own) {
+          A.flux[o] = f;
+          A.ucor[o] = ucor;
+        }
+        r[U] = f;
+      }
+      __syncthreads();
+      if (own) {
+        r = G.rec + RS * G.at(0, G.p + 2);
+        o = c0 * G.plane + c;
+        for (int k = 0; k < kc; ++k, r += ls, o += G.plane)
+          A.h_out[o] = tmax(r[H] - dtI * (r[U] - r[U - dn]), A.h_min);
+      }
+    }
+    if (it < A.newton_iters) du = newton_step(du, sf, sd, target, du_lim);
+  }
+}
 
 // the secant-regularised cubic-to-linear transition fit (plain: fit()
 // inside _bt_cont_1dir)
@@ -156,47 +314,87 @@ __device__ inline void bt_fit(T d_probe, T uh_tot, T fa_far, T fa_0,
       : (T(1.5) * d_probe) * ((fa_far - fa_avg) / denom);
 }
 
-// K2: both directions in one launch (blockIdx.z selects x or y)
-template <typename T>
-__global__ void bt_cont_kernel(BtArgs<T> A, int nk, int nj, int ni, T dt,
-                               T cfl_limit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ni || j >= nj) return;
-  const BtDir<T>& D = A.d[blockIdx.z];
-  const Face<T> F = make_face(D.u, A.h, D.hm, D.hp, D.vr, D.dlen, D.Idx,
-                              D.mask_f, D.dx_face, nk, nj, ni, D.axis, i,
-                              j, dt, cfl_limit);
-  const long c = (long)j * ni + i;
-  T sf, sd;
-  T du0 = T(0);
+// one direction of the BT_cont fit; the six outputs are, in order,
+// FA_far_neg, FA_0_neg, FA_0_pos, FA_far_pos, u_turn_neg, u_turn_pos
+template <typename T> struct BtDir {
+  const T *u, *vr, *dlen, *Idx, *mask_f, *dx_face;
+  T* out[6];
+  Tile tile;
+};
+
+template <typename T> struct BtArgs {
+  BtDir<T> d[2];
+  const T *h, *mask_t;
+  int nk, nj, ni;
+  T dt, cfl_limit, h_min2;
+};
+
+// K2 on one tile of direction AXIS: 3 Newton steps for the
+// zero-transport correction du0 (the first also takes max_k visc_rem,
+// the second the CFL limits of the probes, which do not depend on du0),
+// then one pass for the three probes
+template <typename T, int AXIS>
+__device__ void bt_cont_tile(const BtArgs<T>& A, const BtDir<T>& D,
+                             int tile, T* smem) {
+  const Geo<T, AXIS> G(D.tile, tile, A.nj, A.ni, smem);
+  stage_mask(G, A.mask_t);
+  const long c = G.g2(G.p + 2);
+  const FaceConst<T> F = face_const(G, D.dlen, D.Idx, D.mask_f);
+  const T du_max = A.cfl_limit * D.dx_face[c] / A.dt;
+  const T du_cfl = T(1.0e-6) * D.dx_face[c] / A.dt;
+  const bool restage = G.KC < A.nk;
+  const int dn = RS * G.dn(), ls = RS * G.layer();
+  T* const r0 = G.rec + RS * G.at(0, G.p + 2);
+  T du0 = T(0), vr_max = T(0), duL_req = T(0), duR_req = T(0);
   for (int it = 0; it < 3; ++it) {
-    column_flux(F, du0, dt, sf, sd);
-    du0 = newton_step(du0, sf, sd, T(0), F.du_lim);
-  }
-  const T du_max = F.du_lim;
-  const T du_cfl = T(1.0e-6) * D.dx_face[c] / dt;
-  T vr_max = F.vr[0];
-  for (int k = 1; k < nk; ++k) vr_max = tmax(vr_max, F.vr[k * F.plane]);
-  T duL_req = T(0), duR_req = T(0);
-  for (int k = 0; k < nk; ++k) {
-    const long o = k * F.plane;
-    T vr = F.vr[o], u = F.u[o];
-    T vr_lim = tmax(vr, T(0.1) * vr_max) + T(1e-30);
-    T l = (du_cfl * vr - u) / vr_lim;
-    T r = -(u + du_cfl * vr) / vr_lim;
-    duL_req = k == 0 ? l : tmax(duL_req, l);
-    duR_req = k == 0 ? r : tmin(duR_req, r);
+    T sf = T(0), sd = T(0);
+    for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
+      const int kc = min(G.KC, A.nk - c0);
+      if (restage || it == 0) stage(G, A.h, D.u, D.vr, c0, kc, A.h_min2);
+      column_sums(G, kc, du0, F, A.dt, sf, sd);
+      const T* r = r0;
+      for (int k = 0; k < kc && it < 2; ++k, r += ls) {
+        const T vr = r[VR];
+        if (it == 0) {
+          vr_max = c0 + k == 0 ? vr : tmax(vr_max, vr);
+          continue;
+        }
+        const T u = r[U];
+        const T vr_lim = tmax(vr, T(0.1) * vr_max) + T(1e-30);
+        const T l = (du_cfl * vr - u) / vr_lim;
+        const T rr = -(u + du_cfl * vr) / vr_lim;
+        duL_req = c0 + k == 0 ? l : tmax(duL_req, l);
+        duR_req = c0 + k == 0 ? rr : tmin(duR_req, rr);
+      }
+    }
+    du0 = newton_step(du0, sf, sd, T(0), du_max);
   }
   const T duL = tclip(tmax(du0 + du_cfl, duL_req), T(0), du_max);
   const T duR = tclip(tmin(du0 - du_cfl, duR_req), -du_max, T(0));
-  T fa_0, uh_l, fa_l, uh_r, fa_r;
-  column_flux(F, du0, dt, sf, fa_0);
-  column_flux(F, duL, dt, uh_l, fa_l);
-  column_flux(F, duR, dt, uh_r, fa_r);
+  // the three probes in one pass over the column
+  T fa_0 = T(0), uh_l = T(0), fa_l = T(0), uh_r = T(0), fa_r = T(0);
+  for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
+    const int kc = min(G.KC, A.nk - c0);
+    if (restage) stage(G, A.h, D.u, D.vr, c0, kc, A.h_min2);
+    const T* r = r0;
+#pragma unroll 2
+    for (int k = 0; k < kc; ++k, r += ls) {
+      const T u = r[U], vr = r[VR];
+      T f, d;
+      ppm_flux(u + vr * du0, vr, r, dn, F, A.dt, f, d);
+      fa_0 = fa_0 + d;
+      ppm_flux(u + vr * duL, vr, r, dn, F, A.dt, f, d);
+      uh_l = uh_l + f;
+      fa_l = fa_l + d;
+      ppm_flux(u + vr * duR, vr, r, dn, F, A.dt, f, d);
+      uh_r = uh_r + f;
+      fa_r = fa_r + d;
+    }
+  }
   T fa_w0, u_ww, fa_e0, u_ee;
   bt_fit(duL - du0, uh_l, fa_l, fa_0, fa_w0, u_ww);
   bt_fit(duR - du0, uh_r, fa_r, fa_0, fa_e0, u_ee);
+  if (!G.owner()) return;
   D.out[0][c] = fa_r;
   D.out[1][c] = fa_e0;
   D.out[2][c] = fa_w0;
@@ -205,53 +403,81 @@ __global__ void bt_cont_kernel(BtArgs<T> A, int nk, int nj, int ni, T dt,
   D.out[5][c] = tmax(u_ww, T(0));
 }
 
-dim3 grid2d(int nj, int ni, dim3 block, int nz = 1) {
-  return dim3((ni + block.x - 1) / block.x, (nj + block.y - 1) / block.y,
-              nz);
+// K2: both directions in one launch, the x tiles first
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS) bt_cont_kernel(BtArgs<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int b = blockIdx.x, bx = A.d[0].tile.blocks;
+  if (b < bx)
+    bt_cont_tile<T, 0>(A, A.d[0], b, smem);
+  else
+    bt_cont_tile<T, 1>(A, A.d[1], b - bx, smem);
+}
+
+// the plan's tile is the one the kernels assume
+bool tile_ok(const Tile& t, int n, int m, int nk, int threads) {
+  return t.faces >= 2 && t.across >= 1 && t.faces * t.across == threads
+      && threads <= MAX_THREADS && t.layers >= 1 && t.layers <= nk
+      && (long)t.blocks == (long)((n + t.faces - 2) / (t.faces - 1))
+             * ((m + t.across - 1) / t.across);
+}
+
+template <typename K>
+cudaError_t prepare(K kern, long smem_bytes) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
 }
 
 template <typename T>
-int run_sweep(const void* u, const void* h, const void* vr,
-              const void* hbt, const void* dlen, const void* Idx,
-              const void* iarea, const void* mask_f, const void* dx_face,
-              const void* mask_t, void* hm, void* hp, void* h_out,
-              void* flux_out, void* ucor_out, int nk, int nj, int ni,
-              int axis, int newton_iters, double dt, double cfl_limit,
-              double h_min, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(32, 8);
-  const dim3 grid = grid2d(nj, ni, block);
-  edges_kernel<T><<<grid, block, 0, s>>>(
-      (const T*)h, (const T*)mask_t, (T*)hm, (T*)hp, nk, nj, ni, axis,
-      T(2.0 * h_min));
-  cudaError_t e = cudaGetLastError();
+int run_sweep(const void* const* ptrs, int nk, int nj, int ni, int axis,
+              int newton_iters, double dt, double cfl_limit, double h_min,
+              Tile t, long smem_bytes, void* stream) {
+  const int threads = t.faces * t.across;
+  if (nk < 1 || axis < 0 || axis > 1
+      || !tile_ok(t, axis ? nj : ni, axis ? ni : nj, nk, threads)
+      || smem_bytes != stage_elems(t) * (long)sizeof(T))
+    return cudaErrorInvalidValue;
+  SweepArgs<T> A;
+  const T** in[] = {&A.u, &A.h, &A.vr, &A.hbt, &A.dlen, &A.Idx, &A.iarea,
+                    &A.mask_f, &A.dx_face, &A.mask_t};
+  for (int k = 0; k < 10; ++k) *in[k] = (const T*)ptrs[k];
+  A.h_out = (T*)ptrs[10];
+  A.flux = (T*)ptrs[11];
+  A.ucor = (T*)ptrs[12];
+  A.nk = nk;
+  A.nj = nj;
+  A.ni = ni;
+  A.newton_iters = newton_iters;
+  A.dt = T(dt);
+  A.cfl_limit = T(cfl_limit);
+  A.h_min = T(h_min);
+  A.h_min2 = T(2.0 * h_min);
+  auto kern = axis ? sweep_kernel<T, 1> : sweep_kernel<T, 0>;
+  cudaError_t e = prepare(kern, smem_bytes);
   if (e != cudaSuccess) return e;
-  sweep_flux_kernel<T><<<grid, block, 0, s>>>(
-      (const T*)u, (const T*)h, (const T*)hm, (const T*)hp,
-      (const T*)vr, (const T*)hbt, (const T*)dlen, (const T*)Idx,
-      (const T*)mask_f, (const T*)dx_face, (T*)flux_out, (T*)ucor_out,
-      nk, nj, ni, axis, newton_iters, T(dt), T(cfl_limit));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  sweep_div_kernel<T><<<grid, block, 0, s>>>(
-      (const T*)h, (const T*)flux_out, (const T*)iarea, (T*)h_out, nk,
-      nj, ni, axis, T(dt), T(h_min));
+  kern<<<t.blocks, threads, smem_bytes,
+         static_cast<cudaStream_t>(stream)>>>(A, t);
   return cudaGetLastError();
 }
 
-// ptrs: per direction (x then y) u, vr, dlen, Idx, mask_f, dx_face,
-// hm, hp, then its six outputs (14 each); ptrs[28] = h, ptrs[29] = mask_t
+// ptrs: per direction (x then y) u, vr, dlen, Idx, mask_f, dx_face, then
+// its six outputs (12 each); ptrs[24] = h, ptrs[25] = mask_t
 template <typename T>
 int run_bt_cont(void* const* ptrs, int nk, int nj, int ni, double dt,
-                double cfl_limit, double h_min, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(32, 8);
-  const T* h = (const T*)ptrs[28];
-  const T* mask_t = (const T*)ptrs[29];
+                double cfl_limit, double h_min, Tile tx, Tile ty,
+                long smem_bytes, void* stream) {
+  const int threads = tx.faces * tx.across;
+  if (nk < 1 || !tile_ok(tx, ni, nj, nk, threads)
+      || !tile_ok(ty, nj, ni, nk, threads)
+      || smem_bytes != (long)sizeof(T) * (stage_elems(tx) > stage_elems(ty)
+                                              ? stage_elems(tx)
+                                              : stage_elems(ty))
+      || (long)tx.blocks + ty.blocks > 0x7fffffffL)
+    return cudaErrorInvalidValue;
   BtArgs<T> A;
-  A.h = h;
   for (int a = 0; a < 2; ++a) {
-    void* const* p = ptrs + 14 * a;
+    void* const* p = ptrs + 12 * a;
     BtDir<T>& D = A.d[a];
     D.u = (const T*)p[0];
     D.vr = (const T*)p[1];
@@ -259,49 +485,67 @@ int run_bt_cont(void* const* ptrs, int nk, int nj, int ni, double dt,
     D.Idx = (const T*)p[3];
     D.mask_f = (const T*)p[4];
     D.dx_face = (const T*)p[5];
-    D.hm = (const T*)p[6];
-    D.hp = (const T*)p[7];
-    for (int o = 0; o < 6; ++o) D.out[o] = (T*)p[8 + o];
-    D.axis = a;
-    edges_kernel<T><<<grid2d(nj, ni, block), block, 0, s>>>(
-        h, mask_t, (T*)p[6], (T*)p[7], nk, nj, ni, a, T(2.0 * h_min));
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+    for (int o = 0; o < 6; ++o) D.out[o] = (T*)p[6 + o];
+    D.tile = a ? ty : tx;
   }
-  bt_cont_kernel<T><<<grid2d(nj, ni, block, 2), block, 0, s>>>(
-      A, nk, nj, ni, T(dt), T(cfl_limit));
+  A.h = (const T*)ptrs[24];
+  A.mask_t = (const T*)ptrs[25];
+  A.nk = nk;
+  A.nj = nj;
+  A.ni = ni;
+  A.dt = T(dt);
+  A.cfl_limit = T(cfl_limit);
+  A.h_min2 = T(2.0 * h_min);
+  cudaError_t e = prepare(bt_cont_kernel<T>, smem_bytes);
+  if (e != cudaSuccess) return e;
+  bt_cont_kernel<T><<<tx.blocks + ty.blocks, threads, smem_bytes,
+                      static_cast<cudaStream_t>(stream)>>>(A);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// the SM count and the opt-in shared memory of a block on ``device``
+extern "C" int cont_device_info(int device, int* sms, int* smem_optin) {
+  cudaError_t e = cudaDeviceGetAttribute(
+      sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(
+      smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+extern "C" const char* cont_error_name(int e) {
+  return cudaGetErrorName(static_cast<cudaError_t>(e));
+}
+
+// ptrs: u, h, visc_rem, hbt, dlen, Idx, Iarea, face mask, face spacing,
+// cell mask in; h_out, flux, u_cor out.  tile: faces, across, layers,
+// blocks of tile_plan
 #define SWEEP_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const void* u, const void* h, const void* vr,      \
-                      const void* hbt, const void* dlen, const void* Idx, \
-                      const void* iarea, const void* mask_f,              \
-                      const void* dx_face, const void* mask_t, void* hm,  \
-                      void* hp, void* h_out, void* flux_out,              \
-                      void* ucor_out, int nk, int nj, int ni, int axis,   \
+  extern "C" int NAME(void* const* ptrs, int nk, int nj, int ni, int axis, \
                       int newton_iters, double dt, double cfl_limit,      \
-                      double h_min, void* stream) {                       \
-    return run_sweep<T>(u, h, vr, hbt, dlen, Idx, iarea, mask_f, dx_face, \
-                        mask_t, hm, hp, h_out, flux_out, ucor_out, nk, nj, \
-                        ni, axis, newton_iters, dt, cfl_limit, h_min,     \
-                        stream);                                          \
+                      double h_min, const int* tile, long smem_bytes,     \
+                      void* stream) {                                     \
+    return run_sweep<T>(ptrs, nk, nj, ni, axis, newton_iters, dt,         \
+                        cfl_limit, h_min,                                 \
+                        Tile{tile[0], tile[1], tile[2], tile[3]},         \
+                        smem_bytes, stream);                              \
   }
 
 SWEEP_ENTRY(ppm_sweep_f32, float)
 SWEEP_ENTRY(ppm_sweep_f64, double)
 
-extern "C" int bt_cont_f32(void* const* ptrs, int nk, int nj, int ni,
-                           double dt, double cfl_limit, double h_min,
-                           void* stream) {
-  return run_bt_cont<float>(ptrs, nk, nj, ni, dt, cfl_limit, h_min, stream);
-}
+// tiles: the x tile then the y tile, four ints each as for a sweep
+#define BT_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(void* const* ptrs, int nk, int nj, int ni,         \
+                      double dt, double cfl_limit, double h_min,          \
+                      const int* tiles, long smem_bytes, void* stream) {  \
+    return run_bt_cont<T>(                                                \
+        ptrs, nk, nj, ni, dt, cfl_limit, h_min,                           \
+        Tile{tiles[0], tiles[1], tiles[2], tiles[3]},                     \
+        Tile{tiles[4], tiles[5], tiles[6], tiles[7]}, smem_bytes,         \
+        stream);                                                          \
+  }
 
-extern "C" int bt_cont_f64(void* const* ptrs, int nk, int nj, int ni,
-                           double dt, double cfl_limit, double h_min,
-                           void* stream) {
-  return run_bt_cont<double>(ptrs, nk, nj, ni, dt, cfl_limit, h_min,
-                             stream);
-}
+BT_ENTRY(bt_cont_f32, float)
+BT_ENTRY(bt_cont_f64, double)

@@ -4,34 +4,11 @@
 // mom6_torch/core/continuity_ppm.py operation for operation
 // (_ppm_edges with the positive-definite limiter, _flux_1dir), so with
 // contraction off (-fmad=false) the kernels round as the plain version.
-//
-// Layout: (nk, nj, ni) contiguous, halo-padded.  A sweep runs along x
-// (stride 1, length ni) or y (stride ni, length nj); neighbours wrap at
-// the array edge exactly like torch.roll, so kernel and plain version
-// agree on the whole padded array, halos included.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace mom6 {
-
-// position along the swept axis and the element offsets of the
-// neighbours at -3..+3 (wrapped)
-struct Line {
-  int off[7];
-  __device__ int at(int d) const { return off[d + 3]; }
-};
-
-__device__ inline Line make_line(int p, int n, int stride) {
-  Line L;
-#pragma unroll
-  for (int d = -3; d <= 3; ++d) {
-    int q = p + d;
-    q = q < 0 ? q + n : (q >= n ? q - n : q);
-    L.off[d + 3] = (q - p) * stride;
-  }
-  return L;
-}
 
 template <typename T> __device__ inline T tmax(T a, T b) { return a > b ? a : b; }
 template <typename T> __device__ inline T tmin(T a, T b) { return a < b ? a : b; }
@@ -52,17 +29,11 @@ __device__ inline T ppm_slope(T hm, T hc, T hp, T mm, T mc, T mp) {
   return (mp * mc * mm > T(0)) ? slp : T(0);
 }
 
-// edge values (h_minus, h_plus) of the cell at offset 0; h points at
-// the cell in its layer, mask at the cell in the 2D mask
+// edge values (h_minus, h_plus) of the cell hv[2] from the thickness
+// and cell mask of the cells -2..+2 along the sweep
 template <typename T>
-__device__ inline void ppm_edges(const T* h, const T* mask, const Line& L,
+__device__ inline void ppm_edges(const T (&hv)[5], const T (&mv)[5],
                                  T h_min2, T& h_minus, T& h_plus) {
-  T hv[5], mv[5];
-#pragma unroll
-  for (int d = -2; d <= 2; ++d) {
-    hv[d + 2] = h[L.at(d)];
-    mv[d + 2] = mask[L.at(d)];
-  }
   const T hc = hv[2], m_p = mv[3], m_m = mv[1];
   T h_p = m_p * hv[3] + (T(1.0) - m_p) * hc;
   T h_m = m_m * hv[1] + (T(1.0) - m_m) * hc;
@@ -86,62 +57,43 @@ __device__ inline void ppm_edges(const T* h, const T* mask, const Line& L,
   h_plus = flat ? hc : (shrink ? hc + scale * (hpl - hc) : hpl);
 }
 
-// one layer's upwind PPM flux through the face between cell "up" (at
-// the face's own index) and cell "dn" (+1 along the sweep), and its
-// velocity derivative (plain: _flux_1dir without vol_cfl)
-template <typename T>
-__device__ inline void ppm_flux(T u, T h_up, T hW_up, T hE_up, T h_dn,
-                                T hW_dn, T hE_dn, T dt, T dlen,
-                                T Idx_up, T Idx_dn, T face_mask, T vr,
-                                T& flux, T& dfdu) {
-  T cfl_p = u * dt * Idx_up;
-  T cfl_m = -u * dt * Idx_dn;
-  T curv3_p = hW_up + hE_up - T(2.0) * h_up;
-  T flux_p = dlen * u * (hE_up + cfl_p * (T(0.5) * (hW_up - hE_up)
-                                          + curv3_p * (cfl_p - T(1.5))));
-  T marg_p = hE_up + cfl_p * ((hW_up - hE_up)
-                              + T(3.0) * curv3_p * (cfl_p - T(1.0)));
-  T curv3_m = hW_dn + hE_dn - T(2.0) * h_dn;
-  T flux_m = dlen * u * (hW_dn + cfl_m * (T(0.5) * (hE_dn - hW_dn)
-                                          + curv3_m * (cfl_m - T(1.5))));
-  T marg_m = hW_dn + cfl_m * ((hE_dn - hW_dn)
-                              + T(3.0) * curv3_m * (cfl_m - T(1.0)));
-  bool pos = u > T(0), neg = u < T(0);
-  flux = (pos ? flux_p : (neg ? flux_m : T(0))) * face_mask;
-  T h_marg = pos ? marg_p : (neg ? marg_m : T(0.5) * (hW_dn + hE_up));
-  dfdu = dlen * h_marg * vr * face_mask;
-}
-
-// the face-local data of one sweep: per-layer fields and 2D constants
-template <typename T> struct Face {
-  const T* u;        // face velocity (nk planes)
-  const T* h;        // cell thickness (nk planes), cell "up"
-  const T* hm;       // edge values from the edge pass (nk planes)
-  const T* hp;
-  const T* vr;       // visc_rem at the face (nk planes)
-  T dlen, Idx_up, Idx_dn, mask, du_lim;
-  int dn;            // element offset of cell "dn"
-  long plane;        // elements per layer
-  int nk;
+// the 2D constants of one face (plain: the flux_args of _flux_1dir);
+// Idx_dn is stored negated: ((-u)*dt)*Idx_dn == (u*dt)*(-Idx_dn) exactly
+template <typename T> struct FaceConst {
+  T dlen, Idx_up, nIdx_dn, mask;
 };
 
-// layer sums of flux and dflux/du at the correction du
+// one layer's upwind PPM flux through a face and its velocity
+// derivative (plain: _flux_1dir without vol_cfl).  ``up`` points at the
+// thickness, h_minus and h_plus of the cell "up" (the face's own index),
+// stored consecutively; the cell "dn" (+1 along the sweep) lies ``dn``
+// elements further.  The plain version evaluates both upwind branches
+// and selects one; here only the cell the flow comes from is read.
+// With X the edge the fluid leaves through and Y the far edge (X =
+// h_plus, Y = h_minus of "up" for u > 0; X = h_minus, Y = h_plus of
+// "dn" for u < 0) both branches are the same expression, operand for
+// operand, so the result is bitwise the one the plain version selects.
+// No branch: the selects let the compiler interleave the evaluations of
+// several layers.
 template <typename T>
-__device__ inline void column_flux(const Face<T>& F, T du, T dt,
-                                   T& sum_flux, T& sum_dfdu) {
-  T sf = T(0), sd = T(0);
-  for (int k = 0; k < F.nk; ++k) {
-    const long o = k * F.plane;
-    T vr = F.vr[o];
-    T f, d;
-    ppm_flux(F.u[o] + vr * du, F.h[o], F.hm[o], F.hp[o], F.h[o + F.dn],
-             F.hm[o + F.dn], F.hp[o + F.dn], dt, F.dlen, F.Idx_up,
-             F.Idx_dn, F.mask, vr, f, d);
-    sf = sf + f;
-    sd = sd + d;
-  }
-  sum_flux = sf;
-  sum_dfdu = sd;
+__device__ inline void ppm_flux(T u, T vr, const T* up, int dn,
+                                const FaceConst<T>& F, T dt, T& flux,
+                                T& dfdu) {
+  const bool pos = u > T(0), moving = pos || u < T(0);
+  const T* c = up + (pos ? 0 : dn);
+  const T hc = c[0], hW = c[1], hE = c[2];
+  const T X = pos ? hE : hW, Y = pos ? hW : hE;
+  const T cfl = u * dt * (pos ? F.Idx_up : F.nIdx_dn);
+  const T curv3 = hW + hE - T(2.0) * hc;
+  const T d = Y - X;
+  const T f = F.dlen * u * (X + cfl * (T(0.5) * d + curv3 * (cfl - T(1.5))))
+      * F.mask;
+  const T marg = X + cfl * (d + T(3.0) * curv3 * (cfl - T(1.0)));
+  // u == 0: no flux, and the mean of the two edges at the face (hW is
+  // then h_minus of "dn")
+  flux = moving ? f : T(0) * F.mask;
+  const T h_marg = moving ? marg : T(0.5) * (hW + up[2]);
+  dfdu = F.dlen * h_marg * vr * F.mask;
 }
 
 // one clipped Newton step towards sum_k flux == target
@@ -151,26 +103,6 @@ __device__ inline T newton_step(T du, T sum_flux, T sum_dfdu, T target,
   T err = sum_flux - target;
   T denom = fabs(sum_dfdu) > T(1e-30) ? sum_dfdu : T(1e-30);
   return tclip(du + (-err / denom), -du_lim, du_lim);
-}
-
-// edge pass: h_minus/h_plus of every cell along one sweep direction
-template <typename T>
-__global__ void edges_kernel(const T* __restrict__ h,
-                             const T* __restrict__ mask_t,
-                             T* __restrict__ hm, T* __restrict__ hp,
-                             int nk, int nj, int ni, int axis, T h_min2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ni || j >= nj) return;
-  const Line L = axis == 0 ? make_line(i, ni, 1) : make_line(j, nj, ni);
-  const long plane = (long)nj * ni;
-  const long c = (long)j * ni + i;
-  for (int k = 0; k < nk; ++k) {
-    T a, b;
-    ppm_edges(h + k * plane + c, mask_t + c, L, h_min2, a, b);
-    hm[k * plane + c] = a;
-    hp[k * plane + c] = b;
-  }
 }
 
 }  // namespace mom6

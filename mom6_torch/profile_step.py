@@ -70,6 +70,8 @@ SLICE2 = (
     (orch, "tracer_hordiff", "tracer_hordiff"),
     (orch, "diabatic", "diabatic"),
     (dia, "kpp_coefficients", "diabatic/kpp_coefficients"))
+# the ranges whose device kernels are also listed by kernel name
+KERNEL_SPLIT = ("continuity_ppm_cuda", "set_up_bt_cont_cuda")
 
 
 def _ranged(name, fn):
@@ -82,10 +84,18 @@ def _ranged(name, fn):
     return ranged
 
 
+def _kernel_name(name: str) -> str:
+    """``void (anonymous namespace)::f<float>(float const*, ...)`` ->
+    ``f<float>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(", 1)[0].removeprefix("void ").strip()
+
+
 def _attribute(trace: dict, names):
-    """{phase: [host_us, device_us, kernels, calls]} from a chrome trace:
-    kernels are matched to their launch by correlation id and charged to
-    the innermost phase range containing the launch."""
+    """({phase: [host_us, device_us, kernels, calls]}, busy_us,
+    {phase: {kernel: [count, device_us]}}) from a chrome trace: kernels
+    are matched to their launch by correlation id and charged to the
+    innermost phase range containing the launch."""
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
                     if e.get("cat") == "user_annotation"
@@ -94,6 +104,8 @@ def _attribute(trace: dict, names):
                  if e.get("cat") == "cuda_runtime"
                  and "correlation" in e.get("args", {})}
     out = collections.defaultdict(lambda: [0.0, 0.0, 0, 0])
+    by_kernel = collections.defaultdict(
+        lambda: collections.defaultdict(lambda: [0, 0.0]))
     for t0, t1, name in ranges:
         out[name][0] += t1 - t0
         out[name][3] += 1
@@ -108,7 +120,10 @@ def _attribute(trace: dict, names):
             else "other (between phases)"
         out[owner][1] += e["dur"]
         out[owner][2] += 1
-    return out, busy
+        k = by_kernel[owner][_kernel_name(e["name"])]
+        k[0] += 1
+        k[1] += e["dur"]
+    return out, busy, by_kernel
 
 
 def _profile(step, targets, label, out_dir):
@@ -133,7 +148,8 @@ def _profile(step, targets, label, out_dir):
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    phases, busy_us = _attribute(trace, {r for _, _, r in targets})
+    phases, busy_us, by_kernel = _attribute(trace,
+                                            {r for _, _, r in targets})
     summary = dict(profiled_step_ms=prof_ms, device_busy_ms=busy_us / 1e3)
     if busy_us <= 0.0:
         print(f"{label}: torch.profiler recorded no device activity: busy "
@@ -153,6 +169,17 @@ def _profile(step, targets, label, out_dir):
     for k, v in sorted(phases.items(), key=lambda kv: -kv[1][1]):
         print(f"{k:42s} {v[3]:5d} {v[0] / 1e3:8.3f} {v[1] / 1e3:9.3f} "
               f"{v[2]:7d} {v[1] / busy_us:9.1%}")
+    # the device kernels of the continuity kernels' own ranges (K1, K2)
+    split = {p: {n: dict(count=c, device_ms=us / 1e3)
+                 for n, (c, us) in ks.items()}
+             for p, ks in by_kernel.items()
+             if p.endswith(KERNEL_SPLIT)}
+    for p, ks in sorted(split.items()):
+        print(f"{p}: " + "; ".join(
+            f"{n} x{v['count']} {v['device_ms']:.4f} ms"
+            for n, v in sorted(ks.items(), key=lambda kv: -kv[1]
+                               ["device_ms"])))
+    summary["kernel_split"] = split
     return summary
 
 

@@ -118,3 +118,50 @@ def test_set_up_bt_cont_matches_jax(seed):
         tol = 1e-8 if name.startswith(("uBT", "vBT")) else 1e-12
         err = _err(getattr(ref, name), getattr(out, name))
         assert err <= tol, f"{name}: {err:.3e}"
+
+
+def _partition(n, step, width):
+    """Times each of n positions is owned by tiles starting every
+    ``step`` positions and owning ``width`` of them."""
+    owned = np.zeros(n, np.int64)
+    for start in range(0, n, step):
+        owned[start:start + width] += 1
+    return owned
+
+
+@pytest.mark.parametrize("nj,ni", [(520, 520), (1096, 1448)])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("nk", [1, 3, 25, 75, 200])
+def test_continuity_tile_plan(nk, itemsize, sms, nj, ni):
+    """K1's and K2's tiles on a card of ``sms`` SMs and 227 KB of shared
+    memory a block (H100 SXM: 132, PCIe: 114), at the main path's width
+    and the OM4-class width with their halos: every plan fits the
+    shared memory it states, its tiles own every face once, K2's two
+    directions share one block size, and the whole column stays on chip
+    up to MOM6's 75 layers (deeper ones may be cut into layer chunks)."""
+    from mom6_torch.core import continuity_cuda as cc
+    smem_limit = 232448
+    for axes in ((0,), (1,), (0, 1)):
+        plans = cc.tile_plan(nk, nj, ni, itemsize, axes, sms, smem_limit)
+        assert tuple(p.axis for p in plans) == axes
+        assert len({p.threads for p in plans}) == 1
+        for p in plans:
+            n, m = (ni, nj) if p.axis == 0 else (nj, ni)
+            assert 2 <= p.faces and 1 <= p.across
+            assert p.threads <= cc.MAX_THREADS and p.threads % 32 == 0
+            assert p.smem_bytes == cc.stage_bytes(p.faces, p.across,
+                                                  p.layers, itemsize)
+            assert p.smem_bytes <= smem_limit
+            assert (p.chunks - 1) * p.layers < nk <= p.chunks * p.layers
+            assert p.chunks == 1 or nk > 75
+            along = _partition(n, p.faces - 1, p.faces - 1)
+            across = _partition(m, p.across, p.across)
+            assert (along == 1).all() and (across == 1).all()
+            assert p.blocks == -(-n // (p.faces - 1)) * -(-m // p.across)
+            if p.axis == 0:
+                assert p.faces >= 32     # lanes run along i
+            else:
+                assert p.across >= 8
+    with pytest.raises(ValueError, match="not one layer"):
+        cc.tile_plan(nk, nj, ni, itemsize, (0,), sms, 600)
