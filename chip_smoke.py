@@ -16,24 +16,30 @@ order; any failure ends the script with a non-zero exit:
    (the wide-halo march: periods 2 and 4, walled and reentrant y,
    linear and curve transports) on 512x512 planes widened to a halo of
    3*period, and at period 2 on 1440x1088 planes; fp64 and fp32.
-   First it prints the band plan of the persistent K3/K3m launch at
-   those shapes (blocks, points, rows and tiles a block, shared memory
-   a block per dtype);
+   K3 and K3m (period 2, walled y, both transports) also at 128 and 200
+   substeps on the 25x520x520 case. First it prints the band plan of the
+   persistent K3/K3m launch at those shapes (blocks, points, rows and
+   tiles a block, shared memory a block per dtype);
 4. slice 1 (the split RK2 dynamics step) at 64x64x8 in fp64 for 3
    steps, on the card (kernels) against the CPU (plain versions);
 5. slice 1 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
    timed steps with every launch counter zeroed just before and read
    just after (K3's device launches too: one per subcycle);
-6. slice 2 (the full ocean step of bench.py's CONFIG, layered, with the
-   wide-halo barotropic march) at 32x32x6 in fp64 for 4 steps from a
-   seeded perturbation of its initial state, card against CPU;
-7. slice 2 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
-   timed steps (5 thermodynamic, 5 dynamics-only) with every launch
-   counter zeroed just before and read just after (K3m's device
-   launches too); each kernel's own time beside its bound and its plain
-   version's time, and the device kernels that one K1 sweep, one K2
-   call and one K3 or K3m subcycle launch as torch.profiler traces
-   them, with their device time from that trace.
+6. slice 2 (the full ocean step of bench.py's CONFIG with the wide-halo
+   barotropic march), with Z* ALE (the CONFIG's own) and in its layered
+   variant, at 32x32x6 in fp64 for 4 steps from a seeded perturbation
+   of its initial state, card against CPU;
+7. slice 2 at full width, 512x512x25 fp32, each of the two
+   configurations: 2 warm-up steps, then 10 timed steps (5
+   thermodynamic, 5 dynamics-only) with every launch counter zeroed
+   just before and read just after (K3m's device launches too) and the
+   peak of torch.cuda.max_memory_allocated over them; with ALE also the
+   ALE regrid/remap alone on the last state (CUDA events) and the
+   error of a remap onto the unchanged grid in fp32; then each kernel's
+   own time beside its bound and its plain version's time, and the
+   device kernels that one K1 sweep, one K2 call and one K3 or K3m
+   subcycle launch as torch.profiler traces them, with their device
+   time from that trace.
 
 The line before the last is the JSON ``kernels`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -53,6 +59,9 @@ WIDE = (1440, 1088, 25)        # the OM4-class width of the kernel checks
 DEEP = (256, 256, 75)          # MOM6's 75-layer depth for K1 and K2
 SMALL = (64, 64, 8)            # slice 1 checked against the CPU
 SMALL_FULL = (32, 32, 6)       # slice 2 checked against the CPU
+FULL_VARIANTS = (("ale", True), ("layered", False))   # slice 2's two
+# nstep giving 128 and 200 substeps (the DT_BT_FILTER window included)
+MANY_SUBSTEPS = {128: 113, 200: 177}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
 
@@ -263,7 +272,7 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
 
 
 def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
-                  period=1):
+                  period=1, nstep=None):
     """btstep's set-up on random inputs (as in the JAX package's
     subcycle tests), returning the subcycle's inputs: on the model's
     domain for ``period`` 1 (K3), widened to a halo of 3*period for the
@@ -287,7 +296,7 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
     acc = t(1e-6 * rng.standard_normal((nk, nj, ni)))
     ecor = t(0.01 * rng.standard_normal((nj, ni)))
     pbce = torch.full_like(h, 9.8 / nk)
-    nstep = set_dtbt(d, g, vg, BarotropicCfg(), 600.0)
+    nstep = nstep or set_dtbt(d, g, vg, BarotropicCfg(), 600.0)
     bc = uh0 = vh0 = None
     if curve:
         bc = set_up_bt_cont(g, vg, u, v, h, 600.0)
@@ -344,6 +353,31 @@ def check_k3m(res, ni, nj, nk, dtype, timing=None, periods=(2, 4),
                         cuda_ms(lambda: bc.subcycle_march_cuda(*inp), 10),
                         cuda_ms(lambda: bc.subcycle_march_plain(*inp), 2),
                         inp)
+
+
+def check_k3_many(res, ni, nj, nk, dtype):
+    """K3 and K3m (period 2, walled y) against their plain versions at
+    each substep count of MANY_SUBSTEPS, linear and curve transports."""
+    from mom6_torch.core import barotropic_cuda as bc
+    dn = str(dtype).split(".")[-1]
+    kernels = (("K3", 1, bc.subcycle_plain, bc.subcycle_cuda),
+               ("K3m", 2, bc.subcycle_march_plain, bc.subcycle_march_cuda))
+    for total, nstep in MANY_SUBSTEPS.items():
+        for curve in (False, True):
+            form = "curve" if curve else "linear"
+            for key, period, plain, kern in kernels:
+                inp = subcycle_case(ni, nj, nk, dtype, curve, period=period,
+                                    nstep=nstep)
+                if inp.wts.shape[1] != total:
+                    raise AssertionError(f"nstep {nstep} gives "
+                                         f"{inp.wts.shape[1]} substeps, "
+                                         f"expected {total}")
+                args = inp[:-1] if period == 1 else inp   # K3: no period
+                _, _, _, ref = plain(*args)
+                _, _, _, out = kern(*args)
+                d = inp.domain
+                res.check_all(key, dn, f"{d.njh}x{d.nih} {total} substeps "
+                              f"{form}", ref, out, H=d.halo)
 
 
 def log_band_plans():
@@ -420,37 +454,39 @@ def profiled_kernels(fn, kernel, reps=1):
     return len(mine), len(kern), sum(mine) / 1e3 / reps
 
 
+def subcycle_work(inp):
+    """(elements moved, operations) of one K3/K3m subcycle: eta, ubt,
+    vbt, the constant planes and the weights in, 7 sums and 3 planes
+    out, on the arrays the kernel runs on (widened for K3m)."""
+    total = inp.wts.shape[1]
+    nconst = 20 + (22 if inp.use_curve else 0)
+    p = inp.eta.numel()
+    return (3 + nconst + 10) * p + 4 * total, OPS_K3_SUBSTEP * total * p
+
+
+def bound(elems, ops, item, dtn):
+    """(bound_ms, bound_by): the larger of ``elems`` elements of
+    ``item`` bytes over HBM bandwidth and ``ops`` over the fp peak."""
+    t_bytes = elems * item / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtn] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bounds(timing, nk, njh, nih, item, dtn):
     """(bound_ms, bound_by) for each kernel at the main path's shape:
     the larger of the bytes each input read once and each output
     written once over HBM bandwidth, and the operations over the fp
     peak."""
     P = njh * nih
-
-    def subcycle(inp):
-        # eta, ubt, vbt, the constant planes, weights in; 7 sums + 3
-        # out, on the arrays the kernel runs on (widened for K3m)
-        total = inp.wts.shape[1]
-        nconst = 20 + (22 if inp.use_curve else 0)
-        p = inp.eta.numel()
-        return ((3 + nconst + 10) * p + 4 * total,
-                OPS_K3_SUBSTEP * total * p)
-
     work = {
         # u, h, visc_rem, hbt + 6 grid planes in; h, flux, u_cor out
         "K1": ((6 * nk) * P + 7 * P, OPS_K1 * nk * P),
         # u, v, h, 2 visc_rem + 9 grid planes in; 12 planes out
         "K2": ((5 * nk) * P + 21 * P, OPS_K2 * nk * P),
-        "K3": subcycle(timing["K3"][2]),
-        "K3m": subcycle(timing["K3m"][2]),
+        "K3": subcycle_work(timing["K3"][2]),
+        "K3m": subcycle_work(timing["K3m"][2]),
     }
-    out = {}
-    for k, (elems, ops) in work.items():
-        t_bytes = elems * item / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S[dtn] * 1e3
-        out[k] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                              "operations")
-    return out
+    return {k: bound(*w, item, dtn) for k, w in work.items()}
 
 
 def check_device_launches(label, device, launches):
@@ -474,18 +510,128 @@ def run_slice(ni, nj, nk, dtype, device, nsteps):
     return s, st, sp
 
 
-def run_full(ni, nj, nk, dtype, device, nsteps, seed):
+def run_full(ni, nj, nk, dtype, device, nsteps, seed, regridding):
     """``nsteps`` full steps from the configuration's initial state plus
     the seeded perturbation of ``entry.build_full``: the configuration
     starts at rest and horizontally uniform, where a comparison of the
     first steps' v and eta would compare roundoff."""
     from mom6_torch import entry
-    m = entry.build_full(ni, nj, nk, seed=seed, device=device, dtype=dtype)
+    m = entry.build_full(ni, nj, nk, seed=seed, regridding=regridding,
+                         device=device, dtype=dtype)
     step = m.step_fn()
     st, sp, tr = m.state, m.split, m.tracers
     for n in range(nsteps):
         st, sp, tr = step(st, sp, tr, n)
     return st, sp, tr
+
+
+def run_full_timed(label, regridding, nsteps, wrappers, shape):
+    """Slice 2 at full width in fp32: 2 warm-up steps, then ``nsteps``
+    timed steps with every launch counter zeroed just before and read
+    just after, and the peak of max_memory_allocated over them.  With
+    ALE also the ALE call alone on the last state and the error of a
+    remap onto the unchanged grid."""
+    import torch
+    from mom6_torch import entry
+    m = entry.build_full(*MAIN, regridding=regridding, device=DEV,
+                         dtype=torch.float32)
+    full_step = m.step_fn()
+    cur = [m.state, m.split, m.tracers]
+    n_done = [0]
+
+    def fstep():
+        cur[:] = full_step(*cur, n_done[0])
+        n_done[0] += 1
+
+    for _ in range(2):
+        fstep()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    for k in DEVICE_COUNTED:
+        wrappers[k].device_launches = 0
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(nsteps + 1)]
+    kinds = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(nsteps):
+        kinds.append("thermo" if (n_done[0] + 1) % m.cfg.n_dyn_per_therm
+                     == 0 else "dynamics-only")
+        fstep()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    device = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
+    peak = torch.cuda.max_memory_allocated()
+    st, sp, tr = cur
+    check_finite((("h", st.h), ("u", st.u), ("v", st.v), ("T", st.T),
+                  ("S", st.S), ("age", tr["age"]), ("eta", sp.eta),
+                  ("u_av", sp.u_av), ("uh", sp.uh)), shape)
+    expect = {"K1": 4 * nsteps, "K2": nsteps, "K3": 0, "K3m": 2 * nsteps}
+    if launches != expect:
+        raise AssertionError(f"slice 2 ({label}) launch counts {launches}, "
+                             f"expected {expect}")
+    check_device_launches(f"slice 2 ({label})", device, launches)
+    per = [events[i].elapsed_time(events[i + 1]) for i in range(nsteps)]
+    by_kind = {k: [t for t, kk in zip(per, kinds) if kk == k]
+               for k in ("thermo", "dynamics-only")}
+    ms_full = sum(per) / nsteps
+    pts = MAIN[0] * MAIN[1] * MAIN[2] / (ms_full / 1e3)
+    log(f"  {nsteps} steps: {ms_full:.3f} ms/step mean (CUDA events), "
+        + ", ".join(f"{k} {sum(v) / len(v):.3f} ms/step over {len(v)}"
+                    for k, v in by_kind.items())
+        + f"; {wall / nsteps * 1e3:.3f} ms/step (host clock), "
+        f"{pts:.4e} points/s, launches {launches}, peak memory "
+        f"{peak} B ({peak / 2**30:.3f} GiB, max_memory_allocated)")
+    log(f"  h range [{float(m.domain.interior(st.h).min()):.3f}, "
+        f"{float(m.domain.interior(st.h).max()):.3f}] m, "
+        f"T range [{float(m.domain.interior(st.T).min()):.3f}, "
+        f"{float(m.domain.interior(st.T).max()):.3f}] degC, "
+        f"max |u| {float(st.u.abs().max()):.4f} m/s, "
+        f"max |eta| {float(sp.eta.abs().max()):.4f} m, "
+        f"max age {float(tr['age'].max()):.3e} yr")
+    if regridding:
+        check_ale(m, st, sp, tr)
+    return dict(ms_step=ms_full, launches=launches, device=device,
+                peak_bytes=peak, state=st)
+
+
+def check_ale(m, st, sp, tr):
+    """The ALE regrid/remap alone on the full step's last state (CUDA
+    events, and its peak memory above what was allocated), and the
+    remap of T and u onto the unchanged grid, whose exact answer is the
+    field itself (on the compute domain: a column of zero thickness, as
+    in the halo rows beyond a wall, remaps to NaN in float32)."""
+    import torch
+    from mom6_torch.ale.ale_main import ale_regrid_remap
+    from mom6_torch.ale.remapping import remap_column_means
+    aux_u = {"u_av": sp.u_av, "diffu": sp.diffu}
+    aux_v = {"v_av": sp.v_av, "diffv": sp.diffv}
+
+    def call():
+        return ale_regrid_remap(m.grid, m.vgrid, st, m.cfg.ale, eos=m.eos,
+                                tracers=tr, aux_u=aux_u, aux_v=aux_v,
+                                dt=m.dt_therm)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(call, 5)
+    extra = torch.cuda.max_memory_allocated() - base
+    log(f"  ALE regrid/remap alone: {ms:.3f} ms a call (CUDA events, 5 "
+        f"calls), {extra} B ({extra / 2**30:.3f} GiB) above the state at "
+        "its peak")
+    hu = 0.5 * (st.h + torch.roll(st.h, -1, -1))
+    for name, h, f in (("T", st.h, st.T), ("u", hu, st.u)):
+        out = remap_column_means(h, f, h, m.cfg.ale.remap)
+        rel, diff = rel_err(f, out)
+        log(f"  remap onto the unchanged grid, fp32 {name}: max abs err "
+            f"{diff:.3e}, max rel err {rel:.3e}")
+        if not bool(torch.isfinite(m.domain.interior(out)).all()):
+            raise AssertionError(f"no-motion remap of {name} not finite")
 
 
 def check_finite(fields, shape):
@@ -539,6 +685,7 @@ def main():
         check_k1_k2(res, *MAIN, dtype, timing if main_shape else None)
         check_k3(res, *MAIN, dtype, timing if main_shape else None)
         check_k3m(res, *MAIN, dtype, timing if main_shape else None)
+        check_k3_many(res, *MAIN, dtype)
         check_k1_k2(res, *WIDE, dtype)
         check_k3(res, *WIDE, dtype, timing if main_shape else None,
                  key="K3 wide")
@@ -546,9 +693,10 @@ def main():
         check_k1_k2(res, *DEEP, dtype)
         torch.cuda.empty_cache()
     ms, plain_ms, inp = timing.pop("K3 wide")
+    b_ms, b_by = bound(*subcycle_work(inp), 4, "float32")
     log(f"  K3 at {inp.eta.shape[0]}x{inp.eta.shape[1]} fp32 curve "
-        f"({bc_plan(inp)}): {ms:.4f} ms per subcycle, plain "
-        f"{plain_ms:.4f} ms")
+        f"({bc_plan(inp)}, {inp.wts.shape[1]} substeps): {ms:.4f} ms per "
+        f"subcycle, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms")
     del inp
 
     # 4. slice 1 at 64x64x8 fp64: card against CPU
@@ -612,77 +760,41 @@ def main():
     del s, cur, st, sp
     torch.cuda.empty_cache()
 
-    # 6. slice 2 at 32x32x6 fp64: card against CPU
-    log("phase 6 slice 2 %dx%dx%d fp64, 4 steps: card vs cpu" % SMALL_FULL)
-    gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, 4, seed=3)
-    cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", 4, seed=3)
-    for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
-                       ("v", cst.v, gst.v), ("T", cst.T, gst.T),
-                       ("S", cst.S, gst.S), ("age", ctr["age"], gtr["age"]),
-                       ("eta", csp.eta, gsp.eta)):
-        rel, diff = rel_err(a, b.cpu())
-        log(f"  slice 2 {name}: max rel err {rel:.3e} (limit 1e-09)")
-        if not rel <= 1e-9:
-            raise AssertionError(f"slice 2 {name}: {rel:.3e} > 1e-9")
+    # 6. slice 2 at 32x32x6 fp64: card against CPU, with ALE and layered
+    for label, regridding in FULL_VARIANTS:
+        log(f"phase 6 slice 2 ({label}) %dx%dx%d fp64, 4 steps: card vs "
+            "cpu" % SMALL_FULL)
+        gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, 4, seed=3,
+                                 regridding=regridding)
+        cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", 4,
+                                 seed=3, regridding=regridding)
+        for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
+                           ("v", cst.v, gst.v), ("T", cst.T, gst.T),
+                           ("S", cst.S, gst.S),
+                           ("age", ctr["age"], gtr["age"]),
+                           ("eta", csp.eta, gsp.eta)):
+            rel, diff = rel_err(a, b.cpu())
+            log(f"  slice 2 ({label}) {name}: max rel err {rel:.3e} "
+                "(limit 1e-09)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"slice 2 ({label}) {name}: "
+                                     f"{rel:.3e} > 1e-9")
 
-    # 7. slice 2 at full width, fp32
-    log("phase 7 slice 2 %dx%dx%d fp32" % MAIN)
-    m = entry.build_full(*MAIN, device=DEV, dtype=torch.float32)
-    full_step = m.step_fn()
-    cur = [m.state, m.split, m.tracers]
-    n_done = [0]
-
-    def fstep():
-        cur[:] = full_step(*cur, n_done[0])
-        n_done[0] += 1
-
-    for _ in range(2):
-        fstep()
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    for k in DEVICE_COUNTED:
-        wrappers[k].device_launches = 0
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(nsteps + 1)]
-    kinds = []
-    t0 = time.perf_counter()
-    events[0].record()
-    for i in range(nsteps):
-        kinds.append("thermo" if (n_done[0] + 1) % m.cfg.n_dyn_per_therm
-                     == 0 else "dynamics-only")
-        fstep()
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
-    device = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
-    st, sp, tr = cur
-    check_finite((("h", st.h), ("u", st.u), ("v", st.v), ("T", st.T),
-                  ("S", st.S), ("age", tr["age"]), ("eta", sp.eta),
-                  ("u_av", sp.u_av), ("uh", sp.uh)), shape)
-    expect = {"K1": 4 * nsteps, "K2": nsteps, "K3": 0, "K3m": 2 * nsteps}
-    if launches != expect:
-        raise AssertionError(f"slice 2 launch counts {launches}, "
-                             f"expected {expect}")
-    check_device_launches("slice 2", device, launches)
-    per = [events[i].elapsed_time(events[i + 1]) for i in range(nsteps)]
-    by_kind = {k: [t for t, kk in zip(per, kinds) if kk == k]
-               for k in ("thermo", "dynamics-only")}
-    ms_full = sum(per) / nsteps
-    pts = MAIN[0] * MAIN[1] * MAIN[2] / (ms_full / 1e3)
-    log(f"  {nsteps} steps: {ms_full:.3f} ms/step mean (CUDA events), "
-        + ", ".join(f"{k} {sum(v) / len(v):.3f} ms/step over {len(v)}"
-                    for k, v in by_kind.items())
-        + f"; {wall / nsteps * 1e3:.3f} ms/step (host clock), "
-        f"{pts:.4e} points/s, launches {launches}")
-    log(f"  h range [{float(m.domain.interior(st.h).min()):.3f}, "
-        f"{float(m.domain.interior(st.h).max()):.3f}] m, "
-        f"T range [{float(m.domain.interior(st.T).min()):.3f}, "
-        f"{float(m.domain.interior(st.T).max()):.3f}] degC, "
-        f"max |u| {float(st.u.abs().max()):.4f} m/s, "
-        f"max |eta| {float(sp.eta.abs().max()):.4f} m, "
-        f"max age {float(tr['age'].max()):.3e} yr")
+    # 7. slice 2 at full width, fp32, with ALE and layered
+    full = {}
+    for label, regridding in FULL_VARIANTS:
+        log(f"phase 7 slice 2 ({label}) %dx%dx%d fp32" % MAIN)
+        full[label] = run_full_timed(label, regridding, nsteps, wrappers,
+                                     shape)
+        torch.cuda.empty_cache()
+    launches, device, st = (full["ale"][k] for k in ("launches", "device",
+                                                     "state"))
+    d_ms = {k: v["ms_step"] for k, v in full.items()}
+    log(f"  ALE against layered: {d_ms['ale'] - d_ms['layered']:.3f} "
+        "ms/step (CUDA events; the counterpart of bench.py's "
+        "ale_regrid_remap probe), peak memory "
+        + ", ".join(f"{k} {v['peak_bytes'] / 2**30:.3f} GiB"
+                    for k, v in full.items()))
 
     nk, njh, nih = st.h.shape
     bnd = bounds(timing, nk, njh, nih, 4, "float32")
@@ -695,7 +807,7 @@ def main():
         ms, plain_ms, inp = timing[k]
         b_ms, b_by = bnd[k]
         # each kernel's count on the path it serves: slice 2's full step
-        # for K1, K2 and K3m, slice 1's dynamics step for K3
+        # (with ALE) for K1, K2 and K3m, slice 1's dynamics step for K3
         n_launch = launches_s1[k] if k == "K3" else launches[k]
         # the device kernels of PROFILE_REPS wrapper calls in one trace:
         # one per launch unit, and for K1 and K2 nothing else
@@ -733,8 +845,10 @@ def main():
             f"launches {n_launch}")
         records.append(dict(
             meta, launches=n_launch,
-            launches_by_path={"slice1_dynamics_step": launches_s1[k],
-                              "slice2_full_step": launches[k]},
+            launches_by_path={
+                "slice1_dynamics_step": launches_s1[k],
+                "slice2_full_step": launches[k],
+                "slice2_full_step_layered": full["layered"]["launches"][k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],

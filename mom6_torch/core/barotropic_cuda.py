@@ -147,9 +147,8 @@ def _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
 # the launch geometry of csrc/barotropic.cu: THREADS threads a block,
 # one block per SM, a band cut into tiles of POINTS_PER_THREAD points a
 # thread (a band of one tile keeps its points' state and sums in
-# registers for the whole launch); at most MAX_SUBSTEPS filter weights
-# a row fit the kernel's parameters
-THREADS, POINTS_PER_THREAD, MAX_SUBSTEPS = 768, 3, 96
+# registers for the whole launch)
+THREADS, POINTS_PER_THREAD = 768, 3
 N_CURVE = 22        # curve and anchor planes; linear transports use 2
 
 
@@ -186,15 +185,22 @@ def band_plan(nj: int, ni: int, itemsize: int, curve: bool, sm_count: int,
                     smem if smem <= smem_limit else 0)
 
 
-def _weights(wts: np.ndarray, dtype: torch.dtype) -> np.ndarray:
-    """The (4, total) filter weights as the kernel's parameters take
-    them: contiguous, in the working type, at most MAX_SUBSTEPS."""
-    if wts.shape[1] > MAX_SUBSTEPS:
-        raise ValueError(f"barotropic subcycle: {wts.shape[1]} substeps, "
-                         f"above the kernel's MAX_SUBSTEPS = "
-                         f"{MAX_SUBSTEPS}")
-    npdt = np.float32 if dtype == torch.float32 else np.float64
-    return np.ascontiguousarray(wts, dtype=npdt)
+def weight_rows(wts: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """The (4, total) filter weights as the kernel reads them: a
+    contiguous tensor in the working type on ``device``, any number of
+    substeps.  Kept per weights, dtype and device, so a subcycle with
+    weights seen before issues no copy."""
+    w = np.ascontiguousarray(wts, dtype=np.float64)
+    return _weight_rows(w.tobytes(), w.shape, dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _weight_rows(raw: bytes, shape, dtype, device) -> torch.Tensor:
+    w = torch.from_numpy(np.frombuffer(raw).reshape(shape).copy())
+    if device.type == "cuda":
+        w = w.pin_memory()
+    # asynchronous on the current stream, ahead of the launch that reads it
+    return w.to(device=device, dtype=dtype, non_blocking=True)
 
 
 @functools.cache
@@ -290,7 +296,7 @@ def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
                          "dtype and device")
     const_ptrs = [p.data_ptr() for p in planes]
     const_ptrs += [None] * (len(CONST_NAMES) + N_CURVE - len(const_ptrs))
-    wt = _weights(wts, eta.dtype)
+    wt = weight_rows(wts, eta.dtype, eta.device)
     plan = launch_plan(eta, use_curve)
 
     nj, ni = eta.shape
@@ -307,7 +313,7 @@ def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
     rc = getattr(_lib(), f"{entry}_{suffix}")(
         (ctypes.c_void_p * len(const_ptrs))(*const_ptrs),
         (ctypes.c_void_p * len(state))(*(t.data_ptr() for t in state)),
-        wt.ctypes.data, nj, ni, domain.halo, domain.ni, domain.nj, width,
+        wt.data_ptr(), nj, ni, domain.halo, domain.ni, domain.nj, width,
         int(domain.reentrant_x), int(domain.reentrant_y), int(use_curve),
         wt.shape[1], *extra, float(dtbt), float(bebt), plan.blocks,
         plan.points_per_block, plan.smem_bytes,

@@ -1,19 +1,21 @@
 """Phase sequencing of one full ocean step: dynamics, thickness
 diffusion, mixed-layer restratification, tracer advection and lateral
-diffusion, column physics.
+diffusion, column physics and ALE.
 
 Counterpart of ``mom6_tpu.core.orchestrator`` (step_MOM /
-step_MOM_tracer_dyn / step_MOM_thermo) on the branches of a layered
-configuration without ALE: the split RK2 dynamics accumulate the mass
-transports; GM thickness diffusion (after the dynamics, the reference
-default) and the MLE overturning add theirs; on a thermodynamic step
-(the DT_THERM cadence, ``do_thermo``) T, S and the passive tracers are
-advected with the transports accumulated over the interval and
-diffused along layers, then the diabatic driver and the tracers'
-column functions run.  MEKE/VarMix, the interface filter, neutral and
-boundary diffusion, sponges, internal tides, BGC, SPPT, ALE, the
-unsplit and RK2b schemes, DIABATIC_FIRST and THICKNESSDIFFUSE_FIRST
-are not ported yet and raise ``NotImplementedError``.
+step_MOM_tracer_dyn / step_MOM_thermo): the split RK2 dynamics
+accumulate the mass transports; GM thickness diffusion (after the
+dynamics, the reference default) and the MLE overturning add theirs; on
+a thermodynamic step (the DT_THERM cadence, ``do_thermo``) T, S and the
+passive tracers are advected with the transports accumulated over the
+interval and diffused along layers, then the diabatic driver and the
+tracers' column functions run, and last, with ``cfg.ale`` set
+(USE_REGRIDDING), the ALE regrid/remap moves the state, the split
+scheme's time-mean velocities and stored viscous accelerations onto the
+new grid.  MEKE/VarMix, the interface filter, neutral and boundary
+diffusion, sponges, internal tides, BGC, SPPT, the unsplit and RK2b
+schemes, DIABATIC_FIRST and THICKNESSDIFFUSE_FIRST are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from mom6_torch.ale.ale_main import ALECfg, ale_regrid_remap
 from mom6_torch.core.dynamics_split_rk2 import SplitCfg, step_dyn_split_rk2
 from mom6_torch.core.forcing import Fluxes, MechForcing
 from mom6_torch.core.grid import Grid
@@ -62,7 +65,7 @@ class OceanCfg:
     diabatic: DiabaticCfg = DiabaticCfg()
     thickness_diffuse: ThicknessDiffuseCfg = ThicknessDiffuseCfg()
     thickness_diffuse_first: bool = False
-    ale: Optional[object] = None         # None: layered (no ALE)
+    ale: Optional[ALECfg] = None         # None: layered (no ALE)
     thermo: bool = True
     adiabatic: bool = False
     use_meke: bool = False
@@ -100,8 +103,6 @@ def _check(cfg: OceanCfg, kw: dict):
     for name, bad, what in _UNPORTED:
         if getattr(cfg, name) == bad:
             raise NotImplementedError(what)
-    if cfg.ale is not None:
-        raise NotImplementedError("USE_REGRIDDING: ALE regrid/remap")
     for name, val in kw.items():
         if val is not None:
             raise NotImplementedError(name)
@@ -179,7 +180,7 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     elif tracers:
         raise NotImplementedError("passive tracers without T/S")
 
-    # column physics (thermo_and_ale without ALE)
+    # column physics, then ALE (thermo_and_ale)
     if cfg.thermo and not cfg.adiabatic:
         state, tracers, dia = diabatic(state, fluxes, dt, cfg.diabatic,
                                        tracers, vgrid=vgrid, eos=eos,
@@ -189,4 +190,36 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     if tracer_registry is not None and tracers:
         tracers = tracer_registry.apply_column_fns(
             tracers, state.h, dt, state=state, forces=forces, t=t)
+    if cfg.ale is not None:
+        state, split_state, tracers = _ale(domain, grid, vgrid, state,
+                                           split_state, tracers, cfg, eos,
+                                           dt)
     return state, split_state, tracers, diags
+
+
+def _ale(domain, grid, vgrid, state, split_state, tracers, cfg, eos, dt):
+    """The ALE regrid/remap of a thermodynamic step on halo-filled
+    fields, the split auxiliaries u_av/v_av and diffu/diffv remapped as
+    face fields and h_av refreshed (remap_dyn_split_RK2_aux_vars)."""
+    fill = domain.fill_halos
+
+    def filled(st):
+        return st.replace(**fill({k: getattr(st, k)
+                                  for k in ("h", "u", "v", "T", "S")
+                                  if getattr(st, k) is not None}))
+
+    aux_u = fill({"u_av": split_state.u_av, "diffu": split_state.diffu})
+    aux_v = fill({"v_av": split_state.v_av, "diffv": split_state.diffv})
+    # ALE runs once per thermo step, so the grid-motion filter
+    # integrates over the thermo interval, not the dynamics dt
+    state, tracers, _, aux_u, aux_v = ale_regrid_remap(
+        grid, vgrid, filled(state), cfg.ale, eos=eos, tracers=tracers,
+        aux_u=aux_u, aux_v=aux_v, dt=dt * cfg.n_dyn_per_therm)
+    # every remapped field's halos are refreshed, not h's alone as in the
+    # JAX package: a column of zero thickness (the halo rows beyond a
+    # wall) remaps to NaN in float32, where the PPM_H4 edge weights
+    # underflow; in float64 those halos already hold what the fill gives
+    state = filled(state)
+    split_state = dataclasses.replace(split_state, h_av=state.h,
+                                      **fill({**aux_u, **aux_v}))
+    return state, split_state, fill(tracers)

@@ -63,8 +63,9 @@
 // tile and keeps that state in the planes between phases: each phase
 // reloads it and the sums are read and written every substep.
 // Neighbours wrap at the array edge like torch.roll, so the kernel
-// matches the plain loop on the whole padded array.  Filter weights
-// reach the kernel by value, in its parameters.  The arithmetic per
+// matches the plain loop on the whole padded array.  The filter weights
+// come from a (4, total) buffer on the card, any number of substeps;
+// every thread reads the same four values a substep.  The arithmetic per
 // point is the plain version's, in its order (built with -fmad=false),
 // so kernel and plain loop agree bit for bit.  Register spills go to
 // L2 beside 180 KB of shared memory: each phase recomputes its
@@ -86,7 +87,6 @@ enum { S_UHBT, S_VHBT, S_ETA, S_ACCEL_U, S_ACCEL_V, S_UBT, S_VBT, NSUM };
 
 constexpr int THREADS = 768;       // one block per SM, <= 80 registers
 constexpr int PPT = 3;             // points per thread
-constexpr int MAX_SUBSTEPS = 96;   // weights passed by value
 constexpr int NCURVE = 22;         // CU0 .. VHBT0
 
 template <typename T> struct Consts {
@@ -104,11 +104,6 @@ template <typename T> struct State {
   T* uh[2];
   T* vh[2];
   T* sums;
-};
-
-// rows vel, eta, trans, accel of the (4, total) filter weights
-template <typename T> struct Weights {
-  T w[4][MAX_SUBSTEPS];
 };
 
 struct Geo {
@@ -284,7 +279,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 subcycle_kernel(const __grid_constant__ Consts<T> C,
                 const __grid_constant__ State<T> S,
                 const __grid_constant__ Geo g,
-                const __grid_constant__ Weights<T> W, const T dtbt,
+                const T* __restrict__ wts, const T dtbt,
                 const T bebt, const T one_m_bebt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -344,8 +339,6 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
     T* const eta_new = (n % 2) ? S.eta[0] : S.eta[1];
     const T* const eta_old = (n % 2) ? S.eta[1] : S.eta[0];
     const int w = (n % g.every == g.every - 1) ? g.w : 0;
-    const T w_v = W.w[0][n], w_e = W.w[1][n], w_t = W.w[2][n];
-    const T w_a = W.w[3][n];
 
     // (1) eta predictor -> d_eta
     for (int t = 0; t < tiles; ++t) {
@@ -370,8 +363,11 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
     }
     grid.sync();
 
-    // (2), (3) the two velocities and their face transports
+    // (2), (3) the two velocities and their face transports; the
+    // (4, total) filter weights (rows vel, eta, trans, accel) are read
+    // where they are used, so none is live across a grid sync
     for (int half = 0; half < 2; ++half) {
+      const T w_a = __ldg(wts + 3 * g.total + n);
       const bool do_u = (n + half) % 2 == 0;
       const int s_acc = do_u ? S_ACCEL_U : S_ACCEL_V;
       for (int t = 0; t < tiles; ++t) {
@@ -416,6 +412,8 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
     }
 
     // (4) eta corrector, the width-w refresh, the sums
+    const T w_v = __ldg(wts + n), w_e = __ldg(wts + g.total + n);
+    const T w_t = __ldg(wts + 2 * g.total + n);
     for (int t = 0; t < tiles; ++t) {
       unsigned halo_pts = 0;
 #pragma unroll
@@ -545,9 +543,9 @@ cudaError_t launch_on(int blocks, int smem_bytes, cudaStream_t stream,
 // state: eta_a, eta_b, ubt, vbt, d_eta, uh_a, uh_b, vh_a, vh_b, sums
 // (7 planes); the final eta lands in eta_a when ``total`` is even.  The
 // halo is refreshed (width w) after substeps every-1, 2*every-1, ...
-// wt is the host's (4, total) weights, copied into the launch's
-// parameters.  The plan (blocks, npb, smem_bytes) comes from the
-// caller; a grid that cannot be co-resident is refused.
+// wt is the (4, total) weights in the card's memory.  The plan (blocks,
+// npb, smem_bytes) comes from the caller; a grid that cannot be
+// co-resident is refused.
 template <typename T>
 int launch_subcycle(const void* const* consts, void* const* state,
                     const void* wt, int nj, int ni, int H, int nic,
@@ -558,7 +556,7 @@ int launch_subcycle(const void* const* consts, void* const* state,
   *launches = 0;
   const long P = (long)nj * ni;   // flat indices are int
   const int ntc = curve ? NCURVE : 2;
-  if (P > 0x7fffffffL || total < 1 || total > MAX_SUBSTEPS || every < 1
+  if (P > 0x7fffffffL || total < 1 || every < 1 || wt == nullptr
       || total % every || blocks < 1
       || npb < 1 || (long)blocks * npb < P
       || (long)(blocks - 1) * npb >= P
@@ -578,15 +576,12 @@ int launch_subcycle(const void* const* consts, void* const* state,
   S.vh[0] = (T*)state[7];
   S.vh[1] = (T*)state[8];
   S.sums = (T*)state[9];
-  Weights<T> W;
   const T* wts = (const T*)wt;
-  for (int r = 0; r < 4; ++r)
-    for (int n = 0; n < total; ++n) W.w[r][n] = wts[r * total + n];
   const int tiles = (int)(((long)npb + THREADS * PPT - 1) / (THREADS * PPT));
   const Geo g{nj, ni, H, nic, njc, w, rx, ry, curve, total, every, npb,
               tiles, smem_bytes > 0};
   T tdt = T(dtbt), tb = T(bebt), t1b = T(1.0 - bebt);
-  void* args[] = {&C, &S, (void*)&g, &W, &tdt, &tb, &t1b};
+  void* args[] = {&C, &S, (void*)&g, &wts, &tdt, &tb, &t1b};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = tiles == 1
       ? launch_on<T, true>(blocks, smem_bytes, st, args)

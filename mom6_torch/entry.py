@@ -1,9 +1,9 @@
 """Model set-up of the port: configuration, forcing and initial state.
 
 ``build_full`` and ``FullModel.step_fn`` drive the full ocean step of
-the benchmark configuration (bench.py's CONFIG) with two overrides,
-USE_REGRIDDING = False (layered, no ALE) and BT_WIDE_HALO_PERIOD = 2
-(the barotropic solve on the wide-halo march, kernel K3m); see
+the benchmark configuration, bench.py's CONFIG (Z* ALE) with
+BT_WIDE_HALO_PERIOD = 2 (the barotropic solve on the wide-halo march,
+kernel K3m), or its layered variant (USE_REGRIDDING = False); see
 ``build_full``.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
@@ -31,6 +31,9 @@ import math
 import numpy as np
 import torch
 
+from mom6_torch.ale.ale_main import ALECfg
+from mom6_torch.ale.regridding import RegridCfg
+from mom6_torch.ale.remapping import RemapCfg
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
                                                 init_split_state)
@@ -171,26 +174,38 @@ class FullModel:
 
 
 def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
-               seed: int | None = None, device="cuda",
-               dtype: torch.dtype = torch.float32) -> FullModel:
-    """The full step of bench.py's CONFIG with USE_REGRIDDING = False and
-    BT_WIDE_HALO_PERIOD = 2, at ``ni`` x ``nj`` x ``nk`` with 10 km cells:
+               seed: int | None = None, regridding: bool = True,
+               device="cuda", dtype: torch.dtype = torch.float32
+               ) -> FullModel:
+    """The full step of bench.py's CONFIG with BT_WIDE_HALO_PERIOD = 2, at
+    ``ni`` x ``nj`` x ``nk`` with 10 km cells:
 
     * reentrant in x, walls in y, flat bottom at 4000 m, f0 = 1e-4,
       beta = 2e-11; layered vertical grid with no interface reduced
       gravity (GINT = 0), Boussinesq, Rho0 = 1035; EQN_OF_STATE = WRIGHT;
     * dt = 600 s, DT_THERM = 1200 s; split RK2 with BE = 0.6, PPM
       continuity, Sadourny energy Coriolis, the 5-point FV pressure
-      force, Kv = 1e-4 with the dynamic BBL and quadratic drag,
-      biharmonic Smagorinsky viscosity 0.06, BT_cont curves, nstep from
-      set_dtbt (27 at 512x512) and the wide-halo march with period 2;
-    * KD = 1e-5 background diffusivity, KPP, diffusive entrainment
-      (layered mode), KHTH = 600 GM, MLE, PLM tracer advection with 3
-      pass pairs, KHTR = 600 along-layer diffusion, the ideal age tracer;
+      force with PLM T/S reconstruction (RECONSTRUCT_FOR_PRESSURE, on
+      with USE_REGRIDDING), Kv = 1e-4 with the dynamic BBL and quadratic
+      drag, biharmonic Smagorinsky viscosity 0.06, BT_cont curves, nstep
+      from set_dtbt (27 at 512x512) and the wide-halo march with
+      period 2;
+    * KD = 1e-5 background diffusivity, KPP, KHTH = 600 GM, MLE, PLM
+      tracer advection with 3 pass pairs, KHTR = 600 along-layer
+      diffusion, the ideal age tracer;
+    * USE_REGRIDDING = True: Z* regridding (ALE_RESOLUTION empty, so
+      uniform fractions of the deepest column; MIN_THICKNESS = 1e-3 m)
+      and PPM_H4 remapping of tracers and velocities once a thermodynamic
+      step, with no diffusive entrainment (ENTRAIN_DIFFUSIVE is off with
+      USE_REGRIDDING);
     * WIND_CONFIG = gyres (0.1 Pa), BUOY_CONFIG = linear_restoring with
       FLUXCONST = 0.5 m/day toward SST 25 -> 5 degC south to north;
     * uniform layers of 4000/nk m at rest, TS_CONFIG = linear:
       T = 10 + 12 (0.5 - (k + 0.5)/nk) degC, S = 35 ppt, age = 0.
+
+    ``regridding=False`` gives the layered variant, USE_REGRIDDING =
+    False (bench.py's ``ale_regrid_remap`` probe): no ALE, diffusive
+    entrainment on and no T/S reconstruction in the pressure force.
 
     With ``seed`` None the initial state is the configuration's own (at
     rest and horizontally uniform, as the JAX package builds it).  With
@@ -209,7 +224,8 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     n_per = int(round(DT_THERM / DT))
     vv = VertViscCfg(kv=1e-4)
     split_cfg = SplitCfg(
-        pressure=PressureForceCfg(quad_points=5), vertvisc=vv,
+        pressure=PressureForceCfg(quad_points=5, reconstruct=regridding),
+        vertvisc=vv,
         horvisc=HorViscCfg(biharmonic=True, smag_bi_const=0.06, dt=DT),
         barotropic=BarotropicCfg(nstep=nstep, wide_halo_period=2))
     adv = TracerAdvectCfg()
@@ -220,11 +236,14 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
         diabatic=DiabaticCfg(
             diffusivity=DiffusivityCfg(kd=1e-5,
                                        bkgnd=BkgndMixingCfg(kd=1e-5)),
-            use_kpp=True, kpp=KPPCfg(), use_entrain_diffusive=True,
+            use_kpp=True, kpp=KPPCfg(),
+            use_entrain_diffusive=not regridding,
             entrain=EntrainDiffusiveCfg()),
         thickness_diffuse=ThicknessDiffuseCfg(khth=600.0),
         use_mle=True, mlrestrat=MLRestratCfg(),
-        hordiff=TracerHorDiffCfg(khtr=600.0), n_dyn_per_therm=n_per)
+        hordiff=TracerHorDiffCfg(khtr=600.0), n_dyn_per_therm=n_per,
+        ale=ALECfg(regrid=RegridCfg(mode="Z*"), remap=RemapCfg("PPM_H4"),
+                   vel_remap=RemapCfg("PPM_H4")) if regridding else None)
     fcfg = SurfaceForcingCfg(wind_config="gyres", taux_magnitude=0.1,
                              buoy_config="linear_restoring",
                              restore_sst=True, fluxconst=0.5)

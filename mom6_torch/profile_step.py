@@ -1,12 +1,14 @@
 """Where the time of one step goes on a CUDA card.
 
-    python -m mom6_torch.profile_step [--full] [--ni 512 --nj 512 --nk 25]
+    python -m mom6_torch.profile_step [--full [--layered]]
+                                     [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
 
 Builds the kernels and runs, in fp32, slice 1 of ``mom6_torch.entry``
 (``build``: the split RK2 dynamics step) or, with ``--full``, slice 2
 (``build_full``: the full ocean step of the benchmark configuration,
-a thermodynamic step every second step).  After two warm-up steps it
+with Z* ALE, or its layered variant with ``--layered``; a thermodynamic
+step every second step).  After two warm-up steps it
 measures:
 
 1. the step time, by CUDA events around ``--steps`` uninstrumented
@@ -16,14 +18,15 @@ measures:
    ``record_function`` range around every top-level phase (slice 1: the
    phases of ``step_dyn_split_rk2`` and the barotropic subcycle inside
    btstep; slice 2: the dynamics, thickness diffusion, MLE, tracer
-   advection, tracer_hordiff and the diabatic driver of ``step_ocean``,
-   and inside them btstep, the K3m march, KPP and the continuity
-   kernels).  Each device kernel is charged to the innermost range whose
-   host range issued its launch, which gives per phase: host
-   milliseconds (the range on the host clock, profiler on, inclusive of
-   the ranges inside it), device milliseconds (its own kernels'
-   durations) and kernel count; and for the step: device busy time and
-   idle share (host clock, profiler on, which inflates host time).
+   advection, tracer_hordiff, the diabatic driver and the ALE
+   regrid/remap of ``step_ocean``, and inside them btstep, the K3m
+   march, KPP and the continuity kernels). Each device kernel is charged
+   to the innermost range whose host range issued its launch, which
+   gives per phase: host milliseconds (the range on the host clock,
+   profiler on, inclusive of the ranges inside it), device milliseconds
+   (its own kernels' durations) and kernel count; and for the step:
+   device busy time and idle share (host clock, profiler on, which
+   inflates host time).
 
 Prints the tables and, last, one JSON line; with ``--out`` the
 profiler's chrome traces are kept there.  A profiler that records no
@@ -69,7 +72,8 @@ SLICE2 = (
     (orch, "advect_tracers", "advect_tracers"),
     (orch, "tracer_hordiff", "tracer_hordiff"),
     (orch, "diabatic", "diabatic"),
-    (dia, "kpp_coefficients", "diabatic/kpp_coefficients"))
+    (dia, "kpp_coefficients", "diabatic/kpp_coefficients"),
+    (orch, "ale_regrid_remap", "ale"))
 # the ranges whose device kernels are also listed by kernel name
 KERNEL_SPLIT = ("continuity_ppm_cuda", "set_up_bt_cont_cuda")
 
@@ -187,6 +191,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--full", action="store_true",
                    help="profile slice 2, the full ocean step")
+    p.add_argument("--layered", action="store_true",
+                   help="with --full: the layered variant (no ALE)")
     p.add_argument("--ni", type=int, default=512)
     p.add_argument("--nj", type=int, default=512)
     p.add_argument("--nk", type=int, default=25)
@@ -197,8 +203,8 @@ def main(argv=None):
         raise SystemExit("profile_step: needs a CUDA card")
     cuda_build.build()
     if a.full:
-        m = entry.build_full(a.ni, a.nj, a.nk, device="cuda",
-                             dtype=torch.float32)
+        m = entry.build_full(a.ni, a.nj, a.nk, regridding=not a.layered,
+                             device="cuda", dtype=torch.float32)
         full_step = m.step_fn()
         cur = [m.state, m.split, m.tracers]
         n_done = [0]
@@ -246,12 +252,15 @@ def main(argv=None):
     step_ms = sum(per) / a.steps
     by_kind = {k: sum(t for t, kk in zip(per, kinds) if kk == k)
                / kinds.count(k) for k in dict.fromkeys(kinds)}
-    print(f"{name}: {'slice 2 (full step)' if a.full else 'slice 1'} "
+    label = ("slice 2 (full step, " + ("layered" if a.layered else "ALE")
+             + ")") if a.full else "slice 1"
+    print(f"{name}: {label} "
           f"{a.nk}x{a.nj}x{a.ni} fp32, {step_ms:.3f} ms/step (CUDA "
           f"events), {wall_ms:.3f} ms/step (host clock), mean of "
           f"{a.steps} steps; "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()))
     summary = dict(device=name, slice=2 if a.full else 1,
+                   ale=a.full and not a.layered,
                    shape=[a.nk, a.nj, a.ni], step_ms=step_ms,
                    step_ms_by_kind=by_kind, host_ms_per_step=wall_ms)
 

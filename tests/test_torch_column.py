@@ -53,6 +53,10 @@ from mom6_torch.param.vertical import set_diffusivity as tsd
 from mom6_torch.parallel.domain import Domain
 from mom6_torch.tracer.vertdiff import tracer_vertdiff as t_vertdiff
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 F64 = torch.float64
 NK, NJ, NI = 5, 8, 9
 RNG = np.random.default_rng(21)

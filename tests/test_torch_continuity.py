@@ -29,6 +29,10 @@ from mom6_torch.core import continuity_ppm as tc
 from mom6_torch.core.vertical_grid import VerticalGrid
 from mom6_torch.parallel.domain import Domain
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 F64 = torch.float64
 
 

@@ -38,6 +38,10 @@ from mom6_torch.core.vertical_grid import VerticalGrid as TVerticalGrid
 from mom6_torch.param.lateral import hor_visc as thv
 from mom6_torch.parallel.domain import Domain as TDomain
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 F64 = torch.float64
 NI, NJ, NK = 32, 24, 3
 

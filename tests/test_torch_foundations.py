@@ -23,6 +23,10 @@ from mom6_torch.core.grid import cartesian_grid
 from mom6_torch.core.dynamics_split_rk2 import SplitDynState
 from mom6_torch.parallel.domain import Domain
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 NI, NJ = 12, 10
 
 

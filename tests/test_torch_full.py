@@ -1,19 +1,22 @@
 """mom6_torch against mom6_tpu: the full ocean step of bench.py's CONFIG
-with USE_REGRIDDING = False and BT_WIDE_HALO_PERIOD = 2, at 16x16x4.
+with BT_WIDE_HALO_PERIOD = 2, at 16x16x4, with Z* ALE (the CONFIG's
+own USE_REGRIDDING = True) and in its layered variant (USE_REGRIDDING =
+False).
 
-The JAX model comes from ``build_model(ParamFile(text=...))`` of that
-text, built once per module; the port's from ``entry.build_full``.
-The first test holds every configuration value and every initial field
-of the two builds equal (1e-13 relative for the fields).  The second
-adds a seeded perturbation to the JAX model's initial h, T, u and v
-(the configuration starts at rest and horizontally uniform, where the
-first step's v and eta are roundoff-sized and no comparison would mean
+The JAX models come from ``build_model(ParamFile(text=...))`` of those
+texts, each built once per module; the port's from ``entry.build_full``.
+The build tests hold every configuration value and every initial field
+of the two builds equal (1e-13 relative for the fields). The step tests
+add a seeded perturbation to the JAX model's initial h, T, u and v (the
+configuration starts at rest and horizontally uniform, where the first
+step's v and eta are roundoff-sized and no comparison would mean
 anything), carries the state, tracers and configuration into the port
 with ``mom6_torch.convert`` and runs two steps on device="cpu" in
-float64 (step 0 dynamics only, step 1 a thermodynamic step, as
-DT_THERM = 2 DT), against two steps of ``Model.step_fn``: h, u, v, T,
-S, age and eta agree to 1e-9 relative to each field's maximum on the
-compute domain.
+float64 (step 0 dynamics only, step 1 a thermodynamic step, as DT_THERM
+= 2 DT, so ALE runs once), against two steps of ``Model.step_fn``: h, u,
+v, T, S, age and eta agree to 1e-9 relative to each field's maximum on
+the compute domain.  A last test runs two float32 steps with ALE on the
+port alone and requires every field finite on the whole padded array.
 """
 
 import dataclasses
@@ -32,6 +35,10 @@ from mom6_tpu.model import build_model
 from mom6_torch import convert, entry
 from mom6_torch.core.orchestrator import OceanCfg
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 F64 = torch.float64
 NI, NJ, NK = 16, 16, 4
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -44,11 +51,12 @@ def _bench_config():
     return mod.CONFIG
 
 
-TEXT_OVERRIDES = (
-    "#override USE_REGRIDDING = False\nBT_WIDE_HALO_PERIOD = 2\n"
+ALE_OVERRIDES = (
+    "BT_WIDE_HALO_PERIOD = 2\n"
     f"#override NIGLOBAL = {NI}\n#override NJGLOBAL = {NJ}\n"
     f"#override NK = {NK}\n#override LENLON = {NI * 10.0}\n"
     f"#override LENLAT = {NJ * 10.0}\n")
+TEXT_OVERRIDES = "#override USE_REGRIDDING = False\n" + ALE_OVERRIDES
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -64,6 +72,11 @@ def _quick_xla_compile():
 @pytest.fixture(scope="module")
 def jax_model():
     return build_model(ParamFile(text=_bench_config() + TEXT_OVERRIDES))
+
+
+@pytest.fixture(scope="module")
+def jax_model_ale():
+    return build_model(ParamFile(text=_bench_config() + ALE_OVERRIDES))
 
 
 def _defaults(obj):
@@ -99,8 +112,18 @@ def _close(ref, out, tol, name, H=None):
 
 
 def test_build_full_matches_build_model(jax_model):
-    jm = jax_model
-    pm = entry.build_full(NI, NJ, NK, device="cpu", dtype=F64)
+    _builds_match(jax_model, regridding=False)
+
+
+def test_build_full_ale_matches_build_model(jax_model_ale):
+    jm = jax_model_ale
+    assert jm.ocean_cfg.ale is not None
+    _builds_match(jm, regridding=True)
+
+
+def _builds_match(jm, regridding):
+    pm = entry.build_full(NI, NJ, NK, regridding=regridding, device="cpu",
+                          dtype=F64)
     # configuration: the JAX values carried over equal the port's own
     assert _port_cfg(jm) == pm.cfg
     assert (jm.dt, jm.dt_therm) == (pm.dt, pm.dt_therm)
@@ -137,7 +160,14 @@ def test_build_full_matches_build_model(jax_model):
 
 
 def test_two_steps_match_step_fn(jax_model):
-    jm = jax_model
+    _two_steps_match(jax_model, regridding=False)
+
+
+def test_two_steps_ale_match_step_fn(jax_model_ale):
+    _two_steps_match(jax_model_ale, regridding=True)
+
+
+def _two_steps_match(jm, regridding):
     rng = np.random.default_rng(7)
     d, g = jm.domain, jm.grid
 
@@ -154,7 +184,8 @@ def test_two_steps_match_step_fn(jax_model):
     for n in range(2):
         st, sp, tr = step_j(st, sp, tr, n)
 
-    pm = entry.build_full(NI, NJ, NK, device="cpu", dtype=F64)
+    pm = entry.build_full(NI, NJ, NK, regridding=regridding, device="cpu",
+                          dtype=F64)
     pm.cfg = _port_cfg(jm)
 
     def arrays(obj):
@@ -178,3 +209,21 @@ def test_two_steps_match_step_fn(jax_model):
     _close(sp.eta, psp.eta, 1e-9, "eta", H=4)
     # the step really moved the state
     assert float(np.abs(np.asarray(st.u)).max()) > 0.0
+
+
+def test_ale_step_stays_finite_in_float32():
+    """In float32 a column of zero thickness (the halo rows beyond the
+    y walls) remaps to NaN; after a thermodynamic step with ALE every
+    field must still be finite on the whole padded array."""
+    pm = entry.build_full(NI, NJ, NK, seed=3, device="cpu",
+                          dtype=torch.float32)
+    step = pm.step_fn()
+    st, sp, tr = pm.state, pm.split, pm.tracers
+    for n in range(2):
+        st, sp, tr = step(st, sp, tr, n)
+    fields = {**{k: getattr(st, k) for k in ("h", "u", "v", "T", "S")},
+              **{k: getattr(sp, k) for k in ("u_av", "v_av", "h_av",
+                                             "diffu", "diffv")},
+              "age": tr["age"]}
+    for name, f in fields.items():
+        assert bool(torch.isfinite(f).all()), f"{name} is not finite"

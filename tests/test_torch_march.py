@@ -31,6 +31,10 @@ from mom6_torch.core import barotropic_cuda
 from mom6_torch.core.vertical_grid import VerticalGrid
 from mom6_torch.parallel.domain import Domain
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 NI, NJ, NK = 16, 16, 2
 FIELDS = ("eta", "uhbtav", "vhbtav", "ubt_av", "vbt_av", "accel_layer_u",
           "accel_layer_v")

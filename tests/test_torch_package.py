@@ -23,6 +23,10 @@ from mom6_torch.core.continuity_ppm import (ContinuityCfg, continuity_ppm,
 from mom6_torch.core.dynamics_split_rk2 import SplitCfg, step_dyn_split_rk2
 from mom6_torch.core.vert_friction import VertViscCfg
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mom6_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]

@@ -39,6 +39,10 @@ from mom6_torch.tracer import hor_diff as thd
 from mom6_torch.tracer.ideal import register_ideal_age as t_register_age
 from mom6_torch.tracer.registry import TracerRegistry
 
+# one intra-op thread: the test workers share the machine's cores, and
+# an idle torch pool spins beside the other workers' XLA threads
+torch.set_num_threads(1)
+
 F64 = torch.float64
 NI, NJ, NK = 12, 10, 3
 TOL = 1e-12
