@@ -19,7 +19,10 @@ order; any failure ends the script with a non-zero exit:
    K3 and K3m (period 2, walled y, both transports) also at 128 and 200
    substeps on the 25x520x520 case. First it prints the band plan of the
    persistent K3/K3m launch at those shapes (blocks, points, rows and
-   tiles a block, shared memory a block per dtype);
+   tiles a block, shared memory a block per dtype).  Then the closed
+   basin (walls in x): K1, K2 and K3 at cases/double_gyre's 2x48x52 and
+   at 25x520x520, fp64 and fp32, each required equal to its plain
+   version, with the tile and band plans printed;
 4. slice 1 (the split RK2 dynamics step) at 64x64x8 in fp64 for 3
    steps, on the card (kernels) against the CPU (plain versions);
 5. slice 1 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
@@ -39,7 +42,21 @@ order; any failure ends the script with a non-zero exit:
    own time beside its bound and its plain version's time, and the
    device kernels that one K1 sweep, one K2 call and one K3 or K3m
    subcycle launch as torch.profiler traces them, with their device
-   time from that trace.
+   time from that trace;
+8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
+   case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
+   the card and with --cpu, every ocean.stats field agreeing to 1e-9
+   relative (SL and Me to 1e-12 absolute), K1, K2 and K3 launched and
+   K3m not, the
+   substep counts the DTBT resets chose printed; then bench.py's CONFIG
+   with BT_WIDE_HALO_PERIOD = 2 at 512x512x25 fp32 for 12 steps
+   (ocean.stats every 4): every line finite with |Me| <= 1e-6, nstep
+   27 throughout, K1, K2 and K3m launched and K3 not, the final state
+   bitwise equal to 12 steps of entry.build_full().step_fn in the same
+   process, the driver's ms/step beside the bare loop's, one
+   stat_sums + collect_stats call timed and the driver's peak memory.
+   Each driver run has every launch counter zeroed just before it and
+   read just after.
 
 The line before the last is the JSON ``kernels`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -59,6 +76,11 @@ WIDE = (1440, 1088, 25)        # the OM4-class width of the kernel checks
 DEEP = (256, 256, 75)          # MOM6's 75-layer depth for K1 and K2
 SMALL = (64, 64, 8)            # slice 1 checked against the CPU
 SMALL_FULL = (32, 32, 6)       # slice 2 checked against the CPU
+GYRE = (44, 40, 2)             # cases/double_gyre: a closed basin
+GYRE_DAYS = "0.5"              # 36 steps of 1200 s
+BENCH_STEPS = 12               # bench.py's CONFIG through the driver
+BENCH_STATS_EVERY = 4          # its ENERGYSAVEDAYS, in steps
+BENCH_NSTEP = 27               # its barotropic substep count
 FULL_VARIANTS = (("ale", True), ("layered", False))   # slice 2's two
 # nstep giving 128 and 200 substeps (the DT_BT_FILTER window included)
 MANY_SUBSTEPS = {128: 113, 200: 177}
@@ -143,9 +165,10 @@ class Results:
     def __init__(self):
         self.err = {k: {} for k in KERNELS}      # dtype -> (rel, abs)
 
-    def check(self, kernel, dtype, label, ref, out, tol_key=None, H=4):
+    def check(self, kernel, dtype, label, ref, out, tol_key=None, H=4,
+              exact=False):
         rel, diff = rel_err(ref, out, H)
-        tol = TOL[tol_key or kernel][dtype]
+        tol = 0.0 if exact else TOL[tol_key or kernel][dtype]
         log(f"  {kernel} {label} {dtype}: max rel err {rel:.3e} "
             f"(limit {tol:.0e}), max abs err {diff:.3e}")
         if not rel <= tol:
@@ -154,10 +177,11 @@ class Results:
         old = self.err[kernel].get(dtype, (0.0, 0.0))
         self.err[kernel][dtype] = (max(old[0], rel), max(old[1], diff))
 
-    def check_all(self, kernel, dtype, label, ref: dict, out: dict, H=4):
+    def check_all(self, kernel, dtype, label, ref: dict, out: dict, H=4,
+                  exact=False):
         """Every field of ``ref`` against ``out``, logged as one line
-        naming the worst field."""
-        tol = TOL[kernel][dtype]
+        naming the worst field; ``exact`` requires equality."""
+        tol = 0.0 if exact else TOL[kernel][dtype]
         errs = {k: rel_err(ref[k], out[k], H) for k in ref}
         worst = max(errs, key=lambda k: errs[k][0])
         rel, diff = errs[worst]
@@ -172,12 +196,13 @@ class Results:
             max(old[0], rel), max(old[1], *(e[1] for e in errs.values())))
 
 
-def make_grid(ni, nj, nk, dtype, device=None, reentrant_y=False):
+def make_grid(ni, nj, nk, dtype, device=None, reentrant_y=False,
+              reentrant_x=True):
     from mom6_torch.core.grid import cartesian_grid
     from mom6_torch.core.vertical_grid import VerticalGrid
     from mom6_torch.parallel.domain import Domain
     device = device or DEV
-    d = Domain(ni=ni, nj=nj, halo=4, reentrant_x=True,
+    d = Domain(ni=ni, nj=nj, halo=4, reentrant_x=reentrant_x,
                reentrant_y=reentrant_y)
     g = cartesian_grid(d, lenlon_km=ni * 10.0, lenlat_km=nj * 10.0,
                        f0=1e-4, beta=2e-11, max_depth=4000.0,
@@ -187,13 +212,13 @@ def make_grid(ni, nj, nk, dtype, device=None, reentrant_y=False):
     return d, g, vg
 
 
-def continuity_inputs(ni, nj, nk, dtype, seed):
+def continuity_inputs(ni, nj, nk, dtype, seed, reentrant_x=True):
     """Random layered state in the style of the JAX package's continuity
     tests: h ~ 160 +- 16 m, u/v ~ 0.3 m/s, visc_rem in [0.5, 1], and
     barotropic transports within 10% of the layer sum."""
     import numpy as np
     import torch
-    d, g, vg = make_grid(ni, nj, nk, dtype)
+    d, g, vg = make_grid(ni, nj, nk, dtype, reentrant_x=reentrant_x)
     rng = np.random.default_rng(seed)
     shape = (nk, d.njh, d.nih)
 
@@ -228,16 +253,20 @@ def log_tile_plans(h):
         + "; ".join(fmt(p) for p in cc.launch_plan(h, (0, 1))))
 
 
-def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
+def check_k1_k2(res, ni, nj, nk, dtype, timing=None, reentrant_x=True,
+                exact=False):
+    """K1 (both sweep orders) and K2 against their plain versions;
+    ``exact`` requires equality (the closed-basin checks)."""
     from mom6_torch.core import continuity_cuda as cc
     from mom6_torch.core.continuity_ppm import (ContinuityCfg,
                                                 continuity_ppm,
                                                 set_up_bt_cont)
-    d, g, vg, x = continuity_inputs(ni, nj, nk, dtype, seed=1)
+    d, g, vg, x = continuity_inputs(ni, nj, nk, dtype, seed=1,
+                                    reentrant_x=reentrant_x)
     cfg = ContinuityCfg()
     dt = 600.0
     dn = str(dtype).split(".")[-1]
-    shape = f"{nk}x{d.njh}x{d.nih}"
+    shape = f"{nk}x{d.njh}x{d.nih}" + ("" if reentrant_x else " walled x")
     if x["h"].is_cuda:             # a CPU rehearsal has no card to plan for
         log_tile_plans(x["h"])
     for x_first in (True, False):
@@ -249,7 +278,7 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
                                      x["vr_u"], x["vr_v"], x_first=x_first)
         for name in ("h", "uh", "vh", "u_cor", "v_cor"):
             res.check("K1", dn, f"{shape} x_first={x_first} {name}",
-                      getattr(ref, name), getattr(out, name))
+                      getattr(ref, name), getattr(out, name), exact=exact)
         if timing is not None and x_first:
             def call():
                 cc.continuity_ppm_cuda(*args, x["uhbt"], x["vhbt"],
@@ -264,7 +293,8 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
     for name in ref._fields:
         turn = name.startswith(("uBT", "vBT"))
         res.check("K2", dn, f"{shape} {name}", getattr(ref, name),
-                  getattr(out, name), "K2_turn" if turn else None)
+                  getattr(out, name), "K2_turn" if turn else None,
+                  exact=exact)
     if timing is not None:
         timing["K2"] = (cuda_ms(lambda: cc.set_up_bt_cont_cuda(*bargs), 20),
                         cuda_ms(lambda: set_up_bt_cont(*bargs), 3),
@@ -272,7 +302,7 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None):
 
 
 def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
-                  period=1, nstep=None):
+                  period=1, nstep=None, reentrant_x=True):
     """btstep's set-up on random inputs (as in the JAX package's
     subcycle tests), returning the subcycle's inputs: on the model's
     domain for ``period`` 1 (K3), widened to a halo of 3*period for the
@@ -282,7 +312,8 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
     from mom6_torch.core.barotropic import (BarotropicCfg, set_dtbt,
                                             subcycle_inputs)
     from mom6_torch.core.continuity_ppm import set_up_bt_cont
-    d, g, vg = make_grid(ni, nj, nk, dtype, reentrant_y=reentrant_y)
+    d, g, vg = make_grid(ni, nj, nk, dtype, reentrant_y=reentrant_y,
+                         reentrant_x=reentrant_x)
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -309,19 +340,27 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
                            eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0)
 
 
-def check_k3(res, ni, nj, nk, dtype, timing=None, key="K3"):
+def check_k3(res, ni, nj, nk, dtype, timing=None, key="K3",
+             reentrant_x=True, exact=False):
     """K3 against its plain version, linear and curve transports; the
-    curve case timed into ``timing[key]``."""
+    curve case timed into ``timing[key]``; ``exact`` requires equality
+    and prints the band plan (the closed-basin checks)."""
     from mom6_torch.core import barotropic_cuda as bc
     dn = str(dtype).split(".")[-1]
     for curve in (False, True):
-        inp = subcycle_case(ni, nj, nk, dtype, curve)
+        inp = subcycle_case(ni, nj, nk, dtype, curve,
+                            reentrant_x=reentrant_x)
         args = inp[:-1]          # K3 takes no exchange period
         d = inp.domain
         _, _, _, ref = bc.subcycle_plain(*args)
         _, _, _, out = bc.subcycle_cuda(*args)
         form = "curve" if curve else "linear"
-        res.check_all("K3", dn, f"{nk}x{d.njh}x{d.nih} {form}", ref, out)
+        walls = "" if reentrant_x else " walled x"
+        if exact and inp.eta.is_cuda:
+            log(f"  K3 band plan {d.njh}x{d.nih} {dn} {form}: "
+                f"{bc_plan(inp)}")
+        res.check_all("K3", dn, f"{nk}x{d.njh}x{d.nih}{walls} {form}", ref,
+                      out, exact=exact)
         if timing is not None and curve:
             timing[key] = (cuda_ms(lambda: bc.subcycle_cuda(*args), 10),
                            cuda_ms(lambda: bc.subcycle_plain(*args), 2),
@@ -644,6 +683,187 @@ def check_finite(fields, shape):
             raise AssertionError(f"field {name} is not finite")
 
 
+def read_stats(path):
+    """[(step, {field: value})] of an ocean.stats file, in file order;
+    day and truncs among the fields."""
+    rows = []
+    for line in Path(path).read_text().splitlines()[2:]:
+        step, day, truncs, *rest = [c.strip() for c in line.split(",")]
+        row = {"day": float(day), "truncs": int(truncs)}
+        row.update((k, float(v)) for k, v in (c.split(None, 1)
+                                               for c in rest))
+        rows.append((int(step), row))
+    return rows
+
+
+def case_dir(tmp, name, text):
+    """A case directory ``name`` under ``tmp`` holding MOM_input."""
+    d = Path(tmp) / name
+    d.mkdir()
+    (d / "MOM_input").write_text(text)
+    return str(d)
+
+
+def zero_counts(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+    for k in DEVICE_COUNTED:
+        wrappers[k].device_launches = 0
+
+
+def check_driver_launches(label, wrappers, expect):
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if launches != expect:
+        raise AssertionError(f"{label}: launch counts {launches}, "
+                             f"expected {expect}")
+    device = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
+    check_device_launches(label, device, launches)
+    return launches
+
+
+def run_driver_gyre(tmp, wrappers):
+    """The solo driver on cases/double_gyre (a closed basin, NK = 2,
+    K3 with walls in x) for GYRE_DAYS in fp64, on the card with every
+    launch counter zeroed just before and read just after, then with
+    --cpu; every ocean.stats field of the two agrees to 1e-9 relative
+    (SL and the mass error, roundoff-sized, to 1e-12 absolute) with the
+    same truncations."""
+    from mom6_torch.drivers import solo
+    text = (ROOT / "cases" / "double_gyre" / "MOM_input").read_text()
+    d_card = case_dir(tmp, "gyre_card", text)
+    d_cpu = case_dir(tmp, "gyre_cpu", text)
+    zero_counts(wrappers)
+    card = solo.main([d_card, "--days", GYRE_DAYS])
+    n = card["steps"]
+    launches = check_driver_launches(
+        "driver double_gyre", wrappers,
+        {"K1": 4 * n, "K2": n, "K3": 2 * n, "K3m": 0})
+    solo.main([d_cpu, "--days", GYRE_DAYS, "--cpu"])
+    want, got = read_stats(Path(d_cpu) / "ocean.stats"), \
+        read_stats(Path(d_card) / "ocean.stats")
+    if [s for s, _ in got] != [s for s, _ in want] or len(got) < 3:
+        raise AssertionError(f"driver double_gyre: stats steps "
+                             f"{[s for s, _ in got]} against "
+                             f"{[s for s, _ in want]}")
+    worst = {}
+    for (step, w), (_, g) in zip(want, got):
+        if g["truncs"] != w["truncs"]:
+            raise AssertionError(f"driver double_gyre step {step}: truncs "
+                                 f"{g['truncs']} != {w['truncs']}")
+        for k, a in w.items():
+            b = g[k]
+            # SL and the mass error Me are roundoff-sized: absolute
+            absolute = k in ("SL", "Me")
+            err = abs(a - b) if absolute else \
+                abs(a - b) / max(abs(a), 1e-300) if a != b else 0.0
+            lim = 1e-12 if absolute else 1e-9
+            worst[k] = max(worst.get(k, 0.0), err)
+            if not err <= lim:
+                raise AssertionError(f"driver double_gyre step {step} {k}: "
+                                     f"{b!r} against {a!r}")
+    log(f"  {n} steps, {len(got)} ocean.stats lines, card against cpu: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + " (SL [m] and Me absolute, the others relative)")
+    log(f"  last line (card): En {got[-1][1]['En']!r}, CFL "
+        f"{got[-1][1]['CFL']!r}, SL {got[-1][1]['SL']!r}")
+    log(f"  nstep chosen by the DTBT resets, step by step: "
+        f"{card['nstep_bt']}")
+    log(f"  driver loop {card['loop_seconds'] / n * 1e3:.3f} ms/step "
+        f"(CUDA events), launches {launches}")
+    return launches
+
+
+def run_driver_bench(tmp, wrappers, shape):
+    """bench.py's CONFIG (BT_WIDE_HALO_PERIOD = 2, stats every
+    BENCH_STATS_EVERY steps) through the solo driver at 512x512x25 fp32
+    for BENCH_STEPS steps, counters zeroed just before and read just
+    after; every ocean.stats line finite with |Me| <= 1e-6; then the
+    same steps of entry.build_full().step_fn in this process, whose
+    final state must equal the driver's bit for bit."""
+    import torch
+    from mom6_torch import entry
+    from mom6_torch.configs import BENCH_CONFIG
+    from mom6_torch.diagnostics.depth_list import depth_list_setup
+    from mom6_torch.diagnostics.sum_output import collect_stats, stat_sums
+    from mom6_torch.drivers import solo
+    dt = 600.0
+    text = (BENCH_CONFIG + "BT_WIDE_HALO_PERIOD = 2\n"
+            f"ENERGYSAVEDAYS = {BENCH_STATS_EVERY * dt / 86400.0!r}\n")
+    d = case_dir(tmp, "bench", text)
+    days = repr(BENCH_STEPS * dt / 86400.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    run = solo.main([d, "--fp32", "--days", days])
+    n = run["steps"]
+    launches = check_driver_launches(
+        "driver bench.py CONFIG", wrappers,
+        {"K1": 4 * n, "K2": n, "K3": 0, "K3m": 2 * n})
+    peak = torch.cuda.max_memory_allocated()
+    if n != BENCH_STEPS or set(run["nstep_bt"]) != {BENCH_NSTEP}:
+        raise AssertionError(f"driver bench.py CONFIG: {n} steps with "
+                             f"nstep {run['nstep_bt']}, expected "
+                             f"{BENCH_STEPS} at {BENCH_NSTEP}")
+    rows = read_stats(Path(d) / "ocean.stats")
+    if [s for s, _ in rows] != list(range(0, n + 1, BENCH_STATS_EVERY)):
+        raise AssertionError(f"driver bench.py CONFIG: stats at steps "
+                             f"{[s for s, _ in rows]}")
+    for step, row in rows:
+        bad = [k for k, v in row.items() if v != v or abs(v) == float("inf")]
+        if bad or abs(row["Me"]) > 1e-6:
+            raise AssertionError(f"driver bench.py CONFIG step {step}: "
+                                 f"{row}")
+    log(f"  nstep chosen by the DTBT resets, step by step: "
+        f"{run['nstep_bt']}")
+    log(f"  ocean.stats (card): " + "; ".join(
+        f"step {s} En {r['En']!r} CFL {r['CFL']!r} Me {r['Me']!r}"
+        for s, r in rows))
+    ms_driver = run["loop_seconds"] / n * 1e3
+    st, sp, tr = run["state"], run["split"], run["tracers"]
+    del run
+
+    m = entry.build_full(*MAIN, device=DEV, dtype=torch.float32)
+    step = m.step_fn()
+    cur = [m.state, m.split, m.tracers]
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for i in range(BENCH_STEPS):
+        cur[:] = step(*cur, i)
+    ev1.record()
+    torch.cuda.synchronize()
+    ms_bare = ev0.elapsed_time(ev1) / BENCH_STEPS
+    bst, bsp, btr = cur
+    pairs = [(k, getattr(st, k), getattr(bst, k))
+             for k in ("h", "u", "v", "T", "S")]
+    pairs += [("age", tr["age"], btr["age"]), ("eta", sp.eta, bsp.eta)]
+    check_finite([(k, a) for k, a, _ in pairs], shape)
+    for k, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"driver bench.py CONFIG: {k} differs "
+                                 "from build_full().step_fn's, max abs "
+                                 f"{float((a - b).abs().max()):.3e}")
+    log(f"  final h, u, v, T, S, age, eta bitwise equal to "
+        f"{BENCH_STEPS} steps of entry.build_full().step_fn")
+    dl = depth_list_setup(m.domain, m.grid)
+    reps = 5
+    collect_stats(stat_sums(m.domain, m.grid, m.vgrid, bst, dt, dl),
+                  m.vgrid, 0, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        collect_stats(stat_sums(m.domain, m.grid, m.vgrid, bst, dt, dl),
+                      m.vgrid, 0, 0.0)
+    ms_stats = (time.perf_counter() - t0) / reps * 1e3
+    log(f"  driver loop {ms_driver:.3f} ms/step, bare step_fn loop "
+        f"{ms_bare:.3f} ms/step (CUDA events, {BENCH_STEPS} steps each, "
+        f"the first included); stat_sums + collect_stats {ms_stats:.3f} "
+        f"ms a call (host clock, {reps} calls, synchronized by the host "
+        f"copy of the sums); driver peak memory {peak} B "
+        f"({peak / 2**30:.3f} GiB, max_memory_allocated)")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -692,6 +912,12 @@ def main():
         check_k3m(res, *WIDE, dtype, periods=(2,), walls=(False,))
         check_k1_k2(res, *DEEP, dtype)
         torch.cuda.empty_cache()
+    log("phase 3 closed basin (walls in x): K1, K2, K3 vs plain, exact")
+    for dtype in (torch.float64, torch.float32):
+        for shape in (GYRE, MAIN):
+            check_k1_k2(res, *shape, dtype, reentrant_x=False, exact=True)
+            check_k3(res, *shape, dtype, reentrant_x=False, exact=True)
+    torch.cuda.empty_cache()
     ms, plain_ms, inp = timing.pop("K3 wide")
     b_ms, b_by = bound(*subcycle_work(inp), 4, "float32")
     log(f"  K3 at {inp.eta.shape[0]}x{inp.eta.shape[1]} fp32 curve "
@@ -796,6 +1022,17 @@ def main():
         + ", ".join(f"{k} {v['peak_bytes'] / 2**30:.3f} GiB"
                     for k, v in full.items()))
 
+    # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
+            + f"{GYRE_DAYS} days, card vs cpu")
+        launches_gyre = run_driver_gyre(tmp, wrappers)
+        log("phase 8 driver: bench.py CONFIG %dx%dx%d fp32, " % MAIN
+            + f"{BENCH_STEPS} steps")
+        launches_bench = run_driver_bench(tmp, wrappers, shape)
+    torch.cuda.empty_cache()
+
     nk, njh, nih = st.h.shape
     bnd = bounds(timing, nk, njh, nih, 4, "float32")
     log(f"  kernel times at {nk}x{njh}x{nih} fp32 (no single PyTorch "
@@ -848,7 +1085,9 @@ def main():
             launches_by_path={
                 "slice1_dynamics_step": launches_s1[k],
                 "slice2_full_step": launches[k],
-                "slice2_full_step_layered": full["layered"]["launches"][k]},
+                "slice2_full_step_layered": full["layered"]["launches"][k],
+                "solo_double_gyre": launches_gyre[k],
+                "solo_bench_config": launches_bench[k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],

@@ -6,7 +6,9 @@ names of the matching ``mom6_tpu`` container (Grid, State,
 SplitDynState, BTContFaces) and returns the port's container on the
 given device and dtype; ``tracers_from_numpy`` does the same for a
 tracer dict; ``to_numpy`` goes back.  Fields that are None or missing
-(optional fields only) stay None.
+(optional fields only) stay None.  ``model_with_state`` carries a whole
+initial state (state, split state, tracers) into a port ``Model`` on
+that model's device and dtype.
 
 ``config_from_values`` builds one of the port's configuration
 dataclasses from a nested dict of plain values keyed like the JAX
@@ -35,8 +37,8 @@ from mom6_torch.core.state import State
 from mom6_torch.parallel.domain import Domain
 
 __all__ = ["grid_from_numpy", "state_from_numpy", "split_state_from_numpy",
-           "bt_cont_from_numpy", "tracers_from_numpy", "config_from_values",
-           "to_numpy"]
+           "bt_cont_from_numpy", "tracers_from_numpy", "model_with_state",
+           "config_from_values", "to_numpy"]
 
 
 def _fields(cls):
@@ -85,6 +87,19 @@ def tracers_from_numpy(arrays: dict, *, device,
                        dtype: torch.dtype) -> dict:
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in arrays.items()}
+
+
+def model_with_state(model, state: dict, split: dict | None = None,
+                     tracers: dict | None = None):
+    """A copy of the port ``Model`` whose initial state, split state and
+    tracers come from the given numpy dicts (those not given are kept)."""
+    dev = dict(device=model.state.h.device, dtype=model.state.h.dtype)
+    kw = {"state": state_from_numpy(state, **dev)}
+    if split is not None:
+        kw["split"] = split_state_from_numpy(split, **dev)
+    if tracers is not None:
+        kw["tracers"] = tracers_from_numpy(tracers, **dev)
+    return dataclasses.replace(model, **kw)
 
 
 _KERNEL_SWITCHES = ("use_pallas", "use_pallas_fused")

@@ -48,6 +48,9 @@ class BarotropicCfg:
     dt_bt_filter: float = -0.25    # DT_BT_FILTER
     use_bt_cont: bool = True   # USE_BT_CONT_TYPE
     hvel_scheme: str = "FROM_BT_CONT"  # BT_THICK_SCHEME
+    # SSH_EXTRA [m]: headroom added to the depth in set_dtbt's wave
+    # speed; < 0 selects min(10 m, 5 % of the depth)
+    ssh_extra: float = 0.0
 
 
 class BTResult(NamedTuple):
@@ -95,12 +98,22 @@ def btcalc(grid: Grid, h, scheme: str = "ARITHMETIC"):
 
 
 def set_dtbt(domain: Domain, grid: Grid, vgrid: VerticalGrid,
-             cfg: BarotropicCfg, dt: float) -> int:
-    """Host-side substep count from the barotropic gravity-wave CFL at
-    the deepest point (set_dtbt with SSH_EXTRA = 0), with the JAX
-    package's empirical 0.9/(2c) bound."""
-    D = float(torch.max(grid.bathyT))
-    c = math.sqrt(vgrid.g_Earth * max(D, 1.0))
+             cfg: BarotropicCfg, dt: float, max_depth: float | None = None,
+             h=None) -> int:
+    """Host-side substep count from the barotropic gravity-wave CFL, with
+    the JAX package's empirical 0.9/(2c) bound.  The depth is the
+    deepest point of the bathymetry, or ``max_depth`` when given; with
+    ``h`` (the current layer thicknesses) it is the thickest column
+    instead, the DTBT_RESET_PERIOD re-estimate (one host sync).
+    ``cfg.ssh_extra`` adds headroom to that depth."""
+    if h is not None:
+        D = float(torch.max(torch.sum(h, dim=0) * grid.mask2dT))
+    else:
+        D = float(torch.max(grid.bathyT)) if max_depth is None \
+            else max_depth
+    ssh_extra = cfg.ssh_extra if cfg.ssh_extra >= 0.0 \
+        else min(10.0, 0.05 * D)
+    c = math.sqrt(vgrid.g_Earth * max(D + ssh_extra, 1.0))
     inf = torch.tensor(math.inf, dtype=grid.dxT.dtype,
                        device=grid.dxT.device)
     dx = float(torch.min(torch.where(grid.dxT > 0, grid.dxT, inf)))

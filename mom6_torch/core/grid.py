@@ -141,17 +141,22 @@ def _assemble(domain: Domain, depth, min_depth: float, f_Bu,
 def cartesian_grid(domain: Domain, lenlon_km: float, lenlat_km: float,
                    f0: float = 0.0, beta: float = 0.0,
                    max_depth: float = 4000.0, *, device,
-                   dtype: torch.dtype) -> Grid:
-    """Uniform Cartesian grid in km from (0, 0), flat bottom at
-    ``max_depth``, f/beta plane about latitude 0
-    (mom6_tpu.core.grid.cartesian_grid with its defaults)."""
+                   dtype: torch.dtype, depth_fn=None,
+                   min_depth: float = 0.0, south_lat: float = 0.0,
+                   west_lon: float = 0.0,
+                   beta_lat_ref: float = 0.0) -> Grid:
+    """Uniform Cartesian grid in km from (``west_lon``, ``south_lat``),
+    f/beta plane about ``beta_lat_ref`` [km]
+    (mom6_tpu.core.grid.cartesian_grid).  ``depth_fn(lon, lat)`` gives
+    the bottom depth at the cell centres (default: flat at
+    ``max_depth``); cells no deeper than ``min_depth`` are land."""
     j, i = _padded_index(domain)
     dxi = lenlon_km / domain.ni
     deta = lenlat_km / domain.nj
-    lon_c = (i + 0.5) * dxi
-    lat_c = (j + 0.5) * deta
-    lon_f = (i + 1.0) * dxi       # east face of cell i
-    lat_f = (j + 1.0) * deta      # north face of cell j
+    lon_c = west_lon + (i + 0.5) * dxi
+    lat_c = south_lat + (j + 0.5) * deta
+    lon_f = west_lon + (i + 1.0) * dxi       # east face of cell i
+    lat_f = south_lat + (j + 1.0) * deta     # north face of cell j
 
     def dx_fn(dlon, lat):
         return np.full_like(lat, dlon * 1e3)
@@ -160,10 +165,11 @@ def cartesian_grid(domain: Domain, lenlon_km: float, lenlat_km: float,
         return np.full_like(lat, dlat * 1e3)
 
     def f_fn(lon, lat):
-        return f0 + beta * lat * 1e3
+        return f0 + beta * (lat - beta_lat_ref) * 1e3
 
-    def depth_fn(lon, lat):
-        return np.full_like(lat, max_depth)
+    if depth_fn is None:
+        def depth_fn(lon, lat):
+            return np.full_like(lat, max_depth)
 
     return _build(domain, lon_c, lat_c, lon_f, lat_f, dx_fn, dy_fn,
-                  f_fn, depth_fn, 0.0, device, dtype)
+                  f_fn, depth_fn, min_depth, device, dtype)

@@ -1,0 +1,307 @@
+"""Ocean-only driver: reads a case directory, builds the model and runs
+the time loop.
+
+Counterpart of ``mom6_tpu.drivers.solo``: reads ``MOM_input`` (and
+``MOM_override`` when present) from the case directory, builds the
+model (``model.build_model``), runs the time loop with the
+ENERGYSAVEDAYS cadence of ``ocean.stats`` (header, truncations, mass
+error), the CPU_stats/MAXCPU budget and the DTBT_RESET_PERIOD
+re-estimate of the barotropic substep count (an increase applies at
+once, a decrease only when it saves two substeps or more; one step
+closure per substep count, reused on revisits), and writes
+``MOM_parameter_doc.all``/``.short``, ``RESTART/MOM.res`` at the end of
+the run (restartable with ``--restart-from``, in either package) and
+``clocks.txt``, all into the case directory: point it at a copy of a
+case.  The step_MOM and ocean.stats clocks synchronize the card before
+they stop, so on the card ``clocks.txt`` shows their device time.
+
+Usage::
+
+    python -m mom6_torch.drivers.solo CASE_DIR [--days D] [--cpu]
+        [--fp32] [--restart-from PATH]
+
+Runs on ``cuda``, and raises when there is no card, unless ``--cpu`` is
+given; float64 unless ``--fp32``.  The diag mediator (a ``diag_table``,
+DIAG_AS_CHKSUM), particles, offline tracer mode, WRITE_OFFLINE_FIELDS,
+DEBUG, DEBUG_NANS, U_TRUNC_FILE, READ_DEPTH_LIST, the z-space
+diagnostics (NK_ZSPACE) and periodic restarts (RESTINT > 0) are not
+ported yet and raise ``NotImplementedError`` naming themselves, and so
+does any parameter the case sets that neither the builder nor the
+driver reads.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+from mom6_torch.diagnostics.depth_list import depth_list_setup
+from mom6_torch.diagnostics.sum_output import (collect_stats,
+                                               format_stats_header,
+                                               format_stats_line, stat_sums)
+from mom6_torch.framework.clock import clock
+from mom6_torch.framework.config import ParamFile
+from mom6_torch.framework.error_handler import (MOM_error, NOTE,
+                                                set_verbosity)
+from mom6_torch.framework.restart import restore_restart, save_restart
+from mom6_torch.model import default_only, build_model
+
+__all__ = ["read_driver_params", "main"]
+
+_CARRIES = ("u", "v", "mld", "kv")
+
+
+def read_driver_params(pf: ParamFile, model) -> dict:
+    """Every parameter read the solo driver owns beyond the builder's,
+    with the JAX driver's names, defaults and units; returns them as a
+    dict."""
+    p = {}
+    pf.module("MOM_diag_mediator")
+    default_only(pf, "DIAG_AS_CHKSUM", bool, False)
+    default_only(pf, "NK_ZSPACE", int, model.vgrid.nk,
+                 desc="z levels for _z diagnostics")
+    pf.module("MOM_particles")
+    default_only(pf, "USE_PARTICLES", bool, False)
+    pf.module("MOM")
+    default_only(pf, "OFFLINE_TRACER_MODE", bool, False)
+    default_only(pf, "WRITE_OFFLINE_FIELDS", bool, False,
+                 desc="write OFF_SUM/OFF_SNAP files from this online run")
+    pf.module("MOM_sum_output")
+    # ENERGYSAVEDAYS counts TIMEUNIT seconds like DAYMAX
+    timeunit = pf.get("TIMEUNIT", float, 86400.0, units="s")
+    p["energysavedays"] = pf.get("ENERGYSAVEDAYS", float, 1.0,
+                                 units="TIMEUNIT") * (timeunit / 86400.0)
+    p["do_ape"] = pf.get("CALCULATE_APE", bool, True,
+                         desc="available potential energy vs the "
+                         "depth-list hypsometry in ocean.stats")
+    default_only(pf, "READ_DEPTH_LIST", bool, False)
+    pf.get("DEPTH_LIST_FILE", str, "Depth_list.nc")
+    pf.module("MOM_debugging")
+    default_only(pf, "DEBUG", bool, False)
+    default_only(pf, "DEBUG_NANS", bool, False)
+    default_only(pf, "U_TRUNC_FILE", str, "")
+    # DTBT_RESET_PERIOD: re-estimate the barotropic substep count from
+    # the evolving column thickness; 0 → every dynamics step, < 0
+    # disables; a fixed DTBT > 0 is never re-estimated
+    pf.module("MOM_barotropic")
+    if pf.get("DTBT", float, -0.95, units="s or nondim") > 0.0:
+        p["dtbt_reset"] = -1.0
+    else:
+        p["dtbt_reset"] = pf.get(
+            "DTBT_RESET_PERIOD", float, model.dt_therm, units="s",
+            desc="period between dtbt re-estimates; "
+            "0 = every dynamics step, <0 disables")
+    # CPU-time budget: the cumulative CPU time per stats interval goes to
+    # CPU_TIME_FILE, and the run ends early if the next interval would
+    # exceed MAXCPU
+    pf.module("MOM_write_cputime")
+    p["maxcpu"] = pf.get("MAXCPU", float, -1.0,
+                         units="wall-clock seconds",
+                         desc="stop before exceeding this cpu budget; "
+                         "<0 disables")
+    p["cpu_file"] = pf.get("CPU_TIME_FILE", str, "CPU_stats")
+    # the end-of-run restart is always written; periodic ones are not
+    pf.module("MOM_restart")
+    default_only(pf, "RESTINT", float, 0.0, units="days")
+    return p
+
+
+def _restore(path: str, model):
+    """(state, split, tracers, carry, step0, t_days) from a restart."""
+    with open(path + ".json") as f:
+        saved = set(json.load(f)["trees"])
+    templates = {"state": model.state, "split": model.split}
+    if model.tracers and "tracers" in saved:
+        templates["tracers"] = model.tracers
+    leaf = torch.zeros(1, dtype=model.state.h.dtype,
+                       device=model.state.h.device)
+    for name in saved:
+        if name.startswith("carry_"):
+            if name[len("carry_"):] not in _CARRIES:
+                raise NotImplementedError(f"restart carry {name!r}")
+            templates[name] = leaf
+    trees, meta = restore_restart(path, templates)
+    carry = {n: trees.get(f"carry_{n}") for n in _CARRIES}
+    carry["truncs"] = int(meta.get("truncs", 0))
+    return (trees["state"], trees["split"],
+            trees.get("tracers", model.tracers), carry, int(meta["step"]),
+            float(meta["time_days"]))
+
+
+def main(argv=None) -> dict:
+    """Run a case.  Returns a summary: the final ``state``, ``split`` and
+    ``tracers``, ``nstep_bt`` (the barotropic substep count of every
+    step run), ``steps`` (steps run) and ``loop_seconds`` (the time
+    loop's time; on the card from CUDA events)."""
+    ap = argparse.ArgumentParser(description="mom6_torch solo ocean driver")
+    ap.add_argument("case_dir")
+    ap.add_argument("--days", type=float, default=None,
+                    help="override DAYMAX")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the card")
+    ap.add_argument("--fp32", action="store_true",
+                    help="float32 in place of float64")
+    ap.add_argument("--restart-from", default=None)
+    args = ap.parse_args(argv)
+
+    if args.cpu:
+        device = "cpu"
+    elif torch.cuda.is_available():
+        device = "cuda"
+    else:
+        raise RuntimeError("no CUDA device: pass --cpu to run on the CPU")
+    dtype = torch.float32 if args.fp32 else torch.float64
+
+    sources = [os.path.join(args.case_dir, "MOM_input")]
+    override = os.path.join(args.case_dir, "MOM_override")
+    if os.path.exists(override):
+        sources.append(override)
+    pf = ParamFile(*sources)
+    # the report (clocks.txt) covers this run alone, also when one
+    # process runs several cases
+    clock.reset()
+    set_verbosity(pf.get("VERBOSITY", int, 2,
+                         desc="0 errors, 1 +warnings, 2 +notes"))
+
+    with clock("initialization"):
+        model = build_model(pf, device=device, dtype=dtype)
+    dp = read_driver_params(pf, model)
+    if os.path.exists(os.path.join(args.case_dir, "diag_table")):
+        raise NotImplementedError("diag_table: the diag mediator")
+    unused = pf.close(fatal_unused=False)
+    if unused:
+        raise NotImplementedError(
+            f"{len(unused)} parameters that nothing reads (options not "
+            "ported, or misspelled): " + ", ".join(unused))
+    pf.write_docs(args.case_dir)
+
+    daymax = args.days if args.days is not None else model.daymax
+    state, split, tracers = model.state, model.split, model.tracers
+    step0, t_days = 0, 0.0
+    carry = None
+    if args.restart_from:
+        state, split, tracers, carry, step0, t_days = _restore(
+            args.restart_from, model)
+
+    step = model.step_fn(carry=carry)
+    # DTBT_RESET_PERIOD swaps between these closures, one per substep
+    # count
+    step_cache = {step.nstep_bt: step}
+    d, g, vg, dt = model.domain, model.grid, model.vgrid, model.dt
+    dlist = depth_list_setup(d, g) if dp["do_ape"] else None
+    nsteps = int(round((daymax - t_days) * 86400.0 / dt))
+    summary = {"state": state, "split": split, "tracers": tracers,
+               "nstep_bt": [], "steps": 0, "loop_seconds": 0.0}
+    if nsteps <= 0:
+        MOM_error(NOTE, f"Nothing to do: current time {t_days} days, "
+                  f"DAYMAX {daymax} days, DT = {dt} s")
+        return summary
+    stats_every = max(1, int(round(dp["energysavedays"] * 86400.0 / dt)))
+    dtbt_reset = dp["dtbt_reset"]
+    maxcpu = dp["maxcpu"]
+
+    stats_path = os.path.join(args.case_dir, "ocean.stats")
+    with open(stats_path, "w") as f:
+        f.write(format_stats_header())
+    cpu_path = os.path.join(args.case_dir, dp["cpu_file"])
+    with open(cpu_path, "w") as f:
+        f.write("# step, day, cpu_total[s], cpu_per_interval[s]\n")
+    on_card = state.h.is_cuda
+    if on_card:
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+    wall0 = time.perf_counter()
+    mass0 = None
+    cpu_prev = 0.0
+    stopped_on_cpu = False
+    nstep_bt = []
+    for n in range(step0, step0 + nsteps + 1):
+        if n % stats_every == 0 and n > step0:
+            # write_cputime: log the interval's cpu cost and project
+            # whether another interval fits in the MAXCPU budget
+            cpu_now = time.process_time()
+            with open(cpu_path, "a") as f:
+                f.write(f"{n}, {n * dt / 86400.0:.6f}, {cpu_now:.3f},"
+                        f" {cpu_now - cpu_prev:.3f}\n")
+            if maxcpu > 0.0 and cpu_now + 1.05 * (cpu_now - cpu_prev) \
+                    > maxcpu:
+                MOM_error(NOTE,
+                          f"MAXCPU: stopping at step {n} — "
+                          f"{cpu_now:.1f}s used, next interval "
+                          f"(~{cpu_now - cpu_prev:.1f}s) would exceed "
+                          f"the {maxcpu:.1f}s budget")
+                stopped_on_cpu = True
+            cpu_prev = cpu_now
+        if n % stats_every == 0:
+            with clock("ocean.stats", sync=lambda: state.h):
+                s = collect_stats(stat_sums(d, g, vg, state, dt, dlist), vg,
+                                  n, n * dt / 86400.0,
+                                  truncs=step.truncations())
+                if mass0 is None:
+                    mass0 = s.total_mass
+                line = format_stats_line(s, mass0)
+                with open(stats_path, "a") as f:
+                    f.write(line)
+                print(line, end="")
+        if n == step0 + nsteps or stopped_on_cpu:
+            break
+        if dtbt_reset >= 0.0 and n > step0 \
+                and (n - step0) % max(1, int(round(dtbt_reset / dt))) == 0:
+            # asymmetric hysteresis: an increase (stability) applies at
+            # once, a decrease only if it saves two substeps or more, so
+            # an estimate oscillating across a ceil boundary never churns
+            new_nstep = model.reset_dtbt(state)
+            if new_nstep > step.nstep_bt \
+                    or new_nstep <= step.nstep_bt - 2:
+                MOM_error(NOTE, f"DTBT_RESET_PERIOD: nstep "
+                          f"{step.nstep_bt} -> {new_nstep} at step {n}")
+                acc = step.carry()
+                if new_nstep in step_cache:
+                    step = step_cache[new_nstep]
+                    step.set_carry(acc)
+                else:
+                    step = model.step_fn(nstep_bt=new_nstep, carry=acc)
+                    step_cache[new_nstep] = step
+        with clock("step_MOM", sync=lambda: state.h):
+            state, split, tracers = step(state, split, tracers, n)
+        nstep_bt.append(step.nstep_bt)
+    if on_card:
+        ev1.record()
+        torch.cuda.synchronize()
+        loop_seconds = ev0.elapsed_time(ev1) / 1e3
+    else:
+        loop_seconds = time.perf_counter() - wall0
+    nran = n - step0
+    pts = d.ni * d.nj * vg.nk * max(nran, 1)
+    print(f"run complete: {nran} of {nsteps} steps, {loop_seconds:.2f}s "
+          f"wall, {pts / max(loop_seconds, 1e-9):.3g} points/s")
+
+    with clock("restart save"):
+        trees = {"state": state, "split": split}
+        if tracers:
+            trees["tracers"] = tracers
+        acc = step.carry()
+        for name in _CARRIES:
+            if acc.get(name) is not None:
+                trees[f"carry_{name}"] = acc[name]
+        save_restart(os.path.join(args.case_dir, "RESTART", "MOM.res"), trees,
+                     meta={"step": step0 + nsteps, "time_days": daymax,
+                           "truncs": step.truncations()})
+
+    report = clock.report()
+    print(report, file=sys.stderr)
+    with open(os.path.join(args.case_dir, "clocks.txt"), "w") as f:
+        f.write(report)
+    summary.update(state=state, split=split, tracers=tracers,
+                   nstep_bt=nstep_bt, steps=nran, loop_seconds=loop_seconds)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

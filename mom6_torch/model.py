@@ -1,0 +1,719 @@
+"""Model assembly: MOM_input parameters → domain, grid, state and the
+stepping driver.
+
+Counterpart of ``mom6_tpu.model``: ``build_model`` reads the MOM_input
+dialect (``framework/config.py``) with the JAX package's parameter
+names, types, defaults and units, builds the grid, the vertical grid,
+the configuration dataclasses of the port, the forcing and the initial
+state, and returns a ``Model`` whose ``step_fn`` steps the full ocean
+step (``core/orchestrator.py``).
+
+It follows the JAX builder on the branches that bench.py's CONFIG
+(with and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2) and
+``cases/double_gyre`` take: a single-device cartesian grid in km
+(TOPO_CONFIG flat, bowl or spoon), split RK2 dynamics, the LINEAR and
+WRIGHT equations of state, THICKNESS_CONFIG uniform, TS_CONFIG uniform
+or linear, WIND_CONFIG zero/constant/gyres/2gyre, BUOY_CONFIG zero or
+linear restoring, ALE with the coordinates and remap schemes of
+``mom6_torch/ale``, background/Bryan-Lewis diffusivity, KPP, diffusive
+entrainment, GM thickness diffusion, MLE, along-layer tracer diffusion
+and the ideal age tracer.  Every other value of an option it reads
+raises ``NotImplementedError`` naming the parameter; an option set to
+its default is read and accepted.  A parameter it does not read at all
+is left for the caller's unused-parameter audit (the solo driver
+raises on it).
+
+Runs on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from mom6_torch.ale.ale_main import ALECfg
+from mom6_torch.ale.regridding import RegridCfg
+from mom6_torch.ale.remapping import RemapCfg
+from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
+from mom6_torch.core.continuity_ppm import ContinuityCfg
+from mom6_torch.core.coriolis_adv import CoriolisCfg
+from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
+                                                init_split_state)
+from mom6_torch.core.forcing import Fluxes, MechForcing
+from mom6_torch.core.grid import Grid, cartesian_grid
+from mom6_torch.core.orchestrator import OceanCfg, step_ocean
+from mom6_torch.core.pressure_force import PressureForceCfg
+from mom6_torch.core.state import State
+from mom6_torch.core.vert_friction import VertViscCfg
+from mom6_torch.core.vertical_grid import VerticalGrid
+from mom6_torch.drivers.surface_forcing import (SurfaceForcingCfg,
+                                                build_wind,
+                                                buoyancy_restoring)
+from mom6_torch.eos import EOS, make_eos
+from mom6_torch.framework.config import ParamFile
+from mom6_torch.param.lateral.hor_visc import HorViscCfg
+from mom6_torch.param.lateral.mixed_layer_restrat import MLRestratCfg
+from mom6_torch.param.lateral.thickness_diffuse import ThicknessDiffuseCfg
+from mom6_torch.param.vertical.bkgnd_mixing import BkgndMixingCfg
+from mom6_torch.param.vertical.diabatic import DiabaticCfg
+from mom6_torch.param.vertical.entrain_diffusive import EntrainDiffusiveCfg
+from mom6_torch.param.vertical.kpp import KPPCfg
+from mom6_torch.param.vertical.set_diffusivity import DiffusivityCfg
+from mom6_torch.parallel.domain import Domain
+from mom6_torch.tracer.advect import TracerAdvectCfg
+from mom6_torch.tracer.hor_diff import TracerHorDiffCfg
+from mom6_torch.tracer.ideal import register_ideal_age
+from mom6_torch.tracer.registry import TracerRegistry
+
+__all__ = ["Model", "build_model", "default_only"]
+
+_WINDS = ("zero", "constant", "gyres", "2gyre")
+_REMAP_NOT_PORTED = ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN")
+
+
+def _topo_fn(config: str, max_depth: float, min_depth: float,
+             lenlon: float, lenlat: float, west: float, south: float):
+    """TOPO_CONFIG flat, bowl and spoon (the JAX builder's ``_topo_fn``)."""
+    if config == "flat":
+        return lambda lon, lat: np.full_like(lat, max_depth)
+    if config == "bowl":
+        def bowl(lon, lat):
+            xn = 2.0 * (lon - west) / max(lenlon, 1e-30) - 1.0
+            yn = 2.0 * (lat - south) / max(lenlat, 1e-30) - 1.0
+            r2 = np.minimum(xn ** 2 + yn ** 2, 1.0)
+            return min_depth + (max_depth - min_depth) * (1.0 - r2)
+        return bowl
+    if config == "spoon":
+        def spoon(lon, lat):
+            yn = (lat - south) / max(lenlat, 1e-30)
+            return min_depth + (max_depth - min_depth) * np.sin(
+                math.pi * np.clip(yn, 0, 1))
+        return spoon
+    raise NotImplementedError(f"TOPO_CONFIG = {config!r}: option not ported")
+
+
+def default_only(pf: ParamFile, name: str, ptype: type, default: Any,
+                  **kw) -> Any:
+    """Read an option whose other values are not ported: its default is
+    accepted, any other value raises ``NotImplementedError``."""
+    val = pf.get(name, ptype, default, **kw)
+    if val != default:
+        raise NotImplementedError(f"{name} = {val!r}: option not ported")
+    return val
+
+
+def _one_of(name: str, val: str, allowed) -> str:
+    if val not in allowed:
+        raise NotImplementedError(f"{name} = {val!r}: option not ported")
+    return val
+
+
+@dataclasses.dataclass
+class Model:
+    """A configured model: its grids, configuration, forcing and initial
+    state (counterpart of the JAX package's ``Model``).  ``split`` is the
+    split scheme's state (the JAX Model's ``split_state``)."""
+    domain: Domain
+    grid: Grid
+    vgrid: VerticalGrid
+    eos: Optional[EOS]
+    cfg: OceanCfg
+    forcing_cfg: SurfaceForcingCfg
+    south: float                 # SOUTHLAT [km]
+    lenlat: float                # LENLAT [km]
+    forces: MechForcing
+    registry: TracerRegistry
+    state: State
+    split: SplitDynState
+    tracers: Optional[dict]
+    dt: float
+    dt_therm: float
+    dt_forcing: float = 0.0
+    daymax: float = 1.0
+    thermo: bool = True
+
+    def fluxes(self, state: State) -> Optional[Fluxes]:
+        """Buoyancy fluxes on the given state (BUOY_CONFIG), None without
+        buoyancy forcing."""
+        if not self.thermo or state.T is None \
+                or self.forcing_cfg.buoy_config in ("zero", "NONE"):
+            return None
+        return buoyancy_restoring(self.forcing_cfg, self.grid, state.T[0],
+                                  self.south, self.lenlat, sss=state.S[0])
+
+    def reset_dtbt(self, state: State) -> int:
+        """DTBT_RESET_PERIOD: the barotropic substep count re-estimated
+        from the current total column thickness (one host sync)."""
+        return set_dtbt(self.domain, self.grid, self.vgrid,
+                        self.cfg.split_cfg.barotropic, self.dt, h=state.h)
+
+    def step_fn(self, nstep_bt: int | None = None, carry: dict | None = None):
+        """The stepping driver ``step(state, split, tracers, n)`` with the
+        JAX Model's cadence: step n is a thermodynamic step when (n + 1)
+        is a multiple of DT_THERM/DT, x_first alternates with the parity
+        of n, the mass transports accumulate over the thermodynamic
+        interval, and the boundary-layer depth and the shear viscosity
+        carry from step to step.
+
+        ``nstep_bt`` overrides the barotropic substep count (the
+        DTBT_RESET_PERIOD path); ``carry`` re-threads the accumulators
+        of an earlier closure (``step.carry()``).  The closure carries
+        ``truncations()`` (the cumulative velocity-truncation count; the
+        count stays on the device until asked for), ``carry()`` (a copy
+        of its accumulators), ``set_carry(c)`` and ``nstep_bt``."""
+        cfg = self.cfg
+        bt = cfg.split_cfg.barotropic
+        if nstep_bt and nstep_bt != bt.nstep:
+            sp = dataclasses.replace(
+                cfg.split_cfg,
+                barotropic=dataclasses.replace(bt, nstep=int(nstep_bt)))
+            cfg = dataclasses.replace(cfg, split_cfg=sp)
+        n_per = max(1, int(round(self.dt_therm / self.dt)))
+        # each closure owns its accumulators: the driver hands one
+        # closure's carry to another and back (DTBT_RESET_PERIOD), so a
+        # carry is copied in and out, never shared
+        acc = dict(carry) if carry is not None else {
+            "u": None, "v": None, "truncs": 0, "mld": None, "kv": None}
+
+        def set_carry(c):
+            c = dict(c)
+            acc.clear()
+            acc.update(c)
+
+        def step(state, split, tracers=None, n=0):
+            do_thermo = (n + 1) % n_per == 0
+            fl = self.fluxes(state) if do_thermo else None
+            ua = acc["u"] if acc["u"] is not None \
+                else torch.zeros_like(state.h)
+            va = acc["v"] if acc["v"] is not None \
+                else torch.zeros_like(state.h)
+            st, sp, tr, diags = step_ocean(
+                self.domain, self.grid, self.vgrid, state, split, tracers,
+                self.forces, fl, self.dt, cfg, eos=self.eos,
+                x_first=(n % 2 == 0), tracer_registry=self.registry,
+                do_thermo=do_thermo, uhtr_accum=ua, vhtr_accum=va,
+                mld_prev=acc["mld"], kv_shear_prev=acc["kv"],
+                t=(n + 0.5) * self.dt)
+            if diags.mld is not None:
+                acc["mld"] = diags.mld
+            if do_thermo:
+                acc["u"] = acc["v"] = None
+            else:
+                acc["u"], acc["v"] = diags.uhtr, diags.vhtr
+            acc["truncs"] = acc["truncs"] + diags.truncs
+            return st, sp, tr
+
+        step.truncations = lambda: int(acc["truncs"])
+        step.carry = lambda: dict(acc)
+        step.set_carry = set_carry
+        step.nstep_bt = cfg.split_cfg.barotropic.nstep
+        return step
+
+
+def build_model(pf: ParamFile, *, device="cuda",
+                dtype: torch.dtype = torch.float64) -> Model:
+    """The model that the parameters describe, on ``device`` in
+    ``dtype``."""
+    dev = dict(device=device, dtype=dtype)
+    f64 = dict(device=device, dtype=torch.float64)
+
+    pf.module("MOM_domains")
+    ni = pf.get("NIGLOBAL", int, desc="x grid points")
+    nj = pf.get("NJGLOBAL", int, desc="y grid points")
+    reentrant_x = pf.get("REENTRANT_X", bool, False)
+    reentrant_y = pf.get("REENTRANT_Y", bool, False)
+    default_only(pf, "TRIPOLAR_N", bool, False,
+                 desc="fold the north edge (tripolar grid)")
+    halo = pf.get("NIHALO", int, 4, desc="halo width")
+    if pf.has("LAYOUT"):
+        # a single-device build runs unsharded whatever layout the case
+        # declares, as the JAX builder does
+        pf.get("LAYOUT", list, [1, 1], desc="processor layout (nx, ny)")
+    domain = Domain(ni=ni, nj=nj, halo=halo, reentrant_x=reentrant_x,
+                    reentrant_y=reentrant_y)
+    default_only(pf, "MASKTABLE", str, "")
+    default_only(pf, "AUTO_MASKTABLE", bool, False)
+
+    pf.module("MOM_grid_init")
+    grid_config = _one_of("GRID_CONFIG",
+                          pf.get("GRID_CONFIG", str, "cartesian"),
+                          ("cartesian",))
+    south = pf.get("SOUTHLAT", float, 0.0)
+    lenlat = pf.get("LENLAT", float, float(nj))
+    west = pf.get("WESTLON", float, 0.0)
+    lenlon = pf.get("LENLON", float, float(ni))
+    max_depth_diagnose = not pf.has("MAXIMUM_DEPTH")
+    max_depth = pf.get("MAXIMUM_DEPTH", float, 4000.0, units="m")
+    min_depth = pf.get("MINIMUM_DEPTH", float, 0.0, units="m")
+    topo_config = pf.get("TOPO_CONFIG", str, "flat")
+    # ROTATION selects the Coriolis form of geographic grids; a
+    # cartesian grid is an f/beta plane whatever it says
+    pf.get("ROTATION", str, "2omegasinlat")
+    f0 = pf.get("F_0", float, 0.0, units="s-1")
+    beta = pf.get("BETA", float, 0.0, units="m-1 s-1")
+    axis_units = pf.get("AXIS_UNITS", str, "degrees")
+    depth_fn = _topo_fn(topo_config, max_depth, min_depth, lenlon, lenlat,
+                        west, south)
+    # ISOTROPIC selects Mercator metrics on spherical grids only
+    pf.get("ISOTROPIC", bool, False,
+           desc="isotropic (Mercator) spacing: dy tracks "
+           "dx*cos(lat), the meridional extent set by the "
+           "zonal resolution "
+           "(MOM_grid_initialize.F90:703); read for any "
+           "spherical-family GRID_CONFIG, selects the "
+           "Mercator metrics when GRID_CONFIG=spherical")
+    if not axis_units.startswith("k"):
+        raise NotImplementedError(f"AXIS_UNITS = {axis_units!r}: a "
+                                  "cartesian grid in degrees")
+    grid = cartesian_grid(domain, lenlon_km=lenlon, lenlat_km=lenlat, f0=f0,
+                          beta=beta, max_depth=max_depth, depth_fn=depth_fn,
+                          min_depth=min_depth, south_lat=south,
+                          west_lon=west,
+                          beta_lat_ref=pf.get("BETA_LAT_REF", float, 0.0,
+                                              units="km"), **dev)
+    if max_depth_diagnose and topo_config != "flat":
+        max_depth = float(torch.max(grid.bathyT))
+    default_only(pf, "SUBGRID_TOPO_AT_VEL", bool, False)
+
+    pf.module("MOM_open_boundary")
+    default_only(pf, "NUM_DYE_TRACERS", int, 0,
+                 desc="dyed_obc tracers, one per segment")
+    pf.get("INPUTDIR", str, ".")
+    default_only(pf, "OBC_NUMBER_OF_SEGMENTS", int, 0)
+
+    pf.module("MOM_verticalGrid")
+    nk = pf.get("NK", int, 1, units="nondim", desc="number of layers")
+    g_earth = pf.get("G_EARTH", float, 9.8, units="m s-2")
+    rho0 = pf.get("RHO_0", float, 1035.0, units="kg m-3")
+    default_only(pf, "BOUSSINESQ", bool, True)
+    gint = pf.get("GINT", float, 0.0, units="m s-2",
+                  desc="uniform interface reduced gravity")
+
+    pf.module("MOM")
+    if not pf.get("SPLIT", bool, True):
+        raise NotImplementedError("SPLIT = False: unsplit dynamics")
+    default_only(pf, "SPLIT_RK2B", bool, False)
+    dt = pf.get("DT", float, units="s")
+    if dt is None:
+        raise ValueError("DT must be set")
+    dt_forcing = pf.get("DT_FORCING", float, dt, units="s")
+    dt_therm = pf.get("DT_THERM", float, dt, units="s")
+    timeunit = pf.get("TIMEUNIT", float, 86400.0, units="s")
+    daymax = pf.get("DAYMAX", float, 1.0, units="TIMEUNIT") \
+        * (timeunit / 86400.0)
+    thermo = pf.get("ENABLE_THERMODYNAMICS", bool, True)
+    adiabatic = pf.get("ADIABATIC", bool, False)
+    use_regrid = pf.get("USE_REGRIDDING", bool, False)
+    # the bulk mixed layer defaults on in layered thermodynamic runs
+    if pf.get("BULKMIXEDLAYER", bool, thermo and not use_regrid):
+        raise NotImplementedError("BULKMIXEDLAYER = True: option not "
+                                  "ported")
+    default_only(pf, "NKML", int, 0)
+    default_only(pf, "NKBL", int, 0)
+
+    pf.module("MOM_EOS")
+    eos_form = pf.get("EQN_OF_STATE", str, "WRIGHT")
+    eos_kw = {}
+    if eos_form.upper() == "LINEAR":
+        eos_kw = dict(
+            rho_t0_s0=pf.get("RHO_T0_S0", float, 1000.0, units="kg m-3"),
+            drho_dt=pf.get("DRHO_DT", float, -0.2,
+                           units="kg m-3 degC-1"),
+            drho_ds=pf.get("DRHO_DS", float, 0.8, units="kg m-3 ppt-1"))
+    eos = make_eos(eos_form, **eos_kw) if thermo else None
+
+    pf.module("MOM_coord_initialization")
+    coord_cfg = pf.get("COORD_CONFIG", str, "none")
+    if coord_cfg in ("layer_ref", "linear", "ts_range", "BFB"):
+        raise NotImplementedError(f"COORD_CONFIG = {coord_cfg!r}: option "
+                                  "not ported")
+    p_ref = pf.get("P_REF", float, 2.0e7, units="Pa")
+    vgrid = VerticalGrid.uniform(nk=nk, g_Earth=g_earth, Rho0=rho0,
+                                 gint=gint if gint > 0 else None, **dev)
+
+    pf.module("MOM_continuity_PPM")
+    cont = ContinuityCfg(
+        upwind_1st=pf.get("UPWIND_1ST_CONTINUITY", bool, False),
+        simple_2nd=pf.get("SIMPLE_2ND_PPM_CONTINUITY", bool, False),
+        monotonic=pf.get("MONOTONIC_CONTINUITY", bool, False),
+        newton_iters=pf.get("CONT_NEWTON_ITERS", int, 6))
+    # the JAX package's switch between its Pallas kernel and the jnp
+    # path; the port's wrappers choose by the tensors' device
+    pf.get("CONTINUITY_USE_PALLAS", bool, True,
+           desc="TPU extension: fused Pallas "
+           "kernel for the transport-matched "
+           "continuity sweeps (both sweeps + "
+           "Newton in VMEM); falls back to the "
+           "jnp path off-TPU or when "
+           "unsupported")
+
+    pf.module("MOM_CoriolisAdv")
+    cor = CoriolisCfg(
+        scheme=_one_of("CORIOLIS_SCHEME",
+                       pf.get("CORIOLIS_SCHEME", str, "SADOURNY75_ENERGY"),
+                       ("SADOURNY75_ENERGY",)),
+        ke_scheme=_one_of("KE_SCHEME",
+                          pf.get("KE_SCHEME", str, "KE_ARAKAWA"),
+                          ("KE_ARAKAWA",)))
+    default_only(pf, "NOSLIP", bool, False)
+    default_only(pf, "BOUND_CORIOLIS", bool, False)
+    default_only(pf, "CORIOLIS_EN_DIS", bool, False,
+                 desc="energy-dissipating biased "
+                 "Sadourny-energy PV flux "
+                 "(MOM_CoriolisAdv.F90:1087)")
+    if pf.get("PV_ADV_SCHEME", str, "PV_ADV_CENTERED").upper() \
+            == "PV_ADV_UPWIND1":
+        raise NotImplementedError("PV_ADV_SCHEME = 'PV_ADV_UPWIND1': "
+                                  "option not ported")
+    default_only(pf, "CORIOLIS_BLEND_WT_LIN", float, 0.125)
+    default_only(pf, "CORIOLIS_BLEND_F_EFF_MAX", float, 4.0)
+    default_only(pf, "ANGSTROM", float, 1e-10, units="m")
+
+    pf.module("MOM_vert_friction")
+    vv = VertViscCfg(
+        kv=pf.get("KV", float, 1e-4, units="m2 s-1"),
+        hbbl=pf.get("HBBL", float, 10.0, units="m"),
+        cdrag=pf.get("CDRAG", float, 0.003),
+        drag_bg_vel=pf.get("DRAG_BG_VEL", float, 0.0, units="m s-1"),
+        maxvel=pf.get("MAXVEL", float, 3.0e8, units="m s-1"),
+        cfl_trunc=pf.get("CFL_TRUNCATE", float, 0.5),
+        bbl_thick_min=pf.get("BBL_THICK_MIN", float, 0.1, units="m"),
+        kv_bbl_min=pf.get("KV_BBL_MIN", float, 1e-4, units="m2 s-1"))
+    for name, default in (("BOTTOMDRAGLAW", True), ("LINEAR_DRAG", False),
+                          ("CHANNEL_DRAG", False), ("DYNAMIC_BBL", True),
+                          ("DYNAMIC_VISCOUS_ML", False),
+                          ("FIXED_DEPTH_LOTW_ML", False),
+                          ("DIRECT_STRESS", False),
+                          ("HARMONIC_VISC", False)):
+        default_only(pf, name, bool, default)
+    default_only(pf, "BBL_USE_EOS", bool, False,
+                 desc="BBL stratification ladder from EOS "
+                 "in-situ density differences instead of "
+                 "the Rlay targets "
+                 "(MOM_set_viscosity.F90:336)")
+    default_only(pf, "KV_ML_INVZ2", float, 0.0, units="m2 s-1",
+                 desc="extra near-surface viscosity with a "
+                 "1/z^2 profile over HMIX_FIXED "
+                 "(MOM_vert_friction.F90:1877-1888)")
+    default_only(pf, "VON_KARMAN_CONST", float, 0.41)
+
+    pf.module("MOM_hor_visc")
+    smag_kh = pf.get("SMAGORINSKY_KH", bool, False)
+    smag_ah = pf.get("SMAGORINSKY_AH", bool, False)
+    use_bih = pf.get("BIHARMONIC", bool, smag_ah)
+    default_only(pf, "ANISO_GRID_DIR", list, [1.0, 0.0])
+    hv = HorViscCfg(
+        laplacian=pf.get("LAPLACIAN", bool, False),
+        biharmonic=use_bih,
+        kh=pf.get("KH", float, 0.0, units="m2 s-1"),
+        ah=pf.get("AH", float, 0.0, units="m4 s-1"),
+        smag_lap_const=pf.get("SMAG_LAP_CONST", float, 0.0)
+        if smag_kh else 0.0,
+        smag_bi_const=pf.get("SMAG_BI_CONST", float, 0.0)
+        if smag_ah else 0.0,
+        dt=dt)
+    for name, ptype, default, units in (
+            ("KH_VEL_SCALE", float, 0.0, "m s-1"),
+            ("AH_VEL_SCALE", float, 0.0, "m s-1"),
+            ("LEITH_KH", bool, False, ""), ("LEITH_LAP_CONST", float, 0.0, ""),
+            ("LEITH_AH", bool, False, ""), ("LEITH_BI_CONST", float, 0.0, ""),
+            ("MODIFIED_LEITH", bool, False, ""),
+            ("ADD_LES_VISCOSITY", bool, False, ""),
+            ("ANISOTROPIC_VISCOSITY", bool, False, ""),
+            ("KH_ANISO", float, 0.0, "m2 s-1"), ("NOSLIP", bool, False, ""),
+            ("USE_ZB2020", bool, False, ""), ("ZB_SCALING", float, 0.5, ""),
+            ("ZB_TYPE", int, 0, ""), ("ZB_CONS", int, 0, ""),
+            ("USE_GME", bool, False, "")):
+        default_only(pf, name, ptype, default, units=units)
+    default_only(pf, "USE_LAND_MASK_FOR_HVISC", bool, True,
+                 desc="mask cell thicknesses before "
+                 "averaging to faces "
+                 "(MOM_hor_visc.F90:705,2270)")
+
+    pf.module("MOM_PressureForce")
+    default_only(pf, "USE_STANLEY_PGF", bool, False)
+    pgf_cfg = PressureForceCfg(
+        quad_points=pf.get("PGF_QUAD_POINTS", int, 5 if thermo else 1),
+        reconstruct=pf.get("RECONSTRUCT_FOR_PRESSURE", bool, use_regrid,
+                           desc="limited-PLM T/S reconstruction in "
+                           "the FV pressure integrals; default set "
+                           "by USE_REGRIDDING "
+                           "(MOM_PressureForce_FV.F90:980)"))
+
+    pf.module("MOM_tidal_forcing")
+    default_only(pf, "TIDES", bool, False)
+
+    pf.module("MOM_barotropic")
+    use_bt_cont = pf.get("USE_BT_CONT_TYPE", bool, True)
+    if pf.has("NONLINEAR_BT_CONTINUITY"):
+        use_bt_cont = pf.get("NONLINEAR_BT_CONTINUITY", bool, True)
+    bebt = pf.get("BEBT", float, 0.2)
+    default_only(pf, "BT_PROJECT_VELOCITY", bool, False)
+    dt_bt_filter = pf.get("DT_BT_FILTER", float, -0.25, units="s")
+    default_only(pf, "BOUND_BT_CORRECTION", bool, False)
+    default_only(pf, "MAXCFL_BT_CONT", float, 0.25)
+    default_only(pf, "BT_STRONG_DRAG", bool, False)
+    btcfg = BarotropicCfg(
+        bebt=bebt, nstep=1, dt_bt_filter=dt_bt_filter,
+        use_bt_cont=use_bt_cont,
+        ssh_extra=pf.get("SSH_EXTRA", float, 0.0, units="m"),
+        hvel_scheme=pf.get("BT_THICK_SCHEME", str, "FROM_BT_CONT",
+                           desc="per-layer face-thickness estimate "
+                           "behind the barotropic frhat weights "
+                           "(MOM_barotropic.F90:4520)").upper())
+    # the JAX package's Pallas switch: the port's wrappers choose by the
+    # tensors' device
+    pf.get("BT_USE_PALLAS", bool, True)
+    btcfg = dataclasses.replace(
+        btcfg, wide_halo_period=pf.get("BT_WIDE_HALO_PERIOD", int, 1))
+    nstep = set_dtbt(domain, grid, vgrid, btcfg, dt, max_depth=max_depth)
+    dtbt = pf.get("DTBT", float, -0.95, units="s or nondim")
+    if dtbt > 0:
+        nstep = max(1, int(math.ceil(dt / dtbt)))
+    btcfg = dataclasses.replace(btcfg, nstep=nstep)
+    split_cfg = SplitCfg(be=pf.get("BE", float, 0.6), continuity=cont,
+                         coriolis=cor, vertvisc=vv, horvisc=hv,
+                         barotropic=btcfg, pressure=pgf_cfg)
+    default_only(pf, "BEGW", float, 0.0)
+    default_only(pf, "STOCH_EOS", bool, False)
+    default_only(pf, "ICE_SHELF", bool, False)
+
+    pf.module("MOM_state_initialization")
+    _one_of("THICKNESS_CONFIG", pf.get("THICKNESS_CONFIG", str, "uniform"),
+            ("uniform",))
+    default_only(pf, "INIT_LAYERS_FROM_Z_FILE", bool, False)
+    shape = (nk, domain.njh, domain.nih)
+    # uniform nominal dz in depth, clipped by the local bathymetry
+    z_nom = (torch.arange(nk + 1, **f64) * (max_depth / nk)).reshape(-1, 1, 1)
+    z_cap = torch.minimum(z_nom, grid.bathyT.double()[None])
+    h = torch.clamp(z_cap[1:] - z_cap[:-1], min=vgrid.angstrom)
+    h = domain.fill_halos(h.to(dtype))
+    T = S = None
+    if thermo:
+        ts_cfg = _one_of("TS_CONFIG", pf.get("TS_CONFIG", str, "uniform"),
+                         ("uniform", "linear"))
+        T0 = pf.get("T_REF", float, 10.0, units="degC")
+        S0 = pf.get("S_REF", float, 35.0, units="ppt")
+        one = torch.ones(shape, **f64)
+        if ts_cfg == "uniform":
+            T, S = T0 * one, S0 * one
+        else:
+            T_range = pf.get("T_RANGE", float, 0.0, units="degC")
+            S_range = pf.get("S_RANGE", float, 0.0, units="ppt")
+            k_frac = (torch.arange(nk, **f64) + 0.5) / nk
+            T = (T0 + T_range * (0.5 - k_frac)).reshape(-1, 1, 1) * one
+            S = (S0 + S_range * (k_frac - 0.5)).reshape(-1, 1, 1) * one
+        T, S = T.to(dtype), S.to(dtype)
+    _one_of("VELOCITY_CONFIG", pf.get("VELOCITY_CONFIG", str, "zero"),
+            ("zero",))
+    z = torch.zeros_like(h)
+    state = State(u=z, v=z, h=h, T=T, S=S)
+    default_only(pf, "FRAZIL", bool, False)
+
+    pf.module("MOM_surface_forcing")
+    sf_cfg = SurfaceForcingCfg(
+        wind_config=pf.get("WIND_CONFIG", str, "zero"),
+        taux_magnitude=pf.get("TAUX_MAGNITUDE", float, 0.1, units="Pa"),
+        taux_const=pf.get("TAUX_CONST", float, 0.0, units="Pa"),
+        taux_sin_amp=pf.get("TAUX_SIN_AMP", float, 0.0, units="Pa"),
+        taux_cos_amp=pf.get("TAUX_COS_AMP", float, 0.0, units="Pa"),
+        taux_n_pis=pf.get("TAUX_N_PIS", float, 1.0),
+        buoy_config=pf.get("BUOY_CONFIG", str, "zero"),
+        sensible_heat=pf.get("SENSIBLE_HEAT_FLUX", float, 0.0,
+                             units="W m-2"),
+        restore_sst=pf.get("RESTOREBUOY", bool, False),
+        fluxconst=pf.get("FLUXCONST", float, 0.0, units="m day-1"),
+        sst_north=pf.get("SST_NORTH", float, 5.0, units="degC"),
+        sst_south=pf.get("SST_SOUTH", float, 25.0, units="degC"),
+        sss_north=pf.get("SSS_NORTH", float, 35.0, units="ppt"),
+        sss_south=pf.get("SSS_SOUTH", float, 35.0, units="ppt"),
+        restore_sss=pf.has("SSS_NORTH") or pf.has("SSS_SOUTH"),
+        rho0=rho0,
+        cp=pf.get("C_P", float, 3991.86795711963, units="J kg-1 K-1"))
+    pf.get("INPUTDIR", str, ".")
+    _one_of("WIND_CONFIG", sf_cfg.wind_config, _WINDS)
+    forces = build_wind(sf_cfg, grid, south, lenlat)
+    if thermo and sf_cfg.buoy_config not in ("zero", "NONE"):
+        _one_of("BUOY_CONFIG", sf_cfg.buoy_config,
+                ("linear_restoring", "linear"))
+    if os.path.exists(os.path.join(pf.case_dir, "data_table")):
+        raise NotImplementedError("data_table: data override")
+
+    split_state = init_split_state(domain, grid, vgrid, state,
+                                   horvisc_cfg=hv)
+
+    pf.module("MOM_ALE")
+    ale_cfg = None
+    if use_regrid:
+        mode = pf.get("REGRIDDING_COORDINATE_MODE", str, "Z*")
+        if mode.upper().startswith("ADAPT") or mode.upper() == "HYBGEN":
+            raise NotImplementedError(f"REGRIDDING_COORDINATE_MODE = "
+                                      f"{mode!r}: option not ported")
+        res = pf.get("ALE_RESOLUTION", list, [])
+        scheme = pf.get("REMAPPING_SCHEME", str, "PPM_H4")
+        default_only(pf, "HYBGEN_UNMIX", bool, False)
+        vel_scheme = pf.get("VELOCITY_REMAPPING_SCHEME", str, scheme)
+        for name, s in (("REMAPPING_SCHEME", scheme),
+                        ("VELOCITY_REMAPPING_SCHEME", vel_scheme)):
+            if s.upper() in _REMAP_NOT_PORTED:
+                raise NotImplementedError(f"{name} = {s!r}: option not "
+                                          "ported")
+        ale_cfg = ALECfg(
+            regrid=RegridCfg(mode=mode, resolution=tuple(res),
+                             min_thickness=pf.get("MIN_THICKNESS", float,
+                                                  1e-3, units="m")),
+            remap=RemapCfg(scheme=scheme),
+            vel_remap=RemapCfg(scheme=vel_scheme),
+            sequential_remap=pf.get(
+                "ALE_SEQUENTIAL_REMAP", bool, False,
+                desc="remap fields one at a time behind optimization "
+                "barriers: slower, but caps the remap's live "
+                "temporaries at one field (HBM lever for production "
+                "grids)"),
+            remap_band=pf.get(
+                "ALE_REMAP_BAND", int, 0,
+                desc="evaluate only the near-diagonal (dst,src) pairs "
+                "of the per-step remap, |k-m|<=band; a violating step "
+                "falls back to the full pair space (exact); 0 "
+                "disables"),
+            regrid_time_scale=pf.get("REGRID_TIME_SCALE", float, 0.0,
+                                     units="s"),
+            filter_shallow_depth=pf.get("REGRID_FILTER_SHALLOW_DEPTH",
+                                        float, 0.0, units="m"),
+            filter_deep_depth=pf.get("REGRID_FILTER_DEEP_DEPTH",
+                                     float, 0.0, units="m"))
+        if thermo:
+            default_only(pf, "REGRID_ACCELERATE_INIT", bool, False)
+
+    pf.module("MOM_set_diffusivity")
+    for name in ("USE_LMD94", "USE_PP81"):
+        default_only(pf, name, bool, False)
+    bk_scheme = "bryan_lewis" if pf.get("BRYAN_LEWIS_DIFFUSIVITY", bool,
+                                        False) else "constant"
+    for name in ("USE_JACKSON_PARAM", "INT_TIDE_DISSIPATION"):
+        default_only(pf, name, bool, False)
+    default_only(pf, "GEOTHERMAL_FLUX", float, 0.0, units="W m-2")
+    default_only(pf, "DO_GEOTHERMAL", bool, False)
+    default_only(pf, "PEN_SW_NBANDS", int, 0)
+    default_only(pf, "ENERGETICS_SFC_PBL", bool, False)
+    # PEN_SW_SCALE > 0 turns penetrating shortwave on; the JAX builder
+    # reads it three times, the last with no units and a 15 m default
+    default_only(pf, "PEN_SW_SCALE", float, 0.0, units="m")
+    default_only(pf, "PEN_SW_SCALE", float, 0.0)
+    pf.get("PEN_SW_SCALE", float, 15.0)
+    diffusivity = DiffusivityCfg(
+        kd=pf.get("KD", float, 0.0, units="m2 s-1"),
+        kd_min=pf.get("KD_MIN", float, 0.0, units="m2 s-1"),
+        kd_max=pf.get("KD_MAX", float, -1.0, units="m2 s-1"),
+        bkgnd=BkgndMixingCfg(scheme=bk_scheme,
+                             kd=pf.get("KD", float, 0.0)))
+    for name in ("USE_CVMIX_CONVECTION", "DOUBLE_DIFFUSION",
+                 "USE_LOTW_BBL_DIFFUSIVITY", "USER_CHANGE_DIFFUSIVITY",
+                 "ML_RADIATION"):
+        default_only(pf, name, bool, False)
+    dia_cfg = DiabaticCfg(
+        diffusivity=diffusivity,
+        use_kpp=pf.get("USE_KPP", bool, False),
+        kpp=KPPCfg(ri_crit=pf.get("RI_CRIT", float, 0.3),
+                   cv=pf.get("KPP_CV", float, 1.7)),
+        rho0=rho0,
+        gust_const=pf.get("GUST_CONST", float, 0.0, units="Pa",
+                          desc="background gustiness added to |tau| "
+                          "in the u* used by the boundary-layer "
+                          "schemes (MOM_surface_forcing.F90:428)"),
+        use_entrain_diffusive=pf.get("ENTRAIN_DIFFUSIVE", bool,
+                                     not use_regrid),
+        entrain=EntrainDiffusiveCfg(
+            max_ent_it=pf.get("MAX_ENT_IT", int, 5)))
+    default_only(pf, "DEPTH_LIMIT_FLUXES", float, 0.0, units="m")
+    default_only(pf, "FULL_CONVECTION", bool, False)
+    default_only(pf, "REGULARIZE_SURFACE_LAYERS", bool, False)
+    default_only(pf, "USE_WAVES", bool, False)
+
+    pf.module("MOM_thickness_diffuse")
+    thickness_diffuse_on = pf.get("THICKNESSDIFFUSE", bool, True)
+    td_cfg = ThicknessDiffuseCfg(
+        khth=(pf.get("KHTH", float, 0.0, units="m2 s-1")
+              if thickness_diffuse_on else 0.0),
+        khth_max=pf.get("KHTH_MAX", float, 0.0, units="m2 s-1"))
+    pf.module("MOM_interface_filter")
+    default_only(pf, "INTERFACE_FILTER_TIME_SCALE", float, 0.0, units="s")
+    pf.module("MOM_MEKE")
+    default_only(pf, "USE_MEKE", bool, False)
+    pf.module("MOM_lateral_mixing_coeffs")
+    default_only(pf, "USE_VARIABLE_MIXING", bool, False)
+    default_only(pf, "USE_VISBECK", bool, False)
+    pf.module("MOM_mixed_layer_restrat")
+    use_mle = pf.get("MIXEDLAYER_RESTRAT", bool, False)
+    mle_cfg = MLRestratCfg(
+        fox_kemper_ml_restrat_coef=pf.get("FOX_KEMPER_ML_RESTRAT_COEF",
+                                          float, 20.0),
+        ml_restrat_timescale=pf.get("ML_RESTRAT_TIMESCALE", float,
+                                    86400.0, units="s"))
+    pf.module("MOM_tracer_hor_diff")
+    hordiff_cfg = TracerHorDiffCfg(
+        khtr=pf.get("KHTR", float, 0.0, units="m2 s-1"),
+        khtr_min=pf.get("KHTR_MIN", float, 0.0, units="m2 s-1"),
+        khtr_max=pf.get("KHTR_MAX", float, -1.0, units="m2 s-1"))
+    default_only(pf, "KHTR_SLOPE_CFF", float, 0.0)
+    default_only(pf, "DIFFUSE_ML_TO_INTERIOR", bool, False)
+    default_only(pf, "USE_NEUTRAL_DIFFUSION", bool, False)
+    n_dyn_per_therm = max(1, int(round(dt_therm / dt)))
+    pf.module("MOM_sponge")
+    default_only(pf, "SPONGE", bool, False)
+
+    # transports accumulate over n_dyn_per_therm dynamics steps, so the
+    # tracer advection gets enough sweep pairs to exhaust the worst-case
+    # accumulated face CFL (CFL_TRUNCATE per dynamics step) at max_cfl
+    # a pass, plus a spare pass
+    adv = TracerAdvectCfg()
+    adv_cfg = dataclasses.replace(adv, n_sweep_pairs=max(2, int(math.ceil(
+        n_dyn_per_therm * vv.cfl_trunc / adv.max_cfl))))
+    pf.module("MOM_internal_tides")
+    default_only(pf, "INTERNAL_TIDES", bool, False)
+    pf.module("MOM_stochastics")
+    for name in ("DO_SPPT", "DO_SKEB", "STOCH_EOS"):
+        default_only(pf, name, bool, False)
+    pf.module("MOM_hor_bnd_diffusion")
+    default_only(pf, "USE_HORIZONTAL_BOUNDARY_DIFFUSION", bool, False)
+    default_only(pf, "DIABATIC_FIRST", bool, False)
+    default_only(pf, "THICKNESSDIFFUSE_FIRST", bool, False,
+                 desc="diffuse thickness before the "
+                 "dynamics instead of after it "
+                 "(MOM.F90:1157,1297)")
+    for name in ("RESOLN_SCALED_KH", "RESOLN_SCALED_KHTH",
+                 "RESOLN_SCALED_KHTR"):
+        default_only(pf, name, bool, False)
+    ocean_cfg = OceanCfg(split_cfg=split_cfg, n_dyn_per_therm=n_dyn_per_therm,
+                         tracer_adv=adv_cfg, diabatic=dia_cfg, ale=ale_cfg,
+                         thickness_diffuse=td_cfg, thermo=thermo,
+                         adiabatic=adiabatic, use_mle=use_mle,
+                         mlrestrat=mle_cfg, hordiff=hordiff_cfg)
+
+    pf.module("MOM_tracer_flow_control")
+    registry = TracerRegistry()
+    tracers = {}
+    if pf.get("USE_IDEAL_AGE_TRACER", bool, False):
+        tracers["age"] = register_ideal_age(registry, shape, **dev)
+    for name in ("USE_PSEUDO_SALT_TRACER", "USE_REGIONAL_DYES",
+                 "USE_DOME_TRACER", "USE_BOUNDARY_IMPULSE_TRACER",
+                 "USE_OIL_TRACER", "USE_ADVECTION_TEST_TRACER",
+                 "USE_MARBL_TRACERS", "USE_OCMIP2_CFC", "USE_NPZD"):
+        default_only(pf, name, bool, False)
+    default_only(pf, "TRACER_Z_INIT_FILE", str, "")
+    default_only(pf, "PHASED_JIT", bool, False, module="MOM",
+                 desc="run thermo steps as two executables "
+                 "(dynamics, then tracer+thermo/ALE) to halve "
+                 "peak HBM at production grid sizes")
+
+    return Model(domain=domain, grid=grid, vgrid=vgrid, eos=eos,
+                 cfg=ocean_cfg, forcing_cfg=sf_cfg, south=south,
+                 lenlat=lenlat, forces=forces, registry=registry,
+                 state=state, split=split_state, tracers=tracers or None,
+                 dt=dt, dt_therm=dt_therm, dt_forcing=dt_forcing,
+                 daymax=daymax, thermo=thermo)

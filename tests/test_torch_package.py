@@ -4,13 +4,15 @@
 * Every module imports without nvcc, triton or a card.
 * A CPU tensor through each kernel wrapper takes the plain version and
   leaves the wrapper's launch counter at 0.
-* Options outside the slice raise NotImplementedError naming them.
+* Options outside the slice raise NotImplementedError naming them, in
+  the step, in the model builder and in the solo driver.
 """
 
 import ast
 import dataclasses
 import importlib
 import pathlib
+import shutil
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from mom6_torch.core.continuity_ppm import (ContinuityCfg, continuity_ppm,
                                             set_up_bt_cont)
 from mom6_torch.core.dynamics_split_rk2 import SplitCfg, step_dyn_split_rk2
 from mom6_torch.core.vert_friction import VertViscCfg
+from mom6_torch.drivers import solo
 
 # one intra-op thread: the test workers share the machine's cores, and
 # an idle torch pool spins beside the other workers' XLA threads
@@ -48,6 +51,12 @@ def test_no_jax_imports(path):
     bad = {n for n in _imported(path)
            if n.split(".")[0] in ("jax", "jaxlib", "mom6_tpu")}
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_guard_covers_the_builder_and_the_driver():
+    for rel in ("mom6_torch/model.py", "mom6_torch/drivers/solo.py",
+                "mom6_torch/framework/config.py", "chip_smoke.py"):
+        assert ROOT / rel in PORT_FILES, rel
 
 
 def test_every_module_imports_without_a_card():
@@ -125,3 +134,31 @@ def test_nonboussinesq_and_porous_raise():
     with pytest.raises(NotImplementedError, match="porous"):
         set_up_bt_cont(porous, s.vgrid, s.state.u, s.state.v, s.state.h,
                        s.dt)
+
+
+@pytest.mark.parametrize("line,name", [
+    ("DIAG_AS_CHKSUM = True", "DIAG_AS_CHKSUM"),
+    ("USE_PARTICLES = True", "USE_PARTICLES"),
+    ("OFFLINE_TRACER_MODE = True", "OFFLINE_TRACER_MODE"),
+    ("WRITE_OFFLINE_FIELDS = True", "WRITE_OFFLINE_FIELDS"),
+    ("DEBUG = True", "DEBUG"),
+    ("DEBUG_NANS = True", "DEBUG_NANS"),
+    ('U_TRUNC_FILE = "U_velocity_truncations"', "U_TRUNC_FILE"),
+    ("READ_DEPTH_LIST = True", "READ_DEPTH_LIST"),
+    ("RESTINT = 10.0", "RESTINT"),
+    ("NK_ZSPACE = 5", "NK_ZSPACE"),
+    ("USE_MEKE = True", "USE_MEKE"),
+    ('#override TOPO_CONFIG = "seamount"', "TOPO_CONFIG"),
+    ("diag_table", "diag_table"),
+])
+def test_driver_rejects_unported_options(tmp_path, line, name):
+    case = ROOT / "cases" / "double_gyre"
+    shutil.copy(case / "MOM_input", tmp_path / "MOM_input")
+    if line == "diag_table":
+        (tmp_path / "diag_table").write_text('"ocean"\n1 1 1 0 0 0\n')
+    else:
+        with open(tmp_path / "MOM_input", "a") as f:
+            f.write(line + "\n")
+    with pytest.raises(NotImplementedError, match=name):
+        solo.main([str(tmp_path), "--days", "0.25", "--cpu"])
+    assert not (tmp_path / "ocean.stats").exists()
