@@ -22,7 +22,14 @@ order; any failure ends the script with a non-zero exit:
    tiles a block, shared memory a block per dtype).  Then the closed
    basin (walls in x): K1, K2 and K3 at cases/double_gyre's 2x48x52 and
    at 25x520x520, fp64 and fp32, each required equal to its plain
-   version, with the tile and band plans printed;
+   version, with the tile and band plans printed.  Then the K1/K2 modes
+   of the RK2b and unsplit steppers and the reference cases, each
+   required equal to its plain version at 25x520x520 and on the closed
+   basin 2x48x52, fp64 and fp32: K1 untargeted (no barotropic
+   transport to match), and K1 (both orders, matched and untargeted)
+   and K2 under each of upwind_1st, simple_2nd, monotonic and vol_cfl;
+   each mode timed in fp32 at 25x520x520 (CUDA events and the
+   profiler) beside its bound and its plain version;
 4. slice 1 (the split RK2 dynamics step) at 64x64x8 in fp64 for 3
    steps, on the card (kernels) against the CPU (plain versions);
 5. slice 1 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
@@ -43,6 +50,16 @@ order; any failure ends the script with a non-zero exit:
    device kernels that one K1 sweep, one K2 call and one K3 or K3m
    subcycle launch as torch.profiler traces them, with their device
    time from that trace;
+6b. the split RK2b step (BT_WIDE_HALO_PERIOD 1 and 2) and the unsplit
+   RK3 step of bench.py's CONFIG (entry.build_full's ``dynamics``) at
+   32x32x6 in fp64, card against CPU: RK2b for 4 steps, unsplit for 6
+   (its DT_THERM is 6 DT, so the last is a thermodynamic step with ALE);
+7b. the two at full width, 512x512x25 fp32: 2 warm-up steps, then 12
+   timed steps with every launch counter zeroed just before and read
+   just after (launches a step asserted: RK2b K1 8, 4 of them
+   untargeted, K2 1, K3m 2; unsplit K1 6, all untargeted), ms/step by
+   kind of step, the peak of max_memory_allocated, finite fields, and
+   one device kernel per launch in a torch.profiler trace of 2 steps;
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -54,9 +71,14 @@ order; any failure ends the script with a non-zero exit:
    27 throughout, K1, K2 and K3m launched and K3 not, the final state
    bitwise equal to 12 steps of entry.build_full().step_fn in the same
    process, the driver's ms/step beside the bare loop's, one
-   stat_sums + collect_stats call timed and the driver's peak memory.
-   Each driver run has every launch counter zeroed just before it and
-   read just after.
+   stat_sums + collect_stats call timed and the driver's peak memory;
+   then cases/tc0 (unsplit, 4x4x1) for its 4 days in fp64, card against
+   --cpu as double_gyre, K1 untargeted alone launched; and
+   cases/ref_tc0 (unsplit, SIMPLE_2ND_PPM_CONTINUITY) through
+   build_model and step_fn on the card in fp64 against its golden in
+   tests/goldens_ref_cases.json (the driver still refuses its DEBUG and
+   DIAG_AS_CHKSUM).  Each run has every launch counter zeroed just
+   before it and read just after.
 
 The line before the last is the JSON ``kernels`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -100,6 +122,25 @@ OPS_EDGES, OPS_FLUX = 100, 35
 OPS_K1 = OPS_EDGES + 7 * OPS_FLUX + 4
 OPS_K2 = 2 * (OPS_EDGES + 6 * OPS_FLUX + 12)
 OPS_K3_SUBSTEP = 162
+
+# The K1/K2 modes of the RK2b and unsplit steppers and the reference
+# cases, by their ContinuityCfg switches: "untargeted" is K1 with no
+# barotropic transport to match (one pass, no Newton step), in the
+# default scheme; the others are edge schemes, or the volume-based CFL,
+# of K1 (matched and untargeted) and K2.  The edge values of one cell
+# cost ~100 operations with either limiter (ppm.cuh), ~10 for
+# simple_2nd and none for upwind_1st.
+MODES = {"untargeted": {}, "upwind_1st": {"upwind_1st": True},
+         "simple_2nd": {"simple_2nd": True},
+         "monotonic": {"monotonic": True}, "vol_cfl": {"vol_cfl": True}}
+OPS_EDGES_BY = {"untargeted": 100, "upwind_1st": 0, "simple_2nd": 10,
+                "monotonic": 100, "vol_cfl": 100}
+# launches a step on each dynamics path of build_full (K1u: the
+# untargeted K1 sweeps among K1's)
+PER_STEP = {"rk2b": {"K1": 8, "K2": 1, "K3": 0, "K3m": 2, "K1u": 4},
+            "unsplit": {"K1": 6, "K2": 0, "K3": 0, "K3m": 0, "K1u": 6}}
+NEW_STEPS = 12                 # timed steps of each new full-width path
+TC0_DAYS = "4"                 # cases/tc0: 4 steps of one day
 
 KERNELS = {
     "K1": dict(name="continuity_sweep", route="cuda",
@@ -164,6 +205,7 @@ def cuda_ms(fn, reps, warm=True):
 class Results:
     def __init__(self):
         self.err = {k: {} for k in KERNELS}      # dtype -> (rel, abs)
+        self.modes = {}                          # (kernel, mode) -> abs
 
     def check(self, kernel, dtype, label, ref, out, tol_key=None, H=4,
               exact=False):
@@ -194,6 +236,15 @@ class Results:
         old = self.err[kernel].get(dtype, (0.0, 0.0))
         self.err[kernel][dtype] = (
             max(old[0], rel), max(old[1], *(e[1] for e in errs.values())))
+        return max(e[1] for e in errs.values())
+
+    def check_mode(self, kernel, mode, dtype, label, ref: dict, out: dict):
+        """``check_all`` with equality required, the worst absolute
+        error kept per kernel and mode."""
+        diff = self.check_all(kernel, dtype, f"{mode} {label}", ref, out,
+                              exact=True)
+        key = (kernel, mode)
+        self.modes[key] = max(self.modes.get(key, 0.0), diff)
 
 
 def make_grid(ni, nj, nk, dtype, device=None, reentrant_y=False,
@@ -299,6 +350,101 @@ def check_k1_k2(res, ni, nj, nk, dtype, timing=None, reentrant_x=True,
         timing["K2"] = (cuda_ms(lambda: cc.set_up_bt_cont_cuda(*bargs), 20),
                         cuda_ms(lambda: set_up_bt_cont(*bargs), 3),
                         lambda: cc.set_up_bt_cont_cuda(*bargs))
+
+
+def check_modes(res, ni, nj, nk, dtype, timing=None, reentrant_x=True):
+    """K1 untargeted, and K1 (matched and untargeted, both orders) and K2
+    in each other mode of MODES, against their plain versions, required
+    equal; with ``timing`` each mode's K1 (untargeted for "untargeted",
+    matched for the others) and K2 are timed into it."""
+    from mom6_torch.core import continuity_cuda as cc
+    from mom6_torch.core.continuity_ppm import (ContinuityCfg,
+                                                continuity_ppm,
+                                                set_up_bt_cont)
+    d, g, vg, x = continuity_inputs(ni, nj, nk, dtype, seed=2,
+                                    reentrant_x=reentrant_x)
+    dt = 600.0
+    dn = str(dtype).split(".")[-1]
+    shape = f"{nk}x{d.njh}x{d.nih}" + ("" if reentrant_x else " walled x")
+    matched = dict(uhbt=x["uhbt"], vhbt=x["vhbt"], visc_rem_u=x["vr_u"],
+                   visc_rem_v=x["vr_v"])
+    for mode, kw in MODES.items():
+        cfg = ContinuityCfg(**kw)
+        args = (g, vg, x["u"], x["v"], x["h"], dt, cfg)
+        for targeted in (False,) if mode == "untargeted" else (False, True):
+            tkw = matched if targeted else {}
+            names = ("h", "uh", "vh") + (("u_cor", "v_cor", "du_cor",
+                                          "dv_cor") if targeted else ())
+            for x_first in (True, False):
+                ref = continuity_ppm(*args, x_first=x_first, **tkw)
+                out = cc.continuity_ppm_cuda(*args, x_first=x_first, **tkw)
+                if not targeted and (out.u_cor is not None
+                                     or out.du_cor is not None):
+                    raise AssertionError(f"K1 {mode}: an untargeted sweep "
+                                         "returned corrections")
+                res.check_mode(
+                    "K1", mode, dn,
+                    f"{shape} {'matched' if targeted else 'untargeted'} "
+                    f"x_first={x_first}", {n: getattr(ref, n) for n in names},
+                    {n: getattr(out, n) for n in names})
+            if timing is not None and targeted == (mode != "untargeted"):
+                call = functools.partial(cc.continuity_ppm_cuda, *args,
+                                         **tkw)
+                timing[("K1", mode)] = (
+                    cuda_ms(call, 20) / 2,
+                    cuda_ms(lambda: continuity_ppm(*args, **tkw), 3) / 2,
+                    call)
+        if mode == "untargeted":
+            continue
+        bargs = args + (x["vr_u"], x["vr_v"])
+        ref, out = set_up_bt_cont(*bargs), cc.set_up_bt_cont_cuda(*bargs)
+        res.check_mode("K2", mode, dn, shape, ref._asdict(), out._asdict())
+        if timing is not None:
+            call = functools.partial(cc.set_up_bt_cont_cuda, *bargs)
+            timing[("K2", mode)] = (cuda_ms(call, 20),
+                                    cuda_ms(lambda: set_up_bt_cont(*bargs),
+                                            3), call)
+
+
+def mode_bound(kernel, mode, nk, njh, nih, item, dtn):
+    """(bound_ms, bound_by) of one K1 sweep or one K2 call in ``mode``."""
+    P = njh * nih
+    e = OPS_EDGES_BY[mode]
+    if kernel == "K1" and mode == "untargeted":
+        # u, h + dlen, Idx, Iarea and the two masks in; h, flux out
+        work = (4 * nk * P + 5 * P, (e + OPS_FLUX + 4) * nk * P)
+    elif kernel == "K1":
+        work = (6 * nk * P + 8 * P, (e + 7 * OPS_FLUX + 4) * nk * P)
+    else:
+        work = (5 * nk * P + (22 if mode == "vol_cfl" else 21) * P,
+                2 * (e + 6 * OPS_FLUX + 12) * nk * P)
+    return bound(*work, item, dtn)
+
+
+def mode_records(res, timing, shape):
+    """Each timed mode's CUDA-event and profiler times, its plain
+    version's and its bound, logged; returns {kernel: {mode: record}}."""
+    nk, njh, nih = shape
+    out = {}
+    for (k, mode), (ms, plain_ms, call) in timing.items():
+        name, per_call = PROFILED[k]
+        n_prof, n_all, dev_ms = profiled_kernels(
+            call, name, PROFILE_REPS, PROFILE_REPS * per_call)
+        if n_prof != PROFILE_REPS * per_call or n_all != n_prof:
+            raise AssertionError(f"{k} {mode}: torch.profiler traced "
+                                 f"{n_prof} {name} kernels ({n_all} in "
+                                 f"all) in {PROFILE_REPS * per_call} "
+                                 "launches, expected one each")
+        b_ms, b_by = mode_bound(k, mode, nk, njh, nih, 4, "float32")
+        unit = "per sweep" if k == "K1" else "per call"
+        log(f"  {k} {mode}: {ms:.4f} ms {unit} (CUDA events), "
+            f"{dev_ms / per_call:.4f} ms (profiler), bound {b_ms:.4f} ms "
+            f"({b_by}), plain {plain_ms:.4f} ms, max abs err "
+            f"{res.modes[(k, mode)]:.1e}")
+        out.setdefault(k, {})[mode] = dict(
+            ms=ms, profiled_device_ms=dev_ms / per_call, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=res.modes[(k, mode)])
+    return out
 
 
 def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
@@ -468,28 +614,56 @@ def bc_plan(inp):
             "constants")
 
 
-def profiled_kernels(fn, kernel, reps=1):
+# a torch.profiler trace taken after one that covered whole steps has
+# come back missing some or all kernel events (0 or 8 of 10 sweeps, then
+# 10 of 10 in the next trace of the same calls): a count that disagrees
+# is traced again, up to this many traces
+TRACE_ATTEMPTS = 3
+
+
+def traced_kernels(fn, reps=1, before=None):
     """The device kernels ``reps`` calls of ``fn`` launch, as
-    torch.profiler traces them: (those whose name holds ``kernel``, all,
-    mean device milliseconds a call of the ``kernel`` ones)."""
+    torch.profiler traces them: [(name, microseconds)].  The profiler
+    first runs one warm-up round of the same calls, whose events it
+    drops; ``before`` runs between the two rounds."""
     import os
     import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
+        # the active round's trace is written when that round ends
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            for cycle in range(2):
+                if cycle and before is not None:
+                    before()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    kern = [e for e in events
+    return [(e["name"], e["dur"]) for e in events
             if e.get("ph") == "X" and e.get("cat") == "kernel"]
-    mine = [e["dur"] for e in kern if kernel in e["name"]]
+
+
+def profiled_kernels(fn, kernel, reps=1, expect=None):
+    """(the traced device kernels whose name holds ``kernel``, all of
+    them, mean device milliseconds a call of the ``kernel`` ones); with
+    ``expect`` (the count of ``kernel`` kernels wanted) a trace that
+    has another count is taken again (TRACE_ATTEMPTS)."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        kern = traced_kernels(fn, reps)
+        mine = [d for name, d in kern if kernel in name]
+        if expect is None or len(mine) == expect:
+            break
+        log(f"  trace {attempt}: {len(mine)} {kernel} kernels of "
+            f"{expect}: traced again")
     return len(mine), len(kern), sum(mine) / 1e3 / reps
 
 
@@ -518,8 +692,8 @@ def bounds(timing, nk, njh, nih, item, dtn):
     peak."""
     P = njh * nih
     work = {
-        # u, h, visc_rem, hbt + 6 grid planes in; h, flux, u_cor out
-        "K1": ((6 * nk) * P + 7 * P, OPS_K1 * nk * P),
+        # u, h, visc_rem, hbt + 6 grid planes in; h, flux, u_cor, du out
+        "K1": ((6 * nk) * P + 8 * P, OPS_K1 * nk * P),
         # u, v, h, 2 visc_rem + 9 grid planes in; 12 planes out
         "K2": ((5 * nk) * P + 21 * P, OPS_K2 * nk * P),
         "K3": subcycle_work(timing["K3"][2]),
@@ -549,13 +723,15 @@ def run_slice(ni, nj, nk, dtype, device, nsteps):
     return s, st, sp
 
 
-def run_full(ni, nj, nk, dtype, device, nsteps, seed, regridding):
+def run_full(ni, nj, nk, dtype, device, nsteps, seed, regridding,
+             dynamics="rk2", period=2):
     """``nsteps`` full steps from the configuration's initial state plus
     the seeded perturbation of ``entry.build_full``: the configuration
     starts at rest and horizontally uniform, where a comparison of the
     first steps' v and eta would compare roundoff."""
     from mom6_torch import entry
     m = entry.build_full(ni, nj, nk, seed=seed, regridding=regridding,
+                         dynamics=dynamics, wide_halo_period=period,
                          device=device, dtype=dtype)
     step = m.step_fn()
     st, sp, tr = m.state, m.split, m.tracers
@@ -638,6 +814,147 @@ def run_full_timed(label, regridding, nsteps, wrappers, shape):
                 peak_bytes=peak, state=st)
 
 
+def read_counts(wrappers):
+    """Every wrapper's launches, and the untargeted K1 sweeps as K1u."""
+    from mom6_torch.core import continuity_cuda as cc
+    counts = {k: w.launches for k, w in wrappers.items()}
+    counts["K1u"] = cc.continuity_ppm_cuda.untargeted_launches
+    return counts
+
+
+def run_new_timed(dynamics, wrappers, shape):
+    """build_full(dynamics=...) at full width in fp32: 2 warm-up steps,
+    then NEW_STEPS timed steps with every launch counter zeroed just
+    before and read just after (PER_STEP asserted), ms/step by kind of
+    step, the peak of max_memory_allocated, finite fields; then 2 more
+    steps under torch.profiler, whose device kernels must be one per
+    launch."""
+    import torch
+    from mom6_torch import entry
+    m = entry.build_full(*MAIN, dynamics=dynamics, device=DEV,
+                         dtype=torch.float32)
+    full_step = m.step_fn()
+    cur = [m.state, m.split, m.tracers]
+    n_done = [0]
+
+    def fstep():
+        cur[:] = full_step(*cur, n_done[0])
+        n_done[0] += 1
+
+    for _ in range(2):
+        fstep()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(NEW_STEPS + 1)]
+    kinds = []
+    events[0].record()
+    for i in range(NEW_STEPS):
+        kinds.append("thermo" if (n_done[0] + 1) % m.cfg.n_dyn_per_therm
+                     == 0 else "dynamics-only")
+        fstep()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    counts = read_counts(wrappers)
+    device = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: n * NEW_STEPS for k, n in PER_STEP[dynamics].items()}
+    if counts != expect:
+        raise AssertionError(f"{dynamics} launch counts {counts}, "
+                             f"expected {expect}")
+    check_device_launches(dynamics, device, counts)
+    st, sp, tr = cur
+    fields = [("h", st.h), ("u", st.u), ("v", st.v), ("T", st.T),
+              ("S", st.S), ("age", tr["age"])]
+    if sp is not None:
+        fields += [("eta", sp.eta), ("du_av_inst", sp.du_av_inst),
+                   ("dv_av_inst", sp.dv_av_inst)]
+    check_finite(fields, shape)
+    per = [events[i].elapsed_time(events[i + 1]) for i in range(NEW_STEPS)]
+    by_kind = {k: [t for t, kk in zip(per, kinds) if kk == k]
+               for k in ("thermo", "dynamics-only")}
+    ms_full = sum(per) / NEW_STEPS
+    log(f"  {NEW_STEPS} steps (dt {m.dt:g} s, {m.cfg.n_dyn_per_therm} "
+        f"steps a thermodynamic step): {ms_full:.3f} ms/step mean (CUDA "
+        "events), " + ", ".join(f"{k} {sum(v) / len(v):.3f} ms/step over "
+                                f"{len(v)}" for k, v in by_kind.items()
+                                if v)
+        + f"; {ms_full / (m.dt / 600.0):.3f} ms per 600 s of model time; "
+        f"launches {counts}; peak memory {peak} B ({peak / 2**30:.3f} GiB,"
+        " max_memory_allocated)")
+    log(f"  h range [{float(m.domain.interior(st.h).min()):.3f}, "
+        f"{float(m.domain.interior(st.h).max()):.3f}] m, max |u| "
+        f"{float(st.u.abs().max()):.4f} m/s"
+        + ("" if sp is None else
+           f", max |eta| {float(sp.eta.abs().max()):.4f} m"))
+    # one device kernel per launch over 2 traced steps (after 2 warm-up
+    # steps under the profiler)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        kern = traced_kernels(lambda: (fstep(), fstep()),
+                              before=lambda: zero_counts(wrappers))
+        counts2 = read_counts(wrappers)
+        want = {"sweep_kernel": counts2["K1"],
+                "bt_cont_kernel": counts2["K2"],
+                "subcycle_kernel": wrappers["K3"].device_launches
+                + wrappers["K3m"].device_launches}
+        got = {k: sum(k in name for name, _ in kern) for k in want}
+        if got == want:
+            break
+        log(f"  trace {attempt}: device kernels {got} for launches "
+            f"{want}: traced again")
+    if got != want:
+        raise AssertionError(f"{dynamics}: torch.profiler traced {got} "
+                             f"device kernels for launches {want}")
+    log(f"  torch.profiler over 2 steps: device kernels {got}, one per "
+        "launch")
+    return dict(ms_step=ms_full, by_kind={k: sum(v) / len(v)
+                                          for k, v in by_kind.items() if v},
+                launches=counts, peak_bytes=peak)
+
+
+def run_ref_tc0(wrappers):
+    """cases/ref_tc0 through build_model and step_fn on the card in
+    fp64, with every launch counter zeroed just before and read just
+    after; ocean.stats against tests/goldens_ref_cases.json at the
+    tolerances of tests/test_ref_cases.py."""
+    import torch
+    from mom6_torch.diagnostics.sum_output import collect_stats, stat_sums
+    from mom6_torch.framework.config import ParamFile
+    from mom6_torch.model import build_model
+    golden = json.loads((ROOT / "tests" / "goldens_ref_cases.json")
+                        .read_text())["ref_tc0"]
+    case = ROOT / "cases" / "ref_tc0"
+    m = build_model(ParamFile(str(case / "MOM_input"),
+                              str(case / "MOM_override")),
+                    device=DEV, dtype=torch.float64)
+    n = golden["nsteps"]
+    zero_counts(wrappers)
+    step = m.step_fn()
+    s, a, tr = m.state, m.split, m.tracers
+    for i in range(n):
+        s, a, tr = step(s, a, tr, i)
+    launches = check_driver_launches(
+        "ref_tc0", wrappers, {"K1": 6 * n, "K2": 0, "K3": 0, "K3m": 0})
+    st = collect_stats(stat_sums(m.domain, m.grid, m.vgrid, s, m.dt),
+                       m.vgrid, n, 0.0)
+    checks = (("energy_per_mass", "energy_per_mass", 1e-9, 0.0),
+              ("total_mass", "mass", 1e-11, 0.0),
+              ("mean_salin", "salt", 0.0, 1e-9),
+              ("mean_temp", "temp", 1e-9, 0.0),
+              ("max_cfl", "max_cfl", 1e-6, 1e-12),
+              ("mean_sea_level", "sea_level", 1e-6, 1e-12))
+    for field, key, rtol, atol in checks:
+        got, want = float(getattr(st, field)), float(golden[key])
+        if not abs(got - want) <= atol + rtol * abs(want):
+            raise AssertionError(f"ref_tc0 {field}: {got!r} against the "
+                                 f"golden {want!r}")
+    log(f"  {n} steps: " + ", ".join(
+        f"{f} {float(getattr(st, f))!r}" for f, *_ in checks)
+        + f" (golden {json.dumps(golden)}); launches {launches}")
+    return launches
+
+
 def check_ale(m, st, sp, tr):
     """The ALE regrid/remap alone on the full step's last state (CUDA
     events, and its peak memory above what was allocated), and the
@@ -705,10 +1022,12 @@ def case_dir(tmp, name, text):
 
 
 def zero_counts(wrappers):
+    from mom6_torch.core import continuity_cuda as cc
     for w in wrappers.values():
         w.launches = 0
     for k in DEVICE_COUNTED:
         wrappers[k].device_launches = 0
+    cc.continuity_ppm_cuda.untargeted_launches = 0
 
 
 def check_driver_launches(label, wrappers, expect):
@@ -721,34 +1040,36 @@ def check_driver_launches(label, wrappers, expect):
     return launches
 
 
-def run_driver_gyre(tmp, wrappers):
+def run_driver_case(tmp, wrappers, case="double_gyre", days=GYRE_DAYS,
+                    per_step=None):
     """The solo driver on cases/double_gyre (a closed basin, NK = 2,
-    K3 with walls in x) for GYRE_DAYS in fp64, on the card with every
+    K3 with walls in x) for GYRE_DAYS in fp64, or on ``case`` for
+    ``days`` with ``per_step`` launches a step, on the card with every
     launch counter zeroed just before and read just after, then with
     --cpu; every ocean.stats field of the two agrees to 1e-9 relative
     (SL and the mass error, roundoff-sized, to 1e-12 absolute) with the
     same truncations."""
     from mom6_torch.drivers import solo
-    text = (ROOT / "cases" / "double_gyre" / "MOM_input").read_text()
-    d_card = case_dir(tmp, "gyre_card", text)
-    d_cpu = case_dir(tmp, "gyre_cpu", text)
+    text = (ROOT / "cases" / case / "MOM_input").read_text()
+    d_card = case_dir(tmp, f"{case}_card", text)
+    d_cpu = case_dir(tmp, f"{case}_cpu", text)
     zero_counts(wrappers)
-    card = solo.main([d_card, "--days", GYRE_DAYS])
+    card = solo.main([d_card, "--days", days])
     n = card["steps"]
+    per_step = per_step or {"K1": 4, "K2": 1, "K3": 2, "K3m": 0}
     launches = check_driver_launches(
-        "driver double_gyre", wrappers,
-        {"K1": 4 * n, "K2": n, "K3": 2 * n, "K3m": 0})
-    solo.main([d_cpu, "--days", GYRE_DAYS, "--cpu"])
+        f"driver {case}", wrappers, {k: v * n for k, v in per_step.items()})
+    solo.main([d_cpu, "--days", days, "--cpu"])
     want, got = read_stats(Path(d_cpu) / "ocean.stats"), \
         read_stats(Path(d_card) / "ocean.stats")
     if [s for s, _ in got] != [s for s, _ in want] or len(got) < 3:
-        raise AssertionError(f"driver double_gyre: stats steps "
+        raise AssertionError(f"driver {case}: stats steps "
                              f"{[s for s, _ in got]} against "
                              f"{[s for s, _ in want]}")
     worst = {}
     for (step, w), (_, g) in zip(want, got):
         if g["truncs"] != w["truncs"]:
-            raise AssertionError(f"driver double_gyre step {step}: truncs "
+            raise AssertionError(f"driver {case} step {step}: truncs "
                                  f"{g['truncs']} != {w['truncs']}")
         for k, a in w.items():
             b = g[k]
@@ -759,7 +1080,7 @@ def run_driver_gyre(tmp, wrappers):
             lim = 1e-12 if absolute else 1e-9
             worst[k] = max(worst.get(k, 0.0), err)
             if not err <= lim:
-                raise AssertionError(f"driver double_gyre step {step} {k}: "
+                raise AssertionError(f"driver {case} step {step} {k}: "
                                      f"{b!r} against {a!r}")
     log(f"  {n} steps, {len(got)} ocean.stats lines, card against cpu: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
@@ -918,6 +1239,19 @@ def main():
             check_k1_k2(res, *shape, dtype, reentrant_x=False, exact=True)
             check_k3(res, *shape, dtype, reentrant_x=False, exact=True)
     torch.cuda.empty_cache()
+    log("phase 3 K1/K2 modes vs plain, exact: "
+        + ", ".join(MODES))
+    mode_timing = {}
+    for dtype in (torch.float64, torch.float32):
+        for shape in (MAIN, GYRE):
+            main_shape = dtype == torch.float32 and shape == MAIN
+            check_modes(res, *shape, dtype,
+                        mode_timing if main_shape else None,
+                        reentrant_x=shape != GYRE)
+    modes = mode_records(res, mode_timing,
+                         (MAIN[2], MAIN[1] + 8, MAIN[0] + 8))
+    del mode_timing
+    torch.cuda.empty_cache()
     ms, plain_ms, inp = timing.pop("K3 wide")
     b_ms, b_by = bound(*subcycle_work(inp), 4, "float32")
     log(f"  K3 at {inp.eta.shape[0]}x{inp.eta.shape[1]} fp32 curve "
@@ -1006,6 +1340,40 @@ def main():
                 raise AssertionError(f"slice 2 ({label}) {name}: "
                                      f"{rel:.3e} > 1e-9")
 
+    # 6b. RK2b (period 1 and 2) and unsplit RK3 at 32x32x6 fp64
+    for label, dyn, period, n in (("RK2b period 1", "rk2b", 1, 4),
+                                  ("RK2b period 2", "rk2b", 2, 4),
+                                  ("unsplit RK3", "unsplit", 2, 6)):
+        log(f"phase 6b {label} %dx%dx%d fp64, {n} steps: card vs cpu"
+            % SMALL_FULL)
+        zero_counts(wrappers)
+        gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, n, seed=3,
+                                 regridding=True, dynamics=dyn,
+                                 period=period)
+        counts = read_counts(wrappers)
+        cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", n,
+                                 seed=3, regridding=True, dynamics=dyn,
+                                 period=period)
+        pairs = [("h", cst.h, gst.h), ("u", cst.u, gst.u),
+                 ("v", cst.v, gst.v), ("T", cst.T, gst.T),
+                 ("S", cst.S, gst.S), ("age", ctr["age"], gtr["age"])]
+        if csp is not None:
+            pairs += [("eta", csp.eta, gsp.eta),
+                      ("du_av_inst", csp.du_av_inst, gsp.du_av_inst),
+                      ("dv_av_inst", csp.dv_av_inst, gsp.dv_av_inst)]
+        for name, a, b in pairs:
+            rel, diff = rel_err(a, b.cpu())
+            log(f"  {label} {name}: max rel err {rel:.3e} (limit 1e-09)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"{label} {name}: {rel:.3e} > 1e-9")
+        expect = {k: v * n for k, v in PER_STEP[dyn].items()}
+        if period == 1:
+            expect.update(K3=expect["K3m"], K3m=0)
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{expect}")
+        log(f"  {label} on the card: launches {counts}")
+
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
     for label, regridding in FULL_VARIANTS:
@@ -1013,8 +1381,12 @@ def main():
         full[label] = run_full_timed(label, regridding, nsteps, wrappers,
                                      shape)
         torch.cuda.empty_cache()
-    launches, device, st = (full["ale"][k] for k in ("launches", "device",
-                                                     "state"))
+    launches, device = full["ale"]["launches"], full["ale"]["device"]
+    # the states' shape, then the states go: the later phases' peaks
+    # hold only their own
+    shape_main = full["ale"]["state"].h.shape
+    for v in full.values():
+        del v["state"]
     d_ms = {k: v["ms_step"] for k, v in full.items()}
     log(f"  ALE against layered: {d_ms['ale'] - d_ms['layered']:.3f} "
         "ms/step (CUDA events; the counterpart of bench.py's "
@@ -1022,18 +1394,34 @@ def main():
         + ", ".join(f"{k} {v['peak_bytes'] / 2**30:.3f} GiB"
                     for k, v in full.items()))
 
+    # 7b. RK2b and unsplit at full width, fp32
+    for dyn in ("rk2b", "unsplit"):
+        log(f"phase 7b {dyn} (build_full(dynamics={dyn!r}), Z* ALE) "
+            "%dx%dx%d fp32" % MAIN)
+        full[dyn] = run_new_timed(dyn, wrappers, shape)
+        torch.cuda.empty_cache()
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
             + f"{GYRE_DAYS} days, card vs cpu")
-        launches_gyre = run_driver_gyre(tmp, wrappers)
+        launches_gyre = run_driver_case(tmp, wrappers)
         log("phase 8 driver: bench.py CONFIG %dx%dx%d fp32, " % MAIN
             + f"{BENCH_STEPS} steps")
         launches_bench = run_driver_bench(tmp, wrappers, shape)
+        torch.cuda.empty_cache()
+        log("phase 8 driver: cases/tc0 4x4x1 fp64, "
+            f"{TC0_DAYS} days, card vs cpu")
+        launches_tc0 = run_driver_case(
+            tmp, wrappers, "tc0", TC0_DAYS,
+            {k: v for k, v in PER_STEP["unsplit"].items() if k != "K1u"})
+    log("phase 8 cases/ref_tc0 through build_model + step_fn, fp64, "
+        "against its golden")
+    launches_ref_tc0 = run_ref_tc0(wrappers)
     torch.cuda.empty_cache()
 
-    nk, njh, nih = st.h.shape
+    nk, njh, nih = shape_main
     bnd = bounds(timing, nk, njh, nih, 4, "float32")
     log(f"  kernel times at {nk}x{njh}x{nih} fp32 (no single PyTorch "
         "call computes any of these functions: library_ms is null)")
@@ -1054,8 +1442,9 @@ def main():
         else:
             wrap = wrappers[k]
             call = functools.partial(wrap, *(inp[:-1] if k == "K3" else inp))
-        n_prof, n_all, dev_ms = profiled_kernels(call, name, PROFILE_REPS)
         units_traced = PROFILE_REPS * per_call
+        n_prof, n_all, dev_ms = profiled_kernels(call, name, PROFILE_REPS,
+                                                 units_traced)
         if n_prof != units_traced or (k not in DEVICE_COUNTED
                                       and n_all != n_prof):
             raise AssertionError(f"{k}: torch.profiler traced {n_prof} "
@@ -1080,14 +1469,24 @@ def main():
             f"{dev_ms / per_call:.4f} ms (profiler), bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
             f"launches {n_launch}")
+        if k in modes:
+            extra["modes"] = modes[k]
+        if k == "K1":
+            extra["untargeted_launches_by_path"] = {
+                "rk2b_full_step": full["rk2b"]["launches"]["K1u"],
+                "unsplit_full_step": full["unsplit"]["launches"]["K1u"]}
         records.append(dict(
             meta, launches=n_launch,
             launches_by_path={
                 "slice1_dynamics_step": launches_s1[k],
                 "slice2_full_step": launches[k],
                 "slice2_full_step_layered": full["layered"]["launches"][k],
+                "rk2b_full_step": full["rk2b"]["launches"][k],
+                "unsplit_full_step": full["unsplit"]["launches"][k],
                 "solo_double_gyre": launches_gyre[k],
-                "solo_bench_config": launches_bench[k]},
+                "solo_bench_config": launches_bench[k],
+                "solo_tc0": launches_tc0[k],
+                "ref_tc0": launches_ref_tc0[k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],

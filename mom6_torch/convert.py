@@ -3,7 +3,7 @@ port's containers.
 
 Each ``*_from_numpy`` takes a dict of numpy arrays keyed by the field
 names of the matching ``mom6_tpu`` container (Grid, State,
-SplitDynState, BTContFaces) and returns the port's container on the
+SplitDynState, SplitBDynState, BTContFaces) and returns the port's container on the
 given device and dtype; ``tracers_from_numpy`` does the same for a
 tracer dict; ``to_numpy`` goes back.  Fields that are None or missing
 (optional fields only) stay None.  ``model_with_state`` carries a whole
@@ -32,12 +32,13 @@ import torch
 
 from mom6_torch.core.continuity_ppm import BTContFaces
 from mom6_torch.core.dynamics_split_rk2 import SplitDynState
+from mom6_torch.core.dynamics_split_rk2b import SplitBDynState
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.state import State
 from mom6_torch.parallel.domain import Domain
 
 __all__ = ["grid_from_numpy", "state_from_numpy", "split_state_from_numpy",
-           "bt_cont_from_numpy", "tracers_from_numpy", "model_with_state",
+           "split_b_state_from_numpy", "bt_cont_from_numpy", "tracers_from_numpy", "model_with_state",
            "config_from_values", "to_numpy"]
 
 
@@ -78,6 +79,11 @@ def split_state_from_numpy(arrays: dict, *, device,
     return _build(SplitDynState, arrays, device, dtype)
 
 
+def split_b_state_from_numpy(arrays: dict, *, device,
+                             dtype: torch.dtype) -> SplitBDynState:
+    return _build(SplitBDynState, arrays, device, dtype)
+
+
 def bt_cont_from_numpy(arrays: dict, *, device,
                        dtype: torch.dtype) -> BTContFaces:
     return _build(BTContFaces, arrays, device, dtype)
@@ -92,11 +98,14 @@ def tracers_from_numpy(arrays: dict, *, device,
 def model_with_state(model, state: dict, split: dict | None = None,
                      tracers: dict | None = None):
     """A copy of the port ``Model`` whose initial state, split state and
-    tracers come from the given numpy dicts (those not given are kept)."""
+    tracers come from the given numpy dicts (those not given are kept);
+    the split state takes the type of the model's own (RK2 or RK2b)."""
     dev = dict(device=model.state.h.device, dtype=model.state.h.dtype)
     kw = {"state": state_from_numpy(state, **dev)}
     if split is not None:
-        kw["split"] = split_state_from_numpy(split, **dev)
+        kw["split"] = (split_b_state_from_numpy(split, **dev)
+                       if isinstance(model.split, SplitBDynState)
+                       else split_state_from_numpy(split, **dev))
     if tracers is not None:
         kw["tracers"] = tracers_from_numpy(tracers, **dev)
     return dataclasses.replace(model, **kw)

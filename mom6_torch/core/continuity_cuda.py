@@ -4,13 +4,18 @@
 counterparts of ``continuity_ppm_pallas`` and ``set_up_bt_cont_pallas``
 (mom6_tpu/core/continuity_pallas.py:639, :484).  A CUDA tensor goes to
 the hand-written kernels of ``csrc/continuity.cu``; a CPU tensor goes
-to the plain PyTorch versions in ``continuity_ppm.py``.  On CUDA a
-configuration the kernels do not cover raises ``NotImplementedError``.
+to the plain PyTorch versions in ``continuity_ppm.py``.  The kernels
+take every edge scheme of ``ContinuityCfg`` (the default PPM,
+upwind_1st, simple_2nd, monotonic) and the volume-based CFL, and K1
+sweeps with transport matching (``uhbt``/``vhbt`` given) or without
+(both None: one pass at u, as the unsplit and RK2b steppers call it).
+On CUDA porous-barrier faces raise ``NotImplementedError``.
 
 Each wrapper counts its kernel launches in a plain integer attribute:
 ``continuity_ppm_cuda.launches`` grows by one per directional sweep
-(two per call), ``set_up_bt_cont_cuda.launches`` by one per call (both
-directions); each is one device kernel.  ``tile_plan`` cuts the array
+(two per call; ``continuity_ppm_cuda.untargeted_launches`` counts the
+untargeted ones among them), ``set_up_bt_cont_cuda.launches`` by one
+per call (both directions); each is one device kernel.  ``tile_plan`` cuts the array
 into the tiles the kernels keep on chip.  See csrc/continuity.cu for
 what bounds the kernels on an H100 and how their design answers it.
 """
@@ -44,10 +49,10 @@ def _lib():
     lib = cuda_build.load("continuity")
     for t in ("f32", "f64"):
         sweep = getattr(lib, f"ppm_sweep_{t}")
-        sweep.argtypes = [_P] + [_I] * 5 + [_D] * 3 + [_P, _L, _P]
+        sweep.argtypes = [_P] + [_I] * 3 + [_P] + [_D] * 3 + [_P, _L, _P]
         sweep.restype = _I
         fit = getattr(lib, f"bt_cont_{t}")
-        fit.argtypes = [_P] + [_I] * 3 + [_D] * 3 + [_P, _L, _P]
+        fit.argtypes = [_P] + [_I] * 5 + [_D] * 3 + [_P, _L, _P]
         fit.restype = _I
     lib.cont_device_info.argtypes = [_I, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I)]
@@ -205,12 +210,18 @@ def _suffix(dtype: torch.dtype) -> str:
 
 
 def _check_cfg(cfg: ContinuityCfg, grid: Grid):
-    for name in ("upwind_1st", "simple_2nd", "monotonic", "vol_cfl"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} in the CUDA continuity "
-                                      "kernels")
     if grid.porous_DavgU is not None or grid.porous_DavgV is not None:
         raise NotImplementedError("porous barriers")
+
+
+def edge_scheme(cfg: ContinuityCfg) -> int:
+    """The kernels' code of ``cfg``'s edge scheme (csrc/ppm.cuh
+    EdgeScheme), in the plain version's order of precedence."""
+    if cfg.upwind_1st:
+        return 1
+    if cfg.simple_2nd:
+        return 2
+    return 3 if cfg.monotonic else 0
 
 
 def _prep(ref: torch.Tensor, *tensors):
@@ -240,7 +251,9 @@ def _grid_y(grid: Grid):
 
 
 def _ptrs(tensors):
-    return (_P * len(tensors))(*(t.data_ptr() for t in tensors))
+    """A C array of the tensors' device pointers; None gives NULL."""
+    return (_P * len(tensors))(*(None if t is None else t.data_ptr()
+                                 for t in tensors))
 
 
 def _ints(values):
@@ -249,50 +262,74 @@ def _ints(values):
 
 def _sweep(grid: Grid, vgrid: VerticalGrid, vel, h, vr, hbt, dt,
            cfg: ContinuityCfg, axis: int):
-    """One directional sweep through K1: (h_new, flux, vel_cor)."""
+    """One directional sweep through K1: (h_new, flux, vel_cor, dvel),
+    transport-matched to ``hbt``; with ``hbt`` None the untargeted sweep
+    (``vr`` unused), whose vel_cor and dvel are None."""
+    targeted = hbt is not None
     g = _grid_y(grid) if axis else _grid_x(grid)
-    vel, h, vr, hbt, *g = _prep(h, vel, h, vr, hbt, *g)
+    vel, h, *g = _prep(h, vel, h, *g)
+    if targeted:
+        vr, hbt = _prep(h, vr, hbt)
     nk, nj, ni = h.shape
-    if vel.shape != h.shape or vr.shape != h.shape or \
-            any(p.shape != h.shape[1:] for p in (hbt, *g)):
+    if vel.shape != h.shape or any(p.shape != h.shape[1:] for p in g) \
+            or targeted and (vr.shape != h.shape
+                             or hbt.shape != h.shape[1:]):
         raise ValueError("continuity sweep: mismatched shapes")
     plan, = launch_plan(h, (axis,))
-    h_out, flux, vcor = (torch.empty_like(h) for _ in range(3))
+    h_out, flux = torch.empty_like(h), torch.empty_like(h)
+    vcor = dvel = None
+    if targeted:
+        vcor, dvel = torch.empty_like(h), torch.empty_like(hbt)
+    dlen, Idx, iarea, mask_f, dx_face, mask_t = g
+    ptrs = [vel, h, vr if targeted else None, hbt, dlen, Idx, iarea,
+            mask_f, dx_face if targeted else None, mask_t, h_out, flux,
+            vcor, dvel]
+    opts = (axis, cfg.newton_iters, int(targeted), edge_scheme(cfg),
+            int(cfg.vol_cfl))
     fn = getattr(_lib(), f"ppm_sweep_{_suffix(h.dtype)}")
-    _check(fn(_ptrs([vel, h, vr, hbt, *g, h_out, flux, vcor]), nk, nj, ni,
-              axis, cfg.newton_iters, float(dt), float(cfg.cfl_limit),
-              float(vgrid.angstrom), _ints(plan.tile()), plan.smem_bytes,
-              _stream()), "continuity sweep kernel")
+    _check(fn(_ptrs(ptrs), nk, nj, ni, _ints(opts), float(dt),
+              float(cfg.cfl_limit), float(vgrid.angstrom),
+              _ints(plan.tile()), plan.smem_bytes, _stream()),
+           "continuity sweep kernel")
     continuity_ppm_cuda.launches += 1
-    return h_out, flux, vcor
+    if not targeted:
+        continuity_ppm_cuda.untargeted_launches += 1
+    return h_out, flux, vcor, dvel
 
 
 def continuity_ppm_cuda(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
-                        cfg: ContinuityCfg, uhbt, vhbt,
+                        cfg: ContinuityCfg, uhbt=None, vhbt=None,
                         visc_rem_u=None, visc_rem_v=None,
                         x_first: bool = True) -> ContinuityResult:
-    """Transport-matched PPM continuity (both sweeps).  Output halos are
-    not valid; the caller refreshes them, as with the plain version."""
+    """PPM continuity (both sweeps), transport-matched to uhbt/vhbt when
+    given (then u_cor/v_cor and du_cor/dv_cor are returned too).  Output
+    halos are not valid; the caller refreshes them, as with the plain
+    version."""
     if not h.is_cuda:
         return continuity_ppm(grid, vgrid, u, v, h, dt, cfg, uhbt=uhbt,
                               vhbt=vhbt, visc_rem_u=visc_rem_u,
                               visc_rem_v=visc_rem_v, x_first=x_first)
     _check_cfg(cfg, grid)
-    if uhbt is None or vhbt is None:
-        raise NotImplementedError("CUDA continuity without transport "
-                                  "matching (uhbt/vhbt)")
-    vr_u = visc_rem_u if visc_rem_u is not None else torch.ones_like(u)
-    vr_v = visc_rem_v if visc_rem_v is not None else torch.ones_like(v)
+    if (uhbt is None) != (vhbt is None):
+        raise ValueError("continuity: give both uhbt and vhbt, or neither")
+    vr_u = vr_v = None
+    if uhbt is not None:
+        vr_u = visc_rem_u if visc_rem_u is not None else torch.ones_like(u)
+        vr_v = visc_rem_v if visc_rem_v is not None else torch.ones_like(v)
     if x_first:
-        h1, uh, u_cor = _sweep(grid, vgrid, u, h, vr_u, uhbt, dt, cfg, 0)
-        h2, vh, v_cor = _sweep(grid, vgrid, v, h1, vr_v, vhbt, dt, cfg, 1)
+        h1, uh, u_cor, du = _sweep(grid, vgrid, u, h, vr_u, uhbt, dt, cfg, 0)
+        h2, vh, v_cor, dv = _sweep(grid, vgrid, v, h1, vr_v, vhbt, dt, cfg,
+                                   1)
     else:
-        h1, vh, v_cor = _sweep(grid, vgrid, v, h, vr_v, vhbt, dt, cfg, 1)
-        h2, uh, u_cor = _sweep(grid, vgrid, u, h1, vr_u, uhbt, dt, cfg, 0)
-    return ContinuityResult(h=h2, uh=uh, vh=vh, u_cor=u_cor, v_cor=v_cor)
+        h1, vh, v_cor, dv = _sweep(grid, vgrid, v, h, vr_v, vhbt, dt, cfg, 1)
+        h2, uh, u_cor, du = _sweep(grid, vgrid, u, h1, vr_u, uhbt, dt, cfg,
+                                   0)
+    return ContinuityResult(h=h2, uh=uh, vh=vh, u_cor=u_cor, v_cor=v_cor,
+                            du_cor=du, dv_cor=dv)
 
 
 continuity_ppm_cuda.launches = 0
+continuity_ppm_cuda.untargeted_launches = 0
 
 
 def set_up_bt_cont_cuda(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
@@ -319,9 +356,10 @@ def set_up_bt_cont_cuda(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
         dlen, Idx, _, mask_f, dx_face, _ = gd
         ptrs += [vel, vr, dlen, Idx, mask_f, dx_face] \
             + list(out[6 * d:6 * d + 6])
-    ptrs += [h, gx[5]]
+    ptrs += [h, gx[5], gx[2]]
     fn = getattr(_lib(), f"bt_cont_{_suffix(h.dtype)}")
-    _check(fn(_ptrs(ptrs), nk, nj, ni, float(dt), float(cfg.cfl_limit),
+    _check(fn(_ptrs(ptrs), nk, nj, ni, edge_scheme(cfg), int(cfg.vol_cfl),
+              float(dt), float(cfg.cfl_limit),
               float(vgrid.angstrom), _ints(plans[0].tile() + plans[1].tile()),
               max(p.smem_bytes for p in plans), _stream()), "BT_cont kernel")
     set_up_bt_cont_cuda.launches += 1

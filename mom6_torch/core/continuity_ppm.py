@@ -40,11 +40,17 @@ class ContinuityCfg:
 
 
 class ContinuityResult(NamedTuple):
+    """h(n+1), the transports and, when the call matched barotropic
+    transports, the corrected velocities u_cor = u + visc_rem*du and the
+    2D corrections du_cor/dv_cor (which split RK2b carries across
+    steps); None otherwise."""
     h: torch.Tensor
     uh: torch.Tensor
     vh: torch.Tensor
     u_cor: Optional[torch.Tensor] = None
     v_cor: Optional[torch.Tensor] = None
+    du_cor: Optional[torch.Tensor] = None
+    dv_cor: Optional[torch.Tensor] = None
 
 
 class BTContFaces(NamedTuple):
@@ -185,7 +191,7 @@ def _flux_adjust(u, h, h_minus, h_plus, dt, flux_args, hbt, visc_rem,
                  cfg: ContinuityCfg, dx_face):
     """Newton iteration for the per-face correction du with
     sum_k flux_k(u_k + visc_rem_k*du) = hbt (zonal_flux_adjust), clipped
-    at cfl_limit*dx/dt after every step.  Returns (flux, u_cor)."""
+    at cfl_limit*dx/dt after every step.  Returns (flux, u_cor, du)."""
     du = torch.zeros_like(hbt)
     du_lim = cfg.cfl_limit * dx_face / dt
     for _ in range(cfg.newton_iters):
@@ -195,7 +201,7 @@ def _flux_adjust(u, h, h_minus, h_plus, dt, flux_args, hbt, visc_rem,
     u_cor = u + visc_rem * du[None]
     flux, _ = _flux_1dir(u_cor, h, h_minus, h_plus, dt, *flux_args,
                          visc_rem=visc_rem)
-    return flux, u_cor
+    return flux, u_cor, du
 
 
 def _check_porous(grid: Grid):
@@ -215,25 +221,28 @@ def _args_y(grid: Grid, cfg: ContinuityCfg):
 
 def zonal_mass_flux(grid: Grid, u, h, h_W, h_E, dt, cfg: ContinuityCfg,
                     uhbt=None, visc_rem_u=None):
-    """(uh, u_cor) at east faces; Newton-matched to ``uhbt`` if given
-    (u_cor is None otherwise)."""
+    """(uh, u_cor, du) at east faces; Newton-matched to ``uhbt`` if
+    given (u_cor and du are None otherwise)."""
     _check_porous(grid)
     vr = visc_rem_u if visc_rem_u is not None else torch.ones_like(u)
     args = _args_x(grid, cfg)
     if uhbt is None:
-        return _flux_1dir(u, h, h_W, h_E, dt, *args, visc_rem=vr)[0], None
+        return (_flux_1dir(u, h, h_W, h_E, dt, *args, visc_rem=vr)[0],
+                None, None)
     return _flux_adjust(u, h, h_W, h_E, dt, args, uhbt, vr, cfg,
                         dx_face=grid.dxCu)
 
 
 def meridional_mass_flux(grid: Grid, v, h, h_S, h_N, dt,
                          cfg: ContinuityCfg, vhbt=None, visc_rem_v=None):
-    """(vh, v_cor) at north faces; Newton-matched to ``vhbt`` if given."""
+    """(vh, v_cor, dv) at north faces; Newton-matched to ``vhbt`` if
+    given."""
     _check_porous(grid)
     vr = visc_rem_v if visc_rem_v is not None else torch.ones_like(v)
     args = _args_y(grid, cfg)
     if vhbt is None:
-        return _flux_1dir(v, h, h_S, h_N, dt, *args, visc_rem=vr)[0], None
+        return (_flux_1dir(v, h, h_S, h_N, dt, *args, visc_rem=vr)[0],
+                None, None)
     return _flux_adjust(v, h, h_S, h_N, dt, args, vhbt, vr, cfg,
                         dx_face=grid.dyCv)
 
@@ -321,24 +330,26 @@ def continuity_ppm(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
 
     def x_sweep(hx):
         h_W, h_E = ppm_edges_x(grid, hx, cfg, hmin2)
-        uh, u_cor = zonal_mass_flux(grid, u, hx, h_W, h_E, dt, cfg,
-                                    uhbt=uhbt, visc_rem_u=visc_rem_u)
+        uh, u_cor, du = zonal_mass_flux(grid, u, hx, h_W, h_E, dt, cfg,
+                                        uhbt=uhbt, visc_rem_u=visc_rem_u)
         h_new = torch.clamp(hx - dt * grid.IareaT * (uh - im1(uh)),
                             min=h_min)
-        return h_new, uh, u_cor
+        return h_new, uh, u_cor, du
 
     def y_sweep(hy):
         h_S, h_N = ppm_edges_y(grid, hy, cfg, hmin2)
-        vh, v_cor = meridional_mass_flux(grid, v, hy, h_S, h_N, dt, cfg,
-                                         vhbt=vhbt, visc_rem_v=visc_rem_v)
+        vh, v_cor, dv = meridional_mass_flux(grid, v, hy, h_S, h_N, dt,
+                                             cfg, vhbt=vhbt,
+                                             visc_rem_v=visc_rem_v)
         h_new = torch.clamp(hy - dt * grid.IareaT * (vh - jm1(vh)),
                             min=h_min)
-        return h_new, vh, v_cor
+        return h_new, vh, v_cor, dv
 
     if x_first:
-        h1, uh, u_cor = x_sweep(h)
-        h2, vh, v_cor = y_sweep(h1)
+        h1, uh, u_cor, du = x_sweep(h)
+        h2, vh, v_cor, dv = y_sweep(h1)
     else:
-        h1, vh, v_cor = y_sweep(h)
-        h2, uh, u_cor = x_sweep(h1)
-    return ContinuityResult(h=h2, uh=uh, vh=vh, u_cor=u_cor, v_cor=v_cor)
+        h1, vh, v_cor, dv = y_sweep(h)
+        h2, uh, u_cor, du = x_sweep(h1)
+    return ContinuityResult(h=h2, uh=uh, vh=vh, u_cor=u_cor, v_cor=v_cor,
+                            du_cor=du, dv_cor=dv)

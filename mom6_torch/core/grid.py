@@ -21,7 +21,10 @@ import torch
 
 from mom6_torch.parallel.domain import Domain
 
-__all__ = ["Grid", "cartesian_grid"]
+__all__ = ["Grid", "cartesian_grid", "spherical_grid"]
+
+RADIUS_EARTH = 6.378e6     # m
+OMEGA = 7.2921e-5          # s-1
 
 
 def _adcroft_recip(x: np.ndarray) -> np.ndarray:
@@ -166,6 +169,40 @@ def cartesian_grid(domain: Domain, lenlon_km: float, lenlat_km: float,
 
     def f_fn(lon, lat):
         return f0 + beta * (lat - beta_lat_ref) * 1e3
+
+    if depth_fn is None:
+        def depth_fn(lon, lat):
+            return np.full_like(lat, max_depth)
+
+    return _build(domain, lon_c, lat_c, lon_f, lat_f, dx_fn, dy_fn,
+                  f_fn, depth_fn, min_depth, device, dtype)
+
+
+def spherical_grid(domain: Domain, west_lon: float, lenlon: float,
+                   south_lat: float, lenlat: float, max_depth: float = 4000.0,
+                   *, device, dtype: torch.dtype, depth_fn=None,
+                   min_depth: float = 0.0,
+                   radius: float = RADIUS_EARTH) -> Grid:
+    """Uniform latitude-longitude grid in degrees with f = 2 Omega
+    sin(lat) (mom6_tpu.core.grid.spherical_grid); the JAX builder takes
+    it for a cartesian grid whose AXIS_UNITS are degrees."""
+    j, i = _padded_index(domain)
+    dlon = lenlon / domain.ni
+    dlat = lenlat / domain.nj
+    lon_c = west_lon + (i + 0.5) * dlon
+    lat_c = south_lat + (j + 0.5) * dlat
+    lon_f = west_lon + (i + 1.0) * dlon
+    lat_f = south_lat + (j + 1.0) * dlat
+    deg2rad = np.pi / 180.0
+
+    def dx_fn(dlon_, lat):
+        return radius * deg2rad * dlon_ * np.cos(deg2rad * lat)
+
+    def dy_fn(dlat_, lat):
+        return np.full_like(lat, radius * deg2rad * dlat_)
+
+    def f_fn(lon, lat):
+        return 2.0 * OMEGA * np.sin(deg2rad * lat)
 
     if depth_fn is None:
         def depth_fn(lon, lat):

@@ -3,8 +3,9 @@ diffusion, mixed-layer restratification, tracer advection and lateral
 diffusion, column physics and ALE.
 
 Counterpart of ``mom6_tpu.core.orchestrator`` (step_MOM /
-step_MOM_tracer_dyn / step_MOM_thermo): the split RK2 dynamics
-accumulate the mass transports; GM thickness diffusion (after the
+step_MOM_tracer_dyn / step_MOM_thermo): the dynamics (split RK2, split
+RK2b with ``split_rk2b``, or the unsplit RK3/RK2 step with ``split``
+False) accumulate the mass transports; GM thickness diffusion (after the
 dynamics, the reference default) and the MLE overturning add theirs; on
 a thermodynamic step (the DT_THERM cadence, ``do_thermo``) T, S and the
 passive tracers are advected with the transports accumulated over the
@@ -12,10 +13,11 @@ interval and diffused along layers, then the diabatic driver and the
 tracers' column functions run, and last, with ``cfg.ale`` set
 (USE_REGRIDDING), the ALE regrid/remap moves the state, the split
 scheme's time-mean velocities and stored viscous accelerations onto the
-new grid.  MEKE/VarMix, the interface filter, neutral and boundary
-diffusion, sponges, internal tides, BGC, SPPT, the unsplit and RK2b
-schemes, DIABATIC_FIRST and THICKNESSDIFFUSE_FIRST are not ported yet
-and raise ``NotImplementedError``.
+new grid (the RK2b and unsplit schemes keep no such auxiliaries).
+MEKE/VarMix, the interface filter, neutral and boundary diffusion,
+sponges, internal tides, BGC, SPPT, DIABATIC_FIRST and
+THICKNESSDIFFUSE_FIRST are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from mom6_torch.ale.ale_main import ALECfg, ale_regrid_remap
-from mom6_torch.core.dynamics_split_rk2 import SplitCfg, step_dyn_split_rk2
+from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
+                                                step_dyn_split_rk2)
+from mom6_torch.core.dynamics_split_rk2b import step_dyn_split_rk2b
+from mom6_torch.core.dynamics_unsplit import UnsplitCfg, step_dyn_unsplit
 from mom6_torch.core.forcing import Fluxes, MechForcing
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.state import State
@@ -42,9 +47,7 @@ from mom6_torch.tracer.hor_diff import TracerHorDiffCfg, tracer_hordiff
 
 __all__ = ["OceanCfg", "OceanDiags", "step_ocean"]
 
-_UNPORTED = (("split", False, "SPLIT = False: unsplit dynamics"),
-             ("split_rk2b", True, "SPLIT_RK2B"),
-             ("thickness_diffuse_first", True, "THICKNESSDIFFUSE_FIRST"),
+_UNPORTED = (("thickness_diffuse_first", True, "THICKNESSDIFFUSE_FIRST"),
              ("diabatic_first", True, "DIABATIC_FIRST"),
              ("use_meke", True, "USE_MEKE"),
              ("use_varmix", True, "USE_VARIABLE_MIXING"),
@@ -61,6 +64,7 @@ class OceanCfg:
     split: bool = True
     split_rk2b: bool = False
     split_cfg: Optional[SplitCfg] = None
+    unsplit_cfg: Optional[UnsplitCfg] = None
     tracer_adv: TracerAdvectCfg = TracerAdvectCfg()
     diabatic: DiabaticCfg = DiabaticCfg()
     thickness_diffuse: ThicknessDiffuseCfg = ThicknessDiffuseCfg()
@@ -94,7 +98,7 @@ class OceanDiags(NamedTuple):
     uhtr: torch.Tensor            # accumulated transports [m3]
     vhtr: torch.Tensor
     truncs: torch.Tensor          # velocity truncations this step
-    eta_av: torch.Tensor
+    eta_av: Optional[torch.Tensor]   # None under unsplit dynamics
     adv_residual: Optional[torch.Tensor] = None
     mld: Optional[torch.Tensor] = None   # KPP boundary-layer depth [m]
 
@@ -126,10 +130,19 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                  "SPPT: stochastic physics": sppt_pattern})
     fill = domain.fill_halos
 
-    kvs = None if kv_shear_prev is None else fill(kv_shear_prev, width=1)
-    state, split_state, dd = step_dyn_split_rk2(
-        domain, grid, vgrid, state, split_state, forces, dt, cfg.split_cfg,
-        eos=eos, x_first=x_first, kv_shear=kvs)
+    if cfg.split and cfg.split_rk2b:
+        state, split_state, dd = step_dyn_split_rk2b(
+            domain, grid, vgrid, state, split_state, forces, dt,
+            cfg.split_cfg, eos=eos, x_first=x_first, t=t)
+    elif cfg.split:
+        kvs = None if kv_shear_prev is None else fill(kv_shear_prev,
+                                                      width=1)
+        state, split_state, dd = step_dyn_split_rk2(
+            domain, grid, vgrid, state, split_state, forces, dt,
+            cfg.split_cfg, eos=eos, x_first=x_first, kv_shear=kvs)
+    else:
+        state, dd = step_dyn_unsplit(domain, grid, vgrid, state, forces, dt,
+                                     cfg.unsplit_cfg, eos=eos, t=t)
 
     # thickness diffusion right after the dynamics (MOM.F90:1297-1307);
     # its transports ride into the tracer advection
@@ -158,7 +171,7 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     if uhtr_accum is not None:
         uhtr, vhtr = uhtr_accum + uhtr, vhtr_accum + vhtr
     diags = OceanDiags(uhtr=uhtr, vhtr=vhtr, truncs=dd.truncs,
-                       eta_av=dd.eta_av)
+                       eta_av=getattr(dd, "eta_av", None))
     if not do_thermo:
         return state, split_state, tracers, diags
 
@@ -199,8 +212,10 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
 def _ale(domain, grid, vgrid, state, split_state, tracers, cfg, eos, dt):
     """The ALE regrid/remap of a thermodynamic step on halo-filled
-    fields, the split auxiliaries u_av/v_av and diffu/diffv remapped as
-    face fields and h_av refreshed (remap_dyn_split_RK2_aux_vars)."""
+    fields; under split RK2 the auxiliaries u_av/v_av and diffu/diffv
+    are remapped as face fields and h_av refreshed
+    (remap_dyn_split_RK2_aux_vars).  RK2b's increments and eta and the
+    unsplit step carry nothing to remap."""
     fill = domain.fill_halos
 
     def filled(st):
@@ -208,10 +223,15 @@ def _ale(domain, grid, vgrid, state, split_state, tracers, cfg, eos, dt):
                                   for k in ("h", "u", "v", "T", "S")
                                   if getattr(st, k) is not None}))
 
-    aux_u = fill({"u_av": split_state.u_av, "diffu": split_state.diffu})
-    aux_v = fill({"v_av": split_state.v_av, "diffv": split_state.diffv})
     # ALE runs once per thermo step, so the grid-motion filter
     # integrates over the thermo interval, not the dynamics dt
+    if not isinstance(split_state, SplitDynState):
+        state, tracers, _, _, _ = ale_regrid_remap(
+            grid, vgrid, filled(state), cfg.ale, eos=eos, tracers=tracers,
+            dt=dt * cfg.n_dyn_per_therm)
+        return filled(state), split_state, fill(tracers)
+    aux_u = fill({"u_av": split_state.u_av, "diffu": split_state.diffu})
+    aux_v = fill({"v_av": split_state.v_av, "diffv": split_state.diffv})
     state, tracers, _, aux_u, aux_v = ale_regrid_remap(
         grid, vgrid, filled(state), cfg.ale, eos=eos, tracers=tracers,
         aux_u=aux_u, aux_v=aux_v, dt=dt * cfg.n_dyn_per_therm)

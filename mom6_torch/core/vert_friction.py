@@ -5,8 +5,9 @@ Counterpart of ``mom6_tpu.core.vert_friction``: ``set_viscous_bbl``
 (interface coupling coefficients), ``implicit_visc_solve`` (the Thomas
 recursion over layers, vectorized over columns), ``vertvisc``,
 ``vertvisc_remnant`` and ``vertvisc_limit_vel``, with the quadratic
-bottom drag and the stratified/rotational BBL thickness that the
-slice uses.  The other options of the JAX package's VertViscCfg (linear
+bottom drag and the stratified/rotational BBL thickness, or with no
+drag law (BOTTOMDRAGLAW = False: the bottom interface couples to the
+bottom through Kv alone).  The other options of the JAX package's VertViscCfg (linear
 or channel drag, the viscous mixed layer, DIRECT_STRESS, HARMONIC_VISC,
 BBL_USE_EOS, KV_ML_INVZ2) and a shear-driven interface viscosity are
 not ported yet.
@@ -41,6 +42,7 @@ class VertViscCfg:
     bbl_thick_min: float = 0.1    # BBL_THICK_MIN [m]
     kv_bbl_min: float = 1e-4      # KV_BBL_MIN [m2 s-1]
     bbl_use_eos: bool = False     # BBL_USE_EOS (not ported: raises)
+    bottomdraglaw: bool = True    # BOTTOMDRAGLAW (quadratic, via the BBL)
 
 
 class ViscCoefs(NamedTuple):
@@ -140,15 +142,20 @@ def vertvisc_coef(grid: Grid, u, v, h, cfg: VertViscCfg = VertViscCfg(),
                   vgrid=None, bbl: BBLInfo | None = None) -> ViscCoefs:
     """Interface coupling coefficients a = Kv/dz at u and v columns, with
     the bottom drag slaving every interface inside the BBL (``bbl`` from
-    set_viscous_bbl, computed here from u, v, h when not given)."""
+    set_viscous_bbl, computed here from u, v, h when not given); with no
+    drag law the bottom coupling is Kv over half the bottom layer and
+    ``bbl`` is not used."""
     nk = h.shape[0]
-    if bbl is None:
+    if cfg.bottomdraglaw and bbl is None:
         bbl = set_viscous_bbl(grid, u, v, h, cfg, vgrid)
 
     def face_coefs(h_face, kv_face, piston, bbl_thick):
         dz = 0.5 * (h_face[:-1] + h_face[1:]) + _H_NEGLECT
         a_int = kv_face[1:-1] / dz
         a_top = torch.zeros_like(h_face[0])[None]
+        if not cfg.bottomdraglaw:
+            a_bot = (kv_face[-1] / (0.5 * h_face[-1] + _H_NEGLECT))[None]
+            return torch.cat([a_top, a_int, a_bot], dim=0)
         a_bot = (piston + kv_face[-1] / (0.5 * h_face[-1]
                                          + 0.5 * cfg.hbbl))[None]
         hab = _hab_interfaces(h_face)
@@ -161,7 +168,7 @@ def vertvisc_coef(grid: Grid, u, v, h, cfg: VertViscCfg = VertViscCfg(),
     h_v = 0.5 * (h + jp1(h))
     kv = torch.full((nk + 1,) + h.shape[1:], cfg.kv, dtype=h.dtype,
                     device=h.device)
-    pu, tu, pv, tv = bbl
+    pu, tu, pv, tv = bbl if cfg.bottomdraglaw else (None,) * 4
     a_u = face_coefs(h_u, kv, pu, tu) * grid.mask2dCu[None]
     a_v = face_coefs(h_v, kv, pv, tv) * grid.mask2dCv[None]
     return ViscCoefs(a_u=a_u, a_v=a_v, h_u=h_u, h_v=h_v)

@@ -15,6 +15,17 @@
 // layered fields and writes only 12 planes, with 6 flux evaluations per
 // layer and direction: bounded by operations (0.065 ms).
 //
+// The modes (both kernels): the edge scheme (PPM with the
+// positive-definite limiter, upwind_1st, simple_2nd, or PPM with the
+// Colella-Woodward limiter: ppm.cuh EdgeScheme) is a uniform branch of
+// the edge pass, and the volume-based CFL (vol_cfl) only changes the two
+// CFL factors of a face, once per thread; every scheme reads at most
+// two cells to each side, so the one stencil halo and tile plan serve
+// them all.  K1 also has an untargeted instance (no uhbt: the plain
+// version's flux at u, visc_rem = 1), which the unsplit and RK2b
+// steppers call: one pass, no Newton iteration, and it moves 4 layered
+// fields (u, h in; h, uh out), a bound of ~0.032 ms at 25x520x520 fp32.
+//
 // What limited the first design: device-memory traffic from re-reading.
 // It ran K1 as three launches (edge values to scratch planes, a flux
 // pass of one thread per face column, a divergence pass) and K2 as three
@@ -165,10 +176,11 @@ __device__ void stage_mask(const Geo<T, AXIS>& G, const T* mask_t) {
     cp_async(G.mask + G.at(0, G.extra(x)), mask_t + G.g2(G.extra(x)));
 }
 
-// the edge values of the cell at position s, layer k
+// the edge values of the cell at position s, layer k, in edge scheme
+// ``scheme`` (ppm.cuh EdgeScheme)
 template <typename T, int AXIS>
 __device__ inline void edges_at(const Geo<T, AXIS>& G, int k, int s,
-                                T h_min2) {
+                                T h_min2, int scheme) {
   T hv[5], mv[5];
 #pragma unroll
   for (int d = 0; d < 5; ++d) {
@@ -176,15 +188,16 @@ __device__ inline void edges_at(const Geo<T, AXIS>& G, int k, int s,
     mv[d] = G.mask[G.at(0, s - 2 + d)];
   }
   T* r = G.rec + RS * G.at(k, s);
-  ppm_edges(hv, mv, h_min2, r[HM], r[HP]);
+  ppm_edges(hv, mv, h_min2, scheme, r[HM], r[HP]);
 }
 
 // layers [c0, c0 + kc) of the tile on chip: h of positions 0 .. NF+4,
-// u and visc_rem of the faces, then the edge values of positions 2 ..
-// NF+2 (cells a-1 .. a+NF-1)
-template <typename T, int AXIS>
+// u (and, with WITH_VR, visc_rem) of the faces, then the edge values of
+// positions 2 .. NF+2 (cells a-1 .. a+NF-1).  Every edge scheme reads
+// at most two cells to each side, so one stencil halo serves them all
+template <typename T, int AXIS, bool WITH_VR>
 __device__ void stage(const Geo<T, AXIS>& G, const T* h, const T* u,
-                      const T* vr, int c0, int kc, T h_min2) {
+                      const T* vr, int c0, int kc, T h_min2, int scheme) {
   __syncthreads();   // the previous chunk is no longer read
   const int s = G.p + 2, ls = RS * G.layer();
   const long g = c0 * G.plane + G.g2(s);
@@ -193,7 +206,7 @@ __device__ void stage(const Geo<T, AXIS>& G, const T* h, const T* u,
     const long o = g + k * G.plane;
     cp_async(r + H, h + o);
     cp_async(r + U, u + o);
-    cp_async(r + VR, vr + o);
+    if (WITH_VR) cp_async(r + VR, vr + o);
   }
   for (int x = G.p; x < 5; x += G.NF) {
     const long gx = c0 * G.plane + G.g2(G.extra(x));
@@ -203,8 +216,9 @@ __device__ void stage(const Geo<T, AXIS>& G, const T* h, const T* u,
   }
   cp_async_wait_all();
   __syncthreads();
-  for (int k = 0; k < kc; ++k) edges_at(G, k, s, h_min2);
-  for (int k = G.p; k < kc; k += G.NF) edges_at(G, k, G.NF + 2, h_min2);
+  for (int k = 0; k < kc; ++k) edges_at(G, k, s, h_min2, scheme);
+  for (int k = G.p; k < kc; k += G.NF)
+    edges_at(G, k, G.NF + 2, h_min2, scheme);
   __syncthreads();
 }
 
@@ -226,25 +240,35 @@ __device__ inline void column_sums(const Geo<T, AXIS>& G, int kc, T du,
   }
 }
 
+// the face's constants; with ``vol_cfl`` the CFL factors are dlen*Iarea
+// of the cells up and down (plain: (dlen_face * Iarea_up), ...)
 template <typename T, int AXIS>
 __device__ inline FaceConst<T> face_const(const Geo<T, AXIS>& G,
                                           const T* dlen, const T* Idx,
-                                          const T* mask_f) {
-  const long c = G.g2(G.p + 2);
-  return FaceConst<T>{dlen[c], Idx[c], -Idx[G.g2(G.p + 3)], mask_f[c]};
+                                          const T* iarea, const T* mask_f,
+                                          bool vol_cfl) {
+  const long c = G.g2(G.p + 2), cn = G.g2(G.p + 3);
+  const T dl = dlen[c];
+  if (vol_cfl) return FaceConst<T>{dl, dl * iarea[c], -(dl * iarea[cn]),
+                                   mask_f[c]};
+  return FaceConst<T>{dl, Idx[c], -Idx[cn], mask_f[c]};
 }
 
 template <typename T> struct SweepArgs {
   const T *u, *h, *vr, *hbt, *dlen, *Idx, *iarea, *mask_f, *dx_face,
       *mask_t;
-  T *h_out, *flux, *ucor;
-  int nk, nj, ni, newton_iters;
+  T *h_out, *flux, *ucor, *du;
+  int nk, nj, ni, newton_iters, scheme, vol_cfl;
   T dt, cfl_limit, h_min, h_min2;
 };
 
-// K1: Newton-match each column's transport to hbt, then write the final
-// flux, the corrected velocity and h - dt*Iarea*(F - F[-1]) >= h_min
-template <typename T, int AXIS>
+// K1: with TARGETED, Newton-match each column's transport to hbt, then
+// write the final flux, the corrected velocity, the correction du and
+// h - dt*Iarea*(F - F[-1]) >= h_min.  Without (the untargeted sweep of
+// the unsplit and RK2b steppers: plain zonal_mass_flux with uhbt None)
+// one pass at u: the flux and h alone, no visc_rem read.  The two are
+// separate instances, so the targeted sweep keeps its registers.
+template <typename T, int AXIS, bool TARGETED>
 __global__ void __launch_bounds__(MAX_THREADS)
     sweep_kernel(SweepArgs<T> A, Tile t) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -252,21 +276,24 @@ __global__ void __launch_bounds__(MAX_THREADS)
                        reinterpret_cast<T*>(smem_raw));
   stage_mask(G, A.mask_t);
   const long c = G.g2(G.p + 2);
-  const FaceConst<T> F = face_const(G, A.dlen, A.Idx, A.mask_f);
-  const T du_lim = A.cfl_limit * A.dx_face[c] / A.dt;
-  const T target = A.hbt[c];
+  const FaceConst<T> F = face_const(G, A.dlen, A.Idx, A.iarea, A.mask_f,
+                                    A.vol_cfl != 0);
+  const T du_lim = TARGETED ? A.cfl_limit * A.dx_face[c] / A.dt : T(0);
+  const T target = TARGETED ? A.hbt[c] : T(0);
   const T dtI = A.dt * A.iarea[c];
   const bool own = G.owner();
   const bool restage = G.KC < A.nk;
   const int dn = RS * G.dn(), ls = RS * G.layer();
+  const int iters = TARGETED ? A.newton_iters : 0;
   T du = T(0);
-  for (int it = 0; it <= A.newton_iters; ++it) {
+  for (int it = 0; it <= iters; ++it) {
     T sf = T(0), sd = T(0);
     for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
       const int kc = min(G.KC, A.nk - c0);
       if (restage || it == 0)
-        stage(G, A.h, A.u, A.vr, c0, kc, A.h_min2);
-      if (it < A.newton_iters) {
+        stage<T, AXIS, TARGETED>(G, A.h, A.u, A.vr, c0, kc, A.h_min2,
+                                 A.scheme);
+      if (it < iters) {
         column_sums(G, kc, du, F, A.dt, sf, sd);
         continue;
       }
@@ -275,13 +302,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
       T* r = G.rec + RS * G.at(0, G.p + 2);
       long o = c0 * G.plane + c;
       for (int k = 0; k < kc; ++k, r += ls, o += G.plane) {
-        const T vr = r[VR];
-        const T ucor = r[U] + vr * du;
+        const T vr = TARGETED ? r[VR] : T(1);
+        const T ucor = TARGETED ? r[U] + vr * du : r[U];
         T f, d;
         ppm_flux(ucor, vr, r, dn, F, A.dt, f, d);
         if (own) {
           A.flux[o] = f;
-          A.ucor[o] = ucor;
+          if (TARGETED) A.ucor[o] = ucor;
         }
         r[U] = f;
       }
@@ -293,8 +320,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
           A.h_out[o] = tmax(r[H] - dtI * (r[U] - r[U - dn]), A.h_min);
       }
     }
-    if (it < A.newton_iters) du = newton_step(du, sf, sd, target, du_lim);
+    if (it < iters) du = newton_step(du, sf, sd, target, du_lim);
   }
+  if (TARGETED && own) A.du[c] = du;
 }
 
 // the secant-regularised cubic-to-linear transition fit (plain: fit()
@@ -324,8 +352,8 @@ template <typename T> struct BtDir {
 
 template <typename T> struct BtArgs {
   BtDir<T> d[2];
-  const T *h, *mask_t;
-  int nk, nj, ni;
+  const T *h, *mask_t, *iarea;
+  int nk, nj, ni, scheme, vol_cfl;
   T dt, cfl_limit, h_min2;
 };
 
@@ -339,7 +367,8 @@ __device__ void bt_cont_tile(const BtArgs<T>& A, const BtDir<T>& D,
   const Geo<T, AXIS> G(D.tile, tile, A.nj, A.ni, smem);
   stage_mask(G, A.mask_t);
   const long c = G.g2(G.p + 2);
-  const FaceConst<T> F = face_const(G, D.dlen, D.Idx, D.mask_f);
+  const FaceConst<T> F = face_const(G, D.dlen, D.Idx, A.iarea, D.mask_f,
+                                    A.vol_cfl != 0);
   const T du_max = A.cfl_limit * D.dx_face[c] / A.dt;
   const T du_cfl = T(1.0e-6) * D.dx_face[c] / A.dt;
   const bool restage = G.KC < A.nk;
@@ -350,7 +379,8 @@ __device__ void bt_cont_tile(const BtArgs<T>& A, const BtDir<T>& D,
     T sf = T(0), sd = T(0);
     for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
       const int kc = min(G.KC, A.nk - c0);
-      if (restage || it == 0) stage(G, A.h, D.u, D.vr, c0, kc, A.h_min2);
+      if (restage || it == 0)
+        stage<T, AXIS, true>(G, A.h, D.u, D.vr, c0, kc, A.h_min2, A.scheme);
       column_sums(G, kc, du0, F, A.dt, sf, sd);
       const T* r = r0;
       for (int k = 0; k < kc && it < 2; ++k, r += ls) {
@@ -375,7 +405,8 @@ __device__ void bt_cont_tile(const BtArgs<T>& A, const BtDir<T>& D,
   T fa_0 = T(0), uh_l = T(0), fa_l = T(0), uh_r = T(0), fa_r = T(0);
   for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
     const int kc = min(G.KC, A.nk - c0);
-    if (restage) stage(G, A.h, D.u, D.vr, c0, kc, A.h_min2);
+    if (restage)
+      stage<T, AXIS, true>(G, A.h, D.u, D.vr, c0, kc, A.h_min2, A.scheme);
     const T* r = r0;
 #pragma unroll 2
     for (int k = 0; k < kc; ++k, r += ls) {
@@ -431,10 +462,12 @@ cudaError_t prepare(K kern, long smem_bytes) {
 
 template <typename T>
 int run_sweep(const void* const* ptrs, int nk, int nj, int ni, int axis,
-              int newton_iters, double dt, double cfl_limit, double h_min,
-              Tile t, long smem_bytes, void* stream) {
+              int newton_iters, int targeted, int scheme, int vol_cfl,
+              double dt, double cfl_limit, double h_min, Tile t,
+              long smem_bytes, void* stream) {
   const int threads = t.faces * t.across;
-  if (nk < 1 || axis < 0 || axis > 1
+  if (nk < 1 || axis < 0 || axis > 1 || scheme < EDGE_PPM
+      || scheme > EDGE_MONOTONIC
       || !tile_ok(t, axis ? nj : ni, axis ? ni : nj, nk, threads)
       || smem_bytes != stage_elems(t) * (long)sizeof(T))
     return cudaErrorInvalidValue;
@@ -445,15 +478,23 @@ int run_sweep(const void* const* ptrs, int nk, int nj, int ni, int axis,
   A.h_out = (T*)ptrs[10];
   A.flux = (T*)ptrs[11];
   A.ucor = (T*)ptrs[12];
+  A.du = (T*)ptrs[13];
+  if (targeted && (!A.vr || !A.hbt || !A.dx_face || !A.ucor || !A.du))
+    return cudaErrorInvalidValue;
   A.nk = nk;
   A.nj = nj;
   A.ni = ni;
   A.newton_iters = newton_iters;
+  A.scheme = scheme;
+  A.vol_cfl = vol_cfl;
   A.dt = T(dt);
   A.cfl_limit = T(cfl_limit);
   A.h_min = T(h_min);
   A.h_min2 = T(2.0 * h_min);
-  auto kern = axis ? sweep_kernel<T, 1> : sweep_kernel<T, 0>;
+  auto kern = targeted ? (axis ? sweep_kernel<T, 1, true>
+                               : sweep_kernel<T, 0, true>)
+                       : (axis ? sweep_kernel<T, 1, false>
+                               : sweep_kernel<T, 0, false>);
   cudaError_t e = prepare(kern, smem_bytes);
   if (e != cudaSuccess) return e;
   kern<<<t.blocks, threads, smem_bytes,
@@ -462,13 +503,15 @@ int run_sweep(const void* const* ptrs, int nk, int nj, int ni, int axis,
 }
 
 // ptrs: per direction (x then y) u, vr, dlen, Idx, mask_f, dx_face, then
-// its six outputs (12 each); ptrs[24] = h, ptrs[25] = mask_t
+// its six outputs (12 each); ptrs[24] = h, ptrs[25] = mask_t,
+// ptrs[26] = Iarea
 template <typename T>
-int run_bt_cont(void* const* ptrs, int nk, int nj, int ni, double dt,
-                double cfl_limit, double h_min, Tile tx, Tile ty,
-                long smem_bytes, void* stream) {
+int run_bt_cont(void* const* ptrs, int nk, int nj, int ni, int scheme,
+                int vol_cfl, double dt, double cfl_limit, double h_min,
+                Tile tx, Tile ty, long smem_bytes, void* stream) {
   const int threads = tx.faces * tx.across;
-  if (nk < 1 || !tile_ok(tx, ni, nj, nk, threads)
+  if (nk < 1 || scheme < EDGE_PPM || scheme > EDGE_MONOTONIC
+      || !tile_ok(tx, ni, nj, nk, threads)
       || !tile_ok(ty, nj, ni, nk, threads)
       || smem_bytes != (long)sizeof(T) * (stage_elems(tx) > stage_elems(ty)
                                               ? stage_elems(tx)
@@ -490,9 +533,12 @@ int run_bt_cont(void* const* ptrs, int nk, int nj, int ni, double dt,
   }
   A.h = (const T*)ptrs[24];
   A.mask_t = (const T*)ptrs[25];
+  A.iarea = (const T*)ptrs[26];
   A.nk = nk;
   A.nj = nj;
   A.ni = ni;
+  A.scheme = scheme;
+  A.vol_cfl = vol_cfl;
   A.dt = T(dt);
   A.cfl_limit = T(cfl_limit);
   A.h_min2 = T(2.0 * h_min);
@@ -519,15 +565,17 @@ extern "C" const char* cont_error_name(int e) {
 }
 
 // ptrs: u, h, visc_rem, hbt, dlen, Idx, Iarea, face mask, face spacing,
-// cell mask in; h_out, flux, u_cor out.  tile: faces, across, layers,
-// blocks of tile_plan
+// cell mask in; h_out, flux, u_cor, du out (visc_rem, hbt, face spacing,
+// u_cor and du null when not ``targeted``).  opts: axis, newton_iters,
+// targeted, edge scheme (ppm.cuh EdgeScheme), vol_cfl.  tile: faces,
+// across, layers, blocks of tile_plan
 #define SWEEP_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(void* const* ptrs, int nk, int nj, int ni, int axis, \
-                      int newton_iters, double dt, double cfl_limit,      \
+  extern "C" int NAME(void* const* ptrs, int nk, int nj, int ni,         \
+                      const int* opts, double dt, double cfl_limit,       \
                       double h_min, const int* tile, long smem_bytes,     \
                       void* stream) {                                     \
-    return run_sweep<T>(ptrs, nk, nj, ni, axis, newton_iters, dt,         \
-                        cfl_limit, h_min,                                 \
+    return run_sweep<T>(ptrs, nk, nj, ni, opts[0], opts[1], opts[2],     \
+                        opts[3], opts[4], dt, cfl_limit, h_min,           \
                         Tile{tile[0], tile[1], tile[2], tile[3]},         \
                         smem_bytes, stream);                              \
   }
@@ -538,10 +586,11 @@ SWEEP_ENTRY(ppm_sweep_f64, double)
 // tiles: the x tile then the y tile, four ints each as for a sweep
 #define BT_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(void* const* ptrs, int nk, int nj, int ni,         \
-                      double dt, double cfl_limit, double h_min,          \
-                      const int* tiles, long smem_bytes, void* stream) {  \
+                      int scheme, int vol_cfl, double dt,                 \
+                      double cfl_limit, double h_min, const int* tiles,   \
+                      long smem_bytes, void* stream) {                    \
     return run_bt_cont<T>(                                                \
-        ptrs, nk, nj, ni, dt, cfl_limit, h_min,                           \
+        ptrs, nk, nj, ni, scheme, vol_cfl, dt, cfl_limit, h_min,          \
         Tile{tiles[0], tiles[1], tiles[2], tiles[3]},                     \
         Tile{tiles[4], tiles[5], tiles[6], tiles[7]}, smem_bytes,         \
         stream);                                                          \

@@ -2,8 +2,8 @@
 // sweep, shared by the continuity sweep (K1) and the BT_cont curve fit
 // (K2).  Each function mirrors its plain PyTorch twin in
 // mom6_torch/core/continuity_ppm.py operation for operation
-// (_ppm_edges with the positive-definite limiter, _flux_1dir), so with
-// contraction off (-fmad=false) the kernels round as the plain version.
+// (_ppm_edges with each edge scheme, _flux_1dir), so with contraction
+// off (-fmad=false) the kernels round as the plain version.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,20 +29,47 @@ __device__ inline T ppm_slope(T hm, T hc, T hp, T mm, T mc, T mp) {
   return (mp * mc * mm > T(0)) ? slp : T(0);
 }
 
+// the edge schemes of ContinuityCfg: PPM with the positive-definite
+// limiter (the default), UPWIND_1ST_CONTINUITY, SIMPLE_2ND_PPM_CONTINUITY
+// and MONOTONIC_CONTINUITY (PPM with the Colella-Woodward limiter)
+enum EdgeScheme { EDGE_PPM = 0, EDGE_UPWIND = 1, EDGE_SIMPLE2 = 2,
+                  EDGE_MONOTONIC = 3 };
+
 // edge values (h_minus, h_plus) of the cell hv[2] from the thickness
 // and cell mask of the cells -2..+2 along the sweep
 template <typename T>
 __device__ inline void ppm_edges(const T (&hv)[5], const T (&mv)[5],
-                                 T h_min2, T& h_minus, T& h_plus) {
+                                 T h_min2, int scheme, T& h_minus,
+                                 T& h_plus) {
   const T hc = hv[2], m_p = mv[3], m_m = mv[1];
+  if (scheme == EDGE_UPWIND) {
+    h_minus = h_plus = hc;
+    return;
+  }
   T h_p = m_p * hv[3] + (T(1.0) - m_p) * hc;
   T h_m = m_m * hv[1] + (T(1.0) - m_m) * hc;
+  if (scheme == EDGE_SIMPLE2) {
+    h_minus = T(0.5) * (h_m + hc);
+    h_plus = T(0.5) * (h_p + hc);
+    return;
+  }
   T slp_m = ppm_slope(hv[0], hv[1], hv[2], mv[0], mv[1], mv[2]);
   T slp = ppm_slope(hv[1], hv[2], hv[3], mv[1], mv[2], mv[3]);
   T slp_p = ppm_slope(hv[2], hv[3], hv[4], mv[2], mv[3], mv[4]);
   const T one6 = T(1.0 / 6.0);
   T hmi = T(0.5) * (h_m + hc) + one6 * (slp_m - slp);
   T hpl = T(0.5) * (h_p + hc) + one6 * (slp - slp_p);
+  if (scheme == EDGE_MONOTONIC) {
+    // Colella & Woodward (1984); h_plus's test takes the new h_minus
+    const bool pc = (hpl - hc) * (hc - hmi) <= T(0);
+    const T dh = hpl - hmi;
+    const T curv = T(6.0) * hc - T(3.0) * (hmi + hpl);
+    h_minus = pc ? hc : (dh * curv > dh * dh ? T(3.0) * hc - T(2.0) * hpl
+                                             : hmi);
+    h_plus = pc ? hc : (dh * curv < -dh * dh
+                            ? T(3.0) * hc - T(2.0) * h_minus : hpl);
+    return;
+  }
   // positive-definite limiter (PPM_limit_pos)
   T curv = T(3.0) * (hmi + hpl - T(2.0) * hc);
   T dh = hpl - hmi;
@@ -58,13 +85,16 @@ __device__ inline void ppm_edges(const T (&hv)[5], const T (&mv)[5],
 }
 
 // the 2D constants of one face (plain: the flux_args of _flux_1dir);
-// Idx_dn is stored negated: ((-u)*dt)*Idx_dn == (u*dt)*(-Idx_dn) exactly
+// Idx_dn is stored negated: ((-u)*dt)*Idx_dn == (u*dt)*(-Idx_dn) exactly.
+// With the volume-based CFL (CONT_PPM_VOLUME_BASED_CFL) Idx_up and
+// Idx_dn hold dlen*Iarea of the two cells, so cfl = (u*dt)*(dlen*Iarea)
+// rounds as the plain version's
 template <typename T> struct FaceConst {
   T dlen, Idx_up, nIdx_dn, mask;
 };
 
 // one layer's upwind PPM flux through a face and its velocity
-// derivative (plain: _flux_1dir without vol_cfl).  ``up`` points at the
+// derivative (plain: _flux_1dir).  ``up`` points at the
 // thickness, h_minus and h_plus of the cell "up" (the face's own index),
 // stored consecutively; the cell "dn" (+1 along the sweep) lies ``dn``
 // elements further.  The plain version evaluates both upwind branches

@@ -8,7 +8,8 @@ ENERGYSAVEDAYS cadence of ``ocean.stats`` (header, truncations, mass
 error), the CPU_stats/MAXCPU budget and the DTBT_RESET_PERIOD
 re-estimate of the barotropic substep count (an increase applies at
 once, a decrease only when it saves two substeps or more; one step
-closure per substep count, reused on revisits), and writes
+closure per substep count, reused on revisits; none under unsplit
+dynamics), and writes
 ``MOM_parameter_doc.all``/``.short``, ``RESTART/MOM.res`` at the end of
 the run (restartable with ``--restart-from``, in either package) and
 ``clocks.txt``, all into the case directory: point it at a copy of a
@@ -136,7 +137,7 @@ def _restore(path: str, model):
 def main(argv=None) -> dict:
     """Run a case.  Returns a summary: the final ``state``, ``split`` and
     ``tracers``, ``nstep_bt`` (the barotropic substep count of every
-    step run), ``steps`` (steps run) and ``loop_seconds`` (the time
+    step run; None each under unsplit dynamics), ``steps`` (steps run) and ``loop_seconds`` (the time
     loop's time; on the card from CUDA events)."""
     ap = argparse.ArgumentParser(description="mom6_torch solo ocean driver")
     ap.add_argument("case_dir")
@@ -251,7 +252,7 @@ def main(argv=None) -> dict:
                 print(line, end="")
         if n == step0 + nsteps or stopped_on_cpu:
             break
-        if dtbt_reset >= 0.0 and n > step0 \
+        if dtbt_reset >= 0.0 and model.cfg.split and n > step0 \
                 and (n - step0) % max(1, int(round(dtbt_reset / dt))) == 0:
             # asymmetric hysteresis: an increase (stability) applies at
             # once, a decrease only if it saves two substeps or more, so

@@ -3,7 +3,8 @@
 ``build_full`` builds the full ocean step of the benchmark
 configuration, bench.py's CONFIG (Z* ALE) with BT_WIDE_HALO_PERIOD = 2
 (the barotropic solve on the wide-halo march, kernel K3m), or its
-layered variant (USE_REGRIDDING = False), through
+layered variant (USE_REGRIDDING = False), on the split RK2 dynamics or,
+with ``dynamics``, the split RK2b or the unsplit RK3 dynamics, through
 ``model.build_model``; its ``Model.step_fn`` steps it.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
@@ -30,10 +31,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from mom6_torch.configs import BENCH_CONFIG
+from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_RK2B,
+                                BENCH_CONFIG_UNSPLIT)
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
                                                 init_split_state)
+from mom6_torch.core.dynamics_split_rk2b import init_split_b_state
 from mom6_torch.core.forcing import MechForcing
 from mom6_torch.core.grid import Grid, cartesian_grid
 from mom6_torch.core.state import State
@@ -48,6 +51,9 @@ __all__ = ["Slice", "build", "build_full"]
 
 DT = 600.0
 DEPTH = 4000.0
+# the configuration text of each dynamics of build_full
+DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
+            "unsplit": BENCH_CONFIG_UNSPLIT}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +95,7 @@ def build(ni: int = 512, nj: int = 512, nk: int = 25, *, seed: int = 0,
 
 def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
                seed: int | None = None, regridding: bool = True,
+               dynamics: str = "rk2", wide_halo_period: int = 2,
                device="cuda", dtype: torch.dtype = torch.float32) -> Model:
     """The full step of bench.py's CONFIG (``configs.BENCH_CONFIG``) with
     BT_WIDE_HALO_PERIOD = 2, at ``ni`` x ``nj`` x ``nk`` with 10 km cells,
@@ -121,6 +128,13 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     False (bench.py's ``ale_regrid_remap`` probe): no ALE, diffusive
     entrainment on and no T/S reconstruction in the pressure force.
 
+    ``dynamics`` picks the text: "rk2" (``BENCH_CONFIG``), "rk2b"
+    (``BENCH_CONFIG_RK2B``: SPLIT_RK2B) or "unsplit"
+    (``BENCH_CONFIG_UNSPLIT``: SPLIT = False, DT = 20 s, DT_THERM =
+    120 s, no barotropic parameter).  ``wide_halo_period`` sets
+    BT_WIDE_HALO_PERIOD of the split texts (1: kernel K3 in place of
+    K3m).
+
     With ``seed`` None the initial state is the configuration's own (at
     rest and horizontally uniform, as the JAX package builds it).  With
     an integer seed, numpy noise drawn from it is added (h +- 2 m,
@@ -128,8 +142,10 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     device, so that runs on two devices can be compared on fields that
     are not roundoff-sized in the first steps.  Runs on ``cuda`` unless
     the caller passes ``device="cpu"``."""
-    text = (BENCH_CONFIG + "BT_WIDE_HALO_PERIOD = 2\n"
-            f"#override NIGLOBAL = {ni}\n#override NJGLOBAL = {nj}\n"
+    text = DYNAMICS[dynamics]
+    if dynamics != "unsplit":
+        text += f"BT_WIDE_HALO_PERIOD = {wide_halo_period}\n"
+    text += (f"#override NIGLOBAL = {ni}\n#override NJGLOBAL = {nj}\n"
             f"#override NK = {nk}\n#override LENLON = {ni * 10.0}\n"
             f"#override LENLAT = {nj * 10.0}\n")
     if not regridding:
@@ -149,6 +165,9 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
         m.state = st.replace(h=noisy(st.h, 2.0), T=noisy(st.T, 0.5),
                              u=noisy(st.u, 0.05, g.mask2dCu),
                              v=noisy(st.v, 0.05, g.mask2dCv))
-        m.split = init_split_state(d, g, m.vgrid, m.state,
-                                   horvisc_cfg=m.cfg.split_cfg.horvisc)
+        if dynamics == "rk2":
+            m.split = init_split_state(d, g, m.vgrid, m.state,
+                                       horvisc_cfg=m.cfg.split_cfg.horvisc)
+        elif dynamics == "rk2b":
+            m.split = init_split_b_state(d, g, m.vgrid, m.state)
     return m

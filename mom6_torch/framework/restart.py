@@ -7,10 +7,11 @@ and a ``<path>.json`` manifest with each tree's keys and its metadata
 for bit.
 
 The leaves of a tree come in the JAX package's order, so that a
-restart written by either package restores in the other: a ``State``
-or ``SplitDynState`` in the JAX package's field order (``_FIELDS``)
-with the None fields skipped, a dict of tracers in sorted key order, a
-single tensor as one leaf.
+restart written by either package restores in the other: a ``State``,
+``SplitDynState`` or ``SplitBDynState`` in the JAX package's field
+order (``_FIELDS``) with the None fields skipped, a dict of tracers in
+sorted key order, a single tensor as one leaf, and None (an unsplit
+model's split state) as no leaf.
 """
 
 from __future__ import annotations
@@ -31,11 +32,14 @@ _FIELDS = {
     "State": ("u", "v", "h", "T", "S", "meke", "frazil"),
     "SplitDynState": ("u_av", "v_av", "h_av", "uh", "vh", "eta", "diffu",
                       "diffv"),
+    "SplitBDynState": ("du_av_inst", "dv_av_inst", "eta"),
 }
 
 
 def _flatten(tree) -> tuple[list[torch.Tensor], str]:
     """The tree's leaves and a description of its structure."""
+    if tree is None:
+        return [], "PyTreeDef(None)"
     if isinstance(tree, torch.Tensor):
         return [tree], "PyTreeDef(*)"
     if isinstance(tree, dict):
@@ -52,6 +56,8 @@ def _flatten(tree) -> tuple[list[torch.Tensor], str]:
 
 
 def _unflatten(template, leaves: list[torch.Tensor]):
+    if template is None:
+        return None
     if isinstance(template, torch.Tensor):
         return leaves[0]
     if isinstance(template, dict):

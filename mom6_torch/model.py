@@ -9,9 +9,11 @@ state, and returns a ``Model`` whose ``step_fn`` steps the full ocean
 step (``core/orchestrator.py``).
 
 It follows the JAX builder on the branches that bench.py's CONFIG
-(with and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2) and
-``cases/double_gyre`` take: a single-device cartesian grid in km
-(TOPO_CONFIG flat, bowl or spoon), split RK2 dynamics, the LINEAR and
+(with and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
+``cases/double_gyre``, ``cases/tc0`` and ``cases/ref_tc0`` take: a
+single-device cartesian grid in km or degrees (TOPO_CONFIG flat, bowl or
+spoon), split RK2, split RK2b (SPLIT_RK2B) or unsplit (SPLIT = False)
+dynamics with every Coriolis and KE scheme, the LINEAR and
 WRIGHT equations of state, THICKNESS_CONFIG uniform, TS_CONFIG uniform
 or linear, WIND_CONFIG zero/constant/gyres/2gyre, BUOY_CONFIG zero or
 linear restoring, ALE with the coordinates and remap schemes of
@@ -44,8 +46,11 @@ from mom6_torch.core.continuity_ppm import ContinuityCfg
 from mom6_torch.core.coriolis_adv import CoriolisCfg
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
                                                 init_split_state)
+from mom6_torch.core.dynamics_split_rk2b import (SplitBDynState,
+                                                 init_split_b_state)
+from mom6_torch.core.dynamics_unsplit import UnsplitCfg
 from mom6_torch.core.forcing import Fluxes, MechForcing
-from mom6_torch.core.grid import Grid, cartesian_grid
+from mom6_torch.core.grid import Grid, cartesian_grid, spherical_grid
 from mom6_torch.core.orchestrator import OceanCfg, step_ocean
 from mom6_torch.core.pressure_force import PressureForceCfg
 from mom6_torch.core.state import State
@@ -117,7 +122,9 @@ def _one_of(name: str, val: str, allowed) -> str:
 class Model:
     """A configured model: its grids, configuration, forcing and initial
     state (counterpart of the JAX package's ``Model``).  ``split`` is the
-    split scheme's state (the JAX Model's ``split_state``)."""
+    split scheme's state (the JAX Model's ``split_state``): a
+    ``SplitDynState`` under split RK2, a ``SplitBDynState`` under RK2b,
+    None under unsplit dynamics (``cfg.split`` False)."""
     domain: Domain
     grid: Grid
     vgrid: VerticalGrid
@@ -129,7 +136,7 @@ class Model:
     forces: MechForcing
     registry: TracerRegistry
     state: State
-    split: SplitDynState
+    split: SplitDynState | SplitBDynState | None
     tracers: Optional[dict]
     dt: float
     dt_therm: float
@@ -148,7 +155,11 @@ class Model:
 
     def reset_dtbt(self, state: State) -> int:
         """DTBT_RESET_PERIOD: the barotropic substep count re-estimated
-        from the current total column thickness (one host sync)."""
+        from the current total column thickness (one host sync).  An
+        unsplit model has no barotropic solver and raises."""
+        if not self.cfg.split:
+            raise ValueError("reset_dtbt: unsplit dynamics have no "
+                             "barotropic substeps")
         return set_dtbt(self.domain, self.grid, self.vgrid,
                         self.cfg.split_cfg.barotropic, self.dt, h=state.h)
 
@@ -165,10 +176,11 @@ class Model:
         of an earlier closure (``step.carry()``).  The closure carries
         ``truncations()`` (the cumulative velocity-truncation count; the
         count stays on the device until asked for), ``carry()`` (a copy
-        of its accumulators), ``set_carry(c)`` and ``nstep_bt``."""
+        of its accumulators), ``set_carry(c)`` and ``nstep_bt`` (None
+        under unsplit dynamics)."""
         cfg = self.cfg
-        bt = cfg.split_cfg.barotropic
-        if nstep_bt and nstep_bt != bt.nstep:
+        bt = cfg.split_cfg.barotropic if cfg.split else None
+        if bt is not None and nstep_bt and nstep_bt != bt.nstep:
             sp = dataclasses.replace(
                 cfg.split_cfg,
                 barotropic=dataclasses.replace(bt, nstep=int(nstep_bt)))
@@ -211,7 +223,8 @@ class Model:
         step.truncations = lambda: int(acc["truncs"])
         step.carry = lambda: dict(acc)
         step.set_carry = set_carry
-        step.nstep_bt = cfg.split_cfg.barotropic.nstep
+        step.nstep_bt = cfg.split_cfg.barotropic.nstep if cfg.split \
+            else None
         return step
 
 
@@ -267,15 +280,20 @@ def build_model(pf: ParamFile, *, device="cuda",
            "(MOM_grid_initialize.F90:703); read for any "
            "spherical-family GRID_CONFIG, selects the "
            "Mercator metrics when GRID_CONFIG=spherical")
-    if not axis_units.startswith("k"):
-        raise NotImplementedError(f"AXIS_UNITS = {axis_units!r}: a "
-                                  "cartesian grid in degrees")
-    grid = cartesian_grid(domain, lenlon_km=lenlon, lenlat_km=lenlat, f0=f0,
-                          beta=beta, max_depth=max_depth, depth_fn=depth_fn,
-                          min_depth=min_depth, south_lat=south,
-                          west_lon=west,
-                          beta_lat_ref=pf.get("BETA_LAT_REF", float, 0.0,
-                                              units="km"), **dev)
+    if axis_units.startswith("k"):
+        grid = cartesian_grid(domain, lenlon_km=lenlon, lenlat_km=lenlat,
+                              f0=f0, beta=beta, max_depth=max_depth,
+                              depth_fn=depth_fn, min_depth=min_depth,
+                              south_lat=south, west_lon=west,
+                              beta_lat_ref=pf.get("BETA_LAT_REF", float,
+                                                  0.0, units="km"), **dev)
+    else:
+        # a cartesian grid in degrees takes the spherical metrics, as in
+        # the JAX builder
+        grid = spherical_grid(domain, west_lon=west, lenlon=lenlon,
+                              south_lat=south, lenlat=lenlat,
+                              depth_fn=depth_fn, max_depth=max_depth,
+                              min_depth=min_depth, **dev)
     if max_depth_diagnose and topo_config != "flat":
         max_depth = float(torch.max(grid.bathyT))
     default_only(pf, "SUBGRID_TOPO_AT_VEL", bool, False)
@@ -295,9 +313,8 @@ def build_model(pf: ParamFile, *, device="cuda",
                   desc="uniform interface reduced gravity")
 
     pf.module("MOM")
-    if not pf.get("SPLIT", bool, True):
-        raise NotImplementedError("SPLIT = False: unsplit dynamics")
-    default_only(pf, "SPLIT_RK2B", bool, False)
+    split = pf.get("SPLIT", bool, True)
+    split_rk2b = pf.get("SPLIT_RK2B", bool, False)
     dt = pf.get("DT", float, units="s")
     if dt is None:
         raise ValueError("DT must be set")
@@ -354,37 +371,32 @@ def build_model(pf: ParamFile, *, device="cuda",
 
     pf.module("MOM_CoriolisAdv")
     cor = CoriolisCfg(
-        scheme=_one_of("CORIOLIS_SCHEME",
-                       pf.get("CORIOLIS_SCHEME", str, "SADOURNY75_ENERGY"),
-                       ("SADOURNY75_ENERGY",)),
-        ke_scheme=_one_of("KE_SCHEME",
-                          pf.get("KE_SCHEME", str, "KE_ARAKAWA"),
-                          ("KE_ARAKAWA",)))
-    default_only(pf, "NOSLIP", bool, False)
-    default_only(pf, "BOUND_CORIOLIS", bool, False)
-    default_only(pf, "CORIOLIS_EN_DIS", bool, False,
-                 desc="energy-dissipating biased "
-                 "Sadourny-energy PV flux "
-                 "(MOM_CoriolisAdv.F90:1087)")
-    if pf.get("PV_ADV_SCHEME", str, "PV_ADV_CENTERED").upper() \
-            == "PV_ADV_UPWIND1":
-        raise NotImplementedError("PV_ADV_SCHEME = 'PV_ADV_UPWIND1': "
-                                  "option not ported")
-    default_only(pf, "CORIOLIS_BLEND_WT_LIN", float, 0.125)
-    default_only(pf, "CORIOLIS_BLEND_F_EFF_MAX", float, 4.0)
-    default_only(pf, "ANGSTROM", float, 1e-10, units="m")
+        scheme=pf.get("CORIOLIS_SCHEME", str, "SADOURNY75_ENERGY"),
+        ke_scheme=pf.get("KE_SCHEME", str, "KE_ARAKAWA"),
+        no_slip=pf.get("NOSLIP", bool, False),
+        bound_coriolis=pf.get("BOUND_CORIOLIS", bool, False),
+        coriolis_en_dis=pf.get("CORIOLIS_EN_DIS", bool, False,
+                               desc="energy-dissipating biased "
+                               "Sadourny-energy PV flux "
+                               "(MOM_CoriolisAdv.F90:1087)"),
+        pv_adv_upwind=pf.get("PV_ADV_SCHEME", str, "PV_ADV_CENTERED"
+                             ).upper() == "PV_ADV_UPWIND1",
+        blend_wt_lin=pf.get("CORIOLIS_BLEND_WT_LIN", float, 0.125),
+        blend_f_eff_max=pf.get("CORIOLIS_BLEND_F_EFF_MAX", float, 4.0),
+        h_tiny=pf.get("ANGSTROM", float, 1e-10, units="m"))
 
     pf.module("MOM_vert_friction")
     vv = VertViscCfg(
         kv=pf.get("KV", float, 1e-4, units="m2 s-1"),
         hbbl=pf.get("HBBL", float, 10.0, units="m"),
         cdrag=pf.get("CDRAG", float, 0.003),
+        bottomdraglaw=pf.get("BOTTOMDRAGLAW", bool, True),
         drag_bg_vel=pf.get("DRAG_BG_VEL", float, 0.0, units="m s-1"),
         maxvel=pf.get("MAXVEL", float, 3.0e8, units="m s-1"),
         cfl_trunc=pf.get("CFL_TRUNCATE", float, 0.5),
         bbl_thick_min=pf.get("BBL_THICK_MIN", float, 0.1, units="m"),
         kv_bbl_min=pf.get("KV_BBL_MIN", float, 1e-4, units="m2 s-1"))
-    for name, default in (("BOTTOMDRAGLAW", True), ("LINEAR_DRAG", False),
+    for name, default in (("LINEAR_DRAG", False),
                           ("CHANNEL_DRAG", False), ("DYNAMIC_BBL", True),
                           ("DYNAMIC_VISCOUS_ML", False),
                           ("FIXED_DEPTH_LOTW_ML", False),
@@ -416,7 +428,8 @@ def build_model(pf: ParamFile, *, device="cuda",
         if smag_kh else 0.0,
         smag_bi_const=pf.get("SMAG_BI_CONST", float, 0.0)
         if smag_ah else 0.0,
-        dt=dt)
+        dt=dt,
+        no_slip=pf.get("NOSLIP", bool, False))
     for name, ptype, default, units in (
             ("KH_VEL_SCALE", float, 0.0, "m s-1"),
             ("AH_VEL_SCALE", float, 0.0, "m s-1"),
@@ -425,15 +438,15 @@ def build_model(pf: ParamFile, *, device="cuda",
             ("MODIFIED_LEITH", bool, False, ""),
             ("ADD_LES_VISCOSITY", bool, False, ""),
             ("ANISOTROPIC_VISCOSITY", bool, False, ""),
-            ("KH_ANISO", float, 0.0, "m2 s-1"), ("NOSLIP", bool, False, ""),
+            ("KH_ANISO", float, 0.0, "m2 s-1"),
             ("USE_ZB2020", bool, False, ""), ("ZB_SCALING", float, 0.5, ""),
             ("ZB_TYPE", int, 0, ""), ("ZB_CONS", int, 0, ""),
             ("USE_GME", bool, False, "")):
         default_only(pf, name, ptype, default, units=units)
-    default_only(pf, "USE_LAND_MASK_FOR_HVISC", bool, True,
-                 desc="mask cell thicknesses before "
-                 "averaging to faces "
-                 "(MOM_hor_visc.F90:705,2270)")
+    hv = dataclasses.replace(hv, use_land_mask=pf.get(
+        "USE_LAND_MASK_FOR_HVISC", bool, True,
+        desc="mask cell thicknesses before averaging to faces "
+        "(MOM_hor_visc.F90:705,2270)"))
 
     pf.module("MOM_PressureForce")
     default_only(pf, "USE_STANLEY_PGF", bool, False)
@@ -471,16 +484,24 @@ def build_model(pf: ParamFile, *, device="cuda",
     pf.get("BT_USE_PALLAS", bool, True)
     btcfg = dataclasses.replace(
         btcfg, wide_halo_period=pf.get("BT_WIDE_HALO_PERIOD", int, 1))
-    nstep = set_dtbt(domain, grid, vgrid, btcfg, dt, max_depth=max_depth)
-    dtbt = pf.get("DTBT", float, -0.95, units="s or nondim")
-    if dtbt > 0:
-        nstep = max(1, int(math.ceil(dt / dtbt)))
-    btcfg = dataclasses.replace(btcfg, nstep=nstep)
-    split_cfg = SplitCfg(be=pf.get("BE", float, 0.6), continuity=cont,
-                         coriolis=cor, vertvisc=vv, horvisc=hv,
-                         barotropic=btcfg, pressure=pgf_cfg)
-    default_only(pf, "BEGW", float, 0.0)
-    default_only(pf, "STOCH_EOS", bool, False)
+    split_cfg = unsplit_cfg = None
+    if split:
+        nstep = set_dtbt(domain, grid, vgrid, btcfg, dt,
+                         max_depth=max_depth)
+        dtbt = pf.get("DTBT", float, -0.95, units="s or nondim")
+        if dtbt > 0:
+            nstep = max(1, int(math.ceil(dt / dtbt)))
+        btcfg = dataclasses.replace(btcfg, nstep=nstep)
+        split_cfg = SplitCfg(be=pf.get("BE", float, 0.6), continuity=cont,
+                             coriolis=cor, vertvisc=vv, horvisc=hv,
+                             barotropic=btcfg, pressure=pgf_cfg)
+        default_only(pf, "BEGW", float, 0.0)
+        default_only(pf, "STOCH_EOS", bool, False)
+    else:
+        # the JAX builder always takes the RK3 scheme; RK2 is reached by
+        # calling step_dyn_unsplit with UnsplitCfg(scheme="RK2")
+        unsplit_cfg = UnsplitCfg(continuity=cont, coriolis=cor, vertvisc=vv,
+                                 horvisc=hv, pressure=pgf_cfg)
     default_only(pf, "ICE_SHELF", bool, False)
 
     pf.module("MOM_state_initialization")
@@ -544,8 +565,12 @@ def build_model(pf: ParamFile, *, device="cuda",
     if os.path.exists(os.path.join(pf.case_dir, "data_table")):
         raise NotImplementedError("data_table: data override")
 
-    split_state = init_split_state(domain, grid, vgrid, state,
-                                   horvisc_cfg=hv)
+    split_state = None
+    if split and split_rk2b:
+        split_state = init_split_b_state(domain, grid, vgrid, state)
+    elif split:
+        split_state = init_split_state(domain, grid, vgrid, state,
+                                       horvisc_cfg=hv)
 
     pf.module("MOM_ALE")
     ale_cfg = None
@@ -689,7 +714,9 @@ def build_model(pf: ParamFile, *, device="cuda",
     for name in ("RESOLN_SCALED_KH", "RESOLN_SCALED_KHTH",
                  "RESOLN_SCALED_KHTR"):
         default_only(pf, name, bool, False)
-    ocean_cfg = OceanCfg(split_cfg=split_cfg, n_dyn_per_therm=n_dyn_per_therm,
+    ocean_cfg = OceanCfg(split=split, split_rk2b=split_rk2b,
+                         split_cfg=split_cfg, unsplit_cfg=unsplit_cfg,
+                         n_dyn_per_therm=n_dyn_per_therm,
                          tracer_adv=adv_cfg, diabatic=dia_cfg, ale=ale_cfg,
                          thickness_diffuse=td_cfg, thermo=thermo,
                          adiabatic=adiabatic, use_mle=use_mle,

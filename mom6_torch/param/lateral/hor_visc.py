@@ -2,14 +2,14 @@
 
 Counterpart of ``mom6_tpu.param.lateral.hor_visc``: stress-tensor
 Laplacian and biharmonic friction with constant and Smagorinsky
-coefficients (their maximum) under the CFL stability bounds, free slip,
-with the land mask applied to cell thicknesses.  Tension sh_xx lives at
-h points, shearing strain sh_xy at q points; the divergence of the
-thickness-weighted stress gives (diffu, diffv).  The JAX package's
-other options (velocity-scale and Leith coefficients,
-ADD_LES_VISCOSITY, anisotropic viscosity, NOSLIP, ZB2020, the
-VarMix/MEKE coefficient inputs, open boundaries) are not ported yet;
-GME raises ``NotImplementedError``.
+coefficients (their maximum) under the CFL stability bounds, free slip
+or NOSLIP, with the land mask applied to cell thicknesses or not
+(USE_LAND_MASK_FOR_HVISC).  Tension sh_xx lives at h points, shearing
+strain sh_xy at q points; the divergence of the thickness-weighted
+stress gives (diffu, diffv).  The JAX package's other options
+(velocity-scale and Leith coefficients, ADD_LES_VISCOSITY, anisotropic
+viscosity, ZB2020, the VarMix/MEKE coefficient inputs, open boundaries)
+are not ported yet; GME raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ class HorViscCfg:
     biharmonic: bool = False      # BIHARMONIC
     dt: float = 3600.0            # used only for the stability bounds
     use_gme: bool = False         # USE_GME (not ported: raises)
+    no_slip: bool = False         # NOSLIP
+    use_land_mask: bool = True    # USE_LAND_MASK_FOR_HVISC
 
     # the JAX package's GME settings, inert while USE_GME is off
     _INERT = {"gme_h0": "use_gme", "gme_efficiency": "use_gme",
@@ -48,8 +50,9 @@ class HorViscResult(NamedTuple):
     diffv: torch.Tensor
 
 
-def _strains(grid: Grid, u, v):
-    """Tension at h points and free-slip shearing strain at q points."""
+def _strains(grid: Grid, u, v, no_slip: bool):
+    """Tension at h points and shearing strain at q points, doubled at
+    land corners with ``no_slip``."""
     DY_dxT = grid.dyT * grid.IdxT
     DX_dyT = grid.dxT * grid.IdyT
     DY_dxBu = grid.dyBu * grid.IdxBu
@@ -58,7 +61,8 @@ def _strains(grid: Grid, u, v):
     dvdy = DX_dyT * (grid.IdxCv * v - jm1(grid.IdxCv * v))
     dvdx = DY_dxBu * (ip1(grid.IdyCv * v) - grid.IdyCv * v)
     dudy = DX_dyBu * (jp1(grid.IdxCu * u) - grid.IdxCu * u)
-    return dudx - dvdy, grid.mask2dBu * (dvdx + dudy)
+    fac = (2.0 - grid.mask2dBu) if no_slip else grid.mask2dBu
+    return dudx - dvdy, fac * (dvdx + dudy)
 
 
 def horizontal_viscosity(grid: Grid, u, v, h,
@@ -74,7 +78,7 @@ def horizontal_viscosity(grid: Grid, u, v, h,
     dx2h = grid.dxT * grid.dxT
     dy2q = grid.dyBu * grid.dyBu
     dx2q = grid.dxBu * grid.dxBu
-    sh_xx, sh_xy = _strains(grid, u, v)
+    sh_xx, sh_xy = _strains(grid, u, v, cfg.no_slip)
     grid_sp_h2 = (2.0 * dx2h * dy2h) / (dx2h + dy2h + _H_NEGLECT)
     grid_sp_q2 = (2.0 * dx2q * dy2q) / (dx2q + dy2q + _H_NEGLECT)
 
@@ -115,7 +119,7 @@ def horizontal_viscosity(grid: Grid, u, v, h,
                  + Idx2dyCu * (dx2q * sh_xy - jm1(dx2q * sh_xy)))
         Del2v = (Idxdy2v * (dy2q * sh_xy - im1(dy2q * sh_xy))
                  - Idx2dyCv * (jp1(dx2h * sh_xx) - dx2h * sh_xx))
-        bh_xx, bh_xy = _strains(grid, Del2u, Del2v)
+        bh_xx, bh_xy = _strains(grid, Del2u, Del2v, cfg.no_slip)
         Ah_h = background(cfg.ah, grid_sp_h2)
         Ah_q = background(cfg.ah, grid_sp_q2)
         if cfg.smag_bi_const > 0.0:
@@ -129,8 +133,9 @@ def horizontal_viscosity(grid: Grid, u, v, h,
         str_xy = str_xy + Ah_q * bh_xy
 
     # hq: harmonic-style mean of the four face thicknesses around a
-    # corner, so vanished layers receive no stress divergence
-    h_m = grid.mask2dT * h
+    # corner, so vanished layers receive no stress divergence; the land
+    # mask applies to cells, so a coast face keeps half its wet cell
+    h_m = grid.mask2dT * h if cfg.use_land_mask else h
     h_u = 0.5 * (h_m + ip1(h_m))
     h_v = 0.5 * (h_m + jp1(h_m))
     h2uq = 4.0 * h_u * jp1(h_u)
@@ -138,6 +143,21 @@ def horizontal_viscosity(grid: Grid, u, v, h,
     hq = (2.0 * h2uq * h2vq) / (
         _H_NEGLECT + (h2uq + h2vq)
         * ((h_u + jp1(h_u)) + (h_v + ip1(h_v))))
+    if cfg.no_slip:
+        # at coastal corners the 4-face mean vanishes with a land face,
+        # which would silence the doubled wall shear: rebuild hq there
+        # from the wet faces only
+        mcu, mcv = grid.mask2dCu, grid.mask2dCv
+        hu_w = mcu * h_u + jp1(mcu * h_u)
+        hv_w = mcv * h_v + ip1(mcv * h_v)
+        nu_w = mcu + jp1(mcu)
+        nv_w = mcv + ip1(mcv)
+        one_sided = (nu_w * nv_w) == 0.0
+        hq_coast = torch.where(one_sided, hu_w + hv_w,
+                               2.0 * hu_w * hv_w
+                               / (hu_w + hv_w + _H_NEGLECT))
+        coastal = (grid.mask2dBu < 0.5) & ((nu_w + nv_w) > 0.0)
+        hq = torch.where(coastal, hq_coast, hq)
     str_xx_h = str_xx * h
     str_xy_h = str_xy * hq
     diffu = ((grid.IdyCu * (dy2h * str_xx_h - ip1(dy2h * str_xx_h))

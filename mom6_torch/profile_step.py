@@ -1,6 +1,7 @@
 """Where the time of one step goes on a CUDA card.
 
-    python -m mom6_torch.profile_step [--full [--layered]]
+    python -m mom6_torch.profile_step [--full [--layered]
+                                     [--dynamics rk2|rk2b|unsplit]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
 
@@ -8,7 +9,10 @@ Builds the kernels and runs, in fp32, slice 1 of ``mom6_torch.entry``
 (``build``: the split RK2 dynamics step) or, with ``--full``, slice 2
 (``build_full``: the full ocean step of the benchmark configuration,
 with Z* ALE, or its layered variant with ``--layered``; a thermodynamic
-step every second step).  After two warm-up steps it
+step every second step), on the split RK2 dynamics or, with
+``--dynamics``, on the split RK2b or the unsplit RK3 dynamics
+(``build_full(dynamics=...)``: the unsplit text steps 20 s with a
+thermodynamic step every sixth).  After two warm-up steps it
 measures:
 
 1. the step time, by CUDA events around ``--steps`` uninstrumented
@@ -19,8 +23,9 @@ measures:
    phases of ``step_dyn_split_rk2`` and the barotropic subcycle inside
    btstep; slice 2: the dynamics, thickness diffusion, MLE, tracer
    advection, tracer_hordiff, the diabatic driver and the ALE
-   regrid/remap of ``step_ocean``, and inside them btstep, the K3m
-   march, KPP and the continuity kernels). Each device kernel is charged
+   regrid/remap of ``step_ocean``, and inside them the dynamics'
+   pressure force, Coriolis, viscosities, btstep, the K3/K3m subcycle,
+   KPP and the continuity kernels). Each device kernel is charged
    to the innermost range whose host range issued its launch, which
    gives per phase: host milliseconds (the range on the host clock,
    profiler on, inclusive of the ranges inside it), device milliseconds
@@ -48,6 +53,8 @@ import torch
 from mom6_torch import cuda_build, entry
 from mom6_torch.core import barotropic_cuda
 from mom6_torch.core import dynamics_split_rk2 as dyn
+from mom6_torch.core import dynamics_split_rk2b as dyn_b
+from mom6_torch.core import dynamics_unsplit as dyn_u
 from mom6_torch.core import orchestrator as orch
 from mom6_torch.param.vertical import diabatic as dia
 from mom6_torch.parallel.domain import Domain
@@ -60,13 +67,15 @@ SLICE1 = tuple((dyn, n, n) for n in (
     "continuity_ppm_cuda")) + (
     (barotropic_cuda, "subcycle_cuda", "btstep/subcycle_cuda"),
     (Domain, "fill_halos_group", "fill_halos_group"))
+# slice 2: the dynamics of each stepper, by its module and function...
+DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
+            "rk2b": (dyn_b, "step_dyn_split_rk2b"),
+            "unsplit": (dyn_u, "step_dyn_unsplit")}
+DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
+              "vertvisc", "btstep", "continuity_ppm_cuda",
+              "set_up_bt_cont_cuda")
+# ... and the phases of step_ocean after it
 SLICE2 = (
-    (orch, "step_dyn_split_rk2", "dynamics"),
-    (dyn, "btstep", "dynamics/btstep"),
-    (barotropic_cuda, "subcycle_march_cuda",
-     "dynamics/btstep/subcycle_march_cuda"),
-    (dyn, "continuity_ppm_cuda", "dynamics/continuity_ppm_cuda"),
-    (dyn, "set_up_bt_cont_cuda", "dynamics/set_up_bt_cont_cuda"),
     (orch, "thickness_diffuse", "thickness_diffuse"),
     (orch, "mixed_layer_restrat", "mixed_layer_restrat"),
     (orch, "advect_tracers", "advect_tracers"),
@@ -74,6 +83,20 @@ SLICE2 = (
     (orch, "diabatic", "diabatic"),
     (dia, "kpp_coefficients", "diabatic/kpp_coefficients"),
     (orch, "ale_regrid_remap", "ale"))
+
+
+def slice2_targets(dynamics: str):
+    """The ranges of a full step on ``dynamics``: the stepper, each of
+    its phases the stepper's module calls, the K3/K3m subcycle, and the
+    phases of step_ocean."""
+    mod, fn = DYNAMICS[dynamics]
+    return ((orch, fn, "dynamics"),) + tuple(
+        (mod, n, f"dynamics/{n}") for n in DYN_PHASES if hasattr(mod, n)) + (
+        (barotropic_cuda, "subcycle_cuda", "dynamics/btstep/subcycle_cuda"),
+        (barotropic_cuda, "subcycle_march_cuda",
+         "dynamics/btstep/subcycle_march_cuda")) + SLICE2
+
+
 # the ranges whose device kernels are also listed by kernel name
 KERNEL_SPLIT = ("continuity_ppm_cuda", "set_up_bt_cont_cuda")
 
@@ -193,6 +216,8 @@ def main(argv=None):
                    help="profile slice 2, the full ocean step")
     p.add_argument("--layered", action="store_true",
                    help="with --full: the layered variant (no ALE)")
+    p.add_argument("--dynamics", choices=sorted(DYNAMICS), default="rk2",
+                   help="with --full: the dynamics stepper")
     p.add_argument("--ni", type=int, default=512)
     p.add_argument("--nj", type=int, default=512)
     p.add_argument("--nk", type=int, default=25)
@@ -204,7 +229,8 @@ def main(argv=None):
     cuda_build.build()
     if a.full:
         m = entry.build_full(a.ni, a.nj, a.nk, regridding=not a.layered,
-                             device="cuda", dtype=torch.float32)
+                             dynamics=a.dynamics, device="cuda",
+                             dtype=torch.float32)
         full_step = m.step_fn()
         cur = [m.state, m.split, m.tracers]
         n_done = [0]
@@ -216,7 +242,7 @@ def main(argv=None):
         def kind():
             return "thermo" if (n_done[0] + 1) % m.cfg.n_dyn_per_therm \
                 == 0 else "dynamics-only"
-        targets = SLICE2
+        targets = slice2_targets(a.dynamics)
     else:
         s = entry.build(a.ni, a.nj, a.nk, device="cuda",
                         dtype=torch.float32)
@@ -253,7 +279,7 @@ def main(argv=None):
     by_kind = {k: sum(t for t, kk in zip(per, kinds) if kk == k)
                / kinds.count(k) for k in dict.fromkeys(kinds)}
     label = ("slice 2 (full step, " + ("layered" if a.layered else "ALE")
-             + ")") if a.full else "slice 1"
+             + f", {a.dynamics})") if a.full else "slice 1"
     print(f"{name}: {label} "
           f"{a.nk}x{a.nj}x{a.ni} fp32, {step_ms:.3f} ms/step (CUDA "
           f"events), {wall_ms:.3f} ms/step (host clock), mean of "
@@ -261,6 +287,7 @@ def main(argv=None):
           + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()))
     summary = dict(device=name, slice=2 if a.full else 1,
                    ale=a.full and not a.layered,
+                   dynamics=a.dynamics if a.full else "rk2",
                    shape=[a.nk, a.nj, a.ni], step_ms=step_ms,
                    step_ms_by_kind=by_kind, host_ms_per_step=wall_ms)
 
@@ -277,9 +304,10 @@ def main(argv=None):
             setattr(obj, n, fn)
     torch.cuda.synchronize()
     summary["profiled"] = {}
-    for _ in set(kinds):
-        k = kind()
-        summary["profiled"][k] = _profile(step, targets, k, a.out)
+    for want in dict.fromkeys(kinds):
+        while kind() != want:       # step on to a step of that kind
+            step()
+        summary["profiled"][want] = _profile(step, targets, want, a.out)
     print(json.dumps(summary))
 
 

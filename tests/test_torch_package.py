@@ -100,9 +100,19 @@ def test_cpu_tensors_take_the_plain_versions():
 @pytest.mark.parametrize("option", ["upwind_1st", "simple_2nd",
                                     "monotonic", "vol_cfl"])
 def test_kernel_gate_names_the_option(option):
+    """The kernels take every edge scheme and the volume-based CFL: the
+    gate passes each, the scheme goes to the kernels under its code in
+    csrc/ppm.cuh, and porous faces are still refused by name."""
     s = _small_slice()
-    with pytest.raises(NotImplementedError, match=option):
-        continuity_cuda._check_cfg(ContinuityCfg(**{option: True}), s.grid)
+    cfg = ContinuityCfg(**{option: True})
+    continuity_cuda._check_cfg(cfg, s.grid)
+    names = {"upwind_1st": "EDGE_UPWIND", "simple_2nd": "EDGE_SIMPLE2",
+             "monotonic": "EDGE_MONOTONIC", "vol_cfl": "EDGE_PPM"}
+    header = (ROOT / "mom6_torch" / "csrc" / "ppm.cuh").read_text()
+    assert f"{names[option]} = {continuity_cuda.edge_scheme(cfg)}" in header
+    porous = dataclasses.replace(s.grid, porous_DavgU=s.grid.bathyT)
+    with pytest.raises(NotImplementedError, match="porous"):
+        continuity_cuda._check_cfg(cfg, porous)
 
 
 @pytest.mark.parametrize("kw,name", [
