@@ -4,7 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, in
 order; any failure ends the script with a non-zero exit:
 
-1. device: require a CUDA card; print its name and power limit;
+1. device: require a CUDA card; print its name and power limit, and the
+   versions of Python, PyTorch, CUDA, NumPy and SciPy;
 2. build: compile the kernels of mom6_torch/csrc with nvcc (one process
    per source, in parallel) into mom6_torch/_build; print ptxas's
    registers and spills of every K1, K2, K3 and K3m instance;
@@ -29,7 +30,15 @@ order; any failure ends the script with a non-zero exit:
    transport to match), and K1 (both orders, matched and untargeted)
    and K2 under each of upwind_1st, simple_2nd, monotonic and vol_cfl;
    each mode timed in fp32 at 25x520x520 (CUDA events and the
-   profiler) beside its bound and its plain version;
+   profiler) beside its bound and its plain version.  Then porous
+   faces: K1 (both orders, matched and untargeted) on a grid with
+   ridges on about a fifth of its faces, and K2 on that grid (which
+   fits its curves with the plain masks), each required equal to its
+   plain version at 25x520x520 and 2x48x52, fp64 and fp32, the porous
+   K1 timed in fp32 with the faces' open fractions computed before the
+   timed launches (and once more with them, as the wrapper runs); and
+   K3 and K3m on planes built under BT_STRONG_DRAG and
+   BOUND_BT_CORRECTION, against their plain versions;
 4. slice 1 (the split RK2 dynamics step) at 64x64x8 in fp64 for 3
    steps, on the card (kernels) against the CPU (plain versions);
 5. slice 1 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
@@ -60,6 +69,18 @@ order; any failure ends the script with a non-zero exit:
    untargeted, K2 1, K3m 2; unsplit K1 6, all untargeted), ms/step by
    kind of step, the peak of max_memory_allocated, finite fields, and
    one device kernel per launch in a torch.profiler trace of 2 steps;
+6c. configs.BENCH_CONFIG_B1 (tides with spherical-harmonic SAL, the
+   Stanley correction, porous barriers, ZB2020 and Leith viscosity, the
+   barotropic and vertical-friction options of the first breadth item)
+   and BENCH_CONFIG_NONBOUSS (the non-Boussinesq step) through
+   entry.build_full at 32x32x6 in fp64 for 4 steps, card against CPU;
+   then B1 in fp32 on the card against fp64, with the tides on and off,
+   and bench.py's CONFIG beside it;
+7c. the two at full width, 512x512x25 fp32, as in 7b (launches a step
+   asserted: K1 4, all porous in B1, K2 1, K3m 2), and for B1 the SAL
+   call alone (CUDA events) and one profiled dynamics-only step with
+   the device time and kernels of the porous fractions (profile_step's
+   ranges);
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -80,10 +101,12 @@ order; any failure ends the script with a non-zero exit:
    DIAG_AS_CHKSUM).  Each run has every launch counter zeroed just
    before it and read just after.
 
-The line before the last is the JSON ``kernels`` record; the last line
-is ``{"ok": true, "device": {...}}``.
+The line before the last is the JSON ``kernels`` record (the porous K1
+instance has a record of its own); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -134,11 +157,23 @@ MODES = {"untargeted": {}, "upwind_1st": {"upwind_1st": True},
          "simple_2nd": {"simple_2nd": True},
          "monotonic": {"monotonic": True}, "vol_cfl": {"vol_cfl": True}}
 OPS_EDGES_BY = {"untargeted": 100, "upwind_1st": 0, "simple_2nd": 10,
-                "monotonic": 100, "vol_cfl": 100}
+                "monotonic": 100, "vol_cfl": 100, "porous": 100,
+                "porous_untargeted": 100}
+# the porous faces' modes of K1 (matched and untargeted) and K2, on a
+# grid with ridges from this seed
+POROUS_MODES = ("porous", "porous_untargeted")
+POROUS_SEED = 11
 # launches a step on each dynamics path of build_full (K1u: the
 # untargeted K1 sweeps among K1's)
-PER_STEP = {"rk2b": {"K1": 8, "K2": 1, "K3": 0, "K3m": 2, "K1u": 4},
-            "unsplit": {"K1": 6, "K2": 0, "K3": 0, "K3m": 0, "K1u": 6}}
+PER_STEP = {"rk2b": {"K1": 8, "K2": 1, "K3": 0, "K3m": 2, "K1u": 4,
+                     "K1p": 0},
+            "unsplit": {"K1": 6, "K2": 0, "K3": 0, "K3m": 0, "K1u": 6,
+                        "K1p": 0},
+            "b1": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0, "K1p": 4},
+            "nonbouss": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0,
+                         "K1p": 0}}
+# the barotropic options under which K3 and K3m are checked once more
+BT_OPTIONS = dict(strong_drag=True, bound_bt_corr=True, maxcfl_bt_cont=1e-4)
 NEW_STEPS = 12                 # timed steps of each new full-width path
 TC0_DAYS = "4"                 # cases/tc0: 4 steps of one day
 
@@ -156,6 +191,10 @@ KERNELS = {
                 source="mom6_torch/csrc/barotropic.cu",
                 replaces="mom6_tpu/core/barotropic_pallas.py:232"),
 }
+# the porous instance of K1 (sweep_kernel<T, AXIS, TARGETED, true>)
+POROUS_KERNEL = dict(name="continuity_sweep_porous", route="cuda",
+                     source="mom6_torch/csrc/continuity.cu",
+                     replaces="mom6_tpu/core/continuity_pallas.py:193")
 DEVICE_COUNTED = ("K3", "K3m")   # wrappers that count device launches
 # each kernel's device-kernel name and its wrapper's launches a call
 PROFILED = {"K1": ("sweep_kernel", 2), "K2": ("bt_cont_kernel", 1),
@@ -407,14 +446,20 @@ def check_modes(res, ni, nj, nk, dtype, timing=None, reentrant_x=True):
 
 
 def mode_bound(kernel, mode, nk, njh, nih, item, dtn):
-    """(bound_ms, bound_by) of one K1 sweep or one K2 call in ``mode``."""
+    """(bound_ms, bound_by) of one K1 sweep or one K2 call in ``mode``;
+    a porous K1 sweep also reads the faces' open fractions (one more
+    layered input) and multiplies each flux's mask by them."""
     P = njh * nih
     e = OPS_EDGES_BY[mode]
-    if kernel == "K1" and mode == "untargeted":
-        # u, h + dlen, Idx, Iarea and the two masks in; h, flux out
-        work = (4 * nk * P + 5 * P, (e + OPS_FLUX + 4) * nk * P)
+    por = kernel == "K1" and mode in POROUS_MODES
+    if kernel == "K1" and mode in ("untargeted", "porous_untargeted"):
+        # u, h (+ the fractions) + dlen, Idx, Iarea and the two masks in;
+        # h, flux out
+        work = ((4 + por) * nk * P + 5 * P,
+                (e + OPS_FLUX + 4 + por) * nk * P)
     elif kernel == "K1":
-        work = (6 * nk * P + 8 * P, (e + 7 * OPS_FLUX + 4) * nk * P)
+        work = ((6 + por) * nk * P + 8 * P,
+                (e + 7 * OPS_FLUX + 4 + 7 * por) * nk * P)
     else:
         work = (5 * nk * P + (22 if mode == "vol_cfl" else 21) * P,
                 2 * (e + 6 * OPS_FLUX + 12) * nk * P)
@@ -426,7 +471,7 @@ def mode_records(res, timing, shape):
     version's and its bound, logged; returns {kernel: {mode: record}}."""
     nk, njh, nih = shape
     out = {}
-    for (k, mode), (ms, plain_ms, call) in timing.items():
+    for (k, mode), (ms, plain_ms, call, *more) in timing.items():
         name, per_call = PROFILED[k]
         n_prof, n_all, dev_ms = profiled_kernels(
             call, name, PROFILE_REPS, PROFILE_REPS * per_call)
@@ -444,15 +489,105 @@ def mode_records(res, timing, shape):
         out.setdefault(k, {})[mode] = dict(
             ms=ms, profiled_device_ms=dev_ms / per_call, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, max_abs_err=res.modes[(k, mode)])
+        if more:
+            # the wrapper's time with the open fractions computed
+            log(f"  {k} {mode}: {more[0]:.4f} ms {unit} through the "
+                "wrapper, the plain open fractions included")
+            out[k][mode]["with_fractions_ms"] = more[0]
     return out
 
 
+def porous_grid(g, seed=POROUS_SEED):
+    """``g`` with subgrid topography on its padded faces: the
+    statistics of configs.topog_edge_fields (ridges on about a fifth
+    of the faces) for its flat 4000 m bottom, as heights."""
+    import torch
+    from mom6_torch.configs import topog_edge_fields
+    f = topog_edge_fields(tuple(g.bathyT.shape), seed)
+    kw = dict(dtype=g.bathyT.dtype, device=g.bathyT.device)
+    por = {}
+    for s in "uv":
+        for key, var in (("Dmax", "hi"), ("Dmin", "lo"), ("Davg", "av")):
+            por[f"porous_{key}{s.upper()}"] = -torch.as_tensor(
+                f[f"depth{s}_{var}"], **kw)
+    return dataclasses.replace(g, **por)
+
+
+def check_porous(res, ni, nj, nk, dtype, timing=None, reentrant_x=True):
+    """K1 (both orders, matched and untargeted) and K2 on a porous grid
+    against their plain versions, required equal; with ``timing`` the
+    porous K1 (matched, and untargeted) and K2 are timed into it: K1's
+    kernels with the open fractions computed beforehand, and the
+    wrapper as it runs (fractions included)."""
+    from mom6_torch.core import continuity_cuda as cc
+    from mom6_torch.core.continuity_ppm import (ContinuityCfg,
+                                                continuity_ppm,
+                                                set_up_bt_cont)
+    d, g, vg, x = continuity_inputs(ni, nj, nk, dtype, seed=4,
+                                    reentrant_x=reentrant_x)
+    g = porous_grid(g)
+    dt, cfg = 600.0, ContinuityCfg()
+    dn = str(dtype).split(".")[-1]
+    shape = f"{nk}x{d.njh}x{d.nih}" + ("" if reentrant_x else " walled x")
+    if x["h"].is_cuda:
+        p, = cc.launch_plan(x["h"], (0,), True)
+        log(f"  K1 porous tile plan {shape} {dn}: x {p.faces} faces x "
+            f"{p.across} across, {p.layers} layers x {p.chunks} chunk"
+            f"{'s' if p.chunks > 1 else ''}, {p.blocks} blocks, "
+            f"{p.smem_bytes} B")
+    args = (g, vg, x["u"], x["v"], x["h"], dt, cfg)
+    matched = dict(uhbt=x["uhbt"], vhbt=x["vhbt"], visc_rem_u=x["vr_u"],
+                   visc_rem_v=x["vr_v"])
+    for targeted in (True, False):
+        mode = "porous" if targeted else "porous_untargeted"
+        tkw = matched if targeted else {}
+        names = ("h", "uh", "vh") + (("u_cor", "v_cor", "du_cor", "dv_cor")
+                                     if targeted else ())
+        for x_first in (True, False):
+            ref = continuity_ppm(*args, x_first=x_first, **tkw)
+            before = cc.continuity_ppm_cuda.porous_launches
+            out = cc.continuity_ppm_cuda(*args, x_first=x_first, **tkw)
+            if x["h"].is_cuda and \
+                    cc.continuity_ppm_cuda.porous_launches != before + 2:
+                raise AssertionError("K1 porous: the porous instance was "
+                                     "not launched for both sweeps")
+            res.check_mode("K1", mode, dn, f"{shape} x_first={x_first}",
+                           {n: getattr(ref, n) for n in names},
+                           {n: getattr(out, n) for n in names})
+        if timing is not None:
+            vr = (x["vr_u"], x["vr_v"]) if targeted else (None, None)
+            hbt = (x["uhbt"], x["vhbt"]) if targeted else (None, None)
+            por_x = cc.porous_factor(g, x["h"], "U")
+            h1 = cc._sweep(g, vg, x["u"], x["h"], vr[0], hbt[0], dt, cfg, 0,
+                           por_x)[0]
+            por_y = cc.porous_factor(g, h1, "V")
+
+            def kernels(vr=vr, hbt=hbt, por_x=por_x, h1=h1, por_y=por_y):
+                cc._sweep(g, vg, x["u"], x["h"], vr[0], hbt[0], dt, cfg, 0,
+                          por_x)
+                cc._sweep(g, vg, x["v"], h1, vr[1], hbt[1], dt, cfg, 1,
+                          por_y)
+            wrapped = functools.partial(cc.continuity_ppm_cuda, *args, **tkw)
+            timing[("K1", mode)] = (
+                cuda_ms(kernels, 20) / 2,
+                cuda_ms(lambda: continuity_ppm(*args, **tkw), 3) / 2,
+                kernels, cuda_ms(wrapped, 20) / 2)
+    bargs = args + (x["vr_u"], x["vr_v"])
+    ref, out = set_up_bt_cont(*bargs), cc.set_up_bt_cont_cuda(*bargs)
+    res.check_mode("K2", "porous", dn, shape, ref._asdict(), out._asdict())
+    if timing is not None:
+        call = functools.partial(cc.set_up_bt_cont_cuda, *bargs)
+        timing[("K2", "porous")] = (
+            cuda_ms(call, 20), cuda_ms(lambda: set_up_bt_cont(*bargs), 3),
+            call)
+
+
 def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
-                  period=1, nstep=None, reentrant_x=True):
+                  period=1, nstep=None, reentrant_x=True, opts=None):
     """btstep's set-up on random inputs (as in the JAX package's
     subcycle tests), returning the subcycle's inputs: on the model's
     domain for ``period`` 1 (K3), widened to a halo of 3*period for the
-    march (K3m)."""
+    march (K3m); ``opts``: more BarotropicCfg options (BT_OPTIONS)."""
     import numpy as np
     import torch
     from mom6_torch.core.barotropic import (BarotropicCfg, set_dtbt,
@@ -480,7 +615,7 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
         uh0 = torch.sum(h * 0.01, 0)
         vh0 = torch.sum(h * 0.005, 0)
     cfg = BarotropicCfg(nstep=nstep, use_bt_cont=curve,
-                        wide_halo_period=period)
+                        wide_halo_period=period, **(opts or {}))
     return subcycle_inputs(d, g, vg, u, v, eta, h, acc, acc, pbce, u, v,
                            600.0, cfg, taux=0.1 * g.mask2dCu, bt_cont=bc,
                            eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0)
@@ -538,6 +673,30 @@ def check_k3m(res, ni, nj, nk, dtype, timing=None, periods=(2, 4),
                         cuda_ms(lambda: bc.subcycle_march_cuda(*inp), 10),
                         cuda_ms(lambda: bc.subcycle_march_plain(*inp), 2),
                         inp)
+
+
+def check_bt_options(res, ni, nj, nk, dtype):
+    """K3 (period 1) and K3m (period 2, walled y) on planes built under
+    BT_OPTIONS (the harmonic viscous remnant of BT_STRONG_DRAG, the
+    BOUND_BT_CORRECTION-limited eta source) against their plain
+    versions, linear and curve transports (the bound needs the
+    curves)."""
+    from mom6_torch.core import barotropic_cuda as bc
+    dn = str(dtype).split(".")[-1]
+    for curve in (False, True):
+        form = "curve" if curve else "linear"
+        for key, period, plain, kern in (
+                ("K3", 1, bc.subcycle_plain, bc.subcycle_cuda),
+                ("K3m", 2, bc.subcycle_march_plain,
+                 bc.subcycle_march_cuda)):
+            inp = subcycle_case(ni, nj, nk, dtype, curve, period=period,
+                                opts=BT_OPTIONS)
+            args = inp[:-1] if period == 1 else inp
+            _, _, _, ref = plain(*args)
+            _, _, _, out = kern(*args)
+            d = inp.domain
+            res.check_all(key, dn, f"{d.njh}x{d.nih} BT_STRONG_DRAG + "
+                          f"BOUND_BT_CORRECTION {form}", ref, out, H=d.halo)
 
 
 def check_k3_many(res, ni, nj, nk, dtype):
@@ -724,20 +883,44 @@ def run_slice(ni, nj, nk, dtype, device, nsteps):
 
 
 def run_full(ni, nj, nk, dtype, device, nsteps, seed, regridding,
-             dynamics="rk2", period=2):
+             dynamics="rk2", period=2, tides=True):
     """``nsteps`` full steps from the configuration's initial state plus
     the seeded perturbation of ``entry.build_full``: the configuration
     starts at rest and horizontally uniform, where a comparison of the
-    first steps' v and eta would compare roundoff."""
+    first steps' v and eta would compare roundoff.  ``tides=False``
+    drops the split stepper's tidal forcing from the built model."""
     from mom6_torch import entry
     m = entry.build_full(ni, nj, nk, seed=seed, regridding=regridding,
                          dynamics=dynamics, wide_halo_period=period,
                          device=device, dtype=dtype)
+    if not tides:
+        m.cfg = dataclasses.replace(m.cfg, split_cfg=dataclasses.replace(
+            m.cfg.split_cfg, tides_fn=None))
     step = m.step_fn()
     st, sp, tr = m.state, m.split, m.tracers
     for n in range(nsteps):
         st, sp, tr = step(st, sp, tr, n)
     return st, sp, tr
+
+
+def fp32_departure(n):
+    """The float32 run on the card against the float64 run, ``n`` steps
+    from the same seeded state at 32x32x6: B1 with its tides on and
+    off (the tidal geopotential's gradient at depth is quantized in
+    float32, ROADMAP.md Queue 3), and bench.py's CONFIG beside them."""
+    import torch
+    for label, dyn, tides in (("B1, tides on", "b1", True),
+                              ("B1, tides off", "b1", False),
+                              ("bench.py's CONFIG", "rk2", True)):
+        (a, a_sp, _), (b, b_sp, _) = (
+            run_full(*SMALL_FULL, dtype, DEV, n, seed=3, regridding=True,
+                     dynamics=dyn, tides=tides)
+            for dtype in (torch.float64, torch.float32))
+        errs = {name: rel_err(getattr(a, name), getattr(b, name))[0]
+                for name in ("h", "u", "v", "T")}
+        errs["eta"] = rel_err(a_sp.eta, b_sp.eta)[0]
+        log(f"  {label}: fp32 against fp64 after {n} steps, max rel err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
 
 def run_full_timed(label, regridding, nsteps, wrappers, shape):
@@ -815,20 +998,23 @@ def run_full_timed(label, regridding, nsteps, wrappers, shape):
 
 
 def read_counts(wrappers):
-    """Every wrapper's launches, and the untargeted K1 sweeps as K1u."""
+    """Every wrapper's launches, and the untargeted and the porous K1
+    sweeps as K1u and K1p."""
     from mom6_torch.core import continuity_cuda as cc
     counts = {k: w.launches for k, w in wrappers.items()}
     counts["K1u"] = cc.continuity_ppm_cuda.untargeted_launches
+    counts["K1p"] = cc.continuity_ppm_cuda.porous_launches
     return counts
 
 
-def run_new_timed(dynamics, wrappers, shape):
+def run_new_timed(dynamics, wrappers, shape, extra=None):
     """build_full(dynamics=...) at full width in fp32: 2 warm-up steps,
     then NEW_STEPS timed steps with every launch counter zeroed just
     before and read just after (PER_STEP asserted), ms/step by kind of
     step, the peak of max_memory_allocated, finite fields; then 2 more
     steps under torch.profiler, whose device kernels must be one per
-    launch."""
+    launch.  ``extra(m, state, fstep, n_done)`` runs after those and
+    returns more entries for the result."""
     import torch
     from mom6_torch import entry
     m = entry.build_full(*MAIN, dynamics=dynamics, device=DEV,
@@ -868,8 +1054,8 @@ def run_new_timed(dynamics, wrappers, shape):
     fields = [("h", st.h), ("u", st.u), ("v", st.v), ("T", st.T),
               ("S", st.S), ("age", tr["age"])]
     if sp is not None:
-        fields += [("eta", sp.eta), ("du_av_inst", sp.du_av_inst),
-                   ("dv_av_inst", sp.dv_av_inst)]
+        fields += [(f.name, getattr(sp, f.name))
+                   for f in dataclasses.fields(sp)]
     check_finite(fields, shape)
     per = [events[i].elapsed_time(events[i + 1]) for i in range(NEW_STEPS)]
     by_kind = {k: [t for t, kk in zip(per, kinds) if kk == k]
@@ -908,9 +1094,47 @@ def run_new_timed(dynamics, wrappers, shape):
                              f"device kernels for launches {want}")
     log(f"  torch.profiler over 2 steps: device kernels {got}, one per "
         "launch")
+    more = {} if extra is None else extra(m, cur, fstep, n_done)
     return dict(ms_step=ms_full, by_kind={k: sum(v) / len(v)
                                           for k, v in by_kind.items() if v},
-                launches=counts, peak_bytes=peak)
+                launches=counts, peak_bytes=peak, **more)
+
+
+def b1_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_B1: the SAL call alone and the whole tidal
+    geopotential (CUDA events), then one dynamics-only step under the
+    profiler with profile_step's ranges: the device time and kernels of
+    the porous fractions and of the tidal geopotential a step."""
+    from mom6_torch import profile_step
+    st, sp, _ = cur
+    tides = m.cfg.split_cfg.tides_fn
+    sal_ms = cuda_ms(lambda: tides.sal(sp.eta), 20)
+    tide_ms = cuda_ms(lambda: tides(sp.eta, 0.0), 20)
+    basis = tides.sal.basis
+    log(f"  SAL (degree {int(basis.shape[0] ** 0.5) - 1}, basis "
+        f"{tuple(basis.shape)}): {sal_ms:.4f} ms a call; the tidal "
+        f"geopotential with it {tide_ms:.4f} ms (CUDA events, 20 calls)")
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm == 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets("b1"),
+                                    "b1 dynamics-only", None)
+    ph = summary.get("phases", {})
+    frac = ph.get("dynamics/continuity_ppm_cuda/porous_factor",
+                  dict(device_ms=0.0, kernels=0, calls=0))
+    tid = ph.get("dynamics/tidal_geopotential", dict(device_ms=0.0,
+                                                     kernels=0))
+    log(f"  porous fractions a dynamics step: {frac['calls']} calls, "
+        f"{frac['kernels']} device kernels, {frac['device_ms']:.4f} ms of "
+        f"device time; tidal geopotential {tid['kernels']} kernels, "
+        f"{tid['device_ms']:.4f} ms (profiled step, "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms busy)")
+    if frac["calls"] != 4:
+        raise AssertionError(f"B1: {frac['calls']} porous-fraction calls "
+                             "in a dynamics step, expected 4")
+    return dict(sal_ms=sal_ms, tides_ms=tide_ms,
+                fractions_device_ms=frac["device_ms"],
+                fractions_kernels=frac["kernels"],
+                profiled_busy_ms=summary.get("device_busy_ms"))
 
 
 def run_ref_tc0(wrappers):
@@ -1028,6 +1252,7 @@ def zero_counts(wrappers):
     for k in DEVICE_COUNTED:
         wrappers[k].device_launches = 0
     cc.continuity_ppm_cuda.untargeted_launches = 0
+    cc.continuity_ppm_cuda.porous_launches = 0
 
 
 def check_driver_launches(label, wrappers, expect):
@@ -1204,7 +1429,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(f"phase 1 device: {kind}, count {torch.cuda.device_count()}")
+    import numpy
+    import scipy
+    log(f"phase 1 device: {kind}, count {torch.cuda.device_count()}; "
+        f"python {sys.version.split()[0]}, torch {torch.__version__} "
+        f"(CUDA {torch.version.cuda}), numpy {numpy.__version__}, "
+        f"scipy {scipy.__version__}")
 
     # 2. build
     from mom6_torch import cuda_build
@@ -1248,9 +1478,21 @@ def main():
             check_modes(res, *shape, dtype,
                         mode_timing if main_shape else None,
                         reentrant_x=shape != GYRE)
+    log("phase 3 porous faces: K1 (both orders, matched and untargeted) "
+        "and K2 vs plain, exact")
+    for dtype in (torch.float64, torch.float32):
+        for shape in (MAIN, GYRE):
+            main_shape = dtype == torch.float32 and shape == MAIN
+            check_porous(res, *shape, dtype,
+                         mode_timing if main_shape else None,
+                         reentrant_x=shape != GYRE)
     modes = mode_records(res, mode_timing,
                          (MAIN[2], MAIN[1] + 8, MAIN[0] + 8))
     del mode_timing
+    log("phase 3 K3 and K3m under BT_STRONG_DRAG and BOUND_BT_CORRECTION "
+        "vs plain")
+    for dtype in (torch.float64, torch.float32):
+        check_bt_options(res, *MAIN, dtype)
     torch.cuda.empty_cache()
     ms, plain_ms, inp = timing.pop("K3 wide")
     b_ms, b_by = bound(*subcycle_work(inp), 4, "float32")
@@ -1374,6 +1616,35 @@ def main():
                                  f"{expect}")
         log(f"  {label} on the card: launches {counts}")
 
+    # 6c. the first breadth item's two texts at 32x32x6 fp64
+    for label, dyn in (("B1", "b1"), ("non-Boussinesq", "nonbouss")):
+        n = 4
+        log(f"phase 6c {label} (configs.BENCH_CONFIG_"
+            f"{dyn.upper()}) %dx%dx%d fp64, {n} steps: card vs cpu"
+            % SMALL_FULL)
+        zero_counts(wrappers)
+        gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, n, seed=3,
+                                 regridding=True, dynamics=dyn)
+        counts = read_counts(wrappers)
+        cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", n,
+                                 seed=3, regridding=True, dynamics=dyn)
+        for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
+                           ("v", cst.v, gst.v), ("T", cst.T, gst.T),
+                           ("S", cst.S, gst.S),
+                           ("age", ctr["age"], gtr["age"]),
+                           ("eta", csp.eta, gsp.eta),
+                           ("u_av", csp.u_av, gsp.u_av)):
+            rel, diff = rel_err(a, b.cpu())
+            log(f"  {label} {name}: max rel err {rel:.3e} (limit 1e-09)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"{label} {name}: {rel:.3e} > 1e-9")
+        expect = {k: v * n for k, v in PER_STEP[dyn].items()}
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{expect}")
+        log(f"  {label} on the card: launches {counts}")
+    fp32_departure(4)
+
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
     for label, regridding in FULL_VARIANTS:
@@ -1401,6 +1672,14 @@ def main():
         full[dyn] = run_new_timed(dyn, wrappers, shape)
         torch.cuda.empty_cache()
 
+    # 7c. the first breadth item's two texts at full width, fp32
+    for dyn in ("b1", "nonbouss"):
+        log(f"phase 7c {dyn} (configs.BENCH_CONFIG_{dyn.upper()}, Z* ALE) "
+            "%dx%dx%d fp32" % MAIN)
+        full[dyn] = run_new_timed(dyn, wrappers, shape,
+                                  b1_extra if dyn == "b1" else None)
+        torch.cuda.empty_cache()
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
@@ -1415,7 +1694,8 @@ def main():
             f"{TC0_DAYS} days, card vs cpu")
         launches_tc0 = run_driver_case(
             tmp, wrappers, "tc0", TC0_DAYS,
-            {k: v for k, v in PER_STEP["unsplit"].items() if k != "K1u"})
+            {k: v for k, v in PER_STEP["unsplit"].items()
+             if k not in ("K1u", "K1p")})
     log("phase 8 cases/ref_tc0 through build_model + step_fn, fp64, "
         "against its golden")
     launches_ref_tc0 = run_ref_tc0(wrappers)
@@ -1483,6 +1763,8 @@ def main():
                 "slice2_full_step_layered": full["layered"]["launches"][k],
                 "rk2b_full_step": full["rk2b"]["launches"][k],
                 "unsplit_full_step": full["unsplit"]["launches"][k],
+                "b1_full_step": full["b1"]["launches"][k],
+                "nonbouss_full_step": full["nonbouss"]["launches"][k],
                 "solo_double_gyre": launches_gyre[k],
                 "solo_bench_config": launches_bench[k],
                 "solo_tc0": launches_tc0[k],
@@ -1492,6 +1774,30 @@ def main():
             max_rel_err_fp64=res.err[k]["float64"][0],
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, unit=units[k], **extra))
+    # the porous instance of K1: its launches on B1's path, its time
+    # with the fractions computed beforehand, beside its bound
+    por = modes["K1"]["porous"]
+    n_por = full["b1"]["launches"]["K1p"]
+    log(f"  K1 porous {POROUS_KERNEL['name']}: {por['ms']:.4f} ms per sweep "
+        f"(CUDA events), {por['profiled_device_ms']:.4f} ms (profiler), "
+        f"{por['with_fractions_ms']:.4f} ms with the plain fractions, "
+        f"bound {por['bound_ms']:.4f} ms ({por['bound_by']}), plain "
+        f"{por['plain_ms']:.4f} ms, launches {n_por} (B1)")
+    records.append(dict(
+        POROUS_KERNEL, launches=n_por,
+        launches_by_path={"b1_full_step": n_por},
+        max_abs_err=max(res.modes[("K1", m)] for m in POROUS_MODES),
+        ms=por["ms"], plain_ms=por["plain_ms"], bound_ms=por["bound_ms"],
+        bound_by=por["bound_by"], library_ms=None, unit="per sweep",
+        profiled_device_ms=por["profiled_device_ms"],
+        with_fractions_ms=por["with_fractions_ms"],
+        untargeted=modes["K1"]["porous_untargeted"]))
+    for dyn in ("b1", "nonbouss"):
+        r = full[dyn]
+        log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
+            + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())
+            + f", peak {r['peak_bytes'] / 2**30:.3f} GiB, launches "
+            f"{r['launches']}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

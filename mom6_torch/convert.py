@@ -5,7 +5,8 @@ Each ``*_from_numpy`` takes a dict of numpy arrays keyed by the field
 names of the matching ``mom6_tpu`` container (Grid, State,
 SplitDynState, SplitBDynState, BTContFaces) and returns the port's container on the
 given device and dtype; ``tracers_from_numpy`` does the same for a
-tracer dict; ``to_numpy`` goes back.  Fields that are None or missing
+tracer dict, and ``sal_from_numpy`` for the SAL operator's basis,
+weights, Love scaling and shape; ``to_numpy`` goes back.  Fields that are None or missing
 (optional fields only) stay None.  ``model_with_state`` carries a whole
 initial state (state, split state, tracers) into a port ``Model`` on
 that model's device and dtype.
@@ -35,10 +36,12 @@ from mom6_torch.core.dynamics_split_rk2 import SplitDynState
 from mom6_torch.core.dynamics_split_rk2b import SplitBDynState
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.state import State
+from mom6_torch.param.lateral.self_attr_load import SALHarmonics
 from mom6_torch.parallel.domain import Domain
 
 __all__ = ["grid_from_numpy", "state_from_numpy", "split_state_from_numpy",
-           "split_b_state_from_numpy", "bt_cont_from_numpy", "tracers_from_numpy", "model_with_state",
+           "split_b_state_from_numpy", "bt_cont_from_numpy", "tracers_from_numpy",
+           "sal_from_numpy", "model_with_state",
            "config_from_values", "to_numpy"]
 
 
@@ -93,6 +96,16 @@ def tracers_from_numpy(arrays: dict, *, device,
                        dtype: torch.dtype) -> dict:
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in arrays.items()}
+
+
+def sal_from_numpy(arrays: dict, *, device,
+                   dtype: torch.dtype) -> SALHarmonics:
+    """The SAL operator from a dict of ``basis``, ``weights``, ``love``
+    and ``shape`` (the fields of the JAX package's SALHarmonics)."""
+    return SALHarmonics(**{
+        k: torch.as_tensor(np.array(arrays[k]), dtype=dtype, device=device)
+        for k in ("basis", "weights", "love")},
+        shape=tuple(int(n) for n in arrays["shape"]))
 
 
 def model_with_state(model, state: dict, split: dict | None = None,

@@ -51,6 +51,16 @@ class BarotropicCfg:
     # SSH_EXTRA [m]: headroom added to the depth in set_dtbt's wave
     # speed; < 0 selects min(10 m, 5 % of the depth)
     ssh_extra: float = 0.0
+    # BT_PROJECT_VELOCITY: read, and unused, as in the JAX package
+    bt_project: bool = False
+    # BOUND_BT_CORRECTION: cap the eta_cor mass source by what the
+    # BT_cont curves carry at MAXCFL_BT_CONT (outward) and by the mass
+    # in the column (inward)
+    bound_bt_corr: bool = False
+    maxcfl_bt_cont: float = 0.25     # MAXCFL_BT_CONT
+    # BT_STRONG_DRAG: the per-substep viscous remnant in the harmonic
+    # form n r / (1 + (n - 1) r) instead of r**(1/n)
+    strong_drag: bool = False
 
 
 class BTResult(NamedTuple):
@@ -302,14 +312,21 @@ def _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
         B = q * (duu + jp1(duu))
         return -(B + im1(B))
 
-    # per-substep viscous decay av_rem**(1/nstep)
+    # per-substep viscous decay: av_rem**(1/nstep), or the harmonic
+    # form under BT_STRONG_DRAG
     av_rem_u = torch.sum(frhatu * visc_rem_u, dim=0)
     av_rem_v = torch.sum(frhatv * visc_rem_v, dim=0)
     Instep = 1.0 / nstep
-    bt_rem_u = torch.where(av_rem_u > 0, av_rem_u ** Instep, 0.0) \
-        * grid.mask2dCu
-    bt_rem_v = torch.where(av_rem_v > 0, av_rem_v ** Instep, 0.0) \
-        * grid.mask2dCv
+    if cfg.strong_drag:
+        bt_rem_u = grid.mask2dCu * (nstep * av_rem_u) \
+            / (1.0 + (nstep - 1.0) * av_rem_u)
+        bt_rem_v = grid.mask2dCv * (nstep * av_rem_v) \
+            / (1.0 + (nstep - 1.0) * av_rem_v)
+    else:
+        bt_rem_u = torch.where(av_rem_u > 0, av_rem_u ** Instep, 0.0) \
+            * grid.mask2dCu
+        bt_rem_v = torch.where(av_rem_v > 0, av_rem_v ** Instep, 0.0) \
+            * grid.mask2dCv
 
     consts = dict(Datu=Datu, Datv=Datv, gtot_E=gtot_E, gtot_W=gtot_W,
                   gtot_N=gtot_N, gtot_S=gtot_S, q=q, Du_q=DCor_u,
@@ -342,7 +359,24 @@ def _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
         consts.update(cu=cu_args, cv=cv_args, uhbt0=uhbt0, vhbt0=vhbt0)
 
     if eta_cor is not None:
-        consts["eta_src"] = grid.mask2dT * eta_cor / nstep
+        ec = eta_cor
+        if cfg.bound_bt_corr and use_curve:
+            # outward corrections are limited to the mass the curves
+            # export at MAXCFL_BT_CONT, inward ones to the column's mass
+            u_cor = grid.dxT * (cfg.maxcfl_bt_cont / dt)
+            v_cor = grid.dyT * (cfg.maxcfl_bt_cont / dt)
+            out_u = find_uhbt(u_cor, *cu_args) + uhbt0
+            in_u = find_uhbt(-u_cor, *cu_args) + uhbt0
+            out_v = find_uhbt(v_cor, *cv_args) + vhbt0
+            in_v = find_uhbt(-v_cor, *cv_args) + vhbt0
+            ec_max = dt * grid.IareaT * (
+                (out_u - im1(in_u)) + (out_v - jm1(in_v)))
+            htot_col = grid.bathyT + eta_in
+            ec = torch.where(ec > 0.0,
+                             torch.minimum(ec, torch.clamp(ec_max, min=0.0)),
+                             torch.maximum(ec, -torch.clamp(htot_col,
+                                                            min=0.0)))
+        consts["eta_src"] = grid.mask2dT * ec / nstep
     else:
         consts["eta_src"] = torch.zeros_like(eta_in)
 

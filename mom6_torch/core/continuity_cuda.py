@@ -9,12 +9,18 @@ take every edge scheme of ``ContinuityCfg`` (the default PPM,
 upwind_1st, simple_2nd, monotonic) and the volume-based CFL, and K1
 sweeps with transport matching (``uhbt``/``vhbt`` given) or without
 (both None: one pass at u, as the unsplit and RK2b steppers call it).
-On CUDA porous-barrier faces raise ``NotImplementedError``.
+On a grid with porous-barrier faces K1 takes each sweep's open
+fractions as one more layered input: the wrapper computes them with the
+plain ``porous_factor`` from the h entering the sweep (the y sweep's,
+with ``x_first``, between the two launches from the h the x launch
+wrote) and launches the porous instance.  K2 fits its curves with the
+plain face masks on such a grid, as the JAX package does.
 
 Each wrapper counts its kernel launches in a plain integer attribute:
 ``continuity_ppm_cuda.launches`` grows by one per directional sweep
-(two per call; ``continuity_ppm_cuda.untargeted_launches`` counts the
-untargeted ones among them), ``set_up_bt_cont_cuda.launches`` by one
+(two per call; ``continuity_ppm_cuda.untargeted_launches`` and
+``porous_launches`` count the untargeted and the porous ones among
+them), ``set_up_bt_cont_cuda.launches`` by one
 per call (both directions); each is one device kernel.  ``tile_plan`` cuts the array
 into the tiles the kernels keep on chip.  See csrc/continuity.cu for
 what bounds the kernels on an H100 and how their design answers it.
@@ -31,7 +37,8 @@ import torch
 from mom6_torch import cuda_build
 from mom6_torch.core.continuity_ppm import (BTContFaces, ContinuityCfg,
                                             ContinuityResult,
-                                            continuity_ppm, set_up_bt_cont)
+                                            continuity_ppm, porous_factor,
+                                            set_up_bt_cont)
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.vertical_grid import VerticalGrid
 
@@ -90,7 +97,7 @@ def device_limits(device: int) -> tuple[int, int]:
 # tiles timed slowest, so they are taken only where nothing else fits.
 MAX_THREADS, SM_THREADS, BLOCK_RESERVED = 512, 2048, 1024
 UNITS_COLUMN, UNITS_STAGE = 14.5, 5.0
-RECORD = 5          # values staged per cell and layer
+RECORD = 5          # values staged per cell and layer (6 with porous faces)
 
 
 class TilePlan(NamedTuple):
@@ -118,11 +125,12 @@ class TilePlan(NamedTuple):
         return self.faces, self.across, self.layers, self.blocks
 
 
-def stage_bytes(faces: int, across: int, layers: int, itemsize: int) -> int:
+def stage_bytes(faces: int, across: int, layers: int, itemsize: int,
+                record: int = RECORD) -> int:
     """Shared bytes of a tile: a record of each of its faces+5 cells and
-    staged layers (h, its two edge values, u and visc_rem of its face),
-    and the cell mask."""
-    return itemsize * across * (faces + 5) * (RECORD * layers + 1)
+    staged layers (h, its two edge values, u and visc_rem of its face;
+    ``record`` 6 adds the face's open fraction), and the cell mask."""
+    return itemsize * across * (faces + 5) * (record * layers + 1)
 
 
 def _shapes(axis: int, threads: int):
@@ -136,15 +144,15 @@ def _shapes(axis: int, threads: int):
             if threads % q == 0 and threads // q >= 2]
 
 
-def _plan(nk, n, m, itemsize, axis, faces, across, smem_limit):
-    fixed = stage_bytes(faces, across, 0, itemsize)
+def _plan(nk, n, m, itemsize, axis, faces, across, smem_limit, record):
+    fixed = stage_bytes(faces, across, 0, itemsize, record)
     layers = min(nk, (smem_limit - fixed)
-                 // (itemsize * across * (faces + 5) * RECORD))
+                 // (itemsize * across * (faces + 5) * record))
     if layers < 1:
         return None
     return TilePlan(axis, faces, across, layers, -(-nk // layers),
                     -(-n // (faces - 1)) * -(-m // across),
-                    stage_bytes(faces, across, layers, itemsize))
+                    stage_bytes(faces, across, layers, itemsize, record))
 
 
 def _cost(plans, sm_count: int, smem_limit: int):
@@ -166,11 +174,12 @@ def _cost(plans, sm_count: int, smem_limit: int):
 @functools.cache
 def tile_plan(nk: int, nj: int, ni: int, itemsize: int,
               axes: tuple[int, ...], sm_count: int,
-              smem_limit: int) -> tuple[TilePlan, ...]:
+              smem_limit: int, porous: bool = False) -> tuple[TilePlan, ...]:
     """The tiles of one launch on a (nk, nj, ni) array of ``itemsize``
     bytes, on a card of ``sm_count`` SMs and ``smem_limit`` bytes of
     shared memory a block: one plan per axis of ``axes`` ((0,) or (1,)
-    for a K1 sweep, (0, 1) for K2), all of one block size.  A column
+    for a K1 sweep, (0, 1) for K2), all of one block size; ``porous``
+    (a K1 sweep with porous faces) stages six values a cell and layer.  A column
     that fits no tile is staged in chunks of layers, so every shape has
     a plan; raises only when not one layer of the smallest tile fits."""
     best = None
@@ -180,7 +189,8 @@ def tile_plan(nk: int, nj: int, ni: int, itemsize: int,
             n, m = (ni, nj) if axis == 0 else (nj, ni)
             cands = [p for f, q in _shapes(axis, threads)
                      if (p := _plan(nk, n, m, itemsize, axis, f, q,
-                                    smem_limit)) is not None]
+                                    smem_limit, RECORD + porous))
+                     is not None]
             if not cands:
                 break
             plans.append(min(cands, key=lambda p: _cost((p,), sm_count,
@@ -195,10 +205,11 @@ def tile_plan(nk: int, nj: int, ni: int, itemsize: int,
     return best[1]
 
 
-def launch_plan(h: torch.Tensor, axes: tuple[int, ...]):
+def launch_plan(h: torch.Tensor, axes: tuple[int, ...],
+                porous: bool = False):
     """``tile_plan`` for ``h``'s shape, dtype and card."""
     return tile_plan(*h.shape, h.element_size(), axes,
-                     *device_limits(h.device.index))
+                     *device_limits(h.device.index), porous)
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -207,11 +218,6 @@ def _suffix(dtype: torch.dtype) -> str:
     if dtype == torch.float64:
         return "f64"
     raise NotImplementedError(f"continuity kernels for dtype {dtype}")
-
-
-def _check_cfg(cfg: ContinuityCfg, grid: Grid):
-    if grid.porous_DavgU is not None or grid.porous_DavgV is not None:
-        raise NotImplementedError("porous barriers")
 
 
 def edge_scheme(cfg: ContinuityCfg) -> int:
@@ -261,21 +267,26 @@ def _ints(values):
 
 
 def _sweep(grid: Grid, vgrid: VerticalGrid, vel, h, vr, hbt, dt,
-           cfg: ContinuityCfg, axis: int):
+           cfg: ContinuityCfg, axis: int, por=None):
     """One directional sweep through K1: (h_new, flux, vel_cor, dvel),
     transport-matched to ``hbt``; with ``hbt`` None the untargeted sweep
-    (``vr`` unused), whose vel_cor and dvel are None."""
+    (``vr`` unused), whose vel_cor and dvel are None.  ``por``: the open
+    fractions of the sweep's faces on a porous grid (``porous_factor``
+    of the h entering the sweep), which launch the porous instance."""
     targeted = hbt is not None
     g = _grid_y(grid) if axis else _grid_x(grid)
     vel, h, *g = _prep(h, vel, h, *g)
     if targeted:
         vr, hbt = _prep(h, vr, hbt)
+    if por is not None:
+        por, = _prep(h, por)
     nk, nj, ni = h.shape
     if vel.shape != h.shape or any(p.shape != h.shape[1:] for p in g) \
             or targeted and (vr.shape != h.shape
-                             or hbt.shape != h.shape[1:]):
+                             or hbt.shape != h.shape[1:]) \
+            or por is not None and por.shape != h.shape:
         raise ValueError("continuity sweep: mismatched shapes")
-    plan, = launch_plan(h, (axis,))
+    plan, = launch_plan(h, (axis,), por is not None)
     h_out, flux = torch.empty_like(h), torch.empty_like(h)
     vcor = dvel = None
     if targeted:
@@ -283,7 +294,7 @@ def _sweep(grid: Grid, vgrid: VerticalGrid, vel, h, vr, hbt, dt,
     dlen, Idx, iarea, mask_f, dx_face, mask_t = g
     ptrs = [vel, h, vr if targeted else None, hbt, dlen, Idx, iarea,
             mask_f, dx_face if targeted else None, mask_t, h_out, flux,
-            vcor, dvel]
+            vcor, dvel, por]
     opts = (axis, cfg.newton_iters, int(targeted), edge_scheme(cfg),
             int(cfg.vol_cfl))
     fn = getattr(_lib(), f"ppm_sweep_{_suffix(h.dtype)}")
@@ -294,6 +305,8 @@ def _sweep(grid: Grid, vgrid: VerticalGrid, vel, h, vr, hbt, dt,
     continuity_ppm_cuda.launches += 1
     if not targeted:
         continuity_ppm_cuda.untargeted_launches += 1
+    if por is not None:
+        continuity_ppm_cuda.porous_launches += 1
     return h_out, flux, vcor, dvel
 
 
@@ -309,37 +322,40 @@ def continuity_ppm_cuda(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
         return continuity_ppm(grid, vgrid, u, v, h, dt, cfg, uhbt=uhbt,
                               vhbt=vhbt, visc_rem_u=visc_rem_u,
                               visc_rem_v=visc_rem_v, x_first=x_first)
-    _check_cfg(cfg, grid)
     if (uhbt is None) != (vhbt is None):
         raise ValueError("continuity: give both uhbt and vhbt, or neither")
     vr_u = vr_v = None
     if uhbt is not None:
         vr_u = visc_rem_u if visc_rem_u is not None else torch.ones_like(u)
         vr_v = visc_rem_v if visc_rem_v is not None else torch.ones_like(v)
+    def sweep(axis, hh):
+        vel, vr, hbt = (v, vr_v, vhbt) if axis else (u, vr_u, uhbt)
+        return _sweep(grid, vgrid, vel, hh, vr, hbt, dt, cfg, axis,
+                      porous_factor(grid, hh, "UV"[axis]))
+
     if x_first:
-        h1, uh, u_cor, du = _sweep(grid, vgrid, u, h, vr_u, uhbt, dt, cfg, 0)
-        h2, vh, v_cor, dv = _sweep(grid, vgrid, v, h1, vr_v, vhbt, dt, cfg,
-                                   1)
+        h1, uh, u_cor, du = sweep(0, h)
+        h2, vh, v_cor, dv = sweep(1, h1)
     else:
-        h1, vh, v_cor, dv = _sweep(grid, vgrid, v, h, vr_v, vhbt, dt, cfg, 1)
-        h2, uh, u_cor, du = _sweep(grid, vgrid, u, h1, vr_u, uhbt, dt, cfg,
-                                   0)
+        h1, vh, v_cor, dv = sweep(1, h)
+        h2, uh, u_cor, du = sweep(0, h1)
     return ContinuityResult(h=h2, uh=uh, vh=vh, u_cor=u_cor, v_cor=v_cor,
                             du_cor=du, dv_cor=dv)
 
 
 continuity_ppm_cuda.launches = 0
 continuity_ppm_cuda.untargeted_launches = 0
+continuity_ppm_cuda.porous_launches = 0
 
 
 def set_up_bt_cont_cuda(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
                         cfg: ContinuityCfg = ContinuityCfg(),
                         visc_rem_u=None, visc_rem_v=None) -> BTContFaces:
-    """Both directions' BT_cont face-area curves (set_up_BT_cont)."""
+    """Both directions' BT_cont face-area curves (set_up_BT_cont), with
+    the plain face masks on a porous grid too."""
     if not h.is_cuda:
         return set_up_bt_cont(grid, vgrid, u, v, h, dt, cfg, visc_rem_u,
                               visc_rem_v)
-    _check_cfg(cfg, grid)
     vr_u = visc_rem_u if visc_rem_u is not None else torch.ones_like(u)
     vr_v = visc_rem_v if visc_rem_v is not None else torch.ones_like(v)
     gx, gy = _grid_x(grid), _grid_y(grid)

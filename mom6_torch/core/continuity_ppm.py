@@ -8,6 +8,11 @@ column transports match a barotropic transport.  Every shift is a
 ``torch.roll`` over the whole padded array, formula for formula as the
 JAX package, so the two agree to roundoff everywhere.
 
+On a grid with subgrid (porous-barrier) topography each sweep
+multiplies its face mask by the open fraction of each layer, computed
+from the thickness that enters that sweep (with ``x_first`` the y
+sweep's from the x sweep's result).
+
 This module is the plain version of kernels K1 and K2
 (``continuity_cuda.py``); CUDA tensors go through those kernels.
 """
@@ -20,12 +25,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from mom6_torch.core.grid import Grid
+from mom6_torch.core.porous_barriers import porous_widths_from_h
 from mom6_torch.core.vertical_grid import VerticalGrid
 from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
 
 __all__ = ["ContinuityCfg", "ContinuityResult", "BTContFaces",
            "continuity_ppm", "set_up_bt_cont", "ppm_edges_x",
-           "ppm_edges_y", "zonal_mass_flux", "meridional_mass_flux"]
+           "ppm_edges_y", "zonal_mass_flux", "meridional_mass_flux",
+           "porous_factor"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +187,13 @@ def _layer_sum(x):
     return total
 
 
+def _over_dt(x, dt: float):
+    """x / dt as a true division on every device, as the JAX package and
+    the kernels divide: PyTorch divides a CUDA tensor by a Python scalar
+    as a product with the scalar's reciprocal, which rounds otherwise."""
+    return x / torch.full((), dt, dtype=x.dtype, device=x.device)
+
+
 def _newton_step(du, flux, dfdu, target, du_lim):
     err = _layer_sum(flux) - target
     denom = _layer_sum(dfdu)
@@ -193,7 +207,7 @@ def _flux_adjust(u, h, h_minus, h_plus, dt, flux_args, hbt, visc_rem,
     sum_k flux_k(u_k + visc_rem_k*du) = hbt (zonal_flux_adjust), clipped
     at cfl_limit*dx/dt after every step.  Returns (flux, u_cor, du)."""
     du = torch.zeros_like(hbt)
-    du_lim = cfg.cfl_limit * dx_face / dt
+    du_lim = _over_dt(cfg.cfl_limit * dx_face, dt)
     for _ in range(cfg.newton_iters):
         flux, dfdu = _flux_1dir(u + visc_rem * du[None], h, h_minus,
                                 h_plus, dt, *flux_args, visc_rem=visc_rem)
@@ -204,28 +218,33 @@ def _flux_adjust(u, h, h_minus, h_plus, dt, flux_args, hbt, visc_rem,
     return flux, u_cor, du
 
 
-def _check_porous(grid: Grid):
-    if grid.porous_DavgU is not None or grid.porous_DavgV is not None:
-        raise NotImplementedError("porous barriers")
+def porous_factor(grid: Grid, h, stagger: str):
+    """The open fraction (nk, njh, nih) of each layer at the U or V faces
+    of a grid with subgrid (porous-barrier) topography, from the
+    thickness ``h`` that enters the sweep; None on other grids.  It
+    multiplies the face mask (por_face_areaU/V)."""
+    return porous_widths_from_h(grid, h, stagger)["UV".index(stagger)]
 
 
-def _args_x(grid: Grid, cfg: ContinuityCfg):
+def _args_x(grid: Grid, cfg: ContinuityCfg, por=None):
+    mask = grid.mask2dCu if por is None else grid.mask2dCu * por
     return (grid.dyCu, grid.IdxT, ip1(grid.IdxT), grid.IareaT,
-            ip1(grid.IareaT), ip1, cfg.vol_cfl, grid.mask2dCu)
+            ip1(grid.IareaT), ip1, cfg.vol_cfl, mask)
 
 
-def _args_y(grid: Grid, cfg: ContinuityCfg):
+def _args_y(grid: Grid, cfg: ContinuityCfg, por=None):
+    mask = grid.mask2dCv if por is None else grid.mask2dCv * por
     return (grid.dxCv, grid.IdyT, jp1(grid.IdyT), grid.IareaT,
-            jp1(grid.IareaT), jp1, cfg.vol_cfl, grid.mask2dCv)
+            jp1(grid.IareaT), jp1, cfg.vol_cfl, mask)
 
 
 def zonal_mass_flux(grid: Grid, u, h, h_W, h_E, dt, cfg: ContinuityCfg,
                     uhbt=None, visc_rem_u=None):
     """(uh, u_cor, du) at east faces; Newton-matched to ``uhbt`` if
-    given (u_cor and du are None otherwise)."""
-    _check_porous(grid)
+    given (u_cor and du are None otherwise).  Porous faces pass the
+    open fraction of each layer, taken from ``h``."""
     vr = visc_rem_u if visc_rem_u is not None else torch.ones_like(u)
-    args = _args_x(grid, cfg)
+    args = _args_x(grid, cfg, porous_factor(grid, h, "U"))
     if uhbt is None:
         return (_flux_1dir(u, h, h_W, h_E, dt, *args, visc_rem=vr)[0],
                 None, None)
@@ -237,9 +256,8 @@ def meridional_mass_flux(grid: Grid, v, h, h_S, h_N, dt,
                          cfg: ContinuityCfg, vhbt=None, visc_rem_v=None):
     """(vh, v_cor, dv) at north faces; Newton-matched to ``vhbt`` if
     given."""
-    _check_porous(grid)
     vr = visc_rem_v if visc_rem_v is not None else torch.ones_like(v)
-    args = _args_y(grid, cfg)
+    args = _args_y(grid, cfg, porous_factor(grid, h, "V"))
     if vhbt is None:
         return (_flux_1dir(v, h, h_S, h_N, dt, *args, visc_rem=vr)[0],
                 None, None)
@@ -253,13 +271,13 @@ def _bt_cont_1dir(u, h, h_minus, h_plus, dt, args, vr, cfg, dx_face):
     and at CFL-limited corrections that make every layer flow one way,
     then fit the 3-segment marginal-area curve."""
     du0 = torch.zeros_like(u[0])
-    du_lim = cfg.cfl_limit * dx_face / dt
+    du_lim = _over_dt(cfg.cfl_limit * dx_face, dt)
     for _ in range(3):
         flux, dfdu = _flux_1dir(u + vr * du0[None], h, h_minus, h_plus,
                                 dt, *args, visc_rem=vr)
         du0 = _newton_step(du0, flux, dfdu, 0.0, du_lim)
     du_max = du_lim
-    du_cfl = 1.0e-6 * dx_face / dt
+    du_cfl = _over_dt(1.0e-6 * dx_face, dt)
     vr_max = torch.amax(vr, dim=0)
     vr_lim = torch.maximum(vr, 0.1 * vr_max[None]) + 1e-30
     duL_req = torch.amax((du_cfl[None] * vr - u) / vr_lim, dim=0)
@@ -303,8 +321,8 @@ def set_up_bt_cont(grid: Grid, vgrid: VerticalGrid, u, v, h, dt,
                    cfg: ContinuityCfg = ContinuityCfg(),
                    visc_rem_u=None, visc_rem_v=None) -> BTContFaces:
     """Both directions' BT_cont face-area curves from the current state
-    (set_up_BT_cont, MOM_continuity_PPM.F90:757)."""
-    _check_porous(grid)
+    (set_up_BT_cont, MOM_continuity_PPM.F90:757).  Its face masks are
+    the plain ones on a porous grid too, as the JAX package's are."""
     hmin2 = 2.0 * vgrid.angstrom
     vru = visc_rem_u if visc_rem_u is not None else torch.ones_like(u)
     vrv = visc_rem_v if visc_rem_v is not None else torch.ones_like(v)

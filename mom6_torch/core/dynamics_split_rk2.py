@@ -17,13 +17,17 @@ The continuity sweeps, the BT_cont fit and the barotropic subcycle go
 through the dispatching wrappers: hand-written CUDA kernels on CUDA
 tensors, their plain PyTorch versions on CPU tensors.  With T/S and an
 equation of state the pressure force and pbce take in-situ densities.
-OBC, tides, stochastic EOS, a shear-driven viscosity, GME and
-BBL_USE_EOS are not ported yet and raise ``NotImplementedError``.
+The tidal/SAL geopotential (``cfg.tides_fn``) is evaluated once a step
+from the mass-consistent free surface; BEGW weights the corrector's
+pressure force between h and the predicted thickness.  OBC, the
+stochastic EOS, a shear-driven viscosity, GME and the VarMix/MEKE
+viscosity inputs are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -40,7 +44,7 @@ from mom6_torch.core.pressure_force import (PressureForceCfg,
                                             pressure_force)
 from mom6_torch.core.state import State
 from mom6_torch.core.vert_friction import (VertViscCfg, set_viscous_bbl,
-                                           vertvisc,
+                                           surface_ustar, vertvisc,
                                            vertvisc_coef,
                                            vertvisc_limit_vel,
                                            vertvisc_remnant)
@@ -56,13 +60,15 @@ __all__ = ["SplitCfg", "SplitDynState", "SplitDiags", "init_split_state",
 @dataclasses.dataclass(frozen=True)
 class SplitCfg:
     be: float = 0.6                  # BE predictor weight
+    begw: float = 0.0                # BEGW gravity-wave weight
     continuity: ContinuityCfg = ContinuityCfg()
     coriolis: CoriolisCfg = CoriolisCfg()
     pressure: PressureForceCfg = PressureForceCfg()
     vertvisc: VertViscCfg = VertViscCfg()
     horvisc: HorViscCfg = HorViscCfg()
     barotropic: BarotropicCfg = BarotropicCfg()
-    tides_fn: object = None          # tides (not ported)
+    # (eta, t) -> tidal + SAL geopotential height anomaly [m], or None
+    tides_fn: object = None
     stoch_eos_a: float = 0.0         # STOCH_EOS (not ported)
 
 
@@ -104,22 +110,47 @@ def init_split_state(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                          uh=z, vh=z, eta=e[0], diffu=diffu, diffv=diffv)
 
 
-def _check_unported(cfg: SplitCfg, eos, obc, stoch_pattern, kh_scale,
+def _check_unported(cfg: SplitCfg, obc, stoch_pattern, kh_scale,
                     kh_extra, kv_shear):
     for name, bad in (("OBC: open boundary segments", obc is not None),
-                      ("tides: tidal/SAL forcing", cfg.tides_fn is not None),
                       ("stoch_eos: stochastic EOS",
                        cfg.stoch_eos_a != 0.0 and stoch_pattern is not None),
                       ("kv_shear: shear-driven viscosity",
                        kv_shear is not None),
                       ("GME: USE_GME backscatter", cfg.horvisc.use_gme),
-                      ("BBL_USE_EOS: bottom boundary layer stratification "
-                       "from the equation of state",
-                       eos is not None and cfg.vertvisc.bbl_use_eos),
                       ("kh_scale/kh_extra viscosity inputs",
                        kh_scale is not None or kh_extra is not None)):
         if bad:
             raise NotImplementedError(name)
+
+
+def tidal_geopotential(cfg, eta, t):
+    """The step's tidal + SAL geopotential height from the
+    mass-consistent free surface, None without tides."""
+    if cfg.tides_fn is None:
+        return None
+    return cfg.tides_fn(eta, 0.0 if t is None else t)
+
+
+def viscosity_solve(grid: Grid, cfg: SplitCfg, h, bbl, ustar, forces,
+                    rho0: float, u, v, dt_v):
+    """The implicit vertical viscosity of a split step on (u, v) over
+    ``dt_v``: (u, v, (visc_rem_u, visc_rem_v)) from one set of
+    coefficients."""
+    coefs = vertvisc_coef(grid, u, v, h, cfg=cfg.vertvisc, bbl=bbl,
+                          ustar=ustar)
+    u, v = vertvisc(grid, u, v, h, coefs, dt_v, forces.taux, forces.tauy,
+                    rho0, direct_stress=cfg.vertvisc.direct_stress,
+                    hmix_stress=cfg.vertvisc.hmix_stress)
+    return u, v, vertvisc_remnant(grid, coefs, dt_v)
+
+
+def corrector_thickness(cfg: SplitCfg, h, hp):
+    """The thickness of the corrector's pressure force: hp, or with BEGW
+    (1 - begw) h + begw hp."""
+    if cfg.begw != 0.0:
+        return (1.0 - cfg.begw) * h + cfg.begw * hp
+    return hp
 
 
 def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
@@ -130,8 +161,7 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                        kh_extra=None, kv_shear=None,
                        ) -> tuple[State, SplitDynState, SplitDiags]:
     """One split RK2 dynamics step (step_MOM_dyn_split_RK2)."""
-    _check_unported(cfg, eos, obc, stoch_pattern, kh_scale, kh_extra,
-                    kv_shear)
+    _check_unported(cfg, obc, stoch_pattern, kh_scale, kh_extra, kv_shear)
     fill = domain.fill_halos_group
     rho0 = vgrid.Rho0
 
@@ -139,6 +169,7 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         ((state.u, state.v), state.h, (split.u_av, split.v_av),
          split.h_av, split.eta))
     uh, vh = fill((split.uh, split.vh), width=2)
+    e_tidal = tidal_geopotential(cfg, eta, t)
 
     def run_continuity(uu, vv, hh, uhbt, vhbt, vr_u, vr_v):
         return continuity_ppm_cuda(grid, vgrid, uu, vv, hh, dt,
@@ -149,14 +180,21 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     diffu, diffv = fill((split.diffu, split.diffv))
     T, S = state.T, state.S
     pf = pressure_force(grid, vgrid, h, T, S, eos,
-                        p_atm=forces.p_surf, cfg=cfg.pressure)
+                        p_atm=forces.p_surf, cfg=cfg.pressure,
+                        e_tidal=e_tidal)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
 
     dt_pred = dt * cfg.be
-    bbl = set_viscous_bbl(grid, u, v, h, cfg.vertvisc, vgrid)
-    coefs = vertvisc_coef(grid, u_av, v_av, h, cfg=cfg.vertvisc, bbl=bbl)
+    bbl = set_viscous_bbl(grid, u, v, h, cfg.vertvisc, vgrid, T, S, eos)
+    ustar = surface_ustar(grid, rho0, forces) \
+        if cfg.vertvisc.visc_ml_mode else None
+    viscosity = functools.partial(viscosity_solve, grid, cfg, h, bbl, ustar,
+                                  forces, rho0)
+
+    coefs = vertvisc_coef(grid, u_av, v_av, h, cfg=cfg.vertvisc, bbl=bbl,
+                          ustar=ustar)
     visc_rem_u, visc_rem_v = vertvisc_remnant(grid, coefs, dt_pred)
 
     eta_cor = grid.mask2dT * ((torch.sum(h, dim=0) - grid.bathyT) - eta)
@@ -178,12 +216,8 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
     up = grid.mask2dCu * (u + dt_pred * (u_bc_accel + bt.accel_layer_u))
     vp = grid.mask2dCv * (v + dt_pred * (v_bc_accel + bt.accel_layer_v))
-    coefs = vertvisc_coef(grid, up, vp, h, cfg=cfg.vertvisc, bbl=bbl)
-    up, vp = vertvisc(grid, up, vp, h, coefs, dt_pred, forces.taux,
-                      forces.tauy, rho0)
-    visc_rem_u, visc_rem_v = vertvisc_remnant(grid, coefs, dt_pred)
-    ((up, vp), (visc_rem_u, visc_rem_v)) = fill(
-        ((up, vp), (visc_rem_u, visc_rem_v)))
+    up, vp, vr = viscosity(up, vp, dt_pred)
+    ((up, vp), (visc_rem_u, visc_rem_v)) = fill(((up, vp), vr))
 
     res = run_continuity(up, vp, h, bt.uhbtav, bt.vhbtav,
                          visc_rem_u, visc_rem_v)
@@ -192,8 +226,9 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     h_av = 0.5 * (h + hp)
 
     # ---- CORRECTOR ----
-    pf = pressure_force(grid, vgrid, hp, T, S, eos,
-                        p_atm=forces.p_surf, cfg=cfg.pressure)
+    pf = pressure_force(grid, vgrid, corrector_thickness(cfg, h, hp), T, S,
+                        eos, p_atm=forces.p_surf, cfg=cfg.pressure,
+                        e_tidal=e_tidal)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av,
                                         cfg.horvisc)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
@@ -211,15 +246,10 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
     u_new = grid.mask2dCu * (u + dt * (u_bc_accel + bt.accel_layer_u))
     v_new = grid.mask2dCv * (v + dt * (v_bc_accel + bt.accel_layer_v))
-    coefs = vertvisc_coef(grid, u_new, v_new, h, cfg=cfg.vertvisc,
-                          bbl=bbl)
-    u_new, v_new = vertvisc(grid, u_new, v_new, h, coefs, dt, forces.taux,
-                            forces.tauy, rho0)
-    visc_rem_u, visc_rem_v = vertvisc_remnant(grid, coefs, dt)
+    u_new, v_new, vr = viscosity(u_new, v_new, dt)
     u_new, v_new, truncs = vertvisc_limit_vel(grid, u_new, v_new, dt,
                                               cfg.vertvisc)
-    ((u_new, v_new), (visc_rem_u, visc_rem_v)) = fill(
-        ((u_new, v_new), (visc_rem_u, visc_rem_v)))
+    ((u_new, v_new), (visc_rem_u, visc_rem_v)) = fill(((u_new, v_new), vr))
 
     res = run_continuity(u_new, v_new, h, bt.uhbtav, bt.vhbtav,
                          visc_rem_u, visc_rem_v)

@@ -22,13 +22,15 @@ the new u_av and the new increments.
 On CUDA tensors the four continuity calls are kernel K1 (two sweeps
 each: the head and anchor calls untargeted, the predictor and final
 calls transport-matched), the curve fit is K2 and the barotropic
-subcycles K3, or K3m on the wide-halo march.  The options that the
-split RK2 port refuses raise ``NotImplementedError`` here too.
+subcycles K3, or K3m on the wide-halo march.  Tides/SAL, BEGW and the
+vertical-friction options enter as in the split RK2 step; the options
+that it refuses raise ``NotImplementedError`` here too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -37,12 +39,15 @@ from mom6_torch.core.continuity_cuda import (continuity_ppm_cuda,
                                              set_up_bt_cont_cuda)
 from mom6_torch.core.coriolis_adv import coriolis_adv
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDiags,
-                                                _check_unported)
+                                                _check_unported,
+                                                corrector_thickness,
+                                                tidal_geopotential,
+                                                viscosity_solve)
 from mom6_torch.core.forcing import MechForcing
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.pressure_force import interface_heights, pressure_force
 from mom6_torch.core.state import State
-from mom6_torch.core.vert_friction import (set_viscous_bbl, vertvisc,
+from mom6_torch.core.vert_friction import (set_viscous_bbl, surface_ustar,
                                            vertvisc_coef,
                                            vertvisc_limit_vel,
                                            vertvisc_remnant)
@@ -81,8 +86,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     """One RK2b dynamics step.  ``state.u/v`` are the filtered
     velocities; returns them updated with the new increments, eta and
     the step's transports."""
-    _check_unported(cfg, eos, obc, stoch_pattern, kh_scale, kh_extra,
-                    kv_shear)
+    _check_unported(cfg, obc, stoch_pattern, kh_scale, kh_extra, kv_shear)
     fill = domain.fill_halos
     rho0 = vgrid.Rho0
     T, S = state.T, state.S
@@ -103,6 +107,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     (u_av, v_av), h, eta, du_i, dv_i = fill(
         ((state.u, state.v), state.h, split.eta, split.du_av_inst,
          split.dv_av_inst))
+    e_tidal = tidal_geopotential(cfg, eta, t)
 
     # head continuity: transports and thicknesses for the predictor's
     # Coriolis terms
@@ -113,7 +118,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
     # ---- PREDICTOR ----
     pf = pressure_force(grid, vgrid, h, T, S, eos, p_atm=forces.p_surf,
-                        cfg=cfg.pressure)
+                        cfg=cfg.pressure, e_tidal=e_tidal)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av, cfg.horvisc)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
@@ -121,8 +126,15 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
     # the BBL and the full-dt viscous remnant rebuild the instantaneous
     # velocities
-    bbl = set_viscous_bbl(grid, u_av, v_av, h, cfg.vertvisc, vgrid)
-    coefs = vertvisc_coef(grid, u_av, v_av, h, cfg=cfg.vertvisc, bbl=bbl)
+    bbl = set_viscous_bbl(grid, u_av, v_av, h, cfg.vertvisc, vgrid, T, S,
+                          eos)
+    ustar = surface_ustar(grid, rho0, forces) \
+        if cfg.vertvisc.visc_ml_mode else None
+    viscosity = functools.partial(viscosity_solve, grid, cfg, h, bbl, ustar,
+                                  forces, rho0)
+
+    coefs = vertvisc_coef(grid, u_av, v_av, h, cfg=cfg.vertvisc, bbl=bbl,
+                          ustar=ustar)
     visc_rem_u, visc_rem_v = fill(vertvisc_remnant(grid, coefs, dt))
     u_inst, v_inst = fill((grid.mask2dCu * (u_av - du_i[None] * visc_rem_u),
                            grid.mask2dCv * (v_av - dv_i[None] * visc_rem_v)))
@@ -146,10 +158,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     dt_pred = dt * cfg.be
     up = grid.mask2dCu * (u_inst + dt_pred * (u_bc_accel + bt.accel_layer_u))
     vp = grid.mask2dCv * (v_inst + dt_pred * (v_bc_accel + bt.accel_layer_v))
-    coefs = vertvisc_coef(grid, up, vp, h, cfg=cfg.vertvisc, bbl=bbl)
-    up, vp = vertvisc(grid, up, vp, h, coefs, dt_pred, forces.taux,
-                      forces.tauy, rho0)
-    vr = vertvisc_remnant(grid, coefs, dt_pred)
+    up, vp, vr = viscosity(up, vp, dt_pred)
     (up, vp), (visc_rem_u, visc_rem_v) = fill(((up, vp), vr))
 
     res = continuity(up, vp, bt.uhbtav, bt.vhbtav, visc_rem_u, visc_rem_v)
@@ -158,8 +167,9 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     h_av = 0.5 * (h + hp)
 
     # ---- CORRECTOR ----
-    pf = pressure_force(grid, vgrid, hp, T, S, eos, p_atm=forces.p_surf,
-                        cfg=cfg.pressure)
+    pf = pressure_force(grid, vgrid, corrector_thickness(cfg, h, hp), T, S,
+                        eos, p_atm=forces.p_surf, cfg=cfg.pressure,
+                        e_tidal=e_tidal)
     diffu, diffv = horizontal_viscosity(grid, u_av_p, v_av_p, h_av,
                                         cfg.horvisc)
     ca = coriolis_adv(grid, u_av_p, v_av_p, h_av, uh, vh, cfg.coriolis)
@@ -173,10 +183,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
     u_new = grid.mask2dCu * (u_inst + dt * (u_bc_accel + bt.accel_layer_u))
     v_new = grid.mask2dCv * (v_inst + dt * (v_bc_accel + bt.accel_layer_v))
-    coefs = vertvisc_coef(grid, u_new, v_new, h, cfg=cfg.vertvisc, bbl=bbl)
-    u_new, v_new = vertvisc(grid, u_new, v_new, h, coefs, dt, forces.taux,
-                            forces.tauy, rho0)
-    vr = vertvisc_remnant(grid, coefs, dt)
+    u_new, v_new, vr = viscosity(u_new, v_new, dt)
     u_new, v_new, truncs = vertvisc_limit_vel(grid, u_new, v_new, dt,
                                               cfg.vertvisc)
     (u_new, v_new), (visc_rem_u, visc_rem_v) = fill(((u_new, v_new), vr))

@@ -16,8 +16,8 @@ dt_pred = dt/3 (RK3) or dt/2 (RK2):
 
 The continuity calls match no barotropic transport: on CUDA tensors
 each is two untargeted sweeps of kernel K1 (``continuity_cuda.py``).
-Tides/SAL, the viscous mixed layer and DIRECT_STRESS are not ported
-yet: ``tides_fn`` raises ``NotImplementedError``.
+The tidal/SAL geopotential (``cfg.tides_fn``) is taken once a step from
+the free surface of the step's start.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from mom6_torch.core.grid import Grid
 from mom6_torch.core.pressure_force import PressureForceCfg, pressure_force
 from mom6_torch.core.state import State
 from mom6_torch.core.vert_friction import (VertViscCfg, set_viscous_bbl,
+                                           surface_ustar,
                                            vertvisc, vertvisc_coef,
                                            vertvisc_limit_vel)
 from mom6_torch.core.vertical_grid import VerticalGrid
@@ -53,7 +54,8 @@ class UnsplitCfg:
     vertvisc: VertViscCfg = VertViscCfg()
     horvisc: HorViscCfg = HorViscCfg()
     scheme: str = "RK3"              # RK3 or RK2
-    tides_fn: object = None          # tides (not ported)
+    # (eta, t) -> tidal + SAL geopotential height anomaly [m], or None
+    tides_fn: object = None
 
 
 class DynDiags(NamedTuple):
@@ -69,13 +71,16 @@ def step_dyn_unsplit(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                      cfg: UnsplitCfg, eos=None, t=None
                      ) -> tuple[State, DynDiags]:
     """One unsplit dynamics step (RK3 or RK2 by ``cfg.scheme``)."""
-    if cfg.tides_fn is not None:
-        raise NotImplementedError("tides: tidal/SAL forcing")
     if cfg.scheme not in ("RK3", "RK2"):
         raise ValueError(f"unsplit scheme {cfg.scheme!r}")
     fill = domain.fill_halos
     rho0 = vgrid.Rho0
     T, S = state.T, state.S
+    # the tidal geopotential from the free surface of the step's start
+    e_tidal = None
+    if cfg.tides_fn is not None:
+        e_tidal = cfg.tides_fn(torch.sum(state.h, dim=0) - grid.bathyT,
+                               0.0 if t is None else t)
 
     def continuity(uu, vv, hh):
         return continuity_ppm_cuda(grid, vgrid, uu, vv, hh, 0.5 * dt,
@@ -84,14 +89,17 @@ def step_dyn_unsplit(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     def accel(uu, vv, h_av, uh, vh):
         ca = coriolis_adv(grid, uu, vv, h_av, uh, vh, cfg.coriolis)
         pf = pressure_force(grid, vgrid, h_av, T, S, eos,
-                            p_atm=forces.p_surf, cfg=cfg.pressure)
+                            p_atm=forces.p_surf, cfg=cfg.pressure,
+                            e_tidal=e_tidal)
         return ca.CAu + pf.PFu, ca.CAv + pf.PFv
 
     def viscosity(uu, vv, h_face, dt_v):
         coefs = vertvisc_coef(grid, uu, vv, h_face, cfg=cfg.vertvisc,
-                              bbl=bbl)
+                              bbl=bbl, ustar=ustar)
         return vertvisc(grid, uu, vv, h_face, coefs, dt_v, forces.taux,
-                        forces.tauy, rho0)
+                        forces.tauy, rho0,
+                        direct_stress=cfg.vertvisc.direct_stress,
+                        hmix_stress=cfg.vertvisc.hmix_stress)
 
     (u, v), h = fill(((state.u, state.v), state.h))
     if T is not None:
@@ -112,6 +120,8 @@ def step_dyn_unsplit(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     up = grid.mask2dCu * (u + dt_pred * CAu)
     vp = grid.mask2dCv * (v + dt_pred * CAv)
     bbl = set_viscous_bbl(grid, u, v, h, cfg.vertvisc, vgrid)
+    ustar = surface_ustar(grid, rho0, forces) \
+        if cfg.vertvisc.visc_ml_mode else None
     up, vp = fill(viscosity(up, vp, h_av, dt_pred))
 
     if cfg.scheme == "RK3":

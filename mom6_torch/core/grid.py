@@ -74,9 +74,13 @@ class Grid:
     geoLonCv: torch.Tensor
     geoLatBu: torch.Tensor
     geoLonBu: torch.Tensor
-    # porous-barrier face depths (not ported: continuity raises when a
-    # grid carries them)
+    # porous-barrier subgrid topography at faces (SUBGRID_TOPO_AT_VEL;
+    # heights, negative down): None unless a TOPO_AT_VEL file was read
+    porous_DminU: Optional[torch.Tensor] = None
+    porous_DmaxU: Optional[torch.Tensor] = None
     porous_DavgU: Optional[torch.Tensor] = None
+    porous_DminV: Optional[torch.Tensor] = None
+    porous_DmaxV: Optional[torch.Tensor] = None
     porous_DavgV: Optional[torch.Tensor] = None
 
 

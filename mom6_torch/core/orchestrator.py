@@ -139,7 +139,7 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                                                       width=1)
         state, split_state, dd = step_dyn_split_rk2(
             domain, grid, vgrid, state, split_state, forces, dt,
-            cfg.split_cfg, eos=eos, x_first=x_first, kv_shear=kvs)
+            cfg.split_cfg, eos=eos, x_first=x_first, t=t, kv_shear=kvs)
     else:
         state, dd = step_dyn_unsplit(domain, grid, vgrid, state, forces, dt,
                                      cfg.unsplit_cfg, eos=eos, t=t)

@@ -26,6 +26,18 @@
 // steppers call: one pass, no Newton iteration, and it moves 4 layered
 // fields (u, h in; h, uh out), a bound of ~0.032 ms at 25x520x520 fp32.
 //
+// Porous faces (a grid with subgrid topography, SUBGRID_TOPO_AT_VEL):
+// the face mask of each layer is the plain mask times the layer's open
+// fraction, which the wrapper computes from the h entering the sweep
+// (core/porous_barriers.py) and passes as one more layered input.  The
+// porous instances (template POROUS) stage it beside the tile's other
+// records, one more value a cell and layer (a region of its own, so the
+// five-value records and the non-porous instances stay as they are), and
+// every flux pass multiplies the mask by it, operand for operand as
+// _flux_1dir does mask * por: the porous sweep reads one more layered
+// field (+27 MB at 25x520x520 fp32).  K2 ignores porous faces, as the
+// JAX package's set_up_bt_cont does.
+//
 // What limited the first design: device-memory traffic from re-reading.
 // It ran K1 as three launches (edge values to scratch planes, a flux
 // pass of one thread per face column, a divergence pass) and K2 as three
@@ -102,9 +114,11 @@ struct Tile {
 enum { H, HM, HP, U, VR, RS };
 
 // shared elements of a tile: a record of each of its faces+5 cells (a-3
-// .. a+faces+1) and staged layer, and the cell mask
-__host__ __device__ inline long stage_elems(const Tile& t) {
-  return (long)t.across * (t.faces + 5) * (RS * (long)t.layers + 1);
+// .. a+faces+1) and staged layer, and the cell mask; with ``porous`` the
+// open fractions of the faces too, one value a cell and staged layer
+__host__ __device__ inline long stage_elems(const Tile& t, bool porous) {
+  return (long)t.across * (t.faces + 5)
+      * ((RS + porous) * (long)t.layers + 1);
 }
 
 template <typename T>
@@ -131,7 +145,7 @@ template <typename T, int AXIS> struct Geo {
   long plane;
   int a, q0;       // first cell the tile updates; first column across
   int p, q;        // this thread: face a-1+p, column q0+q
-  T *rec, *mask;
+  T *rec, *mask, *frac;   // frac: the faces' open fractions (porous)
 
   __device__ Geo(const Tile& t, int tile, int nj, int ni_, T* smem)
       : NF(t.faces), Q(t.across), KC(t.layers), n(AXIS ? nj : ni_),
@@ -144,6 +158,7 @@ template <typename T, int AXIS> struct Geo {
     q = AXIS ? tid % Q : tid / NF;
     rec = smem;
     mask = rec + RS * KC * Q * (NF + 5);
+    frac = mask + Q * (NF + 5);
   }
   // element index of (k, s, q)
   __device__ int at(int k, int s) const {
@@ -192,21 +207,25 @@ __device__ inline void edges_at(const Geo<T, AXIS>& G, int k, int s,
 }
 
 // layers [c0, c0 + kc) of the tile on chip: h of positions 0 .. NF+4,
-// u (and, with WITH_VR, visc_rem) of the faces, then the edge values of
-// positions 2 .. NF+2 (cells a-1 .. a+NF-1).  Every edge scheme reads
-// at most two cells to each side, so one stencil halo serves them all
-template <typename T, int AXIS, bool WITH_VR>
+// u (and, with WITH_VR, visc_rem; with POROUS, the open fraction) of the
+// faces, then the edge values of positions 2 .. NF+2 (cells a-1 ..
+// a+NF-1).  Every edge scheme reads at most two cells to each side, so
+// one stencil halo serves them all
+template <typename T, int AXIS, bool WITH_VR, bool POROUS>
 __device__ void stage(const Geo<T, AXIS>& G, const T* h, const T* u,
-                      const T* vr, int c0, int kc, T h_min2, int scheme) {
+                      const T* vr, const T* por, int c0, int kc, T h_min2,
+                      int scheme) {
   __syncthreads();   // the previous chunk is no longer read
   const int s = G.p + 2, ls = RS * G.layer();
   const long g = c0 * G.plane + G.g2(s);
   T* r = G.rec + RS * G.at(0, s);
-  for (int k = 0; k < kc; ++k, r += ls) {
+  T* f = G.frac + G.at(0, s);
+  for (int k = 0; k < kc; ++k, r += ls, f += G.layer()) {
     const long o = g + k * G.plane;
     cp_async(r + H, h + o);
     cp_async(r + U, u + o);
     if (WITH_VR) cp_async(r + VR, vr + o);
+    if (POROUS) cp_async(f, por + o);
   }
   for (int x = G.p; x < 5; x += G.NF) {
     const long gx = c0 * G.plane + G.g2(G.extra(x));
@@ -222,9 +241,20 @@ __device__ void stage(const Geo<T, AXIS>& G, const T* h, const T* u,
   __syncthreads();
 }
 
+// the face constants of staged layer k: with POROUS the mask times the
+// layer's open fraction (plain: mask2dCu * por)
+template <typename T, int AXIS, bool POROUS>
+__device__ inline FaceConst<T> layer_const(const Geo<T, AXIS>& G,
+                                           const FaceConst<T>& F, int k) {
+  if (!POROUS) return F;
+  FaceConst<T> Fk = F;
+  Fk.mask = F.mask * G.frac[G.at(k, G.p + 2)];
+  return Fk;
+}
+
 // the staged layers' flux and dflux/du at the correction du, added in
 // layer order to sf and sd
-template <typename T, int AXIS>
+template <typename T, int AXIS, bool POROUS>
 __device__ inline void column_sums(const Geo<T, AXIS>& G, int kc, T du,
                                    const FaceConst<T>& F, T dt, T& sf,
                                    T& sd) {
@@ -234,7 +264,8 @@ __device__ inline void column_sums(const Geo<T, AXIS>& G, int kc, T du,
   for (int k = 0; k < kc; ++k, r += ls) {
     const T vr = r[VR];
     T f, d;
-    ppm_flux(r[U] + vr * du, vr, r, dn, F, dt, f, d);
+    ppm_flux(r[U] + vr * du, vr, r, dn, layer_const<T, AXIS, POROUS>(G, F, k),
+             dt, f, d);
     sf = sf + f;
     sd = sd + d;
   }
@@ -256,7 +287,7 @@ __device__ inline FaceConst<T> face_const(const Geo<T, AXIS>& G,
 
 template <typename T> struct SweepArgs {
   const T *u, *h, *vr, *hbt, *dlen, *Idx, *iarea, *mask_f, *dx_face,
-      *mask_t;
+      *mask_t, *por;
   T *h_out, *flux, *ucor, *du;
   int nk, nj, ni, newton_iters, scheme, vol_cfl;
   T dt, cfl_limit, h_min, h_min2;
@@ -267,8 +298,9 @@ template <typename T> struct SweepArgs {
 // h - dt*Iarea*(F - F[-1]) >= h_min.  Without (the untargeted sweep of
 // the unsplit and RK2b steppers: plain zonal_mass_flux with uhbt None)
 // one pass at u: the flux and h alone, no visc_rem read.  The two are
-// separate instances, so the targeted sweep keeps its registers.
-template <typename T, int AXIS, bool TARGETED>
+// separate instances, so the targeted sweep keeps its registers; so are
+// the POROUS ones, which read the faces' open fractions (A.por).
+template <typename T, int AXIS, bool TARGETED, bool POROUS>
 __global__ void __launch_bounds__(MAX_THREADS)
     sweep_kernel(SweepArgs<T> A, Tile t) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -291,10 +323,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
     for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
       const int kc = min(G.KC, A.nk - c0);
       if (restage || it == 0)
-        stage<T, AXIS, TARGETED>(G, A.h, A.u, A.vr, c0, kc, A.h_min2,
-                                 A.scheme);
+        stage<T, AXIS, TARGETED, POROUS>(G, A.h, A.u, A.vr, A.por, c0, kc,
+                                         A.h_min2, A.scheme);
       if (it < iters) {
-        column_sums(G, kc, du, F, A.dt, sf, sd);
+        column_sums<T, AXIS, POROUS>(G, kc, du, F, A.dt, sf, sd);
         continue;
       }
       // final pass: the flux replaces u in shared memory for the
@@ -305,7 +337,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const T vr = TARGETED ? r[VR] : T(1);
         const T ucor = TARGETED ? r[U] + vr * du : r[U];
         T f, d;
-        ppm_flux(ucor, vr, r, dn, F, A.dt, f, d);
+        ppm_flux(ucor, vr, r, dn, layer_const<T, AXIS, POROUS>(G, F, k),
+                 A.dt, f, d);
         if (own) {
           A.flux[o] = f;
           if (TARGETED) A.ucor[o] = ucor;
@@ -380,8 +413,9 @@ __device__ void bt_cont_tile(const BtArgs<T>& A, const BtDir<T>& D,
     for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
       const int kc = min(G.KC, A.nk - c0);
       if (restage || it == 0)
-        stage<T, AXIS, true>(G, A.h, D.u, D.vr, c0, kc, A.h_min2, A.scheme);
-      column_sums(G, kc, du0, F, A.dt, sf, sd);
+        stage<T, AXIS, true, false>(G, A.h, D.u, D.vr, nullptr, c0, kc,
+                                    A.h_min2, A.scheme);
+      column_sums<T, AXIS, false>(G, kc, du0, F, A.dt, sf, sd);
       const T* r = r0;
       for (int k = 0; k < kc && it < 2; ++k, r += ls) {
         const T vr = r[VR];
@@ -406,7 +440,8 @@ __device__ void bt_cont_tile(const BtArgs<T>& A, const BtDir<T>& D,
   for (int c0 = 0; c0 < A.nk; c0 += G.KC) {
     const int kc = min(G.KC, A.nk - c0);
     if (restage)
-      stage<T, AXIS, true>(G, A.h, D.u, D.vr, c0, kc, A.h_min2, A.scheme);
+      stage<T, AXIS, true, false>(G, A.h, D.u, D.vr, nullptr, c0, kc,
+                                  A.h_min2, A.scheme);
     const T* r = r0;
 #pragma unroll 2
     for (int k = 0; k < kc; ++k, r += ls) {
@@ -469,12 +504,13 @@ int run_sweep(const void* const* ptrs, int nk, int nj, int ni, int axis,
   if (nk < 1 || axis < 0 || axis > 1 || scheme < EDGE_PPM
       || scheme > EDGE_MONOTONIC
       || !tile_ok(t, axis ? nj : ni, axis ? ni : nj, nk, threads)
-      || smem_bytes != stage_elems(t) * (long)sizeof(T))
+      || smem_bytes != stage_elems(t, ptrs[14] != nullptr) * (long)sizeof(T))
     return cudaErrorInvalidValue;
   SweepArgs<T> A;
   const T** in[] = {&A.u, &A.h, &A.vr, &A.hbt, &A.dlen, &A.Idx, &A.iarea,
                     &A.mask_f, &A.dx_face, &A.mask_t};
   for (int k = 0; k < 10; ++k) *in[k] = (const T*)ptrs[k];
+  A.por = (const T*)ptrs[14];
   A.h_out = (T*)ptrs[10];
   A.flux = (T*)ptrs[11];
   A.ucor = (T*)ptrs[12];
@@ -491,10 +527,15 @@ int run_sweep(const void* const* ptrs, int nk, int nj, int ni, int axis,
   A.cfl_limit = T(cfl_limit);
   A.h_min = T(h_min);
   A.h_min2 = T(2.0 * h_min);
-  auto kern = targeted ? (axis ? sweep_kernel<T, 1, true>
-                               : sweep_kernel<T, 0, true>)
-                       : (axis ? sweep_kernel<T, 1, false>
-                               : sweep_kernel<T, 0, false>);
+  auto kern = A.por
+      ? (targeted ? (axis ? sweep_kernel<T, 1, true, true>
+                          : sweep_kernel<T, 0, true, true>)
+                  : (axis ? sweep_kernel<T, 1, false, true>
+                          : sweep_kernel<T, 0, false, true>))
+      : (targeted ? (axis ? sweep_kernel<T, 1, true, false>
+                          : sweep_kernel<T, 0, true, false>)
+                  : (axis ? sweep_kernel<T, 1, false, false>
+                          : sweep_kernel<T, 0, false, false>));
   cudaError_t e = prepare(kern, smem_bytes);
   if (e != cudaSuccess) return e;
   kern<<<t.blocks, threads, smem_bytes,
@@ -513,9 +554,9 @@ int run_bt_cont(void* const* ptrs, int nk, int nj, int ni, int scheme,
   if (nk < 1 || scheme < EDGE_PPM || scheme > EDGE_MONOTONIC
       || !tile_ok(tx, ni, nj, nk, threads)
       || !tile_ok(ty, nj, ni, nk, threads)
-      || smem_bytes != (long)sizeof(T) * (stage_elems(tx) > stage_elems(ty)
-                                              ? stage_elems(tx)
-                                              : stage_elems(ty))
+      || smem_bytes != (long)sizeof(T)
+             * (stage_elems(tx, false) > stage_elems(ty, false)
+                    ? stage_elems(tx, false) : stage_elems(ty, false))
       || (long)tx.blocks + ty.blocks > 0x7fffffffL)
     return cudaErrorInvalidValue;
   BtArgs<T> A;
@@ -566,7 +607,8 @@ extern "C" const char* cont_error_name(int e) {
 
 // ptrs: u, h, visc_rem, hbt, dlen, Idx, Iarea, face mask, face spacing,
 // cell mask in; h_out, flux, u_cor, du out (visc_rem, hbt, face spacing,
-// u_cor and du null when not ``targeted``).  opts: axis, newton_iters,
+// u_cor and du null when not ``targeted``); then the faces' layered open
+// fractions (null on a grid without porous faces).  opts: axis, newton_iters,
 // targeted, edge scheme (ppm.cuh EdgeScheme), vol_cfl.  tile: faces,
 // across, layers, blocks of tile_plan
 #define SWEEP_ENTRY(NAME, T)                                              \

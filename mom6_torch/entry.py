@@ -4,7 +4,9 @@
 configuration, bench.py's CONFIG (Z* ALE) with BT_WIDE_HALO_PERIOD = 2
 (the barotropic solve on the wide-halo march, kernel K3m), or its
 layered variant (USE_REGRIDDING = False), on the split RK2 dynamics or,
-with ``dynamics``, the split RK2b or the unsplit RK3 dynamics, through
+with ``dynamics``, the split RK2b or the unsplit RK3 dynamics, or the
+first breadth item's options on the split RK2 dynamics
+(``configs.BENCH_CONFIG_B1``, ``BENCH_CONFIG_NONBOUSS``), through
 ``model.build_model``; its ``Model.step_fn`` steps it.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
@@ -27,11 +29,15 @@ Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import torch
 
-from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_RK2B,
+from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_B1,
+                                BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_RK2B,
+                                write_topog_edge,
                                 BENCH_CONFIG_UNSPLIT)
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
@@ -53,7 +59,10 @@ DT = 600.0
 DEPTH = 4000.0
 # the configuration text of each dynamics of build_full
 DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
-            "unsplit": BENCH_CONFIG_UNSPLIT}
+            "unsplit": BENCH_CONFIG_UNSPLIT, "b1": BENCH_CONFIG_B1,
+            "nonbouss": BENCH_CONFIG_NONBOUSS}
+# the texts on the split RK2 dynamics
+SPLIT_RK2 = ("rk2", "b1", "nonbouss")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +105,8 @@ def build(ni: int = 512, nj: int = 512, nk: int = 25, *, seed: int = 0,
 def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
                seed: int | None = None, regridding: bool = True,
                dynamics: str = "rk2", wide_halo_period: int = 2,
-               device="cuda", dtype: torch.dtype = torch.float32) -> Model:
+               device="cuda",
+               dtype: torch.dtype = torch.float32) -> Model:
     """The full step of bench.py's CONFIG (``configs.BENCH_CONFIG``) with
     BT_WIDE_HALO_PERIOD = 2, at ``ni`` x ``nj`` x ``nk`` with 10 km cells,
     built by ``model.build_model``:
@@ -129,9 +139,13 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     entrainment on and no T/S reconstruction in the pressure force.
 
     ``dynamics`` picks the text: "rk2" (``BENCH_CONFIG``), "rk2b"
-    (``BENCH_CONFIG_RK2B``: SPLIT_RK2B) or "unsplit"
+    (``BENCH_CONFIG_RK2B``: SPLIT_RK2B), "unsplit"
     (``BENCH_CONFIG_UNSPLIT``: SPLIT = False, DT = 20 s, DT_THERM =
-    120 s, no barotropic parameter).  ``wide_halo_period`` sets
+    120 s, no barotropic parameter), "b1" (``BENCH_CONFIG_B1``: a grid
+    of 0.1 degree cells centred on the equator, with the porous-barrier
+    file written from seed 0 by ``configs.write_topog_edge`` into
+    a temporary directory that the build reads it from) or "nonbouss"
+    (``BENCH_CONFIG_NONBOUSS``).  ``wide_halo_period`` sets
     BT_WIDE_HALO_PERIOD of the split texts (1: kernel K3 in place of
     K3m).
 
@@ -145,12 +159,22 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     text = DYNAMICS[dynamics]
     if dynamics != "unsplit":
         text += f"BT_WIDE_HALO_PERIOD = {wide_halo_period}\n"
-    text += (f"#override NIGLOBAL = {ni}\n#override NJGLOBAL = {nj}\n"
-            f"#override NK = {nk}\n#override LENLON = {ni * 10.0}\n"
-            f"#override LENLAT = {nj * 10.0}\n")
+    text += f"#override NIGLOBAL = {ni}\n#override NJGLOBAL = {nj}\n" \
+        f"#override NK = {nk}\n"
+    if dynamics == "b1":
+        text += (f"#override LENLON = {ni * 0.1!r}\n#override LENLAT = "
+                 f"{nj * 0.1!r}\n#override SOUTHLAT = {-nj * 0.05!r}\n")
+    else:
+        text += (f"#override LENLON = {ni * 10.0}\n"
+                 f"#override LENLAT = {nj * 10.0}\n")
     if not regridding:
         text += "#override USE_REGRIDDING = False\n"
-    m = build_model(ParamFile(text=text), device=device, dtype=dtype)
+    with tempfile.TemporaryDirectory() as inputdir:
+        if dynamics == "b1":
+            write_topog_edge(os.path.join(inputdir, "topog_edge.nc"), ni, nj,
+                             seed=0)
+            text += f"INPUTDIR = {inputdir}\n"
+        m = build_model(ParamFile(text=text), device=device, dtype=dtype)
     if seed is not None:
         d, g = m.domain, m.grid
         rng = np.random.default_rng(seed)
@@ -165,7 +189,7 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
         m.state = st.replace(h=noisy(st.h, 2.0), T=noisy(st.T, 0.5),
                              u=noisy(st.u, 0.05, g.mask2dCu),
                              v=noisy(st.v, 0.05, g.mask2dCv))
-        if dynamics == "rk2":
+        if dynamics in SPLIT_RK2:
             m.split = init_split_state(d, g, m.vgrid, m.state,
                                        horvisc_cfg=m.cfg.split_cfg.horvisc)
         elif dynamics == "rk2b":

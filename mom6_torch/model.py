@@ -10,10 +10,19 @@ step (``core/orchestrator.py``).
 
 It follows the JAX builder on the branches that bench.py's CONFIG
 (with and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
-``cases/double_gyre``, ``cases/tc0`` and ``cases/ref_tc0`` take: a
-single-device cartesian grid in km or degrees (TOPO_CONFIG flat, bowl or
-spoon), split RK2, split RK2b (SPLIT_RK2B) or unsplit (SPLIT = False)
-dynamics with every Coriolis and KE scheme, the LINEAR and
+``cases/double_gyre``, ``cases/tc0``, ``cases/ref_tc0`` and the texts
+of ``configs.py`` take: a single-device cartesian grid in km or degrees
+(TOPO_CONFIG flat, bowl or spoon) with porous-barrier face topography
+from a TOPO_AT_VEL file (SUBGRID_TOPO_AT_VEL), Boussinesq or not, split
+RK2, split RK2b (SPLIT_RK2B) or unsplit (SPLIT = False) dynamics with
+every Coriolis and KE scheme, tides with scalar or spherical-harmonic
+SAL, the Stanley pressure-force correction, the barotropic options
+BEGW, BT_PROJECT_VELOCITY (read, unused), BOUND_BT_CORRECTION,
+MAXCFL_BT_CONT and BT_STRONG_DRAG, the vertical-friction options
+(linear and channel drag, DYNAMIC_BBL, BBL_USE_EOS, the fixed and
+dynamic viscous mixed layer, DIRECT_STRESS, HARMONIC_VISC, KV_ML_INVZ2)
+and the horizontal-viscosity options (velocity scales, Leith and
+modified Leith, ADD_LES_VISCOSITY, anisotropic, ZB2020), the LINEAR and
 WRIGHT equations of state, THICKNESS_CONFIG uniform, TS_CONFIG uniform
 or linear, WIND_CONFIG zero/constant/gyres/2gyre, BUOY_CONFIG zero or
 linear restoring, ALE with the coordinates and remap schemes of
@@ -61,8 +70,13 @@ from mom6_torch.drivers.surface_forcing import (SurfaceForcingCfg,
                                                 buoyancy_restoring)
 from mom6_torch.eos import EOS, make_eos
 from mom6_torch.framework.config import ParamFile
+from mom6_torch.framework.io import read_field
 from mom6_torch.param.lateral.hor_visc import HorViscCfg
 from mom6_torch.param.lateral.mixed_layer_restrat import MLRestratCfg
+from mom6_torch.param.lateral.self_attr_load import SALHarmonics
+from mom6_torch.param.lateral.tidal_forcing import (CONSTITUENTS,
+                                                    TidalForcingCfg,
+                                                    tides_fn)
 from mom6_torch.param.lateral.thickness_diffuse import ThicknessDiffuseCfg
 from mom6_torch.param.vertical.bkgnd_mixing import BkgndMixingCfg
 from mom6_torch.param.vertical.diabatic import DiabaticCfg
@@ -228,6 +242,50 @@ class Model:
         return step
 
 
+_TOPO_AT_VEL_VARS = (("DmaxU", "TOPO_AT_VEL_VARNAME_U_HIGH", "depthu_hi"),
+                     ("DminU", "TOPO_AT_VEL_VARNAME_U_LOW", "depthu_lo"),
+                     ("DavgU", "TOPO_AT_VEL_VARNAME_U_AVE", "depthu_av"),
+                     ("DmaxV", "TOPO_AT_VEL_VARNAME_V_HIGH", "depthv_hi"),
+                     ("DminV", "TOPO_AT_VEL_VARNAME_V_LOW", "depthv_lo"),
+                     ("DavgV", "TOPO_AT_VEL_VARNAME_V_AVE", "depthv_av"))
+
+
+def _read_topo_at_vel(pf: ParamFile, grid: Grid, halo: int) -> Grid:
+    """SUBGRID_TOPO_AT_VEL: the six face statistics of the TOPO_AT_VEL
+    file (positive depths on the compute domain), edge-padded to the
+    halo and turned into heights, negative down, as the JAX builder
+    reads them."""
+    path = os.path.join(pf.get("INPUTDIR", str, "."),
+                        pf.get("TOPO_AT_VEL_FILE", str, "topog_edge.nc"))
+    names = {key: pf.get(param, str, default)
+             for key, param, default in _TOPO_AT_VEL_VARS}
+    dev = dict(device=grid.bathyT.device, dtype=grid.bathyT.dtype)
+    return dataclasses.replace(grid, **{
+        "porous_" + key: torch.as_tensor(
+            -np.pad(np.asarray(read_field(path, var), np.float64), halo,
+                    mode="edge"), **dev)
+        for key, var in names.items()})
+
+
+def _tides(pf: ParamFile, grid: Grid, rho0: float):
+    """TIDES: the steppers' (eta, t) -> tidal + SAL geopotential, with
+    the constituents TIDE_<name>, and SAL_HARMONICS (spherical
+    harmonics to SAL_HARMONICS_DEGREE) or the scalar SAL."""
+    consts = tuple(c for c in CONSTITUENTS
+                   if pf.get(f"TIDE_{c}", bool, c == "M2"))
+    cfg = TidalForcingCfg(
+        constituents=consts,
+        use_sal_scalar=pf.get("SAL_SCALAR_APPROX", bool, True),
+        sal_scalar=pf.get("SAL_SCALAR_VALUE", float, 0.094))
+    sal = None
+    if pf.get("SAL_HARMONICS", bool, False):
+        nd = pf.get("SAL_HARMONICS_DEGREE", int, 6)
+        sal = SALHarmonics.build(
+            grid, nd, rho_w=rho0,
+            rho_e=pf.get("RHO_SOLID_EARTH", float, 5517.0, units="kg m-3"))
+    return tides_fn(cfg, grid, sal)
+
+
 def build_model(pf: ParamFile, *, device="cuda",
                 dtype: torch.dtype = torch.float64) -> Model:
     """The model that the parameters describe, on ``device`` in
@@ -296,7 +354,8 @@ def build_model(pf: ParamFile, *, device="cuda",
                               min_depth=min_depth, **dev)
     if max_depth_diagnose and topo_config != "flat":
         max_depth = float(torch.max(grid.bathyT))
-    default_only(pf, "SUBGRID_TOPO_AT_VEL", bool, False)
+    if pf.get("SUBGRID_TOPO_AT_VEL", bool, False):
+        grid = _read_topo_at_vel(pf, grid, halo)
 
     pf.module("MOM_open_boundary")
     default_only(pf, "NUM_DYE_TRACERS", int, 0,
@@ -308,7 +367,9 @@ def build_model(pf: ParamFile, *, device="cuda",
     nk = pf.get("NK", int, 1, units="nondim", desc="number of layers")
     g_earth = pf.get("G_EARTH", float, 9.8, units="m s-2")
     rho0 = pf.get("RHO_0", float, 1035.0, units="kg m-3")
-    default_only(pf, "BOUSSINESQ", bool, True)
+    # BOUSSINESQ = False: h carries mass (Rho0 h per unit area) and the
+    # pressure force takes the specific-volume form
+    boussinesq = pf.get("BOUSSINESQ", bool, True)
     gint = pf.get("GINT", float, 0.0, units="m s-2",
                   desc="uniform interface reduced gravity")
 
@@ -351,7 +412,8 @@ def build_model(pf: ParamFile, *, device="cuda",
                                   "not ported")
     p_ref = pf.get("P_REF", float, 2.0e7, units="Pa")
     vgrid = VerticalGrid.uniform(nk=nk, g_Earth=g_earth, Rho0=rho0,
-                                 gint=gint if gint > 0 else None, **dev)
+                                 gint=gint if gint > 0 else None,
+                                 boussinesq=boussinesq, **dev)
 
     pf.module("MOM_continuity_PPM")
     cont = ContinuityCfg(
@@ -391,66 +453,78 @@ def build_model(pf: ParamFile, *, device="cuda",
         hbbl=pf.get("HBBL", float, 10.0, units="m"),
         cdrag=pf.get("CDRAG", float, 0.003),
         bottomdraglaw=pf.get("BOTTOMDRAGLAW", bool, True),
+        linear_drag=pf.get("LINEAR_DRAG", bool, False),
         drag_bg_vel=pf.get("DRAG_BG_VEL", float, 0.0, units="m s-1"),
         maxvel=pf.get("MAXVEL", float, 3.0e8, units="m s-1"),
         cfl_trunc=pf.get("CFL_TRUNCATE", float, 0.5),
+        channel_drag=pf.get("CHANNEL_DRAG", bool, False),
+        dynamic_bbl=pf.get("DYNAMIC_BBL", bool, True),
         bbl_thick_min=pf.get("BBL_THICK_MIN", float, 0.1, units="m"),
-        kv_bbl_min=pf.get("KV_BBL_MIN", float, 1e-4, units="m2 s-1"))
-    for name, default in (("LINEAR_DRAG", False),
-                          ("CHANNEL_DRAG", False), ("DYNAMIC_BBL", True),
-                          ("DYNAMIC_VISCOUS_ML", False),
-                          ("FIXED_DEPTH_LOTW_ML", False),
-                          ("DIRECT_STRESS", False),
-                          ("HARMONIC_VISC", False)):
-        default_only(pf, name, bool, default)
-    default_only(pf, "BBL_USE_EOS", bool, False,
-                 desc="BBL stratification ladder from EOS "
-                 "in-situ density differences instead of "
-                 "the Rlay targets "
-                 "(MOM_set_viscosity.F90:336)")
-    default_only(pf, "KV_ML_INVZ2", float, 0.0, units="m2 s-1",
-                 desc="extra near-surface viscosity with a "
-                 "1/z^2 profile over HMIX_FIXED "
-                 "(MOM_vert_friction.F90:1877-1888)")
-    default_only(pf, "VON_KARMAN_CONST", float, 0.41)
+        kv_bbl_min=pf.get("KV_BBL_MIN", float, 1e-4, units="m2 s-1"),
+        visc_ml_mode=("dynamic" if pf.get("DYNAMIC_VISCOUS_ML", bool, False)
+                      else "fixed" if pf.get("FIXED_DEPTH_LOTW_ML", bool,
+                                             False) else ""),
+        hmix_fixed=pf.get("HMIX_FIXED", float, 20.0, units="m"),
+        direct_stress=pf.get("DIRECT_STRESS", bool, False),
+        hmix_stress=pf.get("HMIX_STRESS", float,
+                           pf.get("HMIX_FIXED", float, 20.0), units="m"),
+        harmonic_visc=pf.get("HARMONIC_VISC", bool, False),
+        bbl_use_eos=pf.get("BBL_USE_EOS", bool, False,
+                           desc="BBL stratification ladder from EOS "
+                           "in-situ density differences instead of "
+                           "the Rlay targets "
+                           "(MOM_set_viscosity.F90:336)"),
+        kv_ml_invz2=pf.get("KV_ML_INVZ2", float, 0.0, units="m2 s-1",
+                           desc="extra near-surface viscosity with a "
+                           "1/z^2 profile over HMIX_FIXED "
+                           "(MOM_vert_friction.F90:1877-1888)"),
+        vonkar=pf.get("VON_KARMAN_CONST", float, 0.41))
 
     pf.module("MOM_hor_visc")
     smag_kh = pf.get("SMAGORINSKY_KH", bool, False)
     smag_ah = pf.get("SMAGORINSKY_AH", bool, False)
     use_bih = pf.get("BIHARMONIC", bool, smag_ah)
-    default_only(pf, "ANISO_GRID_DIR", list, [1.0, 0.0])
+    aniso_dir = pf.get("ANISO_GRID_DIR", list, [1.0, 0.0])
     hv = HorViscCfg(
         laplacian=pf.get("LAPLACIAN", bool, False),
         biharmonic=use_bih,
         kh=pf.get("KH", float, 0.0, units="m2 s-1"),
         ah=pf.get("AH", float, 0.0, units="m4 s-1"),
+        kh_vel_scale=pf.get("KH_VEL_SCALE", float, 0.0, units="m s-1"),
+        ah_vel_scale=pf.get("AH_VEL_SCALE", float, 0.0, units="m s-1"),
         smag_lap_const=pf.get("SMAG_LAP_CONST", float, 0.0)
         if smag_kh else 0.0,
         smag_bi_const=pf.get("SMAG_BI_CONST", float, 0.0)
         if smag_ah else 0.0,
-        dt=dt,
-        no_slip=pf.get("NOSLIP", bool, False))
-    for name, ptype, default, units in (
-            ("KH_VEL_SCALE", float, 0.0, "m s-1"),
-            ("AH_VEL_SCALE", float, 0.0, "m s-1"),
-            ("LEITH_KH", bool, False, ""), ("LEITH_LAP_CONST", float, 0.0, ""),
-            ("LEITH_AH", bool, False, ""), ("LEITH_BI_CONST", float, 0.0, ""),
-            ("MODIFIED_LEITH", bool, False, ""),
-            ("ADD_LES_VISCOSITY", bool, False, ""),
-            ("ANISOTROPIC_VISCOSITY", bool, False, ""),
-            ("KH_ANISO", float, 0.0, "m2 s-1"),
-            ("USE_ZB2020", bool, False, ""), ("ZB_SCALING", float, 0.5, ""),
-            ("ZB_TYPE", int, 0, ""), ("ZB_CONS", int, 0, ""),
-            ("USE_GME", bool, False, "")):
-        default_only(pf, name, ptype, default, units=units)
+        leith_kh=pf.get("LEITH_KH", bool, False),
+        leith_lap_const=pf.get("LEITH_LAP_CONST", float, 0.0),
+        leith_ah=pf.get("LEITH_AH", bool, False),
+        leith_bi_const=pf.get("LEITH_BI_CONST", float, 0.0),
+        modified_leith=pf.get("MODIFIED_LEITH", bool, False),
+        add_les_viscosity=pf.get("ADD_LES_VISCOSITY", bool, False),
+        anisotropic=pf.get("ANISOTROPIC_VISCOSITY", bool, False),
+        kh_aniso=pf.get("KH_ANISO", float, 0.0, units="m2 s-1"),
+        aniso_n=(float(aniso_dir[0]), float(aniso_dir[1])),
+        no_slip=pf.get("NOSLIP", bool, False),
+        use_zb2020=pf.get("USE_ZB2020", bool, False),
+        zb_scaling=pf.get("ZB_SCALING", float, 0.5),
+        zb_type=pf.get("ZB_TYPE", int, 0),
+        zb_cons=pf.get("ZB_CONS", int, 0),
+        dt=dt)
+    default_only(pf, "USE_GME", bool, False)
     hv = dataclasses.replace(hv, use_land_mask=pf.get(
         "USE_LAND_MASK_FOR_HVISC", bool, True,
         desc="mask cell thicknesses before averaging to faces "
         "(MOM_hor_visc.F90:705,2270)"))
 
     pf.module("MOM_PressureForce")
-    default_only(pf, "USE_STANLEY_PGF", bool, False)
+    use_stanley_pgf = pf.get("USE_STANLEY_PGF", bool, False)
+    if use_stanley_pgf and not boussinesq:
+        raise ValueError("USE_STANLEY_PGF is not available with "
+                         "BOUSSINESQ=False (MOM_PressureForce_FV.F90:183)")
     pgf_cfg = PressureForceCfg(
+        stanley_coeff=pf.get("STANLEY_COEFF", float, -1.0)
+        if use_stanley_pgf else -1.0,
         quad_points=pf.get("PGF_QUAD_POINTS", int, 5 if thermo else 1),
         reconstruct=pf.get("RECONSTRUCT_FOR_PRESSURE", bool, use_regrid,
                            desc="limited-PLM T/S reconstruction in "
@@ -459,21 +533,23 @@ def build_model(pf: ParamFile, *, device="cuda",
                            "(MOM_PressureForce_FV.F90:980)"))
 
     pf.module("MOM_tidal_forcing")
-    default_only(pf, "TIDES", bool, False)
+    tides = None
+    if pf.get("TIDES", bool, False):
+        tides = _tides(pf, grid, rho0)
 
     pf.module("MOM_barotropic")
     use_bt_cont = pf.get("USE_BT_CONT_TYPE", bool, True)
     if pf.has("NONLINEAR_BT_CONTINUITY"):
         use_bt_cont = pf.get("NONLINEAR_BT_CONTINUITY", bool, True)
     bebt = pf.get("BEBT", float, 0.2)
-    default_only(pf, "BT_PROJECT_VELOCITY", bool, False)
+    bt_project = pf.get("BT_PROJECT_VELOCITY", bool, False)
     dt_bt_filter = pf.get("DT_BT_FILTER", float, -0.25, units="s")
-    default_only(pf, "BOUND_BT_CORRECTION", bool, False)
-    default_only(pf, "MAXCFL_BT_CONT", float, 0.25)
-    default_only(pf, "BT_STRONG_DRAG", bool, False)
     btcfg = BarotropicCfg(
-        bebt=bebt, nstep=1, dt_bt_filter=dt_bt_filter,
-        use_bt_cont=use_bt_cont,
+        bebt=bebt, nstep=1, bt_project=bt_project,
+        dt_bt_filter=dt_bt_filter, use_bt_cont=use_bt_cont,
+        bound_bt_corr=pf.get("BOUND_BT_CORRECTION", bool, False),
+        maxcfl_bt_cont=pf.get("MAXCFL_BT_CONT", float, 0.25),
+        strong_drag=pf.get("BT_STRONG_DRAG", bool, False),
         ssh_extra=pf.get("SSH_EXTRA", float, 0.0, units="m"),
         hvel_scheme=pf.get("BT_THICK_SCHEME", str, "FROM_BT_CONT",
                            desc="per-layer face-thickness estimate "
@@ -492,16 +568,18 @@ def build_model(pf: ParamFile, *, device="cuda",
         if dtbt > 0:
             nstep = max(1, int(math.ceil(dt / dtbt)))
         btcfg = dataclasses.replace(btcfg, nstep=nstep)
-        split_cfg = SplitCfg(be=pf.get("BE", float, 0.6), continuity=cont,
-                             coriolis=cor, vertvisc=vv, horvisc=hv,
-                             barotropic=btcfg, pressure=pgf_cfg)
-        default_only(pf, "BEGW", float, 0.0)
+        split_cfg = SplitCfg(be=pf.get("BE", float, 0.6),
+                             begw=pf.get("BEGW", float, 0.0),
+                             continuity=cont, coriolis=cor, vertvisc=vv,
+                             horvisc=hv, barotropic=btcfg,
+                             pressure=pgf_cfg, tides_fn=tides)
         default_only(pf, "STOCH_EOS", bool, False)
     else:
         # the JAX builder always takes the RK3 scheme; RK2 is reached by
         # calling step_dyn_unsplit with UnsplitCfg(scheme="RK2")
         unsplit_cfg = UnsplitCfg(continuity=cont, coriolis=cor, vertvisc=vv,
-                                 horvisc=hv, pressure=pgf_cfg)
+                                 horvisc=hv, pressure=pgf_cfg,
+                                 tides_fn=tides)
     default_only(pf, "ICE_SHELF", bool, False)
 
     pf.module("MOM_state_initialization")

@@ -1,20 +1,24 @@
 """Horizontal (along-layer) viscosity.
 
 Counterpart of ``mom6_tpu.param.lateral.hor_visc``: stress-tensor
-Laplacian and biharmonic friction with constant and Smagorinsky
-coefficients (their maximum) under the CFL stability bounds, free slip
-or NOSLIP, with the land mask applied to cell thicknesses or not
-(USE_LAND_MASK_FOR_HVISC).  Tension sh_xx lives at h points, shearing
-strain sh_xy at q points; the divergence of the thickness-weighted
-stress gives (diffu, diffv).  The JAX package's other options
-(velocity-scale and Leith coefficients, ADD_LES_VISCOSITY, anisotropic
-viscosity, ZB2020, the VarMix/MEKE coefficient inputs, open boundaries)
-are not ported yet; GME raises ``NotImplementedError``.
+Laplacian and biharmonic friction with constant, velocity-scale
+(KH_VEL_SCALE, AH_VEL_SCALE), Smagorinsky and Leith (with the modified
+Leith divergence-gradient term) coefficients, which combine with the
+background by their maximum or, with ADD_LES_VISCOSITY, their sum;
+anisotropic viscosity along a fixed direction; the CFL stability
+bounds; free slip or NOSLIP, with the land mask applied to cell
+thicknesses or not (USE_LAND_MASK_FOR_HVISC); and the Zanna-Bolton
+(ZB2020) stress added to the result.  Tension sh_xx lives at h points,
+shearing strain sh_xy at q points; the divergence of the
+thickness-weighted stress gives (diffu, diffv).  GME and the
+VarMix/MEKE coefficient inputs raise ``NotImplementedError``; open
+boundaries are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -25,14 +29,31 @@ from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
 __all__ = ["HorViscCfg", "HorViscResult", "horizontal_viscosity"]
 
 _H_NEGLECT = 1e-20
+_INV_PI3 = 1.0 / math.pi ** 3
+_INV_PI6 = _INV_PI3 * _INV_PI3
 
 
 @dataclasses.dataclass(frozen=True)
 class HorViscCfg:
     kh: float = 0.0               # KH background Laplacian [m2 s-1]
     ah: float = 0.0               # AH background biharmonic [m4 s-1]
+    kh_vel_scale: float = 0.0     # KH_VEL_SCALE [m s-1]: Kh >= vel*dx
+    ah_vel_scale: float = 0.0     # AH_VEL_SCALE [m s-1]: Ah >= vel*dx^3
     smag_lap_const: float = 0.0   # SMAG_LAP_CONST
     smag_bi_const: float = 0.0    # SMAG_BI_CONST
+    leith_kh: bool = False        # LEITH_KH
+    leith_lap_const: float = 0.0  # LEITH_LAP_CONST
+    leith_ah: bool = False        # LEITH_AH
+    leith_bi_const: float = 0.0   # LEITH_BI_CONST
+    modified_leith: bool = False  # MODIFIED_LEITH (adds |grad div|)
+    add_les_viscosity: bool = False   # ADD_LES_VISCOSITY
+    anisotropic: bool = False     # ANISOTROPIC_VISCOSITY
+    kh_aniso: float = 0.0         # KH_ANISO [m2 s-1]
+    aniso_n: tuple = (1.0, 0.0)   # ANISO_GRID_DIR (n1, n2)
+    use_zb2020: bool = False      # USE_ZB2020 (added to diffu/diffv)
+    zb_scaling: float = 0.5       # ZB_SCALING
+    zb_type: int = 0              # ZB_TYPE
+    zb_cons: int = 0              # ZB_CONS
     laplacian: bool = False       # LAPLACIAN
     biharmonic: bool = False      # BIHARMONIC
     dt: float = 3600.0            # used only for the stability bounds
@@ -51,8 +72,9 @@ class HorViscResult(NamedTuple):
 
 
 def _strains(grid: Grid, u, v, no_slip: bool):
-    """Tension at h points and shearing strain at q points, doubled at
-    land corners with ``no_slip``."""
+    """Tension at h points, shearing strain at q points (doubled at
+    land corners with ``no_slip``), divergence at h points and relative
+    vorticity at q points."""
     DY_dxT = grid.dyT * grid.IdxT
     DX_dyT = grid.dxT * grid.IdyT
     DY_dxBu = grid.dyBu * grid.IdxBu
@@ -62,7 +84,13 @@ def _strains(grid: Grid, u, v, no_slip: bool):
     dvdx = DY_dxBu * (ip1(grid.IdyCv * v) - grid.IdyCv * v)
     dudy = DX_dyBu * (jp1(grid.IdxCu * u) - grid.IdxCu * u)
     fac = (2.0 - grid.mask2dBu) if no_slip else grid.mask2dBu
-    return dudx - dvdy, fac * (dvdx + dudy)
+    return dudx - dvdy, fac * (dvdx + dudy), dudx + dvdy, dvdx - dudy
+
+
+def _combine(base, les, add):
+    """Nonlinear coefficients take the maximum with the background, or
+    add to it with ADD_LES_VISCOSITY."""
+    return base + les if add else torch.maximum(base, les)
 
 
 def horizontal_viscosity(grid: Grid, u, v, h,
@@ -70,7 +98,17 @@ def horizontal_viscosity(grid: Grid, u, v, h,
     """(diffu, diffv) [m s-2]; u, v need 2 valid halo rings, h one."""
     if cfg.use_gme:
         raise NotImplementedError("GME: USE_GME backscatter")
+    zb = None
+    if cfg.use_zb2020:
+        # imported here: the closure takes this module's strains
+        from mom6_torch.param.lateral.zanna_bolton import (ZB2020Cfg,
+                                                           zb2020_accel)
+        zb = zb2020_accel(grid, u, v, h, ZB2020Cfg(
+            amplitude=cfg.zb_scaling, zb_type=cfg.zb_type,
+            zb_cons=cfg.zb_cons))
     if not (cfg.laplacian or cfg.biharmonic):
+        if zb is not None:
+            return HorViscResult(zb.du, zb.dv)
         z = torch.zeros_like(u)
         return HorViscResult(z, z)
 
@@ -78,9 +116,11 @@ def horizontal_viscosity(grid: Grid, u, v, h,
     dx2h = grid.dxT * grid.dxT
     dy2q = grid.dyBu * grid.dyBu
     dx2q = grid.dxBu * grid.dxBu
-    sh_xx, sh_xy = _strains(grid, u, v, cfg.no_slip)
+    sh_xx, sh_xy, div_xx, vort_xy = _strains(grid, u, v, cfg.no_slip)
     grid_sp_h2 = (2.0 * dx2h * dy2h) / (dx2h + dy2h + _H_NEGLECT)
     grid_sp_q2 = (2.0 * dx2q * dy2q) / (dx2q + dy2q + _H_NEGLECT)
+    grid_sp_h3 = grid_sp_h2 * torch.sqrt(grid_sp_h2)
+    grid_sp_q3 = grid_sp_q2 * torch.sqrt(grid_sp_q2)
 
     def shear_mag_h():
         s2 = sh_xy * sh_xy
@@ -92,23 +132,69 @@ def horizontal_viscosity(grid: Grid, u, v, h,
         xx2 = 0.25 * ((s2 + ip1(jp1(s2))) + (ip1(s2) + jp1(s2)))
         return torch.sqrt(sh_xy * sh_xy + xx2)
 
-    def background(x, like):
-        return torch.full_like(like, x)
+    add = cfg.add_les_viscosity
+    if cfg.leith_kh or cfg.leith_ah:
+        # the vorticity gradient: d/dx at v points, d/dy at u points
+        DY_dxBu = grid.dyBu * grid.IdxBu
+        DX_dyBu = grid.dxBu * grid.IdyBu
+        vdx = DY_dxBu * (vort_xy * grid.IdyCu - im1(vort_xy * grid.IdyCu))
+        vdy = DX_dyBu * (vort_xy * grid.IdxCv - jm1(vort_xy * grid.IdxCv))
+        gvort_h = torch.sqrt((0.5 * (vdx + jm1(vdx))) ** 2
+                             + (0.5 * (vdy + im1(vdy))) ** 2)
+        gvort_q = torch.sqrt((0.5 * (vdx + ip1(vdx))) ** 2
+                             + (0.5 * (vdy + jp1(vdy))) ** 2)
+        if cfg.modified_leith:
+            ddx = (ip1(div_xx) - div_xx) * grid.IdxCu
+            ddy = (jp1(div_xx) - div_xx) * grid.IdyCv
+            gvort_h = gvort_h + torch.sqrt((0.5 * (ddx + im1(ddx))) ** 2
+                                           + (0.5 * (ddy + jm1(ddy))) ** 2)
+            gvort_q = gvort_q + torch.sqrt((0.5 * (ddx + jp1(ddx))) ** 2
+                                           + (0.5 * (ddy + ip1(ddy))) ** 2)
+        if cfg.leith_ah:
+            # the Laplacian of vorticity at q points, averaged to h
+            d2v_q = (DY_dxBu * (ip1(vdx * grid.IdyCv) - vdx * grid.IdyCv)
+                     + DX_dyBu * (jp1(vdy * grid.IdxCu)
+                                  - vdy * grid.IdxCu))
+            d2v_h = 0.25 * ((d2v_q + im1(jm1(d2v_q)))
+                            + (im1(d2v_q) + jm1(d2v_q)))
 
     str_xx = torch.zeros_like(sh_xx)
     str_xy = torch.zeros_like(sh_xy)
     if cfg.laplacian:
-        Kh_h = background(cfg.kh, grid_sp_h2)
-        Kh_q = background(cfg.kh, grid_sp_q2)
+        Kh_h = torch.clamp(cfg.kh_vel_scale * torch.sqrt(grid_sp_h2),
+                           min=cfg.kh)
+        Kh_q = torch.clamp(cfg.kh_vel_scale * torch.sqrt(grid_sp_q2),
+                           min=cfg.kh)
         if cfg.smag_lap_const > 0.0:
-            Kh_h = torch.maximum(Kh_h, cfg.smag_lap_const * grid_sp_h2
-                                 * shear_mag_h())
-            Kh_q = torch.maximum(Kh_q, cfg.smag_lap_const * grid_sp_q2
-                                 * shear_mag_q())
+            Kh_h = _combine(Kh_h, cfg.smag_lap_const * grid_sp_h2
+                            * shear_mag_h(), add)
+            Kh_q = _combine(Kh_q, cfg.smag_lap_const * grid_sp_q2
+                            * shear_mag_q(), add)
+        if cfg.leith_kh:
+            Kh_h = _combine(Kh_h, cfg.leith_lap_const * grid_sp_h3
+                            * gvort_h * _INV_PI3, add)
+            Kh_q = _combine(Kh_q, cfg.leith_lap_const * grid_sp_q3
+                            * gvort_q * _INV_PI3, add)
+        if cfg.anisotropic:
+            n1, n2 = cfg.aniso_n
+            nmag = math.hypot(n1, n2) or 1.0
+            n1n2 = (n1 / nmag) * (n2 / nmag)
+            n11_m_n22 = (n1 / nmag) ** 2 - (n2 / nmag) ** 2
+            # the isotropic part of the anisotropic tensor
+            Kh_h = Kh_h + cfg.kh_aniso * (1.0 - n1n2 ** 2)
+            Kh_q = Kh_q + cfg.kh_aniso * n1n2 ** 2
         Kh_h = torch.minimum(Kh_h, 0.2 * grid_sp_h2 / cfg.dt)
         Kh_q = torch.minimum(Kh_q, 0.2 * grid_sp_q2 / cfg.dt)
         str_xx = str_xx - Kh_h * sh_xx
         str_xy = str_xy - Kh_q * sh_xy
+        if cfg.anisotropic and cfg.kh_aniso != 0.0:
+            # the cross-components of the direction tensor
+            strain_h = 0.25 * ((sh_xy + im1(jm1(sh_xy)))
+                               + (im1(sh_xy) + jm1(sh_xy)))
+            strain_q = 0.25 * ((sh_xx + ip1(jp1(sh_xx)))
+                               + (ip1(sh_xx) + jp1(sh_xx)))
+            str_xx = str_xx - cfg.kh_aniso * n1n2 * n11_m_n22 * strain_h
+            str_xy = str_xy - cfg.kh_aniso * n1n2 * n11_m_n22 * strain_q
 
     if cfg.biharmonic:
         Idxdy2u = grid.IdxCu * grid.IdyCu * grid.IdyCu
@@ -119,14 +205,19 @@ def horizontal_viscosity(grid: Grid, u, v, h,
                  + Idx2dyCu * (dx2q * sh_xy - jm1(dx2q * sh_xy)))
         Del2v = (Idxdy2v * (dy2q * sh_xy - im1(dy2q * sh_xy))
                  - Idx2dyCv * (jp1(dx2h * sh_xx) - dx2h * sh_xx))
-        bh_xx, bh_xy = _strains(grid, Del2u, Del2v, cfg.no_slip)
-        Ah_h = background(cfg.ah, grid_sp_h2)
-        Ah_q = background(cfg.ah, grid_sp_q2)
+        bh_xx, bh_xy, _, _ = _strains(grid, Del2u, Del2v, cfg.no_slip)
+        Ah_h = torch.clamp(cfg.ah_vel_scale * grid_sp_h3, min=cfg.ah)
+        Ah_q = torch.clamp(cfg.ah_vel_scale * grid_sp_q3, min=cfg.ah)
         if cfg.smag_bi_const > 0.0:
-            Ah_h = torch.maximum(Ah_h, cfg.smag_bi_const * grid_sp_h2
-                                 * grid_sp_h2 / 16.0 * shear_mag_h())
-            Ah_q = torch.maximum(Ah_q, cfg.smag_bi_const * grid_sp_q2
-                                 * grid_sp_q2 / 16.0 * shear_mag_q())
+            Ah_h = _combine(Ah_h, cfg.smag_bi_const * grid_sp_h2
+                            * grid_sp_h2 / 16.0 * shear_mag_h(), add)
+            Ah_q = _combine(Ah_q, cfg.smag_bi_const * grid_sp_q2
+                            * grid_sp_q2 / 16.0 * shear_mag_q(), add)
+        if cfg.leith_ah:
+            Ah_h = _combine(Ah_h, cfg.leith_bi_const * grid_sp_h3
+                            * grid_sp_h3 * torch.abs(d2v_h) * _INV_PI6, add)
+            Ah_q = _combine(Ah_q, cfg.leith_bi_const * grid_sp_q3
+                            * grid_sp_q3 * torch.abs(d2v_q) * _INV_PI6, add)
         Ah_h = torch.minimum(Ah_h, 0.012 * grid_sp_h2 ** 2 / cfg.dt)
         Ah_q = torch.minimum(Ah_q, 0.012 * grid_sp_q2 ** 2 / cfg.dt)
         str_xx = str_xx + Ah_h * bh_xx
@@ -166,5 +257,9 @@ def horizontal_viscosity(grid: Grid, u, v, h,
     diffv = ((grid.IdyCv * (im1(dy2q * str_xy_h) - dy2q * str_xy_h)
               - grid.IdxCv * (dx2h * str_xx_h - jp1(dx2h * str_xx_h)))
              * grid.IareaCv) / (h_v + _H_NEGLECT)
-    return HorViscResult(diffu=diffu * grid.mask2dCu,
-                         diffv=diffv * grid.mask2dCv)
+    diffu = diffu * grid.mask2dCu
+    diffv = diffv * grid.mask2dCv
+    if zb is not None:
+        diffu = diffu + zb.du
+        diffv = diffv + zb.dv
+    return HorViscResult(diffu=diffu, diffv=diffv)

@@ -1,7 +1,8 @@
 """Where the time of one step goes on a CUDA card.
 
     python -m mom6_torch.profile_step [--full [--layered]
-                                     [--dynamics rk2|rk2b|unsplit]]
+                                     [--dynamics rk2|rk2b|unsplit|b1|
+                                                 nonbouss]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
 
@@ -12,7 +13,10 @@ with Z* ALE, or its layered variant with ``--layered``; a thermodynamic
 step every second step), on the split RK2 dynamics or, with
 ``--dynamics``, on the split RK2b or the unsplit RK3 dynamics
 (``build_full(dynamics=...)``: the unsplit text steps 20 s with a
-thermodynamic step every sixth).  After two warm-up steps it
+thermodynamic step every sixth), or on the split RK2 dynamics with the
+first breadth item's options (``b1``: tides with spherical-harmonic
+SAL, Stanley, porous barriers, ZB2020/Leith; ``nonbouss``: the
+non-Boussinesq step).  After two warm-up steps it
 measures:
 
 1. the step time, by CUDA events around ``--steps`` uninstrumented
@@ -25,7 +29,9 @@ measures:
    advection, tracer_hordiff, the diabatic driver and the ALE
    regrid/remap of ``step_ocean``, and inside them the dynamics'
    pressure force, Coriolis, viscosities, btstep, the K3/K3m subcycle,
-   KPP and the continuity kernels). Each device kernel is charged
+   KPP, the tidal geopotential, the continuity kernels and, on a
+   porous grid, the plain computation of each K1 sweep's open
+   fractions). Each device kernel is charged
    to the innermost range whose host range issued its launch, which
    gives per phase: host milliseconds (the range on the host clock,
    profiler on, inclusive of the ranges inside it), device milliseconds
@@ -51,7 +57,7 @@ import time
 import torch
 
 from mom6_torch import cuda_build, entry
-from mom6_torch.core import barotropic_cuda
+from mom6_torch.core import barotropic_cuda, continuity_cuda
 from mom6_torch.core import dynamics_split_rk2 as dyn
 from mom6_torch.core import dynamics_split_rk2b as dyn_b
 from mom6_torch.core import dynamics_unsplit as dyn_u
@@ -70,10 +76,12 @@ SLICE1 = tuple((dyn, n, n) for n in (
 # slice 2: the dynamics of each stepper, by its module and function...
 DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "rk2b": (dyn_b, "step_dyn_split_rk2b"),
-            "unsplit": (dyn_u, "step_dyn_unsplit")}
+            "unsplit": (dyn_u, "step_dyn_unsplit"),
+            "b1": (dyn, "step_dyn_split_rk2"),
+            "nonbouss": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
-              "set_up_bt_cont_cuda")
+              "set_up_bt_cont_cuda", "tidal_geopotential")
 # ... and the phases of step_ocean after it
 SLICE2 = (
     (orch, "thickness_diffuse", "thickness_diffuse"),
@@ -94,7 +102,9 @@ def slice2_targets(dynamics: str):
         (mod, n, f"dynamics/{n}") for n in DYN_PHASES if hasattr(mod, n)) + (
         (barotropic_cuda, "subcycle_cuda", "dynamics/btstep/subcycle_cuda"),
         (barotropic_cuda, "subcycle_march_cuda",
-         "dynamics/btstep/subcycle_march_cuda")) + SLICE2
+         "dynamics/btstep/subcycle_march_cuda"),
+        (continuity_cuda, "porous_factor",
+         "dynamics/continuity_ppm_cuda/porous_factor")) + SLICE2
 
 
 # the ranges whose device kernels are also listed by kernel name

@@ -249,6 +249,9 @@ def test_vertvisc_without_drag_law():
     jc, (ju, jv) = ref_fn(*map(jnp.asarray, (u, v, h, tau)))
     tc = tvf.vertvisc_coef(tg, *map(_t, (u, v, h)), cfg=tcfg)
     for name in tc._fields:
+        # the Rayleigh drags are None on both sides without CHANNEL_DRAG
+        if getattr(tc, name) is None and getattr(jc, name) is None:
+            continue
         _close(getattr(jc, name), getattr(tc, name), 1e-12, name)
     tu, tv = tvf.vertvisc(tg, _t(u), _t(v), _t(h), tc, 600.0, _t(tau))
     _close(ju, tu, 1e-12, "u")

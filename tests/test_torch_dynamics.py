@@ -130,6 +130,9 @@ def test_vertvisc():
         _assert_close(getattr(jb, name), getattr(tb, name), 1e-12, name)
     tc = tvf.vertvisc_coef(tg, *map(_t, (u, v, h)), cfg=tcfg, bbl=tb)
     for name in tc._fields:
+        # the Rayleigh drags are None on both sides without CHANNEL_DRAG
+        if getattr(tc, name) is None and getattr(jc, name) is None:
+            continue
         _assert_close(getattr(jc, name), getattr(tc, name), 1e-12, name)
     tu, tv = tvf.vertvisc(tg, _t(u), _t(v), _t(h), tc, 360.0, _t(tau))
     _assert_close(ju, tu, 1e-12, "u")

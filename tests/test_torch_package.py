@@ -23,7 +23,7 @@ from mom6_torch.core import continuity_cuda, barotropic_cuda
 from mom6_torch.core.continuity_ppm import (ContinuityCfg, continuity_ppm,
                                             set_up_bt_cont)
 from mom6_torch.core.dynamics_split_rk2 import SplitCfg, step_dyn_split_rk2
-from mom6_torch.core.vert_friction import VertViscCfg
+from mom6_torch.param.lateral.hor_visc import HorViscCfg
 from mom6_torch.drivers import solo
 
 # one intra-op thread: the test workers share the machine's cores, and
@@ -97,31 +97,44 @@ def test_cpu_tensors_take_the_plain_versions():
     assert [w.launches for w in wrappers] == before
 
 
+def _porous(grid):
+    """The grid with ridges on every face: crests at half the depth."""
+    d = grid.bathyT
+    return dataclasses.replace(
+        grid, porous_DminU=-d, porous_DmaxU=-0.5 * d,
+        porous_DavgU=-0.75 * d, porous_DminV=-d, porous_DmaxV=-0.5 * d,
+        porous_DavgV=-0.75 * d)
+
+
 @pytest.mark.parametrize("option", ["upwind_1st", "simple_2nd",
                                     "monotonic", "vol_cfl"])
 def test_kernel_gate_names_the_option(option):
-    """The kernels take every edge scheme and the volume-based CFL: the
-    gate passes each, the scheme goes to the kernels under its code in
-    csrc/ppm.cuh, and porous faces are still refused by name."""
+    """The kernels take every edge scheme, the volume-based CFL and
+    porous faces: the scheme goes to the kernels under its code in
+    csrc/ppm.cuh, and a porous grid on the CPU takes the plain version
+    in that mode (the gate that refused porous faces is gone)."""
     s = _small_slice()
     cfg = ContinuityCfg(**{option: True})
-    continuity_cuda._check_cfg(cfg, s.grid)
     names = {"upwind_1st": "EDGE_UPWIND", "simple_2nd": "EDGE_SIMPLE2",
              "monotonic": "EDGE_MONOTONIC", "vol_cfl": "EDGE_PPM"}
     header = (ROOT / "mom6_torch" / "csrc" / "ppm.cuh").read_text()
     assert f"{names[option]} = {continuity_cuda.edge_scheme(cfg)}" in header
-    porous = dataclasses.replace(s.grid, porous_DavgU=s.grid.bathyT)
-    with pytest.raises(NotImplementedError, match="porous"):
-        continuity_cuda._check_cfg(cfg, porous)
+    porous = _porous(s.grid)
+    wrap = continuity_cuda.continuity_ppm_cuda
+    before = (wrap.launches, wrap.porous_launches)
+    st = s.state
+    got = wrap(porous, s.vgrid, st.u, st.v, st.h, s.dt, cfg)
+    want = continuity_ppm(porous, s.vgrid, st.u, st.v, st.h, s.dt, cfg)
+    assert torch.equal(got.h, want.h) and torch.equal(got.uh, want.uh)
+    assert (wrap.launches, wrap.porous_launches) == before
 
 
 @pytest.mark.parametrize("kw,name", [
     (dict(obc=object()), "OBC"),
-    (dict(eos=object(),
-          cfg=SplitCfg(vertvisc=VertViscCfg(bbl_use_eos=True))), "EOS"),
+    (dict(cfg=SplitCfg(horvisc=HorViscCfg(use_gme=True))), "GME"),
     (dict(kv_shear=object()), "kv_shear"),
     (dict(stoch_pattern=object()), "stoch_eos"),
-    (dict(cfg=SplitCfg(tides_fn=lambda e, t: e)), "tides"),
+    (dict(kh_scale=object()), "kh_scale"),
 ])
 def test_step_rejects_unported_options(kw, name):
     s = _small_slice()
@@ -134,16 +147,24 @@ def test_step_rejects_unported_options(kw, name):
 
 
 def test_nonboussinesq_and_porous_raise():
-    from mom6_torch.core.pressure_force import pressure_force
+    """Since the non-Boussinesq pressure force and porous faces are
+    ported, what still raises is the reference's own exclusion: the
+    Stanley correction with BOUSSINESQ = False.  The non-Boussinesq
+    form gives finite forces, and the BT_cont fit on a porous grid
+    takes the plain face masks, as the JAX package's does."""
+    from mom6_torch.core.pressure_force import (PressureForceCfg,
+                                                pressure_force)
     s = _small_slice()
-    with pytest.raises(NotImplementedError, match="non-Boussinesq"):
-        pressure_force(s.grid, dataclasses.replace(s.vgrid,
-                                                   boussinesq=False),
-                       s.state.h)
-    porous = dataclasses.replace(s.grid, porous_DavgU=s.grid.bathyT)
-    with pytest.raises(NotImplementedError, match="porous"):
-        set_up_bt_cont(porous, s.vgrid, s.state.u, s.state.v, s.state.h,
-                       s.dt)
+    nonbouss = dataclasses.replace(s.vgrid, boussinesq=False)
+    pf = pressure_force(s.grid, nonbouss, s.state.h)
+    assert torch.isfinite(pf.PFu).all() and torch.isfinite(pf.pbce).all()
+    with pytest.raises(ValueError, match="STANLEY"):
+        pressure_force(s.grid, nonbouss, s.state.h,
+                       cfg=PressureForceCfg(stanley_coeff=0.5))
+    st = s.state
+    got = set_up_bt_cont(_porous(s.grid), s.vgrid, st.u, st.v, st.h, s.dt)
+    want = set_up_bt_cont(s.grid, s.vgrid, st.u, st.v, st.h, s.dt)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("line,name", [
