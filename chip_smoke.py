@@ -38,7 +38,14 @@ order; any failure ends the script with a non-zero exit:
    K1 timed in fp32 with the faces' open fractions computed before the
    timed launches (and once more with them, as the wrapper runs); and
    K3 and K3m on planes built under BT_STRONG_DRAG and
-   BOUND_BT_CORRECTION, against their plain versions;
+   BOUND_BT_CORRECTION, against their plain versions.  Last, open
+   boundaries: K3's open-face instance against its plain version,
+   required equal, with the segments of configs.BENCH_CONFIG_OBC (whole
+   W and E edges, the E data painted per row from obc_east.nc and
+   interpolated in time, a strip over the middle half of the S edge) at
+   25x520x520 and on the closed-x 2x48x52, fp64 and fp32, timed in fp32
+   at 25x520x520; and K1 (both orders) on inputs whose halos are
+   extended through those open edges, required equal;
 4. slice 1 (the split RK2 dynamics step) at 64x64x8 in fp64 for 3
    steps, on the card (kernels) against the CPU (plain versions);
 5. slice 1 at full width, 512x512x25 fp32: 2 warm-up steps, then 10
@@ -76,6 +83,15 @@ order; any failure ends the script with a non-zero exit:
    entry.build_full at 32x32x6 in fp64 for 4 steps, card against CPU;
    then B1 in fp32 on the card against fp64, with the tides on and off,
    and bench.py's CONFIG beside it;
+6d. open boundaries: configs.BENCH_CONFIG_OBC (entry.build_full's
+   "obc": adiabatic, layered, three dyes) at 32x32x6 in fp64 for 4
+   steps, and bench.py's CONFIG with the same segments (Z* ALE, T/S and
+   the age tracer through the reservoirs) for 2 steps, card against
+   CPU;
+7d. BENCH_CONFIG_OBC at full width, 512x512x25 fp32, as in 7b
+   (launches a step asserted: K1 4, K2 0, K3 2, all of them the
+   open-face instance, K3m 0), with the dyes held to [0, 1] on the
+   compute domain;
 7c. the two at full width, 512x512x25 fp32, as in 7b (launches a step
    asserted: K1 4, all porous in B1, K2 1, K3m 2), and for B1 the SAL
    call alone (CUDA events) and one profiled dynamics-only step with
@@ -98,12 +114,15 @@ order; any failure ends the script with a non-zero exit:
    cases/ref_tc0 (unsplit, SIMPLE_2ND_PPM_CONTINUITY) through
    build_model and step_fn on the card in fp64 against its golden in
    tests/goldens_ref_cases.json (the driver still refuses its DEBUG and
-   DIAG_AS_CHKSUM).  Each run has every launch counter zeroed just
-   before it and read just after.
+   DIAG_AS_CHKSUM); then cases/tc3 (four Flather/Orlanski segments,
+   with SSH = 0.1 m on one and three dyes) through the driver in fp64,
+   card against --cpu, K3 launched only as its open-face instance.
+   Each run has every launch counter zeroed just before it and read
+   just after.
 
 The line before the last is the JSON ``kernels`` record (the porous K1
-instance has a record of its own); the last line is ``{"ok": true,
-"device": {...}}``.
+instance and K3's open-face instance have records of their own); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -166,12 +185,26 @@ POROUS_SEED = 11
 # launches a step on each dynamics path of build_full (K1u: the
 # untargeted K1 sweeps among K1's)
 PER_STEP = {"rk2b": {"K1": 8, "K2": 1, "K3": 0, "K3m": 2, "K1u": 4,
-                     "K1p": 0},
+                     "K1p": 0, "K3o": 0},
             "unsplit": {"K1": 6, "K2": 0, "K3": 0, "K3m": 0, "K1u": 6,
-                        "K1p": 0},
-            "b1": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0, "K1p": 4},
+                        "K1p": 0, "K3o": 0},
+            "b1": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0, "K1p": 4,
+                   "K3o": 0},
             "nonbouss": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0,
-                         "K1p": 0}}
+                         "K1p": 0, "K3o": 0},
+            # open boundaries: no BT_cont, period 1, K3 as its open-face
+            # instance (K3o)
+            "obc": {"K1": 4, "K2": 0, "K3": 2, "K3m": 0, "K1u": 0, "K1p": 0,
+                    "K3o": 2}}
+# cases/tc3 through the driver, with SSH = 0.1 m on its third segment and
+# three dyes, so that its statistics are not all zero
+TC3_DAYS = "0.05"
+TC3_EDITS = (('OBC_SEGMENT_003_DATA = "U=value:0.0,V=value:0.0,SSH=value:0.0"',
+              'OBC_SEGMENT_003_DATA = "U=value:0.0,V=value:0.0,SSH=value:0.1"'),
+             ("KV = 1.0E-04", "KV = 1.0E-04\nNUM_DYE_TRACERS = 3"))
+# operations of the open faces a substep: two Flather updates of ~8
+# operations at each open face
+OPS_FLATHER = 8
 # the barotropic options under which K3 and K3m are checked once more
 BT_OPTIONS = dict(strong_drag=True, bound_bt_corr=True, maxcfl_bt_cont=1e-4)
 NEW_STEPS = 12                 # timed steps of each new full-width path
@@ -195,6 +228,12 @@ KERNELS = {
 POROUS_KERNEL = dict(name="continuity_sweep_porous", route="cuda",
                      source="mom6_torch/csrc/continuity.cu",
                      replaces="mom6_tpu/core/continuity_pallas.py:193")
+# K3's open-face instance (subcycle_kernel<T, RESIDENT, true>): the Pallas
+# subcycle K3 replaces, on the path where the JAX package runs its jnp
+# substep instead (barotropic.py:651-670)
+OBC_KERNEL = dict(name="barotropic_subcycle_obc", route="cuda",
+                  source="mom6_torch/csrc/barotropic.cu",
+                  replaces="mom6_tpu/core/barotropic_pallas.py:164")
 DEVICE_COUNTED = ("K3", "K3m")   # wrappers that count device launches
 # each kernel's device-kernel name and its wrapper's launches a call
 PROFILED = {"K1": ("sweep_kernel", 2), "K2": ("bt_cont_kernel", 1),
@@ -209,6 +248,7 @@ TOL = {  # relative to each field's max on the compute domain
     "K2_turn": {"float64": 1e-8, "float32": 2e-2},
     "K3": {"float64": 1e-10, "float32": 5e-5},
     "K3m": {"float64": 1e-10, "float32": 5e-5},
+    "K3o": {"float64": 0.0, "float32": 0.0},
 }
 
 
@@ -217,8 +257,11 @@ def log(msg):
 
 
 def rel_err(ref, out, H=4):
-    a = ref[..., H:-H, H:-H].double()
-    b = out[..., H:-H, H:-H].double()
+    """(max relative, max absolute) error on the compute domain of halo
+    ``H``, on the whole array with H = 0."""
+    sl = slice(H, -H) if H else slice(None)
+    a = ref[..., sl, sl].double()
+    b = out[..., sl, sl].double()
     scale = float(a.abs().max())
     diff = float((a - b).abs().max())
     return diff / scale if scale > 0 else diff, diff
@@ -243,7 +286,7 @@ def cuda_ms(fn, reps, warm=True):
 
 class Results:
     def __init__(self):
-        self.err = {k: {} for k in KERNELS}      # dtype -> (rel, abs)
+        self.err = {k: {} for k in (*KERNELS, "K3o")}  # dtype -> (rel, abs)
         self.modes = {}                          # (kernel, mode) -> abs
 
     def check(self, kernel, dtype, label, ref, out, tol_key=None, H=4,
@@ -583,11 +626,14 @@ def check_porous(res, ni, nj, nk, dtype, timing=None, reentrant_x=True):
 
 
 def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
-                  period=1, nstep=None, reentrant_x=True, opts=None):
+                  period=1, nstep=None, reentrant_x=True, opts=None,
+                  obc_dir=None):
     """btstep's set-up on random inputs (as in the JAX package's
     subcycle tests), returning the subcycle's inputs: on the model's
     domain for ``period`` 1 (K3), widened to a halo of 3*period for the
-    march (K3m); ``opts``: more BarotropicCfg options (BT_OPTIONS)."""
+    march (K3m); ``opts``: more BarotropicCfg options (BT_OPTIONS).
+    With ``obc_dir`` the segments of ``open_boundaries`` (their data
+    written there) open the grid, and (inputs, edge vectors) return."""
     import numpy as np
     import torch
     from mom6_torch.core.barotropic import (BarotropicCfg, set_dtbt,
@@ -595,11 +641,14 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
     from mom6_torch.core.continuity_ppm import set_up_bt_cont
     d, g, vg = make_grid(ni, nj, nk, dtype, reentrant_y=reentrant_y,
                          reentrant_x=reentrant_x)
+    obc = None
+    if obc_dir is not None:
+        g, obc = open_boundaries(d, g, obc_dir)
     rng = np.random.default_rng(seed)
 
     def t(a):
-        return d.fill_halos(d.pad(torch.as_tensor(a, dtype=dtype,
-                                                  device=DEV)))
+        a = d.fill_halos(d.pad(torch.as_tensor(a, dtype=dtype, device=DEV)))
+        return a if obc is None else obc.extend(a)
 
     h = t(rng.uniform(150.0, 170.0, (nk, nj, ni)))
     u = t(0.05 * rng.standard_normal((nk, nj, ni)))
@@ -616,9 +665,13 @@ def subcycle_case(ni, nj, nk, dtype, curve, seed=5, reentrant_y=False,
         vh0 = torch.sum(h * 0.005, 0)
     cfg = BarotropicCfg(nstep=nstep, use_bt_cont=curve,
                         wide_halo_period=period, **(opts or {}))
-    return subcycle_inputs(d, g, vg, u, v, eta, h, acc, acc, pbce, u, v,
-                           600.0, cfg, taux=0.1 * g.mask2dCu, bt_cont=bc,
-                           eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0)
+    inp = subcycle_inputs(d, g, vg, u, v, eta, h, acc, acc, pbce, u, v,
+                          600.0, cfg, taux=0.1 * g.mask2dCu, bt_cont=bc,
+                          eta_cor=ecor, uhbt_in=uh0, vhbt_in=vh0, obc=obc)
+    if obc is None:
+        return inp
+    from mom6_torch.core.barotropic import obc_edges
+    return inp, obc_edges(obc, inp.consts, vg.g_Earth)
 
 
 def check_k3(res, ni, nj, nk, dtype, timing=None, key="K3",
@@ -724,6 +777,83 @@ def check_k3_many(res, ni, nj, nk, dtype):
                               f"{form}", ref, out, H=d.halo)
 
 
+def open_boundaries(d, g, tmp, t=3000.0):
+    """The segments of configs.BENCH_CONFIG_OBC on ``d`` (walls or not):
+    whole W and E edges, the S strip over the middle half of the edge,
+    the E data of ``configs.write_obc_data`` (seed 2, in ``tmp``) at the
+    model time ``t``; returns (the grid with its masks opened, obc)."""
+    from mom6_torch import configs
+    from mom6_torch.framework.config import ParamFile
+    from mom6_torch.obc.open_boundary import (build_obc_data_interp,
+                                              build_open_boundaries,
+                                              open_grid_masks)
+    configs.write_obc_data(str(tmp), d.ni, d.nj, seed=2)
+    text = "".join(ln + "\n" for ln in configs.OBC_LINES.splitlines()
+                   if ln.startswith(("OBC_NUMBER", "OBC_SEGMENT")))
+    pf = ParamFile(text=text + configs.obc_strip(d.ni)
+                   + f"INPUTDIR = {tmp}\n")
+    obc = build_open_boundaries(pf, d, str(tmp), device=g.dxT.device,
+                                dtype=g.dxT.dtype)
+    obc = build_obc_data_interp(pf, d, obc, str(tmp))(obc, g, None, t)
+    return open_grid_masks(g, obc), obc
+
+
+def check_k3_obc(res, ni, nj, nk, dtype, tmp, timing=None):
+    """K3's open-face instance against its plain version, required equal
+    on the whole padded array, linear transports; timed into
+    ``timing["K3o"]``."""
+    import torch
+    from mom6_torch.core import barotropic_cuda as bc
+    dn = str(dtype).split(".")[-1]
+    inp, edges = subcycle_case(ni, nj, nk, dtype, False, reentrant_x=False,
+                               obc_dir=tmp)
+    args = inp[:-1]
+    d = inp.domain
+    before = bc.subcycle_cuda.obc_launches
+    _, _, _, ref = bc.subcycle_plain(*args, obc=edges)
+    _, _, _, out = bc.subcycle_cuda(*args, obc=edges)
+    if inp.eta.is_cuda and bc.subcycle_cuda.obc_launches != before + 1:
+        raise AssertionError("K3 with open faces did not launch its "
+                             "open-face instance")
+    if inp.eta.is_cuda:
+        log(f"  K3o band plan {d.njh}x{d.nih} {dn}: {bc_plan(inp)}")
+    res.check_all("K3o", dn, f"{nk}x{d.njh}x{d.nih} open W/E, S strip",
+                  ref, out, H=0, exact=True)
+    # the open faces act: the closed instance gives other sums
+    _, _, _, closed = bc.subcycle_plain(*args)
+    if torch.equal(closed["eta"], ref["eta"]):
+        raise AssertionError("K3o: the open faces changed nothing")
+    if timing is not None:
+        timing["K3o"] = (
+            cuda_ms(lambda: bc.subcycle_cuda(*args, obc=edges), 10),
+            cuda_ms(lambda: bc.subcycle_plain(*args, obc=edges), 2),
+            (inp, edges))
+
+
+def check_k1_obc(res, ni, nj, nk, dtype, tmp):
+    """K1 (both orders) against its plain version, required equal, on
+    the open grid with every input's halos filled and extended through
+    the open edges, as the split steppers fill them under OBC."""
+    from mom6_torch.core import continuity_cuda as cc
+    from mom6_torch.core.continuity_ppm import ContinuityCfg, continuity_ppm
+    d, g, vg, x = continuity_inputs(ni, nj, nk, dtype, seed=4,
+                                    reentrant_x=False)
+    g, obc = open_boundaries(d, g, tmp)
+    x = obc.extend(d.fill_halos(x))
+    dn = str(dtype).split(".")[-1]
+    for x_first in (True, False):
+        args = (g, vg, x["u"], x["v"], x["h"], 600.0, ContinuityCfg())
+        ref = continuity_ppm(*args, uhbt=x["uhbt"], vhbt=x["vhbt"],
+                             visc_rem_u=x["vr_u"], visc_rem_v=x["vr_v"],
+                             x_first=x_first)
+        out = cc.continuity_ppm_cuda(*args, x["uhbt"], x["vhbt"], x["vr_u"],
+                                     x["vr_v"], x_first=x_first)
+        for name in ("h", "uh", "vh", "u_cor", "v_cor"):
+            res.check("K1", dn, f"{nk}x{d.njh}x{d.nih} OBC-extended "
+                      f"x_first={x_first} {name}", getattr(ref, name),
+                      getattr(out, name), exact=True)
+
+
 def log_band_plans():
     """The persistent K3/K3m launch's band plan at the shapes phase 3
     runs: K3 on the model's planes, K3m on planes widened to a halo of
@@ -754,14 +884,33 @@ def log_band_plans():
 
 def log_resources(ptxas_log, kernel):
     """ptxas's registers, stack and spills of each instance of
-    ``kernel`` (empty when the library was already built)."""
-    current = None
+    ``kernel`` (empty when the library was already built), logged and
+    returned as {mangled instance name: [its lines]}."""
+    current, out = None, {}
     for line in ptxas_log.splitlines():
         if "Function properties for" in line:
             current = line.split("for", 1)[1].strip()
         elif current and kernel in current and (
                 "spill" in line or "Used" in line):
-            log(f"  ptxas {current}: {line.split(':', 1)[-1].strip()}")
+            text = line.split(':', 1)[-1].strip()
+            log(f"  ptxas {current}: {text}")
+            out.setdefault(current, []).append(text)
+    return out
+
+
+def subcycle_resources(found):
+    """K3/K3m's instances by (type, one-tile band, open faces) from the
+    mangled names of ``log_resources``."""
+    import re
+    out = {}
+    for name, lines in found.items():
+        m = re.search(r"subcycle_kernelI([fd])Lb([01])ELb([01])E", name)
+        if m:
+            key = (f"{'float' if m.group(1) == 'f' else 'double'}, "
+                   f"{'one tile' if m.group(2) == '1' else 'tiled'}, "
+                   f"{'open faces' if m.group(3) == '1' else 'closed'}")
+            out[key] = "; ".join(lines)
+    return out
 
 
 def bc_plan(inp):
@@ -778,13 +927,18 @@ def bc_plan(inp):
 # 10 of 10 in the next trace of the same calls): a count that disagrees
 # is traced again, up to this many traces
 TRACE_ATTEMPTS = 3
+SPIN_CYCLES = 100000           # ~0.05 ms at the H100's clock
 
 
 def traced_kernels(fn, reps=1, before=None):
     """The device kernels ``reps`` calls of ``fn`` launch, as
     torch.profiler traces them: [(name, microseconds)].  The profiler
     first runs one warm-up round of the same calls, whose events it
-    drops; ``before`` runs between the two rounds."""
+    drops; ``before`` runs between the two rounds.  Each round's calls
+    sit between two short spin kernels (``torch.cuda._sleep``), left out
+    of the result: a trace that drops the first or the last kernel
+    event of its window (seen on the card after long runs, every retry
+    4 of 5 K2 calls) drops a spin kernel instead."""
     import os
     import tempfile
     import torch
@@ -801,14 +955,17 @@ def traced_kernels(fn, reps=1, before=None):
             for cycle in range(2):
                 if cycle and before is not None:
                     before()
+                torch.cuda._sleep(SPIN_CYCLES)
                 for _ in range(reps):
                     fn()
+                torch.cuda._sleep(SPIN_CYCLES)
                 torch.cuda.synchronize()
                 prof.step()
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     return [(e["name"], e["dur"]) for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+            if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and "spin_kernel" not in e["name"]]
 
 
 def profiled_kernels(fn, kernel, reps=1, expect=None):
@@ -998,12 +1155,14 @@ def run_full_timed(label, regridding, nsteps, wrappers, shape):
 
 
 def read_counts(wrappers):
-    """Every wrapper's launches, and the untargeted and the porous K1
-    sweeps as K1u and K1p."""
+    """Every wrapper's launches, the untargeted and the porous K1 sweeps
+    as K1u and K1p, and K3's open-face launches as K3o."""
+    from mom6_torch.core import barotropic_cuda as bc
     from mom6_torch.core import continuity_cuda as cc
     counts = {k: w.launches for k, w in wrappers.items()}
     counts["K1u"] = cc.continuity_ppm_cuda.untargeted_launches
     counts["K1p"] = cc.continuity_ppm_cuda.porous_launches
+    counts["K3o"] = bc.subcycle_cuda.obc_launches
     return counts
 
 
@@ -1051,8 +1210,9 @@ def run_new_timed(dynamics, wrappers, shape, extra=None):
                              f"expected {expect}")
     check_device_launches(dynamics, device, counts)
     st, sp, tr = cur
-    fields = [("h", st.h), ("u", st.u), ("v", st.v), ("T", st.T),
-              ("S", st.S), ("age", tr["age"])]
+    fields = [(k, f) for k, f in (("h", st.h), ("u", st.u), ("v", st.v),
+                                  ("T", st.T), ("S", st.S))
+              if f is not None] + sorted(tr.items())
     if sp is not None:
         fields += [(f.name, getattr(sp, f.name))
                    for f in dataclasses.fields(sp)]
@@ -1098,6 +1258,64 @@ def run_new_timed(dynamics, wrappers, shape, extra=None):
     return dict(ms_step=ms_full, by_kind={k: sum(v) / len(v)
                                           for k, v in by_kind.items() if v},
                 launches=counts, peak_bytes=peak, **more)
+
+
+def obc_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_OBC: each dye on the compute domain within
+    [0, 1], to 1e-5 (float32 rounding of the advected unit values)."""
+    _, _, tr = cur
+    ranges = {}
+    for k in sorted(tr):
+        if not k.startswith("dye"):
+            continue
+        f = m.domain.interior(tr[k])
+        lo, hi = float(f.min()), float(f.max())
+        ranges[k] = (lo, hi)
+        if not (-1e-5 <= lo and hi <= 1.0 + 1e-5):
+            raise AssertionError(f"{k} range [{lo!r}, {hi!r}] leaves "
+                                 "[0, 1]")
+    log("  dyes on the compute domain: " + ", ".join(
+        f"{k} [{lo:.3e}, {hi:.6f}]" for k, (lo, hi) in ranges.items()))
+    return dict(dye_ranges=ranges)
+
+
+def run_text(text, ni, nj, nk, dtype, device, nsteps, seed, tmp):
+    """``nsteps`` steps of the configuration ``text`` (INPUTDIR ``tmp``,
+    where configs.write_obc_data writes the E data from seed 0) at
+    ``ni`` x ``nj`` x ``nk`` with 10 km cells, from its initial state
+    plus the seeded noise of entry.build_full."""
+    import numpy as np
+    import torch
+    from mom6_torch import configs
+    from mom6_torch.core.dynamics_split_rk2 import init_split_state
+    from mom6_torch.framework.config import ParamFile
+    from mom6_torch.model import build_model
+    configs.write_obc_data(str(tmp), ni, nj, seed=0)
+    text += (f"#override NIGLOBAL = {ni}\n#override NJGLOBAL = {nj}\n"
+             f"#override NK = {nk}\n#override LENLON = {ni * 10.0}\n"
+             f"#override LENLAT = {nj * 10.0}\n" + configs.obc_strip(ni)
+             + f"INPUTDIR = {tmp}\n")
+    m = build_model(ParamFile(text=text), device=device, dtype=dtype)
+    d, g = m.domain, m.grid
+    rng = np.random.default_rng(seed)
+
+    def noisy(a, scale, mask=None):
+        x = a + torch.as_tensor(scale * rng.standard_normal(tuple(a.shape)),
+                                dtype=dtype, device=device)
+        return d.fill_halos(x if mask is None else x * mask)
+
+    st = m.state
+    st = st.replace(h=noisy(st.h, 2.0),
+                    T=None if st.T is None else noisy(st.T, 0.5),
+                    u=noisy(st.u, 0.05, g.mask2dCu),
+                    v=noisy(st.v, 0.05, g.mask2dCv))
+    sp = init_split_state(d, g, m.vgrid, st,
+                          horvisc_cfg=m.cfg.split_cfg.horvisc)
+    step = m.step_fn()
+    tr = m.tracers
+    for n in range(nsteps):
+        st, sp, tr = step(st, sp, tr, n)
+    return st, sp, tr, step.obc_reservoirs()
 
 
 def b1_extra(m, cur, fstep, n_done):
@@ -1246,6 +1464,7 @@ def case_dir(tmp, name, text):
 
 
 def zero_counts(wrappers):
+    from mom6_torch.core import barotropic_cuda as bc
     from mom6_torch.core import continuity_cuda as cc
     for w in wrappers.values():
         w.launches = 0
@@ -1253,6 +1472,7 @@ def zero_counts(wrappers):
         wrappers[k].device_launches = 0
     cc.continuity_ppm_cuda.untargeted_launches = 0
     cc.continuity_ppm_cuda.porous_launches = 0
+    bc.subcycle_cuda.obc_launches = 0
 
 
 def check_driver_launches(label, wrappers, expect):
@@ -1266,16 +1486,21 @@ def check_driver_launches(label, wrappers, expect):
 
 
 def run_driver_case(tmp, wrappers, case="double_gyre", days=GYRE_DAYS,
-                    per_step=None):
+                    per_step=None, edits=()):
     """The solo driver on cases/double_gyre (a closed basin, NK = 2,
     K3 with walls in x) for GYRE_DAYS in fp64, or on ``case`` for
     ``days`` with ``per_step`` launches a step, on the card with every
     launch counter zeroed just before and read just after, then with
     --cpu; every ocean.stats field of the two agrees to 1e-9 relative
     (SL and the mass error, roundoff-sized, to 1e-12 absolute) with the
-    same truncations."""
+    same truncations.  ``edits``: (old, new) replacements in the case's
+    MOM_input."""
     from mom6_torch.drivers import solo
     text = (ROOT / "cases" / case / "MOM_input").read_text()
+    for old, new in edits:
+        if old not in text:
+            raise AssertionError(f"{case}: no {old!r} to edit")
+        text = text.replace(old, new)
     d_card = case_dir(tmp, f"{case}_card", text)
     d_cpu = case_dir(tmp, f"{case}_cpu", text)
     zero_counts(wrappers)
@@ -1444,7 +1669,8 @@ def main():
         f"({', '.join(cuda_build.SOURCES)})")
     log_resources(logs.get("continuity", ""), "sweep_kernel")
     log_resources(logs.get("continuity", ""), "bt_cont_kernel")
-    log_resources(logs.get("barotropic", ""), "subcycle_kernel")
+    subcycle_ptxas = subcycle_resources(
+        log_resources(logs.get("barotropic", ""), "subcycle_kernel"))
     log_band_plans()
 
     # 3. kernels against their plain versions
@@ -1493,6 +1719,17 @@ def main():
         "vs plain")
     for dtype in (torch.float64, torch.float32):
         check_bt_options(res, *MAIN, dtype)
+    torch.cuda.empty_cache()
+    import tempfile
+    log("phase 3 open boundaries: K3's open-face instance vs plain, and K1 "
+        "on OBC-extended halos, exact")
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in (torch.float64, torch.float32):
+            for shape in (MAIN, GYRE):
+                main_shape = dtype == torch.float32 and shape == MAIN
+                check_k3_obc(res, *shape, dtype, tmp,
+                             timing if main_shape else None)
+                check_k1_obc(res, *shape, dtype, tmp)
     torch.cuda.empty_cache()
     ms, plain_ms, inp = timing.pop("K3 wide")
     b_ms, b_by = bound(*subcycle_work(inp), 4, "float32")
@@ -1645,6 +1882,44 @@ def main():
         log(f"  {label} on the card: launches {counts}")
     fp32_departure(4)
 
+    # 6d. open boundaries at 32x32x6 fp64
+    from mom6_torch import configs
+    seg_text = (configs.BENCH_CONFIG + "#override REENTRANT_X = False\n"
+                + "".join(ln + "\n" for ln in configs.OBC_LINES.splitlines()
+                          if ln.startswith(("OBC_NUMBER", "OBC_SEGMENT"))))
+    for label, text, n in (("BENCH_CONFIG_OBC", configs.BENCH_CONFIG_OBC, 4),
+                           ("bench.py CONFIG with segments", seg_text, 2)):
+        log(f"phase 6d {label} %dx%dx%d fp64, {n} steps: card vs cpu"
+            % SMALL_FULL)
+        zero_counts(wrappers)
+        with tempfile.TemporaryDirectory() as tmp:
+            gst, gsp, gtr, gres = run_text(text, *SMALL_FULL, torch.float64,
+                                           DEV, n, 3, tmp)
+        counts = read_counts(wrappers)
+        with tempfile.TemporaryDirectory() as tmp:
+            cst, csp, ctr, cres = run_text(text, *SMALL_FULL, torch.float64,
+                                           "cpu", n, 3, tmp)
+        pairs = [(k, getattr(cst, k), getattr(gst, k))
+                 for k in ("h", "u", "v", "T", "S")
+                 if getattr(cst, k) is not None]
+        pairs += [(k, ctr[k], gtr[k]) for k in sorted(ctr)]
+        pairs += [(k, getattr(csp, k), getattr(gsp, k))
+                  for k in ("eta", "u_av", "v_av")]
+        for name, a, b in pairs:
+            rel, diff = rel_err(a, b.cpu())
+            log(f"  {label} {name}: max rel err {rel:.3e} (limit 1e-09)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"{label} {name}: {rel:.3e} > 1e-9")
+        worst = max(float((cres[k][e] - gres[k][e].cpu()).abs().max())
+                    for k in cres for e in cres[k])
+        log(f"  {label} reservoirs: max abs err {worst:.3e} (limit 1e-09)")
+        if not worst <= 1e-9:
+            raise AssertionError(f"{label} reservoirs: {worst:.3e}")
+        if counts["K3o"] != counts["K3"] or counts["K3"] != 2 * n \
+                or counts["K2"] or counts["K3m"]:
+            raise AssertionError(f"{label}: launches {counts}")
+        log(f"  {label} on the card: launches {counts}")
+
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
     for label, regridding in FULL_VARIANTS:
@@ -1680,8 +1955,13 @@ def main():
                                   b1_extra if dyn == "b1" else None)
         torch.cuda.empty_cache()
 
+    # 7d. open boundaries at full width, fp32
+    log("phase 7d obc (configs.BENCH_CONFIG_OBC, layered, adiabatic) "
+        "%dx%dx%d fp32" % MAIN)
+    full["obc"] = run_new_timed("obc", wrappers, shape, obc_extra)
+    torch.cuda.empty_cache()
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
-    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
             + f"{GYRE_DAYS} days, card vs cpu")
@@ -1695,7 +1975,14 @@ def main():
         launches_tc0 = run_driver_case(
             tmp, wrappers, "tc0", TC0_DAYS,
             {k: v for k, v in PER_STEP["unsplit"].items()
-             if k not in ("K1u", "K1p")})
+             if k not in ("K1u", "K1p", "K3o")})
+        log(f"phase 8 driver: cases/tc3 10x10x1 fp64 (SSH 0.1 m on a "
+            f"segment, three dyes), {TC3_DAYS} days, card vs cpu")
+        launches_tc3 = run_driver_case(
+            tmp, wrappers, "tc3", TC3_DAYS,
+            {"K1": 4, "K2": 0, "K3": 2, "K3m": 0}, edits=TC3_EDITS)
+        if barotropic_cuda.subcycle_cuda.obc_launches != launches_tc3["K3"]:
+            raise AssertionError("driver tc3: K3 ran its closed instance")
     log("phase 8 cases/ref_tc0 through build_model + step_fn, fp64, "
         "against its golden")
     launches_ref_tc0 = run_ref_tc0(wrappers)
@@ -1765,9 +2052,11 @@ def main():
                 "unsplit_full_step": full["unsplit"]["launches"][k],
                 "b1_full_step": full["b1"]["launches"][k],
                 "nonbouss_full_step": full["nonbouss"]["launches"][k],
+                "obc_full_step": full["obc"]["launches"][k],
                 "solo_double_gyre": launches_gyre[k],
                 "solo_bench_config": launches_bench[k],
                 "solo_tc0": launches_tc0[k],
+                "solo_tc3": launches_tc3[k],
                 "ref_tc0": launches_ref_tc0[k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
@@ -1792,7 +2081,37 @@ def main():
         profiled_device_ms=por["profiled_device_ms"],
         with_fractions_ms=por["with_fractions_ms"],
         untargeted=modes["K1"]["porous_untargeted"]))
-    for dyn in ("b1", "nonbouss"):
+    # K3's open-face instance: its launches on the OBC path, its time at
+    # the main path's shape beside its bound and the plain version's
+    ms, plain_ms, (inp, edges) = timing["K3o"]
+    elems, ops = subcycle_work(inp)
+    n_faces = sum(e[0].numel() for e in edges if e is not None)
+    b_ms, b_by = bound(elems + 4 * n_faces, ops + 2 * OPS_FLATHER
+                       * n_faces * inp.wts.shape[1], 4, "float32")
+    n_obc = full["obc"]["launches"]["K3o"]
+    call = functools.partial(barotropic_cuda.subcycle_cuda, *inp[:-1],
+                             obc=edges)
+    n_prof, n_all, dev_ms = profiled_kernels(call, "subcycle_kernel",
+                                             PROFILE_REPS, PROFILE_REPS)
+    if n_prof != PROFILE_REPS:
+        raise AssertionError(f"K3o: torch.profiler traced {n_prof} "
+                             f"subcycle kernels in {PROFILE_REPS} launches")
+    log(f"  K3o {OBC_KERNEL['name']}: {ms:.4f} ms per subcycle (CUDA "
+        f"events), {dev_ms:.4f} ms (profiler), bound {b_ms:.4f} ms "
+        f"({b_by}), plain {plain_ms:.4f} ms, launches {n_obc} "
+        f"({bc_plan(inp)}, {inp.wts.shape[1]} substeps)")
+    records.append(dict(
+        OBC_KERNEL, launches=n_obc,
+        launches_by_path={"obc_full_step": n_obc,
+                          "solo_tc3": launches_tc3["K3"]},
+        max_abs_err=res.err["K3o"]["float32"][1],
+        max_rel_err_fp32=res.err["K3o"]["float32"][0],
+        max_rel_err_fp64=res.err["K3o"]["float64"][0],
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, unit="per subcycle", profiled_device_ms=dev_ms,
+        profiled_kernels_per_call=n_prof / PROFILE_REPS,
+        ptxas=subcycle_ptxas))
+    for dyn in ("b1", "nonbouss", "obc"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())

@@ -26,14 +26,29 @@ non-Boussinesq (h carries mass) with channel and linear drag, the wind
 stress as a body force, the dynamic viscous mixed layer and a
 velocity-scale floor on the biharmonic viscosity.
 
+``BENCH_CONFIG_OBC`` is a regional, adiabatic configuration on bench.py's
+grid: walls only in y, 25 uniform layers at rest with no thermodynamics
+and no GM thickness diffusion (whose halo refresh would clear the
+thickness beyond the open edges, so that inflow carried no tracer),
+bench.py's gyre wind, viscosities and DT, and three open segments with
+Flather barotropic and Orlanski baroclinic radiation: the whole W edge
+with a 0.05 m/s inflow, the whole E edge nudged to the profiles of
+``obc_east.nc`` in INPUTDIR (two records a day apart, interpolated in
+time; ``write_obc_data`` writes one from a seed), and a strip over the
+middle half of the S edge (``obc_strip`` gives its line at other
+widths); one dye per segment (NUM_DYE_TRACERS), and the free-slip
+vorticity and strain and no biharmonic stress at the open faces.
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
 import numpy as np
 
 __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
-           "BENCH_CONFIG_B1", "BENCH_CONFIG_NONBOUSS", "B1_LINES",
-           "NONBOUSS_LINES", "topog_edge_fields", "write_topog_edge"]
+           "BENCH_CONFIG_B1", "BENCH_CONFIG_NONBOUSS", "BENCH_CONFIG_OBC",
+           "B1_LINES", "NONBOUSS_LINES", "OBC_LINES", "obc_strip",
+           "obc_east_fields", "topog_edge_fields", "write_obc_data",
+           "write_topog_edge"]
 
 BENCH_CONFIG = """
 NIGLOBAL = 512
@@ -116,9 +131,65 @@ BT_PROJECT_VELOCITY = True
 AH_VEL_SCALE = 0.01
 """
 
+OBC_LINES = """#override REENTRANT_X = False
+#override USE_REGRIDDING = False
+#override KHTH = 0.0
+ENABLE_THERMODYNAMICS = False
+ADIABATIC = True
+OBC_NUMBER_OF_SEGMENTS = 3
+OBC_SEGMENT_001 = "I=0,J=0:N,FLATHER,ORLANSKI"
+OBC_SEGMENT_001_DATA = "U=value:0.05,V=value:0.0,SSH=value:0.0"
+OBC_SEGMENT_002 = "I=N,J=0:N,FLATHER,ORLANSKI,NUDGED"
+OBC_SEGMENT_002_DATA = "U=file:obc_east.nc(u),SSH=file:obc_east.nc(ssh)"
+OBC_SEGMENT_002_VELOCITY_NUDGING_TIMESCALES = 0.3, 3.0
+OBC_SEGMENT_003 = "J=0,I=128:384,FLATHER,ORLANSKI"
+NUM_DYE_TRACERS = 3
+OBC_FREESLIP_VORTICITY = True
+OBC_FREESLIP_STRAIN = True
+OBC_ZERO_BIHARMONIC = True
+"""
+
 BENCH_CONFIG_B1 = BENCH_CONFIG + B1_LINES
 
 BENCH_CONFIG_NONBOUSS = BENCH_CONFIG + NONBOUSS_LINES
+
+BENCH_CONFIG_OBC = BENCH_CONFIG + OBC_LINES
+
+
+def obc_strip(ni: int) -> str:
+    """The override of BENCH_CONFIG_OBC's S segment at ``ni`` points:
+    the strip over the middle half of the edge."""
+    return (f'#override OBC_SEGMENT_003 = "J=0,I={ni // 4}:{3 * ni // 4},'
+            'FLATHER,ORLANSKI"\n')
+
+
+def obc_east_fields(nj: int, seed: int) -> dict:
+    """The E segment's data of ``BENCH_CONFIG_OBC`` on an edge of ``nj``
+    points: two records, a day apart, of an along-edge inflow profile
+    ``u`` (-0.05 m/s with a +-0.01 m/s mode and seeded noise of 2 mm/s)
+    and an ssh profile ``ssh`` (a 1 cm tilt with 2 mm of noise), the
+    second record a tenth weaker in u and of opposite tilt."""
+    rng = np.random.default_rng(seed)
+    y = (np.arange(nj) + 0.5) / nj
+    u0 = -0.05 + 0.01 * np.sin(2.0 * np.pi * y)
+    ssh0 = 0.01 * (y - 0.5)
+    u = np.stack([u0, 0.9 * u0]) + 0.002 * rng.standard_normal((2, nj))
+    ssh = np.stack([ssh0, -ssh0]) + 0.002 * rng.standard_normal((2, nj))
+    return {"time": np.array([0.0, 1.0]), "u": u, "ssh": ssh}
+
+
+def write_obc_data(indir: str, ni: int, nj: int, seed: int) -> None:
+    """``obc_east.nc`` of ``obc_east_fields`` in ``indir``, for a grid of
+    ``ni`` x ``nj`` points, with its time axis in days."""
+    import os
+    from mom6_torch.framework.io import write_fields
+    del ni    # the E edge runs along y
+    f = obc_east_fields(nj, seed)
+    write_fields(os.path.join(indir, "obc_east.nc"), f,
+                 dims={"time": ("time",), "u": ("time", "ny"),
+                       "ssh": ("time", "ny")},
+                 attrs={"time": {"units": "days since 0001-01-01"},
+                        "u": {"units": "m s-1"}, "ssh": {"units": "m"}})
 
 
 def topog_edge_fields(shape, seed: int) -> dict:

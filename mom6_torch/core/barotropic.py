@@ -16,6 +16,13 @@ no halo refresh while the valid region shrinks 3 rings per substep,
 the wide halos are refreshed on each chunk's last substep, and the
 weighted sums are narrowed back at the end (kernel K3m on CUDA
 tensors, its plain loop on CPU tensors).
+
+With open boundaries (``obc``) the exchange period is 1 and the
+transports linear unless BT_cont curves are passed; the subcycle applies
+the Flather radiation at the open faces after the velocity updates and
+again after each halo refresh, which extends eta through the open edges
+(kernel K3's open-face instance on CUDA tensors).  ``obc_edges`` gives
+the along-edge data that both versions read.
 """
 
 from __future__ import annotations
@@ -32,9 +39,9 @@ from mom6_torch.core.vertical_grid import VerticalGrid
 from mom6_torch.parallel.domain import Domain, tree_map
 from mom6_torch.parallel.stencil import ip1, im1, jp1, jm1
 
-__all__ = ["BarotropicCfg", "BTResult", "SubcycleInputs", "btcalc",
-           "btstep", "find_uhbt", "march_period", "set_dtbt",
-           "subcycle_inputs"]
+__all__ = ["BarotropicCfg", "BTResult", "ObcEdges", "SubcycleInputs",
+           "btcalc", "btstep", "find_uhbt", "march_period", "obc_edges",
+           "set_dtbt", "subcycle_inputs"]
 
 _H_NEGLECT = 1e-20
 BT_HALO = 3       # rings refreshed after every substep
@@ -207,6 +214,62 @@ class SubcycleInputs(NamedTuple):
     period: int
 
 
+class ObcEdges(NamedTuple):
+    """The open edges of a subcycle, each None when closed or a tuple
+    (mask, coef, vel, ssh) of vectors along the edge (the padded rows of
+    W/E, the padded columns of S/N): the segment strip at the boundary
+    face, the Flather factor sqrt(g D)/D on the face depths, the
+    external normal velocity and the external ssh."""
+    w: tuple | None
+    e: tuple | None
+    s: tuple | None
+    n: tuple | None
+
+
+def obc_edges(obc, consts: dict, g: float) -> ObcEdges:
+    """The edge vectors of ``obc`` for a subcycle whose constant planes
+    are ``consts`` (``Du_q`` and ``Dv_q`` are the face depths), computed
+    once a btstep on the planes' device."""
+    H, ni, nj = obc.halo, obc.nil, obc.njl
+    ref = consts["Du_q"]
+
+    def along(v, n):
+        if torch.is_tensor(v):
+            v = v.to(device=ref.device, dtype=ref.dtype)
+            return v.expand(n).contiguous() if v.dim() == 0 else v
+        return torch.full((n,), float(v), device=ref.device,
+                          dtype=ref.dtype)
+
+    def cols(is_open, strip, vel, ssh, D, i):
+        if not is_open:
+            return None
+        n = D.shape[0]
+        mask = torch.ones(n, device=ref.device, dtype=ref.dtype) \
+            if strip is None else strip[:, i].to(ref.dtype)
+        return (mask.contiguous(),
+                obc.wave_over_depth(D[:, i], g).contiguous(),
+                along(obc._xval(vel, i), n).contiguous(),
+                along(obc._xval(ssh, i), n).contiguous())
+
+    def rows(is_open, strip, vel, ssh, D, j):
+        if not is_open:
+            return None
+        n = D.shape[1]
+        mask = torch.ones(n, device=ref.device, dtype=ref.dtype) \
+            if strip is None else strip[j, :].to(ref.dtype)
+        return (mask.contiguous(),
+                obc.wave_over_depth(D[j, :], g).contiguous(),
+                along(obc._yval(vel, j), n).contiguous(),
+                along(obc._yval(ssh, j), n).contiguous())
+
+    Du, Dv = consts["Du_q"], consts["Dv_q"]
+    return ObcEdges(
+        w=cols(obc.open_w, obc.strip_w, obc.u_w, obc.ssh_w, Du, H - 1),
+        e=cols(obc.open_e, obc.strip_e, obc.u_e, obc.ssh_e, Du, H + ni - 1),
+        s=rows(obc.open_s, obc.strip_s, obc.v_s, obc.ssh_s, Dv, H - 1),
+        n=rows(obc.open_n, obc.strip_n, obc.v_n, obc.ssh_n, Dv, H + nj - 1))
+
+
 def march_period(cfg: BarotropicCfg) -> int:
     """The exchange period: BT_WIDE_HALO_PERIOD rounded up to an even
     count when above 1 (barotropic.py:505-519 of the JAX package)."""
@@ -257,8 +320,6 @@ def _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
            vhbt_in):
     """(SubcycleInputs, the constant planes on ``domain`` before any
     widening), the latter for the per-layer accelerations."""
-    if obc is not None:
-        raise NotImplementedError("OBC: open boundary segments")
     nstep = cfg.nstep if nstep is None else nstep
     dtbt = dt / nstep
     if visc_rem_u is None:
@@ -382,8 +443,10 @@ def _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
 
     # DT_BT_FILTER window adds nfilt substeps past dt; the count is
     # padded to a whole number of chunks (u-first/v-first parity pairs,
-    # or the march's exchange period) with zero weights on the padding
-    period = march_period(cfg)
+    # or the march's exchange period) with zero weights on the padding.
+    # Open faces take their Flather update every substep, so segments
+    # keep the exchange period at 1
+    period = 1 if obc is not None else march_period(cfg)
     chunk = max(2, period)
     if cfg.dt_bt_filter >= 0.0:
         dt_filt = 0.5 * max(0.0, min(cfg.dt_bt_filter, 2.0 * dt))
@@ -416,9 +479,9 @@ def btstep(domain: Domain, grid: Grid, vgrid: VerticalGrid,
            bt_cont=None, eta_cor=None,
            uhbt_in=None, vhbt_in=None) -> BTResult:
     """One barotropic solve over the baroclinic step dt (btstep of the
-    JAX package): set-up, the subcycle (kernel K3 on CUDA tensors, or
-    the wide-halo march K3m when ``wide_halo_period > 1``) and the
-    per-layer accelerations."""
+    JAX package): set-up, the subcycle (kernel K3 on CUDA tensors, its
+    open-face instance with ``obc``, or the wide-halo march K3m when
+    ``wide_halo_period > 1``) and the per-layer accelerations."""
     from mom6_torch.core.barotropic_cuda import (subcycle_cuda,
                                                  subcycle_march_cuda)
     inp, c = _setup(domain, grid, vgrid, u_in, v_in, eta_in, h, bc_accel_u,
@@ -429,7 +492,8 @@ def btstep(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         _, _, _, sums = subcycle_march_cuda(*inp)
         sums = _narrow(domain, inp.domain, sums)
     else:
-        _, _, _, sums = subcycle_cuda(*inp[:-1])
+        edges = None if obc is None else obc_edges(obc, c, vgrid.g_Earth)
+        _, _, _, sums = subcycle_cuda(*inp[:-1], obc=edges)
         # consumers need valid rings at the wrap faces: refresh them
         sums = domain.fill_halos(sums, width=BT_HALO)
 

@@ -12,9 +12,15 @@ the whole subcycle through ``csrc/barotropic.cu`` in one persistent
 cooperative launch (one block per SM, each owning a fixed band of
 points for every substep, of any length; ``band_plan`` cuts the bands);
 a CPU tensor runs ``subcycle_plain`` / ``subcycle_march_plain``, the
-``_one``/``block`` loop of mom6_tpu/core/barotropic.py:624-698.  Each
-wrapper's ``launches`` grows by one per subcycle and its
-``device_launches`` by the device launches that subcycle issued.  See
+``_one``/``block`` loop of mom6_tpu/core/barotropic.py:624-698.  With
+open boundaries (``obc``, the ``ObcEdges`` of barotropic.py) K3 runs its
+open-face instance and the plain loop applies the Flather radiation at
+the open faces after the two velocity updates and again, with the new
+eta extended through the open edges, after the refresh
+(barotropic.py:651-670 of the JAX package).  Each wrapper's
+``launches`` grows by one per subcycle and its ``device_launches`` by
+the device launches that subcycle issued; ``subcycle_cuda``'s
+``obc_launches`` counts the launches of the open-face instance.  See
 csrc/barotropic.cu for what bounds the kernels on an H100 and how their
 design answers it.
 """
@@ -46,12 +52,63 @@ SUM_NAMES = ("uhbt", "vhbt", "eta", "accel_u", "accel_v", "ubt", "vbt")
 
 def subcycle_plain(eta, ubt, vbt, consts: dict, use_curve: bool,
                    wts: np.ndarray, dtbt: float, bebt: float,
-                   domain: Domain):
+                   domain: Domain, obc=None):
     """``wts.shape[1]`` forward-backward substeps, u first on even ones,
     with a width-3 halo refresh after each and the seven weighted sums
-    (wts rows: vel, eta, trans, accel).  Returns (eta, ubt, vbt, sums)."""
+    (wts rows: vel, eta, trans, accel).  ``obc``: the ``ObcEdges`` of the
+    open edges.  Returns (eta, ubt, vbt, sums)."""
     return _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
-                       domain, 1, BT_HALO)
+                       domain, 1, BT_HALO, obc)
+
+
+def _flather(ubt, vbt, eta, obc, H: int, ni: int, nj: int):
+    """ubt at the open W/E faces and vbt at the open S/N faces by Flather
+    radiation, 0.5 ((v_inlet + v_ext) + c (eta_in - ssh_ext)) with the
+    sign of the eta difference outward, inside each edge's strip."""
+    def blend(a, sel, val, mask):
+        out = a.clone()
+        out[sel] = torch.where(mask > 0, val, a[sel])
+        return out
+
+    iE, jN = H + ni - 1, H + nj - 1
+    if obc.e is not None:
+        mask, coef, vel, ssh = obc.e
+        ubt = blend(ubt, (slice(None), iE), 0.5 * (
+            (ubt[:, iE - 1] + vel) + coef * (eta[:, iE] - ssh)), mask)
+    if obc.w is not None:
+        mask, coef, vel, ssh = obc.w
+        ubt = blend(ubt, (slice(None), H - 1), 0.5 * (
+            (ubt[:, H] + vel) + coef * (ssh - eta[:, H])), mask)
+    if obc.n is not None:
+        mask, coef, vel, ssh = obc.n
+        vbt = blend(vbt, (jN, slice(None)), 0.5 * (
+            (vbt[jN - 1, :] + vel) + coef * (eta[jN, :] - ssh)), mask)
+    if obc.s is not None:
+        mask, coef, vel, ssh = obc.s
+        vbt = blend(vbt, (H - 1, slice(None)), 0.5 * (
+            (vbt[H, :] + vel) + coef * (ssh - eta[H, :])), mask)
+    return ubt, vbt
+
+
+def _extend(eta, obc, H: int, ni: int, nj: int):
+    """eta's edge value copied into the halo beyond each open edge, W, E,
+    then S, N (OpenBoundaries.extend on the edges' strips)."""
+    eta = eta.clone()
+    if obc.w is not None:
+        eta[:, :H] = torch.where(obc.w[0][:, None] > 0, eta[:, H:H + 1],
+                                 eta[:, :H])
+    if obc.e is not None:
+        eta[:, H + ni:] = torch.where(obc.e[0][:, None] > 0,
+                                      eta[:, H + ni - 1:H + ni],
+                                      eta[:, H + ni:])
+    if obc.s is not None:
+        eta[:H, :] = torch.where(obc.s[0][None, :] > 0, eta[H:H + 1, :],
+                                 eta[:H, :])
+    if obc.n is not None:
+        eta[H + nj:, :] = torch.where(obc.n[0][None, :] > 0,
+                                      eta[H + nj - 1:H + nj, :],
+                                      eta[H + nj:, :])
+    return eta
 
 
 def subcycle_march_plain(eta, ubt, vbt, consts: dict, use_curve: bool,
@@ -76,8 +133,9 @@ def _check_march(domain: Domain, period: int, wts: np.ndarray):
 
 
 def _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
-                domain: Domain, every: int, width: int):
+                domain: Domain, every: int, width: int, obc=None):
     c = consts
+    H, ni, nj = domain.halo, domain.ni, domain.nj
     if use_curve:
         def trans_u(u):
             return find_uhbt(u, *c["cu"]) + c["uhbt0"]
@@ -128,12 +186,17 @@ def _plain_loop(eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
             cu = cor_u(vbt2) - c["Cor_ref_u"]
             ubt2 = c["bt_rem_u"] * (ubt + dtbt * ((c["BT_force_u"] + cu)
                                                   + pf_u))
+        if obc is not None:
+            ubt2, vbt2 = _flather(ubt2, vbt2, eta, obc, H, ni, nj)
         uhbt2 = trans_u(ubt2)
         vhbt2 = trans_v(vbt2)
         eta2 = (eta + c["eta_src"]) - dtbt * div(uhbt2, vhbt2)
         eta, ubt, vbt = eta2, ubt2, vbt2
         if n % every == every - 1:
             eta, ubt, vbt = domain.fill_halos((eta, ubt, vbt), width=width)
+            if obc is not None:
+                eta = _extend(eta, obc, H, ni, nj)
+                ubt, vbt = _flather(ubt, vbt, eta, obc, H, ni, nj)
         sums = dict(uhbt=sums["uhbt"] + w_t * uhbt2,
                     vhbt=sums["vhbt"] + w_t * vhbt2,
                     eta=sums["eta"] + w_e * eta,
@@ -214,6 +277,11 @@ def _lib():
                            + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
                            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
             fn.restype = ctypes.c_int
+        fn = getattr(lib, f"bt_subcycle_obc_{t}")
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
     lib.bt_device_info.argtypes = [ctypes.c_int] \
         + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.bt_device_info.restype = ctypes.c_int
@@ -245,14 +313,21 @@ def launch_plan(eta: torch.Tensor, use_curve: bool) -> BandPlan:
 
 def subcycle_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
                   wts: np.ndarray, dtbt: float, bebt: float,
-                  domain: Domain):
-    """The barotropic subcycle: K3 on CUDA tensors, ``subcycle_plain``
-    on CPU tensors.  Same arguments and result as ``subcycle_plain``."""
+                  domain: Domain, obc=None):
+    """The barotropic subcycle: K3 on CUDA tensors (its open-face
+    instance with ``obc``), ``subcycle_plain`` on CPU tensors.  Same
+    arguments and result as ``subcycle_plain``."""
     if not eta.is_cuda:
         return subcycle_plain(eta, ubt, vbt, consts, use_curve, wts, dtbt,
-                              bebt, domain)
-    out, n_dev = _launch("bt_subcycle", eta, ubt, vbt, consts, use_curve,
-                         wts, dtbt, bebt, domain, BT_HALO, ())
+                              bebt, domain, obc)
+    if obc is None:
+        out, n_dev = _launch("bt_subcycle", eta, ubt, vbt, consts,
+                             use_curve, wts, dtbt, bebt, domain, BT_HALO, ())
+    else:
+        out, n_dev = _launch("bt_subcycle_obc", eta, ubt, vbt, consts,
+                             use_curve, wts, dtbt, bebt, domain, BT_HALO, (),
+                             obc)
+        subcycle_cuda.obc_launches += 1
     subcycle_cuda.launches += 1
     subcycle_cuda.device_launches += n_dev
     return out
@@ -275,8 +350,27 @@ def subcycle_march_cuda(eta, ubt, vbt, consts: dict, use_curve: bool,
     return out
 
 
+def _edge_pointers(obc, eta) -> list:
+    """The 16 edge-vector pointers of the open-face instance, W, E, S, N
+    with (mask, coef, vel, ssh) each, None for a closed edge; the
+    vectors are kept alive by ``obc``."""
+    nj, ni = eta.shape
+    ptrs = []
+    for e, n in ((obc.w, nj), (obc.e, nj), (obc.s, ni), (obc.n, ni)):
+        if e is None:
+            ptrs += [None] * 4
+            continue
+        for v in e:
+            if v.shape != (n,) or v.dtype != eta.dtype \
+                    or v.device != eta.device or not v.is_contiguous():
+                raise ValueError("open-edge vectors must be contiguous, "
+                                 "along the edge, in eta's dtype and device")
+            ptrs.append(v.data_ptr())
+    return ptrs
+
+
 def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
-            domain, width, extra):
+            domain, width, extra, obc=None):
     """One persistent launch; returns (the subcycle's result, the device
     launches issued)."""
     if eta.dtype == torch.float32:
@@ -304,16 +398,23 @@ def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
     eta_b = torch.empty_like(eta_a)
     ubt_s = ubt.contiguous().clone()
     vbt_s = vbt.contiguous().clone()
-    # d_eta and the face transports, two buffers each for u and v
-    scratch = torch.empty((5, nj, ni), dtype=eta.dtype, device=eta.device)
+    # d_eta and the face transports, two buffers each for u and v; with
+    # open faces also the final ubt and vbt of the Flather faces, held
+    # until the next substep
+    scratch = torch.empty((5 if obc is None else 7, nj, ni),
+                          dtype=eta.dtype, device=eta.device)
     sums = torch.empty((len(SUM_NAMES), nj, ni), dtype=eta.dtype,
                        device=eta.device)
     state = [eta_a, eta_b, ubt_s, vbt_s, *scratch.unbind(0), sums]
     n_dev = ctypes.c_int(0)
+    head = [(ctypes.c_void_p * len(const_ptrs))(*const_ptrs),
+            (ctypes.c_void_p * len(state))(*(t.data_ptr() for t in state))]
+    if obc is not None:
+        edge = _edge_pointers(obc, eta)
+        head.append((ctypes.c_void_p * len(edge))(*edge))
     rc = getattr(_lib(), f"{entry}_{suffix}")(
-        (ctypes.c_void_p * len(const_ptrs))(*const_ptrs),
-        (ctypes.c_void_p * len(state))(*(t.data_ptr() for t in state)),
-        wt.data_ptr(), nj, ni, domain.halo, domain.ni, domain.nj, width,
+        *head, wt.data_ptr(), nj, ni, domain.halo, domain.ni, domain.nj,
+        width,
         int(domain.reentrant_x), int(domain.reentrant_y), int(use_curve),
         wt.shape[1], *extra, float(dtbt), float(bebt), plan.blocks,
         plan.points_per_block, plan.smem_bytes,
@@ -325,4 +426,5 @@ def _launch(entry, eta, ubt, vbt, consts, use_curve, wts, dtbt, bebt,
 
 
 subcycle_cuda.launches = subcycle_cuda.device_launches = 0
+subcycle_cuda.obc_launches = 0
 subcycle_march_cuda.launches = subcycle_march_cuda.device_launches = 0

@@ -19,9 +19,14 @@ tensors, their plain PyTorch versions on CPU tensors.  With T/S and an
 equation of state the pressure force and pbce take in-situ densities.
 The tidal/SAL geopotential (``cfg.tides_fn``) is evaluated once a step
 from the mass-consistent free surface; BEGW weights the corrector's
-pressure force between h and the predicted thickness.  OBC, the
-stochastic EOS, a shear-driven viscosity, GME and the VarMix/MEKE
-viscosity inputs are not ported yet and raise ``NotImplementedError``.
+pressure force between h and the predicted thickness.  With open
+boundaries (``obc``) every halo fill is followed by the extension
+through the open edges, the BT_cont curves are off (linear barotropic
+transports), the barotropic solver applies the Flather radiation, the
+horizontal viscosity the OBC flags, and the new velocities take the
+Orlanski radiation after the vertical viscosity.  The stochastic EOS, a
+shear-driven viscosity, GME and the VarMix/MEKE viscosity inputs are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -110,10 +115,9 @@ def init_split_state(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                          uh=z, vh=z, eta=e[0], diffu=diffu, diffv=diffv)
 
 
-def _check_unported(cfg: SplitCfg, obc, stoch_pattern, kh_scale,
-                    kh_extra, kv_shear):
-    for name, bad in (("OBC: open boundary segments", obc is not None),
-                      ("stoch_eos: stochastic EOS",
+def _check_unported(cfg: SplitCfg, stoch_pattern, kh_scale, kh_extra,
+                    kv_shear):
+    for name, bad in (("stoch_eos: stochastic EOS",
                        cfg.stoch_eos_a != 0.0 and stoch_pattern is not None),
                       ("kv_shear: shear-driven viscosity",
                        kv_shear is not None),
@@ -122,6 +126,18 @@ def _check_unported(cfg: SplitCfg, obc, stoch_pattern, kh_scale,
                        kh_scale is not None or kh_extra is not None)):
         if bad:
             raise NotImplementedError(name)
+
+
+def halo_fill(domain: Domain, obc):
+    """The steppers' halo fill: ``Domain.fill_halos`` on a nest of
+    fields, followed with open boundaries by the extension through the
+    open edges."""
+    if obc is None:
+        return domain.fill_halos_group
+
+    def fill(f, width=None):
+        return obc.extend(domain.fill_halos(f, width=width))
+    return fill
 
 
 def tidal_geopotential(cfg, eta, t):
@@ -161,8 +177,8 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                        kh_extra=None, kv_shear=None,
                        ) -> tuple[State, SplitDynState, SplitDiags]:
     """One split RK2 dynamics step (step_MOM_dyn_split_RK2)."""
-    _check_unported(cfg, obc, stoch_pattern, kh_scale, kh_extra, kv_shear)
-    fill = domain.fill_halos_group
+    _check_unported(cfg, stoch_pattern, kh_scale, kh_extra, kv_shear)
+    fill = halo_fill(domain, obc)
     rho0 = vgrid.Rho0
 
     ((u, v), h, (u_av, v_av), h_av, eta) = fill(
@@ -200,7 +216,10 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     eta_cor = grid.mask2dT * ((torch.sum(h, dim=0) - grid.bathyT) - eta)
     bt_cont = None
     uhbt_in = vhbt_in = None
-    if cfg.barotropic.use_bt_cont:
+    # open faces take the linear transports Datu*ubt: the curves would
+    # anchor to layered transports that the Flather faces override
+    use_bt_cont = cfg.barotropic.use_bt_cont and obc is None
+    if use_bt_cont:
         bt_cont = set_up_bt_cont_cuda(grid, vgrid, u, v, h, dt,
                                       cfg.continuity, visc_rem_u,
                                       visc_rem_v)
@@ -210,7 +229,7 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     bt = btstep(domain, grid, vgrid, u, v, eta, h,
                 u_bc_accel, v_bc_accel, pf.pbce, u_av, v_av, dt,
                 cfg.barotropic, visc_rem_u, visc_rem_v,
-                forces.taux, forces.tauy, eta_pf=pf.eta_pf,
+                forces.taux, forces.tauy, eta_pf=pf.eta_pf, obc=obc,
                 bt_cont=bt_cont, eta_cor=eta_cor,
                 uhbt_in=uhbt_in, vhbt_in=vhbt_in)
 
@@ -230,17 +249,17 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                         eos, p_atm=forces.p_surf, cfg=cfg.pressure,
                         e_tidal=e_tidal)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av,
-                                        cfg.horvisc)
+                                        cfg.horvisc, obc=obc)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
-    if cfg.barotropic.use_bt_cont:
+    if use_bt_cont:
         uhbt_in = torch.sum(uh, dim=0)
         vhbt_in = torch.sum(vh, dim=0)
     bt = btstep(domain, grid, vgrid, u, v, eta, h,
                 u_bc_accel, v_bc_accel, pf.pbce, u_av, v_av, dt,
                 cfg.barotropic, visc_rem_u, visc_rem_v,
-                forces.taux, forces.tauy, eta_pf=pf.eta_pf,
+                forces.taux, forces.tauy, eta_pf=pf.eta_pf, obc=obc,
                 bt_cont=bt_cont, eta_cor=eta_cor,
                 uhbt_in=uhbt_in, vhbt_in=vhbt_in)
 
@@ -249,6 +268,9 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     u_new, v_new, vr = viscosity(u_new, v_new, dt)
     u_new, v_new, truncs = vertvisc_limit_vel(grid, u_new, v_new, dt,
                                               cfg.vertvisc)
+    if obc is not None:
+        u_new = obc.radiate_u(u_new, u, dt=dt)
+        v_new = obc.radiate_v(v_new, v, dt=dt)
     ((u_new, v_new), (visc_rem_u, visc_rem_v)) = fill(((u_new, v_new), vr))
 
     res = run_continuity(u_new, v_new, h, bt.uhbtav, bt.vhbtav,

@@ -23,8 +23,11 @@ On CUDA tensors the four continuity calls are kernel K1 (two sweeps
 each: the head and anchor calls untargeted, the predictor and final
 calls transport-matched), the curve fit is K2 and the barotropic
 subcycles K3, or K3m on the wide-halo march.  Tides/SAL, BEGW and the
-vertical-friction options enter as in the split RK2 step; the options
-that it refuses raise ``NotImplementedError`` here too.
+vertical-friction options enter as in the split RK2 step, and so do
+open boundaries (``obc``: extended halo fills, no BT_cont curves, the
+Flather radiation in the subcycle, the OBC viscosity flags), with the
+Orlanski radiation on the new filtered velocities; the options that it
+refuses raise ``NotImplementedError`` here too.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from mom6_torch.core.continuity_cuda import (continuity_ppm_cuda,
                                              set_up_bt_cont_cuda)
 from mom6_torch.core.coriolis_adv import coriolis_adv
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDiags,
-                                                _check_unported,
+                                                _check_unported, halo_fill,
                                                 corrector_thickness,
                                                 tidal_geopotential,
                                                 viscosity_solve)
@@ -86,8 +89,8 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     """One RK2b dynamics step.  ``state.u/v`` are the filtered
     velocities; returns them updated with the new increments, eta and
     the step's transports."""
-    _check_unported(cfg, obc, stoch_pattern, kh_scale, kh_extra, kv_shear)
-    fill = domain.fill_halos
+    _check_unported(cfg, stoch_pattern, kh_scale, kh_extra, kv_shear)
+    fill = halo_fill(domain, obc)
     rho0 = vgrid.Rho0
     T, S = state.T, state.S
 
@@ -101,7 +104,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         return btstep(domain, grid, vgrid, u_inst, v_inst, eta, h,
                       u_bc_accel, v_bc_accel, pf.pbce, u_av_b, v_av_b, dt,
                       cfg.barotropic, visc_rem_u, visc_rem_v, forces.taux,
-                      forces.tauy, eta_pf=pf.eta_pf, bt_cont=bt_cont,
+                      forces.tauy, eta_pf=pf.eta_pf, obc=obc, bt_cont=bt_cont,
                       eta_cor=eta_cor, uhbt_in=uhbt_in, vhbt_in=vhbt_in)
 
     (u_av, v_av), h, eta, du_i, dv_i = fill(
@@ -119,7 +122,8 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     # ---- PREDICTOR ----
     pf = pressure_force(grid, vgrid, h, T, S, eos, p_atm=forces.p_surf,
                         cfg=cfg.pressure, e_tidal=e_tidal)
-    diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av, cfg.horvisc)
+    diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av, cfg.horvisc,
+                                        obc=obc)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
@@ -144,7 +148,9 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
 
     bt_cont = None
     uhbt_in = vhbt_in = None
-    if cfg.barotropic.use_bt_cont:
+    # open faces take the linear transports (as in step_dyn_split_rk2)
+    use_bt_cont = cfg.barotropic.use_bt_cont and obc is None
+    if use_bt_cont:
         bt_cont = set_up_bt_cont_cuda(grid, vgrid, u_inst, v_inst, h, dt,
                                       cfg.continuity, visc_rem_u,
                                       visc_rem_v)
@@ -171,11 +177,11 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                         eos, p_atm=forces.p_surf, cfg=cfg.pressure,
                         e_tidal=e_tidal)
     diffu, diffv = horizontal_viscosity(grid, u_av_p, v_av_p, h_av,
-                                        cfg.horvisc)
+                                        cfg.horvisc, obc=obc)
     ca = coriolis_adv(grid, u_av_p, v_av_p, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
-    if cfg.barotropic.use_bt_cont:
+    if use_bt_cont:
         uhbt_in = torch.sum(uh, dim=0)
         vhbt_in = torch.sum(vh, dim=0)
     bt = barotropic(u_bc_accel, v_bc_accel, pf, u_av_p, v_av_p, uhbt_in,
@@ -192,8 +198,13 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     # velocities and the new filtered-minus-instantaneous increments
     res = continuity(u_new, v_new, bt.uhbtav, bt.vhbtav, visc_rem_u,
                      visc_rem_v)
+    u_cor, v_cor = res.u_cor, res.v_cor
+    if obc is not None:
+        # the Orlanski radiation of the filtered velocities
+        u_cor = obc.radiate_u(u_cor, u_av, dt=dt)
+        v_cor = obc.radiate_v(v_cor, v_av, dt=dt)
     h_new, (uh, vh), (u_av, v_av) = fill(
-        (res.h, (res.uh, res.vh), (res.u_cor, res.v_cor)))
+        (res.h, (res.uh, res.vh), (u_cor, v_cor)))
     new_split = SplitBDynState(du_av_inst=res.du_cor, dv_av_inst=res.dv_cor,
                                eta=bt.eta)
     diags = SplitDiags(uh=uh, vh=vh, uhtr=dt * uh, vhtr=dt * vh,

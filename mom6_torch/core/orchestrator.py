@@ -14,7 +14,12 @@ tracers' column functions run, and last, with ``cfg.ale`` set
 (USE_REGRIDDING), the ALE regrid/remap moves the state, the split
 scheme's time-mean velocities and stored viscous accelerations onto the
 new grid (the RK2b and unsplit schemes keep no such auxiliaries).
-MEKE/VarMix, the interface filter, neutral and boundary diffusion,
+With open boundaries (``obc``) the split steppers take the segments,
+and the tracer advection fills the halo beyond each open edge from the
+tracer reservoirs (``obc_reservoirs``), keeps the boundary transports and
+thicknesses through the halo fill and advances the reservoirs; the
+unsplit step ignores ``obc``, as in the JAX package.  Passive tracers
+without T/S are advected (and diffused) alone.  MEKE/VarMix, the interface filter, neutral and boundary diffusion,
 sponges, internal tides, BGC, SPPT, DIABATIC_FIRST and
 THICKNESSDIFFUSE_FIRST are not ported yet and raise
 ``NotImplementedError``.
@@ -119,13 +124,13 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                tracer_registry=None, do_thermo: bool = True,
                uhtr_accum=None, vhtr_accum=None, mld_prev=None,
                kv_shear_prev=None, t=None, obc=None, sponge_data=None,
-               int_tide_en=None, sppt_pattern=None):
+               int_tide_en=None, sppt_pattern=None, obc_reservoirs=None):
     """One full ocean step of length dt.  On steps with ``do_thermo``
     False the transports accumulate into the returned diags' uhtr/vhtr,
     which the caller passes back as uhtr_accum/vhtr_accum.  Returns
-    (state, split_state, tracers, OceanDiags)."""
-    _check(cfg, {"OBC: open boundary segments": obc,
-                 "sponge": sponge_data,
+    (state, split_state, tracers, OceanDiags), and the advanced
+    reservoirs fifth when ``obc_reservoirs`` is given."""
+    _check(cfg, {"sponge": sponge_data,
                  "internal tides": int_tide_en,
                  "SPPT: stochastic physics": sppt_pattern})
     fill = domain.fill_halos
@@ -133,13 +138,14 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     if cfg.split and cfg.split_rk2b:
         state, split_state, dd = step_dyn_split_rk2b(
             domain, grid, vgrid, state, split_state, forces, dt,
-            cfg.split_cfg, eos=eos, x_first=x_first, t=t)
+            cfg.split_cfg, eos=eos, x_first=x_first, obc=obc, t=t)
     elif cfg.split:
         kvs = None if kv_shear_prev is None else fill(kv_shear_prev,
                                                       width=1)
         state, split_state, dd = step_dyn_split_rk2(
             domain, grid, vgrid, state, split_state, forces, dt,
-            cfg.split_cfg, eos=eos, x_first=x_first, t=t, kv_shear=kvs)
+            cfg.split_cfg, eos=eos, x_first=x_first, obc=obc, t=t,
+            kv_shear=kvs)
     else:
         state, dd = step_dyn_unsplit(domain, grid, vgrid, state, forces, dt,
                                      cfg.unsplit_cfg, eos=eos, t=t)
@@ -172,26 +178,39 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         uhtr, vhtr = uhtr_accum + uhtr, vhtr_accum + vhtr
     diags = OceanDiags(uhtr=uhtr, vhtr=vhtr, truncs=dd.truncs,
                        eta_av=getattr(dd, "eta_av", None))
-    if not do_thermo:
-        return state, split_state, tracers, diags
+    def result(*out):
+        return out + (obc_reservoirs,) if obc_reservoirs is not None \
+            else out
 
-    # tracer transport with the transports accumulated over the interval
-    if cfg.thermo and state.T is not None:
-        adv = {"T": state.T, "S": state.S}
-        if tracers:
-            adv.update(tracers)
+    if not do_thermo:
+        return result(state, split_state, tracers, diags)
+
+    # tracer transport with the transports accumulated over the
+    # interval: T and S with the passive tracers, or these alone
+    with_ts = cfg.thermo and state.T is not None
+    if with_ts or tracers:
+        adv = dict(tracers or {})
+        if with_ts:
+            adv = {"T": state.T, "S": state.S, **adv}
         adv = fill(adv, width=2)
+        if obc is not None and obc_reservoirs is not None:
+            adv = obc.apply_tracer_reservoirs(adv, obc_reservoirs)
         he, uh2, vh2 = fill((state.h, uhtr, vhtr), width=2)
+        if obc is not None:
+            he, uh2, vh2 = obc.keep_boundary((state.h, uhtr, vhtr),
+                                             (he, uh2, vh2))
         adv, _, resid = advect_tracers(domain, grid, adv, he, uh2, vh2,
                                        cfg.tracer_adv, x_first=x_first)
         diags = diags._replace(adv_residual=resid)
+        if obc is not None and obc_reservoirs is not None:
+            obc_reservoirs = obc.update_tracer_reservoirs(
+                obc_reservoirs, adv, state.u, state.v, dt)
         if cfg.hordiff.khtr > 0.0:
             adv, hh = fill((adv, state.h), width=1)
             adv = tracer_hordiff(domain, grid, adv, hh, dt, cfg.hordiff)
-        state = state.replace(T=adv.pop("T"), S=adv.pop("S"))
+        if with_ts:
+            state = state.replace(T=adv.pop("T"), S=adv.pop("S"))
         tracers = adv if adv else tracers
-    elif tracers:
-        raise NotImplementedError("passive tracers without T/S")
 
     # column physics, then ALE (thermo_and_ale)
     if cfg.thermo and not cfg.adiabatic:
@@ -207,7 +226,7 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         state, split_state, tracers = _ale(domain, grid, vgrid, state,
                                            split_state, tracers, cfg, eos,
                                            dt)
-    return state, split_state, tracers, diags
+    return result(state, split_state, tracers, diags)
 
 
 def _ale(domain, grid, vgrid, state, split_state, tracers, cfg, eos, dt):

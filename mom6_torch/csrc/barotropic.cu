@@ -70,6 +70,23 @@
 // so kernel and plain loop agree bit for bit.  Register spills go to
 // L2 beside 180 KB of shared memory: each phase recomputes its
 // addresses to keep the one-tile kernel free of them.
+//
+// Open faces (bt_subcycle_obc_*, the OBC template instance): the JAX
+// package runs its jnp substep under open boundaries (barotropic.py:
+// 651-670, with the Pallas kernel refused at barotropic_pallas.py:124,
+// 142); its order is (a) Flather at the open faces with the substep's
+// old eta, after both velocity updates, then the transports and the eta
+// corrector, (b) the width-3 refresh, eta's edge value copied into the
+// halo beyond each open edge inside its strip, and Flather again with
+// that eta.  The instance adds a phase (3b) and a grid sync for (a): the
+// inlet velocity of an N face lies a row away, in another band.  (b)
+// runs inside (4) at each face's owner, which recomputes the inlet
+// velocity and the extended eta it needs from their sources, as the
+// refresh does; the faces' final velocities are held in two more planes
+// and stored at the next substep's (1), after a grid sync, because a
+// refresh in (4) may still read an interior face (E or N) as its source.
+// The edge data (strip mask, Flather factor, external velocity and ssh)
+// are vectors along each edge.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -84,6 +101,10 @@ enum {
   VHBT0, NCONST
 };
 enum { S_UHBT, S_VHBT, S_ETA, S_ACCEL_U, S_ACCEL_V, S_UBT, S_VBT, NSUM };
+// open edges, and the vectors of each along it (padded rows of W/E,
+// padded columns of S/N); null for a closed edge
+enum { OW, OE, OS, ON, NEDGE };
+enum { O_MASK, O_COEF, O_VEL, O_SSH, NOBCF };
 
 constexpr int THREADS = 768;       // one block per SM, <= 80 registers
 constexpr int PPT = 3;             // points per thread
@@ -91,6 +112,10 @@ constexpr int NCURVE = 22;         // CU0 .. VHBT0
 
 template <typename T> struct Consts {
   const T* f[NCONST];
+};
+
+template <typename T> struct Obc {
+  const T* f[NEDGE][NOBCF];
 };
 
 // planes written during the launch: eta by substep parity, the
@@ -104,6 +129,8 @@ template <typename T> struct State {
   T* uh[2];
   T* vh[2];
   T* sums;
+  T* ubp;    // open faces: the final ubt and vbt of (b), stored at the
+  T* vbp;    // next substep's (1)
 };
 
 struct Geo {
@@ -268,17 +295,147 @@ __device__ __forceinline__ T& sum_at(const State<T>& S, int P, int s,
   return S.sums[(size_t)s * P + x];
 }
 
+// --- open faces --------------------------------------------------------
+
+// edge e open at along-edge index k (inside its segment's strip)
+template <typename T>
+__device__ __forceinline__ bool open_at(const Obc<T>& O, int e, int k) {
+  return O.f[e][O_MASK] != nullptr && __ldg(O.f[e][O_MASK] + k) > T(0);
+}
+
+// the Flather velocity at face k of edge e from the inlet velocity and
+// the eta of the boundary cell: 0.5*((v_in + v_ext) + c*(eta - ssh)) on
+// E/N, with (ssh - eta) on W/S
+template <typename T>
+__device__ __forceinline__ T flather(const Obc<T>& O, int e, int k, T v_in,
+                                     T eta_in) {
+  const T vel = __ldg(O.f[e][O_VEL] + k), ssh = __ldg(O.f[e][O_SSH] + k);
+  const T d = (e == OE || e == ON) ? eta_in - ssh : ssh - eta_in;
+  return T(0.5) * ((v_in + vel) + __ldg(O.f[e][O_COEF] + k) * d);
+}
+
+// Domain.fill_halos(width=w) as a map: (j, i) takes the value of
+// (js, is), or zero (false)
+__device__ __forceinline__ bool filled_from(const Geo& g, int j, int i,
+                                            int& js, int& is) {
+  const int H = g.H;
+  js = j;
+  is = i;
+  if (i >= H - g.w && i < H) {
+    if (!g.rx) return false;
+    is = i + g.nic;
+  } else if (i >= H + g.nic && i < H + g.nic + g.w) {
+    if (!g.rx) return false;
+    is = i - g.nic;
+  }
+  if (j >= H - g.w && j < H) {
+    if (!g.ry) return false;
+    js = j + g.njc;
+  } else if (j >= H + g.njc && j < H + g.njc + g.w) {
+    if (!g.ry) return false;
+    js = j - g.njc;
+  }
+  return true;
+}
+
+// OpenBoundaries.extend as a map (W, E, then S, N on the W/E-extended
+// field): true when (j, i) lies in an open edge's halo band, which takes
+// the refreshed eta of (je, ie)
+template <typename T>
+__device__ __forceinline__ bool extended_from(const Obc<T>& O, const Geo& g,
+                                              int j, int i, int& je,
+                                              int& ie) {
+  const int H = g.H, iE = H + g.nic - 1, jN = H + g.njc - 1;
+  bool hit = false;
+  je = j;
+  ie = i;
+  if (j < H && open_at(O, OS, i)) {
+    je = H;
+    hit = true;
+  } else if (j > jN && open_at(O, ON, i)) {
+    je = jN;
+    hit = true;
+  }
+  if (i < H && open_at(O, OW, je)) {
+    ie = H;
+    hit = true;
+  } else if (i > iE && open_at(O, OE, je)) {
+    ie = iE;
+    hit = true;
+  }
+  return hit;
+}
+
+// eta2 of (j, i) after the refresh, recomputed from its source's old eta
+// and transports (the owner's arithmetic, so the same bits)
+template <typename T>
+__device__ __forceinline__ T eta_refreshed(int j, int i, const T* eta_old,
+                                           const T* UH, const T* VH,
+                                           const Consts<T>& C, const Geo& g,
+                                           T dtbt) {
+  int js, is;
+  if (!filled_from(g, j, i, js, is)) return T(0);
+  const int s = js * g.ni + is;
+  return (eta_old[s] + cst(C, ETA_SRC, s))
+      - dtbt * face_div(s, js, is, UH[s], VH[s], UH, VH, C, g);
+}
+
+// eta of (j, i) after the refresh and the extension
+template <typename T>
+__device__ __forceinline__ T eta_extended(const Obc<T>& O, int j, int i,
+                                          const T* eta_old, const T* UH,
+                                          const T* VH, const Consts<T>& C,
+                                          const Geo& g, T dtbt) {
+  int je, ie;
+  extended_from(O, g, j, i, je, ie);
+  return eta_refreshed(je, ie, eta_old, UH, VH, C, g, dtbt);
+}
+
+// a velocity plane's value at (j, i) after the refresh
+template <typename T>
+__device__ __forceinline__ T vel_refreshed(const T* P, const Geo& g, int j,
+                                           int i) {
+  int js, is;
+  return filled_from(g, j, i, js, is) ? P[js * g.ni + is] : T(0);
+}
+
+// which of p's velocities are Flather faces: bit 0 u (E or W), bit 1 v
+template <typename T>
+__device__ __forceinline__ unsigned obc_faces(const Obc<T>& O, const Geo& g,
+                                              const Pt& p) {
+  const int H = g.H;
+  unsigned f = 0;
+  if ((p.i == H + g.nic - 1 && open_at(O, OE, p.j))
+      || (p.i == H - 1 && open_at(O, OW, p.j)))
+    f |= 1u;
+  if ((p.j == H + g.njc - 1 && open_at(O, ON, p.i))
+      || (p.j == H - 1 && open_at(O, OS, p.i)))
+    f |= 2u;
+  return f;
+}
+
+// the faces' final velocities of the previous substep's (b), held since
+template <typename T>
+__device__ __forceinline__ void store_held(const Obc<T>& O, const State<T>& S,
+                                           const Geo& g, const Pt& p) {
+  const unsigned f = obc_faces(O, g, p);
+  if (f & 1u) S.ubt[p.x] = S.ubp[p.x];
+  if (f & 2u) S.vbt[p.x] = S.vbp[p.x];
+}
+
 // Each phase loads and computes for all of a tile's points before it
 // stores, so that the loads of its points overlap.  Planes written
 // during the launch are read with plain loads: grid.sync() orders them.
 // RESIDENT: the band is one tile, and each point's state stays in
 // registers from phase to phase; else every phase reloads it from the
 // planes, tile by tile, and the sums go through the sums plane.
-template <typename T, bool RESIDENT>
+// OBC: the open-face instance (see the top of the file).
+template <typename T, bool RESIDENT, bool OBC>
 __global__ void __launch_bounds__(THREADS, 1)
 subcycle_kernel(const __grid_constant__ Consts<T> C,
                 const __grid_constant__ State<T> S,
                 const __grid_constant__ Geo g,
+                const __grid_constant__ Obc<T> O,
                 const T* __restrict__ wts, const T dtbt,
                 const T bebt, const T one_m_bebt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -346,6 +503,7 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
       for (int k = 0; k < PPT; ++k) {
         Pt p;
         if (!owned(t, k, start, own, g, p)) continue;
+        if (OBC && n > 0) store_held(O, S, g, p);
         if (!RESIDENT) {
           eta[k] = eta_old[p.x];
           uh[k] = UH[p.x];
@@ -406,6 +564,50 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
           if (!RESIDENT)
             sum_at(S, P, s_acc, p.x) =
                 do_u ? sum[S_ACCEL_U][k] : sum[S_ACCEL_V][k];
+        }
+      }
+      grid.sync();
+    }
+
+    // (3b) open faces: Flather with the old eta; the inlet velocity is
+    // the face one in, eta that of the boundary cell
+    if (OBC) {
+      const int H = g.H, iE = H + g.nic - 1, jN = H + g.njc - 1;
+      for (int t = 0; t < tiles; ++t) {
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          Pt p;
+          if (!owned(t, k, start, own, g, p)) continue;
+          T u = T(0), v = T(0);
+          bool fu = true, fv = true;
+          if (p.i == iE && open_at(O, OE, p.j))
+            u = flather(O, OE, p.j, S.ubt[p.x - 1], eta_old[p.x]);
+          else if (p.i == H - 1 && open_at(O, OW, p.j))
+            u = flather(O, OW, p.j, S.ubt[p.x + 1], eta_old[p.x + 1]);
+          else
+            fu = false;
+          if (p.j == jN && open_at(O, ON, p.i))
+            v = flather(O, ON, p.i, S.vbt[p.x - g.ni], eta_old[p.x]);
+          else if (p.j == H - 1 && open_at(O, OS, p.i))
+            v = flather(O, OS, p.i, S.vbt[p.x + g.ni], eta_old[p.x + g.ni]);
+          else
+            fv = false;
+          if (fu) {
+            S.ubt[p.x] = u;
+            UH[p.x] = trans_u(u, sm, C, g, p.l, p.x);
+            if (RESIDENT) {
+              ub[k] = u;
+              uh[k] = UH[p.x];
+            }
+          }
+          if (fv) {
+            S.vbt[p.x] = v;
+            VH[p.x] = trans_v(v, sm, C, g, p.l, p.x);
+            if (RESIDENT) {
+              vb[k] = v;
+              vh[k] = VH[p.x];
+            }
+          }
         }
       }
       grid.sync();
@@ -473,6 +675,33 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
           vh[k] = trans_v(vb[k], sm, C, g, p.l, p.x);
           halo_pts |= 1u << k;
         }
+        if (OBC) {
+          // (b): the extension of eta, then Flather with it; the faces'
+          // velocities are stored at the next substep
+          int je, ie;
+          if (extended_from(O, g, p.j, p.i, je, ie))
+            e = eta_refreshed(je, ie, eta_old, UH, VH, C, g, dtbt);
+          const int H = g.H, iE = H + g.nic - 1, jN = H + g.njc - 1;
+          const unsigned f = obc_faces(O, g, p);
+          if (f & 1u) {
+            ub[k] = p.i == iE
+                ? flather(O, OE, p.j, vel_refreshed(S.ubt, g, p.j, iE - 1), e)
+                : flather(O, OW, p.j, vel_refreshed(S.ubt, g, p.j, H),
+                          eta_extended(O, p.j, H, eta_old, UH, VH, C, g,
+                                       dtbt));
+            uh[k] = trans_u(ub[k], sm, C, g, p.l, p.x);
+            S.ubp[p.x] = ub[k];
+          }
+          if (f & 2u) {
+            vb[k] = p.j == jN
+                ? flather(O, ON, p.i, vel_refreshed(S.vbt, g, jN - 1, p.i), e)
+                : flather(O, OS, p.i, vel_refreshed(S.vbt, g, H, p.i),
+                          eta_extended(O, H, p.i, eta_old, UH, VH, C, g,
+                                       dtbt));
+            vh[k] = trans_v(vb[k], sm, C, g, p.l, p.x);
+            S.vbp[p.x] = vb[k];
+          }
+        }
         eta[k] = e;
         sum[S_ETA][k] = sum[S_ETA][k] + w_e * e;
         sum[S_UBT][k] = sum[S_UBT][k] + w_v * ub[k];
@@ -505,7 +734,16 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
     fresh = w > 0;
     if (fresh) {
       tb ^= 1;
-      if (n + 1 < g.total) grid.sync();
+      if (OBC || n + 1 < g.total) grid.sync();
+    }
+  }
+  if (OBC) {
+    for (int t = 0; t < tiles; ++t) {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        Pt p;
+        if (owned(t, k, start, own, g, p)) store_held(O, S, g, p);
+      }
     }
   }
 
@@ -520,10 +758,10 @@ subcycle_kernel(const __grid_constant__ Consts<T> C,
   }
 }
 
-template <typename T, bool RESIDENT>
+template <typename T, bool RESIDENT, bool OBC>
 cudaError_t launch_on(int blocks, int smem_bytes, cudaStream_t stream,
                       void** args) {
-  auto kern = subcycle_kernel<T, RESIDENT>;
+  auto kern = subcycle_kernel<T, RESIDENT, OBC>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
@@ -540,8 +778,10 @@ cudaError_t launch_on(int blocks, int smem_bytes, cudaStream_t stream,
                                      stream);
 }
 
-// state: eta_a, eta_b, ubt, vbt, d_eta, uh_a, uh_b, vh_a, vh_b, sums
-// (7 planes); the final eta lands in eta_a when ``total`` is even.  The
+// state: eta_a, eta_b, ubt, vbt, d_eta, uh_a, uh_b, vh_a, vh_b, with
+// open faces (obc not null: the 16 edge vectors, W, E, S, N) ubp, vbp,
+// then sums (7 planes); the final eta lands in eta_a when ``total`` is
+// even.  The
 // halo is refreshed (width w) after substeps every-1, 2*every-1, ...
 // wt is the (4, total) weights in the card's memory.  The plan (blocks,
 // npb, smem_bytes) comes from the caller; a grid that cannot be
@@ -551,8 +791,8 @@ int launch_subcycle(const void* const* consts, void* const* state,
                     const void* wt, int nj, int ni, int H, int nic,
                     int njc, int w, int rx, int ry, int curve, int total,
                     int every, double dtbt, double bebt, int blocks,
-                    int npb, int smem_bytes, void* stream,
-                    int* launches) {
+                    int npb, int smem_bytes, void* stream, int* launches,
+                    const void* const* obc = nullptr) {
   *launches = 0;
   const long P = (long)nj * ni;   // flat indices are int
   const int ntc = curve ? NCURVE : 2;
@@ -575,17 +815,29 @@ int launch_subcycle(const void* const* consts, void* const* state,
   S.uh[1] = (T*)state[6];
   S.vh[0] = (T*)state[7];
   S.vh[1] = (T*)state[8];
-  S.sums = (T*)state[9];
+  S.ubp = obc ? (T*)state[9] : nullptr;
+  S.vbp = obc ? (T*)state[10] : nullptr;
+  S.sums = (T*)state[obc ? 11 : 9];
+  Obc<T> O;
+  for (int e = 0; e < NEDGE; ++e)
+    for (int f = 0; f < NOBCF; ++f)
+      O.f[e][f] = obc ? (const T*)obc[e * NOBCF + f] : nullptr;
+  // an open-face launch refreshes every substep
+  if (obc && every != 1) return cudaErrorInvalidValue;
   const T* wts = (const T*)wt;
   const int tiles = (int)(((long)npb + THREADS * PPT - 1) / (THREADS * PPT));
   const Geo g{nj, ni, H, nic, njc, w, rx, ry, curve, total, every, npb,
               tiles, smem_bytes > 0};
   T tdt = T(dtbt), tb = T(bebt), t1b = T(1.0 - bebt);
-  void* args[] = {&C, &S, (void*)&g, &wts, &tdt, &tb, &t1b};
+  void* args[] = {&C, &S, (void*)&g, &O, &wts, &tdt, &tb, &t1b};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = tiles == 1
-      ? launch_on<T, true>(blocks, smem_bytes, st, args)
-      : launch_on<T, false>(blocks, smem_bytes, st, args);
+  cudaError_t e;
+  if (obc)
+    e = tiles == 1 ? launch_on<T, true, true>(blocks, smem_bytes, st, args)
+                   : launch_on<T, false, true>(blocks, smem_bytes, st, args);
+  else
+    e = tiles == 1 ? launch_on<T, true, false>(blocks, smem_bytes, st, args)
+                   : launch_on<T, false, false>(blocks, smem_bytes, st, args);
   if (e != cudaSuccess) return e;
   *launches = 1;
   return cudaGetLastError();
@@ -634,7 +886,28 @@ extern "C" const char* bt_error_name(int e) {
                               blocks, npb, smem_bytes, stream, launches); \
   }
 
+// K3 with open faces: ``obc`` holds the 16 edge vectors (W, E, S, N;
+// mask, Flather factor, external velocity, external ssh), null for a
+// closed edge, and ``state`` the two planes of the faces' final
+// velocities before the sums
+#define SUBCYCLE_OBC_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const void* const* consts, void* const* state,     \
+                      const void* const* obc, const void* wt, int nj,     \
+                      int ni, int H, int nic, int njc, int w, int rx,     \
+                      int ry, int curve, int total, double dtbt,          \
+                      double bebt, int blocks, int npb, int smem_bytes,   \
+                      void* stream, int* launches) {                      \
+    *launches = 0;                                                        \
+    if (obc == nullptr) return cudaErrorInvalidValue;                     \
+    return launch_subcycle<T>(consts, state, wt, nj, ni, H, nic, njc, w,  \
+                              rx, ry, curve, total, 1, dtbt, bebt,        \
+                              blocks, npb, smem_bytes, stream, launches,  \
+                              obc);                                       \
+  }
+
 SUBCYCLE_ENTRY(bt_subcycle_f32, float)
 SUBCYCLE_ENTRY(bt_subcycle_f64, double)
 MARCH_ENTRY(bt_march_f32, float)
 MARCH_ENTRY(bt_march_f64, double)
+SUBCYCLE_OBC_ENTRY(bt_subcycle_obc_f32, float)
+SUBCYCLE_OBC_ENTRY(bt_subcycle_obc_f64, double)

@@ -122,12 +122,16 @@ def _restore(path: str, model):
     leaf = torch.zeros(1, dtype=model.state.h.dtype,
                        device=model.state.h.device)
     for name in saved:
-        if name.startswith("carry_"):
+        if name == "carry_res" and model.obc is not None and model.tracers:
+            # the open-boundary tracer reservoirs: name -> edge -> values
+            templates[name] = model.obc.init_tracer_reservoirs(
+                model.tracers)
+        elif name.startswith("carry_"):
             if name[len("carry_"):] not in _CARRIES:
                 raise NotImplementedError(f"restart carry {name!r}")
             templates[name] = leaf
     trees, meta = restore_restart(path, templates)
-    carry = {n: trees.get(f"carry_{n}") for n in _CARRIES}
+    carry = {n: trees.get(f"carry_{n}") for n in _CARRIES + ("res",)}
     carry["truncs"] = int(meta.get("truncs", 0))
     return (trees["state"], trees["split"],
             trees.get("tracers", model.tracers), carry, int(meta["step"]),
@@ -288,7 +292,7 @@ def main(argv=None) -> dict:
         if tracers:
             trees["tracers"] = tracers
         acc = step.carry()
-        for name in _CARRIES:
+        for name in _CARRIES + ("res",):
             if acc.get(name) is not None:
                 trees[f"carry_{name}"] = acc[name]
         save_restart(os.path.join(args.case_dir, "RESTART", "MOM.res"), trees,

@@ -6,7 +6,9 @@ configuration, bench.py's CONFIG (Z* ALE) with BT_WIDE_HALO_PERIOD = 2
 layered variant (USE_REGRIDDING = False), on the split RK2 dynamics or,
 with ``dynamics``, the split RK2b or the unsplit RK3 dynamics, or the
 first breadth item's options on the split RK2 dynamics
-(``configs.BENCH_CONFIG_B1``, ``BENCH_CONFIG_NONBOUSS``), through
+(``configs.BENCH_CONFIG_B1``, ``BENCH_CONFIG_NONBOUSS``), or the
+regional configuration with open boundaries (``BENCH_CONFIG_OBC``),
+through
 ``model.build_model``; its ``Model.step_fn`` steps it.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
@@ -36,9 +38,10 @@ import numpy as np
 import torch
 
 from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_B1,
-                                BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_RK2B,
-                                write_topog_edge,
-                                BENCH_CONFIG_UNSPLIT)
+                                BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
+                                BENCH_CONFIG_RK2B, BENCH_CONFIG_UNSPLIT,
+                                obc_strip, write_obc_data,
+                                write_topog_edge)
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
                                                 init_split_state)
@@ -60,9 +63,9 @@ DEPTH = 4000.0
 # the configuration text of each dynamics of build_full
 DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "unsplit": BENCH_CONFIG_UNSPLIT, "b1": BENCH_CONFIG_B1,
-            "nonbouss": BENCH_CONFIG_NONBOUSS}
+            "nonbouss": BENCH_CONFIG_NONBOUSS, "obc": BENCH_CONFIG_OBC}
 # the texts on the split RK2 dynamics
-SPLIT_RK2 = ("rk2", "b1", "nonbouss")
+SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +148,13 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     of 0.1 degree cells centred on the equator, with the porous-barrier
     file written from seed 0 by ``configs.write_topog_edge`` into
     a temporary directory that the build reads it from) or "nonbouss"
-    (``BENCH_CONFIG_NONBOUSS``).  ``wide_halo_period`` sets
-    BT_WIDE_HALO_PERIOD of the split texts (1: kernel K3 in place of
-    K3m).
+    (``BENCH_CONFIG_NONBOUSS``) or "obc" (``BENCH_CONFIG_OBC``: adiabatic
+    and layered, open W and E edges and a strip over the middle half of
+    the S edge, the E data written from seed 0 by
+    ``configs.write_obc_data`` into a temporary directory; ``regridding``
+    does not apply).  ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
+    the split texts (1: kernel K3 in place of K3m; open boundaries run K3
+    whatever it says).
 
     With ``seed`` None the initial state is the configuration's own (at
     rest and horizontally uniform, as the JAX package builds it).  With
@@ -167,12 +174,17 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     else:
         text += (f"#override LENLON = {ni * 10.0}\n"
                  f"#override LENLAT = {nj * 10.0}\n")
-    if not regridding:
+    if dynamics == "obc":
+        text += obc_strip(ni)
+    elif not regridding:
         text += "#override USE_REGRIDDING = False\n"
     with tempfile.TemporaryDirectory() as inputdir:
         if dynamics == "b1":
             write_topog_edge(os.path.join(inputdir, "topog_edge.nc"), ni, nj,
                              seed=0)
+        elif dynamics == "obc":
+            write_obc_data(inputdir, ni, nj, seed=0)
+        if dynamics in ("b1", "obc"):
             text += f"INPUTDIR = {inputdir}\n"
         m = build_model(ParamFile(text=text), device=device, dtype=dtype)
     if seed is not None:
@@ -186,7 +198,8 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
             return d.fill_halos(x if mask is None else x * mask)
 
         st = m.state
-        m.state = st.replace(h=noisy(st.h, 2.0), T=noisy(st.T, 0.5),
+        m.state = st.replace(h=noisy(st.h, 2.0),
+                             T=None if st.T is None else noisy(st.T, 0.5),
                              u=noisy(st.u, 0.05, g.mask2dCu),
                              v=noisy(st.v, 0.05, g.mask2dCv))
         if dynamics in SPLIT_RK2:

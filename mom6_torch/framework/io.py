@@ -1,8 +1,9 @@
 """NetCDF-3 fields read and written through ``scipy.io.netcdf_file``.
 
 The port's own copy of the part of ``mom6_tpu.framework.io`` that it
-needs: ``read_field`` (the TOPO_AT_VEL file of SUBGRID_TOPO_AT_VEL) and
-a plain ``write_fields`` for the files a run makes itself.
+needs: ``read_field`` (the TOPO_AT_VEL file of SUBGRID_TOPO_AT_VEL, the
+open-boundary segment data) and ``write_fields`` for the files a run
+makes itself, with named dimensions and attributes where asked.
 """
 
 from __future__ import annotations
@@ -23,20 +24,35 @@ def read_field(path: str, name: str) -> np.ndarray:
     return arr.astype(arr.dtype.newbyteorder("="))
 
 
-def write_fields(path: str, fields: dict) -> None:
-    """Named arrays to a NetCDF-3 file, one dimension per distinct
-    extent."""
+def write_fields(path: str, fields: dict,
+                 dims: dict | None = None,
+                 attrs: dict | None = None) -> None:
+    """Named arrays to a NetCDF-3 file.  ``dims`` names a field's
+    dimensions (a time axis must be called ``time`` for the readers to
+    find it); every other extent gets one generated dimension.
+    ``attrs`` gives a field's attributes (``units``, ``long_name``)."""
     from scipy.io import netcdf_file
+    dims = dims or {}
+    attrs = attrs or {}
     with netcdf_file(path, "w") as nc:
-        dims = {}
+        made = {}
         for name, arr in fields.items():
             arr = np.asarray(arr)
+            want = dims.get(name, ())
             names = []
-            for n in arr.shape:
-                if n not in dims:
-                    dims[n] = f"dim_{len(dims)}_{n}"
-                    nc.createDimension(dims[n], n)
-                names.append(dims[n])
+            for ax, n in enumerate(arr.shape):
+                if ax < len(want):
+                    dn = want[ax]
+                    if dn not in nc.dimensions:
+                        nc.createDimension(dn, n)
+                else:
+                    if n not in made:
+                        made[n] = f"dim_{len(made)}_{n}"
+                        nc.createDimension(made[n], n)
+                    dn = made[n]
+                names.append(dn)
             var = nc.createVariable(name, arr.dtype.newbyteorder("="),
                                     tuple(names))
             var[:] = arr
+            for k, v in attrs.get(name, {}).items():
+                setattr(var, k, v.encode() if isinstance(v, str) else v)

@@ -9,9 +9,10 @@ for bit.
 The leaves of a tree come in the JAX package's order, so that a
 restart written by either package restores in the other: a ``State``,
 ``SplitDynState`` or ``SplitBDynState`` in the JAX package's field
-order (``_FIELDS``) with the None fields skipped, a dict of tracers in
-sorted key order, a single tensor as one leaf, and None (an unsplit
-model's split state) as no leaf.
+order (``_FIELDS``) with the None fields skipped, a dict in sorted key
+order (tracers, or the nested dicts of the open-boundary tracer
+reservoirs, name then edge), a single tensor as one leaf, and None (an
+unsplit model's split state) as no leaf.
 """
 
 from __future__ import annotations
@@ -43,9 +44,12 @@ def _flatten(tree) -> tuple[list[torch.Tensor], str]:
     if isinstance(tree, torch.Tensor):
         return [tree], "PyTreeDef(*)"
     if isinstance(tree, dict):
-        keys = sorted(tree)
-        desc = ", ".join(f"'{k}': *" for k in keys)
-        return [tree[k] for k in keys], "PyTreeDef({" + desc + "})"
+        leaves, descs = [], []
+        for k in sorted(tree):
+            sub, d = _flatten(tree[k])
+            leaves += sub
+            descs.append(f"'{k}': " + d[len("PyTreeDef("):-1])
+        return leaves, "PyTreeDef({" + ", ".join(descs) + "})"
     if dataclasses.is_dataclass(tree):
         name = type(tree).__name__
         vals = [getattr(tree, f, None) for f in _FIELDS[name]]
@@ -61,7 +65,12 @@ def _unflatten(template, leaves: list[torch.Tensor]):
     if isinstance(template, torch.Tensor):
         return leaves[0]
     if isinstance(template, dict):
-        return dict(zip(sorted(template), leaves))
+        out, at = {}, 0
+        for k in sorted(template):
+            n = len(_flatten(template[k])[0])
+            out[k] = _unflatten(template[k], leaves[at:at + n])
+            at += n
+        return out
     it = iter(leaves)
     kw = {f: next(it) for f in _FIELDS[type(template).__name__]
           if getattr(template, f, None) is not None}

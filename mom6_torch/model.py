@@ -22,7 +22,10 @@ MAXCFL_BT_CONT and BT_STRONG_DRAG, the vertical-friction options
 (linear and channel drag, DYNAMIC_BBL, BBL_USE_EOS, the fixed and
 dynamic viscous mixed layer, DIRECT_STRESS, HARMONIC_VISC, KV_ML_INVZ2)
 and the horizontal-viscosity options (velocity scales, Leith and
-modified Leith, ADD_LES_VISCOSITY, anisotropic, ZB2020), the LINEAR and
+modified Leith, ADD_LES_VISCOSITY, anisotropic, ZB2020), open
+boundaries (OBC segments, whole or partial, with constant or file data,
+OBC_USER_CONFIG updates, the OBC viscosity flags and the dyed OBC
+tracers of NUM_DYE_TRACERS), the LINEAR and
 WRIGHT equations of state, THICKNESS_CONFIG uniform, TS_CONFIG uniform
 or linear, WIND_CONFIG zero/constant/gyres/2gyre, BUOY_CONFIG zero or
 linear restoring, ALE with the coordinates and remap schemes of
@@ -71,6 +74,10 @@ from mom6_torch.drivers.surface_forcing import (SurfaceForcingCfg,
 from mom6_torch.eos import EOS, make_eos
 from mom6_torch.framework.config import ParamFile
 from mom6_torch.framework.io import read_field
+from mom6_torch.obc.boundary_update import build_obc_update
+from mom6_torch.obc.open_boundary import (build_obc_data_interp,
+                                          build_open_boundaries,
+                                          open_grid_masks)
 from mom6_torch.param.lateral.hor_visc import HorViscCfg
 from mom6_torch.param.lateral.mixed_layer_restrat import MLRestratCfg
 from mom6_torch.param.lateral.self_attr_load import SALHarmonics
@@ -86,7 +93,8 @@ from mom6_torch.param.vertical.set_diffusivity import DiffusivityCfg
 from mom6_torch.parallel.domain import Domain
 from mom6_torch.tracer.advect import TracerAdvectCfg
 from mom6_torch.tracer.hor_diff import TracerHorDiffCfg
-from mom6_torch.tracer.ideal import register_ideal_age
+from mom6_torch.tracer.ideal import (register_dyed_obc_tracers,
+                                     register_ideal_age)
 from mom6_torch.tracer.registry import TracerRegistry
 
 __all__ = ["Model", "build_model", "default_only"]
@@ -157,6 +165,10 @@ class Model:
     dt_forcing: float = 0.0
     daymax: float = 1.0
     thermo: bool = True
+    # open boundaries, and fn(obc, grid, h, t) -> obc refreshing their
+    # external data each step (file data in time, OBC_USER_CONFIG)
+    obc: Any = None
+    obc_update_fn: Any = None
 
     def fluxes(self, state: State) -> Optional[Fluxes]:
         """Buoyancy fluxes on the given state (BUOY_CONFIG), None without
@@ -190,8 +202,9 @@ class Model:
         of an earlier closure (``step.carry()``).  The closure carries
         ``truncations()`` (the cumulative velocity-truncation count; the
         count stays on the device until asked for), ``carry()`` (a copy
-        of its accumulators), ``set_carry(c)`` and ``nstep_bt`` (None
-        under unsplit dynamics)."""
+        of its accumulators), ``set_carry(c)``, ``obc_reservoirs()``
+        (the tracer reservoirs of open boundaries, None without) and
+        ``nstep_bt`` (None under unsplit dynamics)."""
         cfg = self.cfg
         bt = cfg.split_cfg.barotropic if cfg.split else None
         if bt is not None and nstep_bt and nstep_bt != bt.nstep:
@@ -204,7 +217,10 @@ class Model:
         # closure's carry to another and back (DTBT_RESET_PERIOD), so a
         # carry is copied in and out, never shared
         acc = dict(carry) if carry is not None else {
-            "u": None, "v": None, "truncs": 0, "mld": None, "kv": None}
+            "u": None, "v": None, "truncs": 0, "mld": None, "kv": None,
+            "res": None}
+        if acc.get("res") is None and self.obc is not None and self.tracers:
+            acc["res"] = self.obc.init_tracer_reservoirs(self.tracers)
 
         def set_carry(c):
             c = dict(c)
@@ -218,13 +234,19 @@ class Model:
                 else torch.zeros_like(state.h)
             va = acc["v"] if acc["v"] is not None \
                 else torch.zeros_like(state.h)
-            st, sp, tr, diags = step_ocean(
+            t = (n + 0.5) * self.dt
+            ob = self.obc
+            if ob is not None and self.obc_update_fn is not None:
+                ob = self.obc_update_fn(ob, self.grid, state.h, t)
+            st, sp, tr, diags, *res = step_ocean(
                 self.domain, self.grid, self.vgrid, state, split, tracers,
                 self.forces, fl, self.dt, cfg, eos=self.eos,
                 x_first=(n % 2 == 0), tracer_registry=self.registry,
                 do_thermo=do_thermo, uhtr_accum=ua, vhtr_accum=va,
-                mld_prev=acc["mld"], kv_shear_prev=acc["kv"],
-                t=(n + 0.5) * self.dt)
+                mld_prev=acc["mld"], kv_shear_prev=acc["kv"], t=t, obc=ob,
+                obc_reservoirs=acc.get("res"))
+            if res:
+                acc["res"] = res[0]
             if diags.mld is not None:
                 acc["mld"] = diags.mld
             if do_thermo:
@@ -237,6 +259,7 @@ class Model:
         step.truncations = lambda: int(acc["truncs"])
         step.carry = lambda: dict(acc)
         step.set_carry = set_carry
+        step.obc_reservoirs = lambda: acc.get("res")
         step.nstep_bt = cfg.split_cfg.barotropic.nstep if cfg.split \
             else None
         return step
@@ -358,10 +381,23 @@ def build_model(pf: ParamFile, *, device="cuda",
         grid = _read_topo_at_vel(pf, grid, halo)
 
     pf.module("MOM_open_boundary")
-    default_only(pf, "NUM_DYE_TRACERS", int, 0,
-                 desc="dyed_obc tracers, one per segment")
-    pf.get("INPUTDIR", str, ".")
-    default_only(pf, "OBC_NUMBER_OF_SEGMENTS", int, 0)
+    num_dye = pf.get("NUM_DYE_TRACERS", int, 0,
+                     desc="dyed_obc tracers, one per segment")
+    indir = pf.get("INPUTDIR", str, ".")
+    obc = build_open_boundaries(pf, domain, indir=indir,
+                                dye_tracers=num_dye, **dev)
+    obc_update_fn = None
+    if obc is not None:
+        grid = open_grid_masks(grid, obc)
+        # time-interpolated file data, then the user update
+        data_fn = build_obc_data_interp(pf, domain, obc, indir=indir)
+        pf.module("MOM_boundary_update")
+        user_fn = build_obc_update(pf, south=south, axis_units=axis_units)
+        if data_fn is not None and user_fn is not None:
+            def obc_update_fn(ob, g, h, t, _d=data_fn, _u=user_fn):
+                return _u(_d(ob, g, h, t), g, h, t)
+        else:
+            obc_update_fn = data_fn or user_fn
 
     pf.module("MOM_verticalGrid")
     nk = pf.get("NK", int, 1, units="nondim", desc="number of layers")
@@ -516,6 +552,12 @@ def build_model(pf: ParamFile, *, device="cuda",
         "USE_LAND_MASK_FOR_HVISC", bool, True,
         desc="mask cell thicknesses before averaging to faces "
         "(MOM_hor_visc.F90:705,2270)"))
+    if obc is not None:
+        hv = dataclasses.replace(hv, **{
+            name.lower(): pf.get(name, bool, False)
+            for name in ("OBC_ZERO_VORTICITY", "OBC_FREESLIP_VORTICITY",
+                         "OBC_ZERO_STRAIN", "OBC_FREESLIP_STRAIN",
+                         "OBC_ZERO_BIHARMONIC")})
 
     pf.module("MOM_PressureForce")
     use_stanley_pgf = pf.get("USE_STANLEY_PGF", bool, False)
@@ -810,6 +852,9 @@ def build_model(pf: ParamFile, *, device="cuda",
                  "USE_OIL_TRACER", "USE_ADVECTION_TEST_TRACER",
                  "USE_MARBL_TRACERS", "USE_OCMIP2_CFC", "USE_NPZD"):
         default_only(pf, name, bool, False)
+    if num_dye > 0:
+        tracers.update(register_dyed_obc_tracers(registry, shape, num_dye,
+                                                 **dev))
     default_only(pf, "TRACER_Z_INIT_FILE", str, "")
     default_only(pf, "PHASED_JIT", bool, False, module="MOM",
                  desc="run thermo steps as two executables "
@@ -821,4 +866,5 @@ def build_model(pf: ParamFile, *, device="cuda",
                  lenlat=lenlat, forces=forces, registry=registry,
                  state=state, split=split_state, tracers=tracers or None,
                  dt=dt, dt_therm=dt_therm, dt_forcing=dt_forcing,
-                 daymax=daymax, thermo=thermo)
+                 daymax=daymax, thermo=thermo, obc=obc,
+                 obc_update_fn=obc_update_fn)

@@ -11,8 +11,10 @@ thicknesses or not (USE_LAND_MASK_FOR_HVISC); and the Zanna-Bolton
 (ZB2020) stress added to the result.  Tension sh_xx lives at h points,
 shearing strain sh_xy at q points; the divergence of the
 thickness-weighted stress gives (diffu, diffv).  GME and the
-VarMix/MEKE coefficient inputs raise ``NotImplementedError``; open
-boundaries are not ported.
+VarMix/MEKE coefficient inputs raise ``NotImplementedError``.  With
+open boundaries the OBC_* flags zero the strain or vorticity components
+on the q-point line of each open segment and the flow Laplacian at its
+faces.
 """
 
 from __future__ import annotations
@@ -60,6 +62,13 @@ class HorViscCfg:
     use_gme: bool = False         # USE_GME (not ported: raises)
     no_slip: bool = False         # NOSLIP
     use_land_mask: bool = True    # USE_LAND_MASK_FOR_HVISC
+    # open segments: the shear and vorticity at their q points, the
+    # biharmonic Laplacian at their faces
+    obc_zero_vorticity: bool = False    # OBC_ZERO_VORTICITY
+    obc_freeslip_vorticity: bool = False  # OBC_FREESLIP_VORTICITY
+    obc_zero_strain: bool = False       # OBC_ZERO_STRAIN
+    obc_freeslip_strain: bool = False   # OBC_FREESLIP_STRAIN
+    obc_zero_biharmonic: bool = False   # OBC_ZERO_BIHARMONIC
 
     # the JAX package's GME settings, inert while USE_GME is off
     _INERT = {"gme_h0": "use_gme", "gme_efficiency": "use_gme",
@@ -71,10 +80,45 @@ class HorViscResult(NamedTuple):
     diffv: torch.Tensor
 
 
-def _strains(grid: Grid, u, v, no_slip: bool):
+def _zero_line(f, axis: int, index: int, line):
+    """f with its row (axis -2) or column (axis -1) ``index`` zeroed where
+    ``line`` (a bool vector, or True) holds."""
+    out = f.clone()
+    sel = (Ellipsis, index, slice(None)) if axis == -2 \
+        else (Ellipsis, slice(None), index)
+    out[sel] = 0.0 if line is True else torch.where(line, 0.0, f[sel])
+    return out
+
+
+def _strip_line(strip, axis: int, index: int):
+    return True if strip is None else (strip[index, :] > 0 if axis == -2
+                                       else strip[:, index] > 0)
+
+
+def _obc_qline(f, obc, comps: str):
+    """f zeroed on the q-point line of each open edge: N/S segments with
+    ``comps`` "ns", E/W ones with "ew", all with "both"."""
+    H, nj, ni = obc.halo, obc.njl, obc.nil
+    if comps in ("ns", "both"):
+        if obc.open_n:
+            jq = H + nj - 1
+            f = _zero_line(f, -2, jq, _strip_line(obc.strip_n, -2, jq))
+        if obc.open_s:
+            f = _zero_line(f, -2, H - 1, _strip_line(obc.strip_s, -2, H))
+    if comps in ("ew", "both"):
+        if obc.open_e:
+            iq = H + ni - 1
+            f = _zero_line(f, -1, iq, _strip_line(obc.strip_e, -1, iq))
+        if obc.open_w:
+            f = _zero_line(f, -1, H - 1, _strip_line(obc.strip_w, -1, H))
+    return f
+
+
+def _strains(grid: Grid, u, v, no_slip: bool, obc=None, cfg=None):
     """Tension at h points, shearing strain at q points (doubled at
     land corners with ``no_slip``), divergence at h points and relative
-    vorticity at q points."""
+    vorticity at q points; with ``obc``, the OBC strain and vorticity
+    flags of ``cfg`` act on the segments' q points."""
     DY_dxT = grid.dyT * grid.IdxT
     DX_dyT = grid.dxT * grid.IdyT
     DY_dxBu = grid.dyBu * grid.IdxBu
@@ -83,8 +127,27 @@ def _strains(grid: Grid, u, v, no_slip: bool):
     dvdy = DX_dyT * (grid.IdxCv * v - jm1(grid.IdxCv * v))
     dvdx = DY_dxBu * (ip1(grid.IdyCv * v) - grid.IdyCv * v)
     dudy = DX_dyBu * (jp1(grid.IdxCu * u) - grid.IdxCu * u)
+    s_dvdx, s_dudy = dvdx, dudy          # strain components
+    v_dvdx, v_dudy = dvdx, dudy          # vorticity components
+    if obc is not None and cfg is not None:
+        # zero strain kills both components; free slip only the
+        # cross-boundary gradient of the tangential velocity (dudy on
+        # N/S segments, dvdx on E/W ones); likewise for the vorticity
+        if cfg.obc_zero_strain:
+            s_dvdx = _obc_qline(s_dvdx, obc, "both")
+            s_dudy = _obc_qline(s_dudy, obc, "both")
+        elif cfg.obc_freeslip_strain:
+            s_dudy = _obc_qline(s_dudy, obc, "ns")
+            s_dvdx = _obc_qline(s_dvdx, obc, "ew")
+        if cfg.obc_zero_vorticity:
+            v_dvdx = _obc_qline(v_dvdx, obc, "both")
+            v_dudy = _obc_qline(v_dudy, obc, "both")
+        elif cfg.obc_freeslip_vorticity:
+            v_dudy = _obc_qline(v_dudy, obc, "ns")
+            v_dvdx = _obc_qline(v_dvdx, obc, "ew")
     fac = (2.0 - grid.mask2dBu) if no_slip else grid.mask2dBu
-    return dudx - dvdy, fac * (dvdx + dudy), dudx + dvdy, dvdx - dudy
+    return dudx - dvdy, fac * (s_dvdx + s_dudy), dudx + dvdy, \
+        v_dvdx - v_dudy
 
 
 def _combine(base, les, add):
@@ -94,8 +157,10 @@ def _combine(base, les, add):
 
 
 def horizontal_viscosity(grid: Grid, u, v, h,
-                         cfg: HorViscCfg = HorViscCfg()) -> HorViscResult:
-    """(diffu, diffv) [m s-2]; u, v need 2 valid halo rings, h one."""
+                         cfg: HorViscCfg = HorViscCfg(),
+                         obc=None) -> HorViscResult:
+    """(diffu, diffv) [m s-2]; u, v need 2 valid halo rings, h one.
+    ``obc``: the open boundaries the OBC_* flags of ``cfg`` act on."""
     if cfg.use_gme:
         raise NotImplementedError("GME: USE_GME backscatter")
     zb = None
@@ -116,7 +181,8 @@ def horizontal_viscosity(grid: Grid, u, v, h,
     dx2h = grid.dxT * grid.dxT
     dy2q = grid.dyBu * grid.dyBu
     dx2q = grid.dxBu * grid.dxBu
-    sh_xx, sh_xy, div_xx, vort_xy = _strains(grid, u, v, cfg.no_slip)
+    sh_xx, sh_xy, div_xx, vort_xy = _strains(grid, u, v, cfg.no_slip,
+                                             obc=obc, cfg=cfg)
     grid_sp_h2 = (2.0 * dx2h * dy2h) / (dx2h + dy2h + _H_NEGLECT)
     grid_sp_q2 = (2.0 * dx2q * dy2q) / (dx2q + dy2q + _H_NEGLECT)
     grid_sp_h3 = grid_sp_h2 * torch.sqrt(grid_sp_h2)
@@ -205,7 +271,13 @@ def horizontal_viscosity(grid: Grid, u, v, h,
                  + Idx2dyCu * (dx2q * sh_xy - jm1(dx2q * sh_xy)))
         Del2v = (Idxdy2v * (dy2q * sh_xy - im1(dy2q * sh_xy))
                  - Idx2dyCv * (jp1(dx2h * sh_xx) - dx2h * sh_xx))
-        bh_xx, bh_xy, _, _ = _strains(grid, Del2u, Del2v, cfg.no_slip)
+        if obc is not None and cfg.obc_zero_biharmonic:
+            # no flow Laplacian at the segments' faces: Del2u on E/W
+            # segments, Del2v on N/S ones (their q-point lines' indices)
+            Del2u = _obc_qline(Del2u, obc, "ew")
+            Del2v = _obc_qline(Del2v, obc, "ns")
+        bh_xx, bh_xy, _, _ = _strains(grid, Del2u, Del2v, cfg.no_slip,
+                                      obc=obc, cfg=cfg)
         Ah_h = torch.clamp(cfg.ah_vel_scale * grid_sp_h3, min=cfg.ah)
         Ah_q = torch.clamp(cfg.ah_vel_scale * grid_sp_q3, min=cfg.ah)
         if cfg.smag_bi_const > 0.0:

@@ -2,7 +2,7 @@
 
     python -m mom6_torch.profile_step [--full [--layered]
                                      [--dynamics rk2|rk2b|unsplit|b1|
-                                                 nonbouss]]
+                                                 nonbouss|obc]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
 
@@ -16,7 +16,9 @@ step every second step), on the split RK2 dynamics or, with
 thermodynamic step every sixth), or on the split RK2 dynamics with the
 first breadth item's options (``b1``: tides with spherical-harmonic
 SAL, Stanley, porous barriers, ZB2020/Leith; ``nonbouss``: the
-non-Boussinesq step).  After two warm-up steps it
+non-Boussinesq step), or on the regional configuration with open
+boundaries (``obc``: adiabatic and layered, with K3's open-face
+instance and the dyed OBC tracers).  After two warm-up steps it
 measures:
 
 1. the step time, by CUDA events around ``--steps`` uninstrumented
@@ -78,7 +80,8 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "rk2b": (dyn_b, "step_dyn_split_rk2b"),
             "unsplit": (dyn_u, "step_dyn_unsplit"),
             "b1": (dyn, "step_dyn_split_rk2"),
-            "nonbouss": (dyn, "step_dyn_split_rk2")}
+            "nonbouss": (dyn, "step_dyn_split_rk2"),
+            "obc": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential")
@@ -288,7 +291,9 @@ def main(argv=None):
     step_ms = sum(per) / a.steps
     by_kind = {k: sum(t for t, kk in zip(per, kinds) if kk == k)
                / kinds.count(k) for k in dict.fromkeys(kinds)}
-    label = ("slice 2 (full step, " + ("layered" if a.layered else "ALE")
+    # the open-boundary text is layered whatever --layered says
+    ale = a.full and not a.layered and a.dynamics != "obc"
+    label = ("slice 2 (full step, " + ("ALE" if ale else "layered")
              + f", {a.dynamics})") if a.full else "slice 1"
     print(f"{name}: {label} "
           f"{a.nk}x{a.nj}x{a.ni} fp32, {step_ms:.3f} ms/step (CUDA "
@@ -296,7 +301,7 @@ def main(argv=None):
           f"{a.steps} steps; "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()))
     summary = dict(device=name, slice=2 if a.full else 1,
-                   ale=a.full and not a.layered,
+                   ale=ale,
                    dynamics=a.dynamics if a.full else "rk2",
                    shape=[a.nk, a.nj, a.ni], step_ms=step_ms,
                    step_ms_by_kind=by_kind, host_ms_per_step=wall_ms)

@@ -1,6 +1,6 @@
 """Idealized tracer packages (counterpart of ``mom6_tpu.tracer.ideal``):
-the ideal ventilation age.  The other packages of the JAX module are
-not ported yet."""
+the ideal ventilation age and the dyed open-boundary tracers.  The other
+packages of the JAX module are not ported yet."""
 
 from __future__ import annotations
 
@@ -8,7 +8,8 @@ import torch
 
 from mom6_torch.tracer.registry import TracerMeta, TracerRegistry
 
-__all__ = ["register_ideal_age", "age_column"]
+__all__ = ["register_ideal_age", "register_dyed_obc_tracers",
+           "age_column"]
 
 _YEAR = 365.0 * 86400.0
 
@@ -26,3 +27,17 @@ def register_ideal_age(reg: TracerRegistry, shape, *, device,
     reg.register(TracerMeta(name="age", longname="ideal age", units="yr",
                             column_fn=age_column))
     return torch.zeros(shape, device=device, dtype=dtype)
+
+
+def register_dyed_obc_tracers(reg: TracerRegistry, shape, n_dye: int, *,
+                              device, dtype: torch.dtype) -> dict:
+    """dye_01..dye_NN, initially zero; each open-boundary segment
+    supplies a unit concentration of its own dye."""
+    out = {}
+    for m in range(1, n_dye + 1):
+        name = f"dye_{m:02d}"
+        reg.register(TracerMeta(name=name,
+                                longname=f"dyed_obc tracer {m:02d}",
+                                units="nondim"))
+        out[name] = torch.zeros(shape, device=device, dtype=dtype)
+    return out

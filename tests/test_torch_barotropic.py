@@ -147,10 +147,14 @@ def test_filter_weights_match_jax():
 
 
 def test_btstep_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="OBC"):
-        tbt.btstep(None, None, None, None, None, None, None, None, None,
-                   None, None, None, 600.0, tbt.BarotropicCfg(),
-                   obc=object())
+    """What btstep still refuses: a BT_THICK_SCHEME outside the JAX
+    package's four.  Open boundaries, once refused here, run
+    (tests/test_torch_obc.py)."""
+    d = Domain(ni=4, nj=4, halo=4)
+    z = torch.zeros((NK, d.njh, d.nih), dtype=F64)
+    with pytest.raises(ValueError, match="BT_THICK_SCHEME"):
+        tbt.btstep(d, None, None, z, z, z[0], z, z, z, z, z, z, 600.0,
+                   tbt.BarotropicCfg(hvel_scheme="UPWIND"))
 
 
 @pytest.mark.parametrize("nj,ni,sms", [(520, 520, 132), (524, 524, 132),
