@@ -97,6 +97,17 @@ order; any failure ends the script with a non-zero exit:
    call alone (CUDA events) and one profiled dynamics-only step with
    the device time and kernels of the porous fractions (profile_step's
    ranges);
+6e. the rest of the first breadth item: configs.BENCH_CONFIG_STOCH
+   (bench.py's CONFIG with THICKNESSDIFFUSE_FIRST, DIABATIC_FIRST, GME,
+   Stanley with STOCH_EOS, SPPT and SKEB; entry.build_full's "stoch")
+   at 32x32x6 in fp64 for 4 steps, card against CPU, the SPPT and SKEB
+   pattern carries included (1e-9);
+7e. BENCH_CONFIG_STOCH at full width, 512x512x25 fp32, as in 7b
+   (launches a step asserted: K1 4, K2 1, K3m 2), its ms/step beside
+   bench.py's CONFIG of phase 7; step_pattern and apply_skeb alone
+   (CUDA events); one thermodynamic and one dynamics-only step under
+   the profiler with profile_step's ranges: device time and kernels of
+   the patterns, SPPT, SKEB, the Stanley terms under STOCH_EOS and GME;
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -110,13 +121,14 @@ order; any failure ends the script with a non-zero exit:
    process, the driver's ms/step beside the bare loop's, one
    stat_sums + collect_stats call timed and the driver's peak memory;
    then cases/tc0 (unsplit, 4x4x1) for its 4 days in fp64, card against
-   --cpu as double_gyre, K1 untargeted alone launched; and
-   cases/ref_tc0 (unsplit, SIMPLE_2ND_PPM_CONTINUITY) through
-   build_model and step_fn on the card in fp64 against its golden in
-   tests/goldens_ref_cases.json (the driver still refuses its DEBUG and
-   DIAG_AS_CHKSUM); then cases/tc3 (four Flather/Orlanski segments,
-   with SSH = 0.1 m on one and three dyes) through the driver in fp64,
-   card against --cpu, K3 launched only as its open-face instance.
+   --cpu as double_gyre, K1 untargeted alone launched; then cases/tc3
+   (four Flather/Orlanski segments, with SSH = 0.1 m on one and three
+   dyes) through the driver in fp64, card against --cpu, K3 launched
+   only as its open-face instance; and cases/ref_tc0 (unsplit,
+   SIMPLE_2ND_PPM_CONTINUITY, DEBUG and DIAG_AS_CHKSUM) through the
+   driver in fp64 on the card against its golden in
+   tests/goldens_ref_cases.json, its chksum_debug and chksum_diag
+   equal line for line to a --cpu run's, K1 untargeted alone launched.
    Each run has every launch counter zeroed just before it and read
    just after.
 
@@ -195,7 +207,20 @@ PER_STEP = {"rk2b": {"K1": 8, "K2": 1, "K3": 0, "K3m": 2, "K1u": 4,
             # open boundaries: no BT_cont, period 1, K3 as its open-face
             # instance (K3o)
             "obc": {"K1": 4, "K2": 0, "K3": 2, "K3m": 0, "K1u": 0, "K1p": 0,
-                    "K3o": 2}}
+                    "K3o": 2},
+            # the rest of the first breadth item: the same kernels as
+            # bench.py's CONFIG
+            "stoch": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0,
+                      "K1p": 0, "K3o": 0}}
+# the profile_step ranges of the stochastic pieces, the STOCH_EOS-scaled
+# Stanley terms and GME, read from a profiled thermodynamic and a
+# dynamics-only step of BENCH_CONFIG_STOCH
+STOCH_PHASES = ("pattern/init_pattern", "pattern/step_pattern", "apply_sppt",
+                "apply_skeb", "dynamics/stoch_eos_multiplier",
+                "dynamics/pressure_force/calc_varT",
+                "dynamics/pressure_force/density_second_dT2",
+                "dynamics/gme_inputs",
+                "dynamics/horizontal_viscosity/gme_stress")
 # cases/tc3 through the driver, with SSH = 0.1 m on its third segment and
 # three dyes, so that its statistics are not all zero
 TC3_DAYS = "0.05"
@@ -1040,12 +1065,13 @@ def run_slice(ni, nj, nk, dtype, device, nsteps):
 
 
 def run_full(ni, nj, nk, dtype, device, nsteps, seed, regridding,
-             dynamics="rk2", period=2, tides=True):
+             dynamics="rk2", period=2, tides=True, with_carry=False):
     """``nsteps`` full steps from the configuration's initial state plus
     the seeded perturbation of ``entry.build_full``: the configuration
     starts at rest and horizontally uniform, where a comparison of the
     first steps' v and eta would compare roundoff.  ``tides=False``
-    drops the split stepper's tidal forcing from the built model."""
+    drops the split stepper's tidal forcing from the built model;
+    ``with_carry`` returns the step closure's carry fourth."""
     from mom6_torch import entry
     m = entry.build_full(ni, nj, nk, seed=seed, regridding=regridding,
                          dynamics=dynamics, wide_halo_period=period,
@@ -1057,6 +1083,8 @@ def run_full(ni, nj, nk, dtype, device, nsteps, seed, regridding,
     st, sp, tr = m.state, m.split, m.tracers
     for n in range(nsteps):
         st, sp, tr = step(st, sp, tr, n)
+    if with_carry:
+        return st, sp, tr, step.carry()
     return st, sp, tr
 
 
@@ -1279,6 +1307,64 @@ def obc_extra(m, cur, fstep, n_done):
     return dict(dye_ranges=ranges)
 
 
+def stoch_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_STOCH: the pattern update (step_pattern, the
+    gridded generator and the smoother) and SKEB (apply_skeb) alone at
+    full width (CUDA events), then one thermodynamic and one
+    dynamics-only step under the profiler with profile_step's ranges:
+    the device time and kernels of each stochastic piece, of the Stanley
+    terms under STOCH_EOS and of GME, and the step's idle share."""
+    import torch
+    from mom6_torch import profile_step
+    from mom6_torch.param.stochastic import stochastics as sto
+    d, g, cfg, seed = m.domain, m.grid, m.cfg.sppt, m.cfg.sppt_seed
+    st = cur[0]
+    pat = sto.init_pattern(d, cfg, seed, dtype=st.h.dtype, device=DEV)
+    pat_ms = cuda_ms(lambda: sto.step_pattern(d, cfg, pat, seed, 5), 10)
+    uf, vf = d.fill_vector_halos(st.u, st.v, width=1)
+    skeb_ms = cuda_ms(lambda: sto.apply_skeb(d, g, cfg, uf, vf, pat, m.dt),
+                      10)
+    p = sto.step_pattern(d, cfg, pat, seed, 5)
+    log(f"  step_pattern alone {pat_ms:.4f} ms, apply_skeb alone "
+        f"{skeb_ms:.4f} ms (CUDA events, 10 calls); the pattern after a "
+        f"step: range [{float(d.interior(p).min()):.4f}, "
+        f"{float(d.interior(p).max()):.4f}], rms "
+        f"{float(d.interior(p).pow(2).mean().sqrt()):.4f}")
+    if not bool(torch.isfinite(p).all()):
+        raise AssertionError("stoch: the pattern is not finite")
+    out = dict(step_pattern_ms=pat_ms, apply_skeb_ms=skeb_ms, profiled={})
+    targets = profile_step.slice2_targets("stoch")
+    for kind in ("thermo", "dynamics-only"):
+        while ((n_done[0] + 1) % m.cfg.n_dyn_per_therm == 0) \
+                != (kind == "thermo"):
+            fstep()
+        summary = profile_step._profile(fstep, targets, f"stoch {kind}",
+                                        None)
+        ph = summary.get("phases", {})
+        got = {k: ph[k] for k in STOCH_PHASES if k in ph}
+        log(f"  profiled {kind} step: device busy "
+            f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+            f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+            f"{summary.get('kernels', 0)} kernels; "
+            + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                        f"{v['device_ms']:.4f} ms" for k, v in got.items()))
+        out["profiled"][kind] = dict(
+            device_busy_ms=summary.get("device_busy_ms"),
+            idle_share=summary.get("idle_share_profiled"),
+            kernels=summary.get("kernels"), phases=got)
+    thermo = out["profiled"]["thermo"]["phases"]
+    for k in ("pattern/step_pattern", "apply_skeb", "apply_sppt"):
+        if k not in thermo:
+            raise AssertionError(f"stoch: no {k} in a thermodynamic step")
+    dyn = out["profiled"]["dynamics-only"]["phases"]
+    for k in ("dynamics/horizontal_viscosity/gme_stress",
+              "dynamics/stoch_eos_multiplier",
+              "dynamics/pressure_force/calc_varT"):
+        if k not in dyn:
+            raise AssertionError(f"stoch: no {k} in a dynamics step")
+    return out
+
+
 def run_text(text, ni, nj, nk, dtype, device, nsteps, seed, tmp):
     """``nsteps`` steps of the configuration ``text`` (INPUTDIR ``tmp``,
     where configs.write_obc_data writes the E data from seed 0) at
@@ -1355,29 +1441,39 @@ def b1_extra(m, cur, fstep, n_done):
                 profiled_busy_ms=summary.get("device_busy_ms"))
 
 
-def run_ref_tc0(wrappers):
-    """cases/ref_tc0 through build_model and step_fn on the card in
-    fp64, with every launch counter zeroed just before and read just
-    after; ocean.stats against tests/goldens_ref_cases.json at the
-    tolerances of tests/test_ref_cases.py."""
-    import torch
+def run_ref_tc0(tmp, wrappers):
+    """cases/ref_tc0 through the solo driver (DEBUG, DIAG_AS_CHKSUM) in
+    fp64 on the card, with every launch counter zeroed just before and
+    read just after, and with --cpu: the final state's ocean.stats
+    against tests/goldens_ref_cases.json at the tolerances of
+    tests/test_ref_cases.py, and the two runs' chksum_debug and
+    chksum_diag equal line for line."""
+    import shutil
     from mom6_torch.diagnostics.sum_output import collect_stats, stat_sums
+    from mom6_torch.drivers import solo
     from mom6_torch.framework.config import ParamFile
     from mom6_torch.model import build_model
     golden = json.loads((ROOT / "tests" / "goldens_ref_cases.json")
                         .read_text())["ref_tc0"]
     case = ROOT / "cases" / "ref_tc0"
-    m = build_model(ParamFile(str(case / "MOM_input"),
-                              str(case / "MOM_override")),
-                    device=DEV, dtype=torch.float64)
-    n = golden["nsteps"]
+    dirs = {}
+    for where in ("card", "cpu"):
+        d = Path(tmp) / f"ref_tc0_{where}"
+        d.mkdir()
+        for name in ("MOM_input", "MOM_override"):
+            shutil.copy(case / name, d / name)
+        dirs[where] = d
     zero_counts(wrappers)
-    step = m.step_fn()
-    s, a, tr = m.state, m.split, m.tracers
-    for i in range(n):
-        s, a, tr = step(s, a, tr, i)
+    run = solo.main([str(dirs["card"])])
+    n = run["steps"]
     launches = check_driver_launches(
         "ref_tc0", wrappers, {"K1": 6 * n, "K2": 0, "K3": 0, "K3m": 0})
+    solo.main([str(dirs["cpu"]), "--cpu"])
+    m = build_model(ParamFile(str(case / "MOM_input"),
+                              str(case / "MOM_override")),
+                    device="cpu", dtype=run["state"].h.dtype)
+    s = run["state"]
+    s = s.replace(**{k: getattr(s, k).cpu() for k in ("u", "v", "h")})
     st = collect_stats(stat_sums(m.domain, m.grid, m.vgrid, s, m.dt),
                        m.vgrid, n, 0.0)
     checks = (("energy_per_mass", "energy_per_mass", 1e-9, 0.0),
@@ -1386,14 +1482,27 @@ def run_ref_tc0(wrappers):
               ("mean_temp", "temp", 1e-9, 0.0),
               ("max_cfl", "max_cfl", 1e-6, 1e-12),
               ("mean_sea_level", "sea_level", 1e-6, 1e-12))
+    if n != golden["nsteps"]:
+        raise AssertionError(f"ref_tc0: {n} steps, golden "
+                             f"{golden['nsteps']}")
     for field, key, rtol, atol in checks:
         got, want = float(getattr(st, field)), float(golden[key])
         if not abs(got - want) <= atol + rtol * abs(want):
             raise AssertionError(f"ref_tc0 {field}: {got!r} against the "
                                  f"golden {want!r}")
+    lines = {}
+    for name in ("chksum_debug", "chksum_diag"):
+        a, b = ((dirs[w] / name).read_text().splitlines()
+                for w in ("card", "cpu"))
+        if a != b or len(a) < 6:
+            raise AssertionError(f"ref_tc0 {name}: {len(a)} lines on the "
+                                 f"card, {len(b)} with --cpu, not equal")
+        lines[name] = len(a)
     log(f"  {n} steps: " + ", ".join(
         f"{f} {float(getattr(st, f))!r}" for f, *_ in checks)
-        + f" (golden {json.dumps(golden)}); launches {launches}")
+        + f" (golden {json.dumps(golden)}); launches {launches}; "
+        + ", ".join(f"{k} {v} lines" for k, v in lines.items())
+        + ", card and cpu equal line for line")
     return launches
 
 
@@ -1920,6 +2029,35 @@ def main():
             raise AssertionError(f"{label}: launches {counts}")
         log(f"  {label} on the card: launches {counts}")
 
+    # 6e. the rest of the first breadth item at 32x32x6 fp64
+    n = 4
+    log("phase 6e stoch (configs.BENCH_CONFIG_STOCH: THICKNESSDIFFUSE_FIRST,"
+        " DIABATIC_FIRST, GME, STOCH_EOS, SPPT, SKEB; Z* ALE) "
+        "%dx%dx%d fp64, " % SMALL_FULL + f"{n} steps: card vs cpu")
+    zero_counts(wrappers)
+    gst, gsp, gtr, gcarry = run_full(*SMALL_FULL, torch.float64, DEV, n,
+                                     seed=3, regridding=True,
+                                     dynamics="stoch", with_carry=True)
+    counts = read_counts(wrappers)
+    cst, csp, ctr, ccarry = run_full(*SMALL_FULL, torch.float64, "cpu", n,
+                                     seed=3, regridding=True,
+                                     dynamics="stoch", with_carry=True)
+    pairs = [(k, getattr(cst, k), getattr(gst, k))
+             for k in ("h", "u", "v", "T", "S")]
+    pairs += [("age", ctr["age"], gtr["age"]), ("eta", csp.eta, gsp.eta),
+              ("u_av", csp.u_av, gsp.u_av)]
+    pairs += [(f"pattern {k}", ccarry["sppt"][k], gcarry["sppt"][k])
+              for k in ("sppt", "skeb")]
+    for name, a, b in pairs:
+        rel, diff = rel_err(a, b.cpu())
+        log(f"  stoch {name}: max rel err {rel:.3e} (limit 1e-09)")
+        if not rel <= 1e-9:
+            raise AssertionError(f"stoch {name}: {rel:.3e} > 1e-9")
+    expect = {k: v * n for k, v in PER_STEP["stoch"].items()}
+    if counts != expect:
+        raise AssertionError(f"stoch: launches {counts}, expected {expect}")
+    log(f"  stoch on the card: launches {counts}")
+
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
     for label, regridding in FULL_VARIANTS:
@@ -1961,6 +2099,17 @@ def main():
     full["obc"] = run_new_timed("obc", wrappers, shape, obc_extra)
     torch.cuda.empty_cache()
 
+    # 7e. the rest of the first breadth item at full width, fp32
+    log("phase 7e stoch (configs.BENCH_CONFIG_STOCH, Z* ALE) "
+        "%dx%dx%d fp32" % MAIN)
+    full["stoch"] = run_new_timed("stoch", wrappers, shape, stoch_extra)
+    log(f"  stoch against bench.py's CONFIG (phase 7, Z* ALE, same "
+        f"process): {full['stoch']['ms_step']:.3f} against "
+        f"{full['ale']['ms_step']:.3f} ms/step; peak "
+        f"{full['stoch']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
@@ -1983,9 +2132,9 @@ def main():
             {"K1": 4, "K2": 0, "K3": 2, "K3m": 0}, edits=TC3_EDITS)
         if barotropic_cuda.subcycle_cuda.obc_launches != launches_tc3["K3"]:
             raise AssertionError("driver tc3: K3 ran its closed instance")
-    log("phase 8 cases/ref_tc0 through build_model + step_fn, fp64, "
-        "against its golden")
-    launches_ref_tc0 = run_ref_tc0(wrappers)
+        log("phase 8 driver: cases/ref_tc0 (DEBUG, DIAG_AS_CHKSUM) fp64, "
+            "card vs cpu, against its golden")
+        launches_ref_tc0 = run_ref_tc0(tmp, wrappers)
     torch.cuda.empty_cache()
 
     nk, njh, nih = shape_main
@@ -2053,11 +2202,12 @@ def main():
                 "b1_full_step": full["b1"]["launches"][k],
                 "nonbouss_full_step": full["nonbouss"]["launches"][k],
                 "obc_full_step": full["obc"]["launches"][k],
+                "stoch_full_step": full["stoch"]["launches"][k],
                 "solo_double_gyre": launches_gyre[k],
                 "solo_bench_config": launches_bench[k],
                 "solo_tc0": launches_tc0[k],
                 "solo_tc3": launches_tc3[k],
-                "ref_tc0": launches_ref_tc0[k]},
+                "solo_ref_tc0": launches_ref_tc0[k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
@@ -2111,7 +2261,7 @@ def main():
         library_ms=None, unit="per subcycle", profiled_device_ms=dev_ms,
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
-    for dyn in ("b1", "nonbouss", "obc"):
+    for dyn in ("b1", "nonbouss", "obc", "stoch"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())

@@ -39,6 +39,13 @@ middle half of the S edge (``obc_strip`` gives its line at other
 widths); one dye per segment (NUM_DYE_TRACERS), and the free-slip
 vorticity and strain and no biharmonic stress at the open faces.
 
+``BENCH_CONFIG_STOCH`` is bench.py's configuration with the rest of the
+first breadth item on: the GM thickness diffusion and the column
+physics with ALE before the dynamics (THICKNESSDIFFUSE_FIRST,
+DIABATIC_FIRST), the GME backscatter stress, the Stanley pressure-force
+correction with its stochastic multiplier (STOCH_EOS), and the SPPT
+tendency perturbations and SKEB backscatter, all with their defaults.
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
@@ -46,7 +53,8 @@ import numpy as np
 
 __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "BENCH_CONFIG_B1", "BENCH_CONFIG_NONBOUSS", "BENCH_CONFIG_OBC",
-           "B1_LINES", "NONBOUSS_LINES", "OBC_LINES", "obc_strip",
+           "BENCH_CONFIG_STOCH", "B1_LINES", "NONBOUSS_LINES", "OBC_LINES",
+           "STOCH_LINES", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
            "write_topog_edge"]
 
@@ -149,11 +157,23 @@ OBC_FREESLIP_STRAIN = True
 OBC_ZERO_BIHARMONIC = True
 """
 
+STOCH_LINES = """THICKNESSDIFFUSE_FIRST = True
+DIABATIC_FIRST = True
+USE_GME = True
+USE_STANLEY_PGF = True
+STANLEY_COEFF = 0.5
+STOCH_EOS = True
+DO_SPPT = True
+DO_SKEB = True
+"""
+
 BENCH_CONFIG_B1 = BENCH_CONFIG + B1_LINES
 
 BENCH_CONFIG_NONBOUSS = BENCH_CONFIG + NONBOUSS_LINES
 
 BENCH_CONFIG_OBC = BENCH_CONFIG + OBC_LINES
+
+BENCH_CONFIG_STOCH = BENCH_CONFIG + STOCH_LINES
 
 
 def obc_strip(ni: int) -> str:

@@ -24,9 +24,13 @@ boundaries (``obc``) every halo fill is followed by the extension
 through the open edges, the BT_cont curves are off (linear barotropic
 transports), the barotropic solver applies the Flather radiation, the
 horizontal viscosity the OBC flags, and the new velocities take the
-Orlanski radiation after the vertical viscosity.  The stochastic EOS, a
-shear-driven viscosity, GME and the VarMix/MEKE viscosity inputs are not
-ported yet and raise ``NotImplementedError``.
+Orlanski radiation after the vertical viscosity.  With STOCH_EOS
+(``cfg.stoch_eos_a`` and a ``stoch_pattern``) both pressure-force calls
+multiply the Stanley variance by exp(a pattern); with USE_GME the
+horizontal viscosity takes the barotropic velocities and column
+thickness of the incoming time-mean state.  A shear-driven viscosity
+and the VarMix/MEKE viscosity inputs are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from mom6_torch.core.vertical_grid import VerticalGrid
 from mom6_torch.param.lateral.hor_visc import (HorViscCfg,
                                                horizontal_viscosity)
 from mom6_torch.parallel.domain import Domain
+from mom6_torch.parallel.stencil import ip1, jp1
 
 __all__ = ["SplitCfg", "SplitDynState", "SplitDiags", "init_split_state",
            "step_dyn_split_rk2"]
@@ -74,7 +79,9 @@ class SplitCfg:
     barotropic: BarotropicCfg = BarotropicCfg()
     # (eta, t) -> tidal + SAL geopotential height anomaly [m], or None
     tides_fn: object = None
-    stoch_eos_a: float = 0.0         # STOCH_EOS (not ported)
+    # STOCH_EOS: STANLEY_A, the exponent's factor of the Stanley variance
+    # multiplier exp(a pattern); 0 disables
+    stoch_eos_a: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,17 +122,36 @@ def init_split_state(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                          uh=z, vh=z, eta=e[0], diffu=diffu, diffv=diffv)
 
 
-def _check_unported(cfg: SplitCfg, stoch_pattern, kh_scale, kh_extra,
-                    kv_shear):
-    for name, bad in (("stoch_eos: stochastic EOS",
-                       cfg.stoch_eos_a != 0.0 and stoch_pattern is not None),
-                      ("kv_shear: shear-driven viscosity",
+def _check_unported(kh_scale, kh_extra, kv_shear):
+    for name, bad in (("kv_shear: shear-driven viscosity",
                        kv_shear is not None),
-                      ("GME: USE_GME backscatter", cfg.horvisc.use_gme),
                       ("kh_scale/kh_extra viscosity inputs",
                        kh_scale is not None or kh_extra is not None)):
         if bad:
             raise NotImplementedError(name)
+
+
+def stoch_eos_multiplier(cfg: SplitCfg, stoch_pattern):
+    """STOCH_EOS: exp(STANLEY_A pattern), the multiplier of the Stanley
+    variance, or None without it."""
+    if cfg.stoch_eos_a == 0.0 or stoch_pattern is None:
+        return None
+    return torch.exp(cfg.stoch_eos_a * stoch_pattern)
+
+
+def gme_inputs(cfg: SplitCfg, h_av, u_av, v_av) -> dict:
+    """USE_GME: the thickness-weighted barotropic velocities and the
+    column thickness of the time-mean state, as keywords of
+    ``horizontal_viscosity``; empty without GME."""
+    if not cfg.horvisc.use_gme:
+        return {}
+    h_u = 0.5 * (h_av + ip1(h_av))
+    h_v = 0.5 * (h_av + jp1(h_av))
+    return dict(u_bt=torch.sum(h_u * u_av, dim=0)
+                / (torch.sum(h_u, dim=0) + 1e-30),
+                v_bt=torch.sum(h_v * v_av, dim=0)
+                / (torch.sum(h_v, dim=0) + 1e-30),
+                htot=torch.sum(h_av, dim=0))
 
 
 def halo_fill(domain: Domain, obc):
@@ -177,7 +203,7 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                        kh_extra=None, kv_shear=None,
                        ) -> tuple[State, SplitDynState, SplitDiags]:
     """One split RK2 dynamics step (step_MOM_dyn_split_RK2)."""
-    _check_unported(cfg, stoch_pattern, kh_scale, kh_extra, kv_shear)
+    _check_unported(kh_scale, kh_extra, kv_shear)
     fill = halo_fill(domain, obc)
     rho0 = vgrid.Rho0
 
@@ -186,6 +212,8 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
          split.h_av, split.eta))
     uh, vh = fill((split.uh, split.vh), width=2)
     e_tidal = tidal_geopotential(cfg, eta, t)
+    varT_mult = stoch_eos_multiplier(cfg, stoch_pattern)
+    gme_kw = gme_inputs(cfg, h_av, u_av, v_av)
 
     def run_continuity(uu, vv, hh, uhbt, vhbt, vr_u, vr_v):
         return continuity_ppm_cuda(grid, vgrid, uu, vv, hh, dt,
@@ -197,7 +225,7 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     T, S = state.T, state.S
     pf = pressure_force(grid, vgrid, h, T, S, eos,
                         p_atm=forces.p_surf, cfg=cfg.pressure,
-                        e_tidal=e_tidal)
+                        e_tidal=e_tidal, varT_mult=varT_mult)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
@@ -247,9 +275,9 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     # ---- CORRECTOR ----
     pf = pressure_force(grid, vgrid, corrector_thickness(cfg, h, hp), T, S,
                         eos, p_atm=forces.p_surf, cfg=cfg.pressure,
-                        e_tidal=e_tidal)
+                        e_tidal=e_tidal, varT_mult=varT_mult)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av,
-                                        cfg.horvisc, obc=obc)
+                                        cfg.horvisc, obc=obc, **gme_kw)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv

@@ -26,8 +26,10 @@ subcycles K3, or K3m on the wide-halo march.  Tides/SAL, BEGW and the
 vertical-friction options enter as in the split RK2 step, and so do
 open boundaries (``obc``: extended halo fills, no BT_cont curves, the
 Flather radiation in the subcycle, the OBC viscosity flags), with the
-Orlanski radiation on the new filtered velocities; the options that it
-refuses raise ``NotImplementedError`` here too.
+Orlanski radiation on the new filtered velocities, and so do STOCH_EOS
+and GME (its inputs from the head continuity's time-mean thickness and
+u_av); the options that it refuses raise ``NotImplementedError`` here
+too.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ from mom6_torch.core.coriolis_adv import coriolis_adv
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDiags,
                                                 _check_unported, halo_fill,
                                                 corrector_thickness,
+                                                gme_inputs,
+                                                stoch_eos_multiplier,
                                                 tidal_geopotential,
                                                 viscosity_solve)
 from mom6_torch.core.forcing import MechForcing
@@ -89,7 +93,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     """One RK2b dynamics step.  ``state.u/v`` are the filtered
     velocities; returns them updated with the new increments, eta and
     the step's transports."""
-    _check_unported(cfg, stoch_pattern, kh_scale, kh_extra, kv_shear)
+    _check_unported(kh_scale, kh_extra, kv_shear)
     fill = halo_fill(domain, obc)
     rho0 = vgrid.Rho0
     T, S = state.T, state.S
@@ -111,6 +115,7 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         ((state.u, state.v), state.h, split.eta, split.du_av_inst,
          split.dv_av_inst))
     e_tidal = tidal_geopotential(cfg, eta, t)
+    varT_mult = stoch_eos_multiplier(cfg, stoch_pattern)
 
     # head continuity: transports and thicknesses for the predictor's
     # Coriolis terms
@@ -118,12 +123,14 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     hp0 = fill(res.h)
     uh, vh = fill((res.uh, res.vh), width=2)
     h_av = 0.5 * (h + hp0)
+    gme_kw = gme_inputs(cfg, h_av, u_av, v_av)
 
     # ---- PREDICTOR ----
     pf = pressure_force(grid, vgrid, h, T, S, eos, p_atm=forces.p_surf,
-                        cfg=cfg.pressure, e_tidal=e_tidal)
+                        cfg=cfg.pressure, e_tidal=e_tidal,
+                        varT_mult=varT_mult)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av, cfg.horvisc,
-                                        obc=obc)
+                                        obc=obc, **gme_kw)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
@@ -175,9 +182,9 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     # ---- CORRECTOR ----
     pf = pressure_force(grid, vgrid, corrector_thickness(cfg, h, hp), T, S,
                         eos, p_atm=forces.p_surf, cfg=cfg.pressure,
-                        e_tidal=e_tidal)
+                        e_tidal=e_tidal, varT_mult=varT_mult)
     diffu, diffv = horizontal_viscosity(grid, u_av_p, v_av_p, h_av,
-                                        cfg.horvisc, obc=obc)
+                                        cfg.horvisc, obc=obc, **gme_kw)
     ca = coriolis_adv(grid, u_av_p, v_av_p, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv

@@ -6,22 +6,28 @@ Counterpart of ``mom6_tpu.core.orchestrator`` (step_MOM /
 step_MOM_tracer_dyn / step_MOM_thermo): the dynamics (split RK2, split
 RK2b with ``split_rk2b``, or the unsplit RK3/RK2 step with ``split``
 False) accumulate the mass transports; GM thickness diffusion (after the
-dynamics, the reference default) and the MLE overturning add theirs; on
-a thermodynamic step (the DT_THERM cadence, ``do_thermo``) T, S and the
+dynamics, the reference default, or before them with
+THICKNESSDIFFUSE_FIRST) and the MLE overturning add theirs; on a
+thermodynamic step (the DT_THERM cadence, ``do_thermo``) T, S and the
 passive tracers are advected with the transports accumulated over the
-interval and diffused along layers, then the diabatic driver and the
-tracers' column functions run, and last, with ``cfg.ale`` set
-(USE_REGRIDDING), the ALE regrid/remap moves the state, the split
-scheme's time-mean velocities and stored viscous accelerations onto the
-new grid (the RK2b and unsplit schemes keep no such auxiliaries).
+interval and diffused along layers, then the column physics run
+(``thermo_and_ale``): the stochastic pattern advances (SPPT, STOCH_EOS),
+the diabatic driver runs with its tendencies scaled by the pattern under
+DO_SPPT, SKEB adds its velocity increment, the tracers' column functions
+run, and last, with ``cfg.ale`` set (USE_REGRIDDING), the ALE
+regrid/remap moves the state, the split scheme's time-mean velocities
+and stored viscous accelerations onto the new grid (the RK2b and
+unsplit schemes keep no such auxiliaries).  With DIABATIC_FIRST that
+phase runs on the pre-dynamics state of a thermodynamic step instead,
+and the dynamics still see the incoming pattern.
 With open boundaries (``obc``) the split steppers take the segments,
 and the tracer advection fills the halo beyond each open edge from the
 tracer reservoirs (``obc_reservoirs``), keeps the boundary transports and
 thicknesses through the halo fill and advances the reservoirs; the
-unsplit step ignores ``obc``, as in the JAX package.  Passive tracers
-without T/S are advected (and diffused) alone.  MEKE/VarMix, the interface filter, neutral and boundary diffusion,
-sponges, internal tides, BGC, SPPT, DIABATIC_FIRST and
-THICKNESSDIFFUSE_FIRST are not ported yet and raise
+unsplit step ignores ``obc``, the pattern and GME's inputs, as in the
+JAX package.  Passive tracers without T/S are advected (and diffused)
+alone.  MEKE/VarMix, the interface filter, neutral and boundary
+diffusion, sponges, internal tides and BGC are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -45,6 +51,10 @@ from mom6_torch.param.lateral.mixed_layer_restrat import (
     MLRestratCfg, mixed_layer_restrat)
 from mom6_torch.param.lateral.thickness_diffuse import (
     ThicknessDiffuseCfg, thickness_diffuse)
+from mom6_torch.param.stochastic.stochastics import (StochasticsCfg,
+                                                     apply_skeb, apply_sppt,
+                                                     init_pattern,
+                                                     step_pattern)
 from mom6_torch.param.vertical.diabatic import DiabaticCfg, diabatic
 from mom6_torch.parallel.domain import Domain
 from mom6_torch.tracer.advect import TracerAdvectCfg, advect_tracers
@@ -52,16 +62,13 @@ from mom6_torch.tracer.hor_diff import TracerHorDiffCfg, tracer_hordiff
 
 __all__ = ["OceanCfg", "OceanDiags", "step_ocean"]
 
-_UNPORTED = (("thickness_diffuse_first", True, "THICKNESSDIFFUSE_FIRST"),
-             ("diabatic_first", True, "DIABATIC_FIRST"),
-             ("use_meke", True, "USE_MEKE"),
+_UNPORTED = (("use_meke", True, "USE_MEKE"),
              ("use_varmix", True, "USE_VARIABLE_MIXING"),
              ("resoln_scaled_khth", True, "RESOLN_SCALED_KHTH"),
              ("resoln_scaled_kh", True, "RESOLN_SCALED_KH"),
              ("resoln_scaled_khtr", True, "RESOLN_SCALED_KHTR"),
              ("use_neutral", True, "USE_NEUTRAL_DIFFUSION"),
-             ("use_hbd", True, "USE_HORIZONTAL_BOUNDARY_DIFFUSION"),
-             ("stoch_eos", True, "STOCH_EOS"))
+             ("use_hbd", True, "USE_HORIZONTAL_BOUNDARY_DIFFUSION"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,16 +94,19 @@ class OceanCfg:
     hordiff: TracerHorDiffCfg = TracerHorDiffCfg()
     use_neutral: bool = False
     use_hbd: bool = False
-    stoch_eos: bool = False
+    # SPPT/SKEB and STOCH_EOS's pattern (None: all three off)
+    sppt: Optional[StochasticsCfg] = None
+    sppt_seed: int = 12345               # SPPT_SEED
+    stoch_eos: bool = False              # STOCH_EOS
     n_dyn_per_therm: int = 1             # DT_THERM / DT
+    # DIABATIC_FIRST: the column physics and ALE before the dynamics
     diabatic_first: bool = False
 
     # sub-configurations of the JAX package's OceanCfg that only matter
     # when the named switch (not ported: it raises) is on
     _INERT = {"meke": "use_meke", "meke_khth_fac": "use_meke",
               "meke_khtr_fac": "use_meke", "varmix": "use_varmix",
-              "neutral": "use_neutral", "hbd": "use_hbd",
-              "sppt_seed": "stoch_eos"}
+              "neutral": "use_neutral", "hbd": "use_hbd"}
 
 
 class OceanDiags(NamedTuple):
@@ -106,6 +116,8 @@ class OceanDiags(NamedTuple):
     eta_av: Optional[torch.Tensor]   # None under unsplit dynamics
     adv_residual: Optional[torch.Tensor] = None
     mld: Optional[torch.Tensor] = None   # KPP boundary-layer depth [m]
+    # the stochastic pattern carry: a tensor, or {"sppt", "skeb"}
+    sppt_pattern: object = None
 
 
 def _check(cfg: OceanCfg, kw: dict):
@@ -127,37 +139,114 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                int_tide_en=None, sppt_pattern=None, obc_reservoirs=None):
     """One full ocean step of length dt.  On steps with ``do_thermo``
     False the transports accumulate into the returned diags' uhtr/vhtr,
-    which the caller passes back as uhtr_accum/vhtr_accum.  Returns
-    (state, split_state, tracers, OceanDiags), and the advanced
+    which the caller passes back as uhtr_accum/vhtr_accum.
+    ``sppt_pattern``: the stochastic pattern carry of the previous thermo
+    step (a tensor, or {"sppt", "skeb"} with SKEB), None at the start;
+    the advanced carry comes back as the diags' ``sppt_pattern``.
+    Returns (state, split_state, tracers, OceanDiags), and the advanced
     reservoirs fifth when ``obc_reservoirs`` is given."""
     _check(cfg, {"sponge": sponge_data,
-                 "internal tides": int_tide_en,
-                 "SPPT: stochastic physics": sppt_pattern})
+                 "internal tides": int_tide_en})
     fill = domain.fill_halos
 
+    def thermo_and_ale(state, split_state, tracers):
+        """Column physics (with SPPT and SKEB), the tracers' column
+        functions and ALE; returns the new (state, split_state, tracers)
+        and the carries for the diags (mld, sppt_pattern)."""
+        extras = {}
+        if cfg.thermo and not cfg.adiabatic:
+            if isinstance(sppt_pattern, dict):
+                sp_prev = sppt_pattern.get("sppt")
+                sk_prev = sppt_pattern.get("skeb")
+            else:
+                sp_prev, sk_prev = sppt_pattern, None
+            skeb_on = cfg.sppt is not None and cfg.sppt.do_skeb
+            sppt_on = cfg.sppt is not None and state.T is not None \
+                and (cfg.sppt.do_sppt or cfg.stoch_eos)
+            # the step index of the patterns' seeds, rounded half to even
+            step_i = round((0.0 if t is None else t) / dt)
+            like = dict(dtype=state.h.dtype, device=state.h.device)
+            if sppt_on:
+                # the AR(1) pattern: STOCH_EOS's multiplier in the next
+                # dynamics, and with DO_SPPT the tendencies' factor
+                pat = sp_prev if sp_prev is not None else init_pattern(
+                    domain, cfg.sppt, cfg.sppt_seed, **like)
+                pat = step_pattern(domain, cfg.sppt, pat, cfg.sppt_seed,
+                                   step_i)
+                sp_prev = pat
+                if not skeb_on:
+                    extras["sppt_pattern"] = pat
+                sppt_on = cfg.sppt.do_sppt
+                T_b, S_b = state.T, state.S
+            state, tracers, dia = diabatic(state, fluxes, dt, cfg.diabatic,
+                                           tracers, vgrid=vgrid, eos=eos,
+                                           forces=forces, grid=grid)
+            if sppt_on:
+                state = state.replace(
+                    T=T_b + apply_sppt(cfg.sppt, state.T - T_b, pat),
+                    S=S_b + apply_sppt(cfg.sppt, state.S - S_b, pat))
+            if skeb_on:
+                # SKEB on a stream of its own
+                skeb_seed = cfg.sppt_seed + 7919
+                skp = sk_prev if sk_prev is not None else init_pattern(
+                    domain, cfg.sppt, skeb_seed, **like)
+                skp = step_pattern(domain, cfg.sppt, skp, skeb_seed, step_i)
+                uf, vf = domain.fill_vector_halos(state.u, state.v, width=1)
+                u2, v2 = apply_skeb(domain, grid, cfg.sppt, uf, vf, skp, dt)
+                state = state.replace(u=fill(u2), v=fill(v2))
+                extras["sppt_pattern"] = {"sppt": sp_prev, "skeb": skp}
+            if "mld" in dia:
+                extras["mld"] = dia["mld"]
+        if tracer_registry is not None and tracers:
+            tracers = tracer_registry.apply_column_fns(
+                tracers, state.h, dt, state=state, forces=forces, t=t)
+        if cfg.ale is not None:
+            state, split_state, tracers = _ale(domain, grid, vgrid, state,
+                                               split_state, tracers, cfg,
+                                               eos, dt)
+        return state, split_state, tracers, extras
+
+    def do_thickness_param(state):
+        """GM thickness diffusion: the new state and its layer transports
+        over dt (None without KHTH)."""
+        if cfg.thickness_diffuse.khth <= 0.0:
+            return state, None, None
+        td = thickness_diffuse(grid, vgrid, fill(state.h, width=2), dt,
+                               cfg.thickness_diffuse)
+        return state.replace(h=fill(td.h)), dt * td.uhD, dt * td.vhD
+
+    # DIABATIC_FIRST: the column physics and ALE on the pre-dynamics
+    # state; their carries replace the late call's
+    pre_extras = None
+    if cfg.diabatic_first and do_thermo:
+        state, split_state, tracers, pre_extras = thermo_and_ale(
+            state, split_state, tracers)
+    # THICKNESSDIFFUSE_FIRST: GM before the dynamics, after them otherwise
+    if cfg.thickness_diffuse_first:
+        state, uh_param, vh_param = do_thickness_param(state)
+
+    # the dynamics see the incoming pattern, also under DIABATIC_FIRST
+    stoch = sppt_pattern.get("sppt") if isinstance(sppt_pattern, dict) \
+        else sppt_pattern
     if cfg.split and cfg.split_rk2b:
         state, split_state, dd = step_dyn_split_rk2b(
             domain, grid, vgrid, state, split_state, forces, dt,
-            cfg.split_cfg, eos=eos, x_first=x_first, obc=obc, t=t)
+            cfg.split_cfg, eos=eos, x_first=x_first, obc=obc, t=t,
+            stoch_pattern=stoch)
     elif cfg.split:
         kvs = None if kv_shear_prev is None else fill(kv_shear_prev,
                                                       width=1)
         state, split_state, dd = step_dyn_split_rk2(
             domain, grid, vgrid, state, split_state, forces, dt,
             cfg.split_cfg, eos=eos, x_first=x_first, obc=obc, t=t,
-            kv_shear=kvs)
+            stoch_pattern=stoch, kv_shear=kvs)
     else:
+        # the unsplit step takes neither the pattern nor GME's inputs
         state, dd = step_dyn_unsplit(domain, grid, vgrid, state, forces, dt,
                                      cfg.unsplit_cfg, eos=eos, t=t)
 
-    # thickness diffusion right after the dynamics (MOM.F90:1297-1307);
-    # its transports ride into the tracer advection
-    uh_param = vh_param = None
-    if cfg.thickness_diffuse.khth > 0.0:
-        td = thickness_diffuse(grid, vgrid, fill(state.h, width=2), dt,
-                               cfg.thickness_diffuse)
-        state = state.replace(h=fill(td.h))
-        uh_param, vh_param = dt * td.uhD, dt * td.vhD
+    if not cfg.thickness_diffuse_first:
+        state, uh_param, vh_param = do_thickness_param(state)
 
     # mixed-layer restratification on the previous boundary-layer depth
     if cfg.use_mle and cfg.thermo and state.T is not None:
@@ -212,21 +301,12 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
             state = state.replace(T=adv.pop("T"), S=adv.pop("S"))
         tracers = adv if adv else tracers
 
-    # column physics, then ALE (thermo_and_ale)
-    if cfg.thermo and not cfg.adiabatic:
-        state, tracers, dia = diabatic(state, fluxes, dt, cfg.diabatic,
-                                       tracers, vgrid=vgrid, eos=eos,
-                                       forces=forces, grid=grid)
-        if "mld" in dia:
-            diags = diags._replace(mld=dia["mld"])
-    if tracer_registry is not None and tracers:
-        tracers = tracer_registry.apply_column_fns(
-            tracers, state.h, dt, state=state, forces=forces, t=t)
-    if cfg.ale is not None:
-        state, split_state, tracers = _ale(domain, grid, vgrid, state,
-                                           split_state, tracers, cfg, eos,
-                                           dt)
-    return result(state, split_state, tracers, diags)
+    if pre_extras is not None:
+        extras = pre_extras
+    else:
+        state, split_state, tracers, extras = thermo_and_ale(
+            state, split_state, tracers)
+    return result(state, split_state, tracers, diags._replace(**extras))
 
 
 def _ale(domain, grid, vgrid, state, split_state, tracers, cfg, eos, dt):

@@ -113,13 +113,14 @@ def interface_heights(vgrid: VerticalGrid, h, bathyT):
 def pressure_force(grid: Grid, vgrid: VerticalGrid, h, T=None, S=None,
                    eos=None, p_atm=None,
                    cfg: PressureForceCfg = PressureForceCfg(),
-                   e_tidal=None) -> PressureForceResult:
+                   e_tidal=None, varT_mult=None) -> PressureForceResult:
     """PFu, PFv, pbce and the free surface used
     (PressureForce_FV_Bouss, or PressureForce_FV_nonBouss when
     ``vgrid.boussinesq`` is False).  ``e_tidal``: the tidal + SAL
     geopotential height anomaly [m] at h points; the heights are taken
     from the perturbed equipotential, and the returned free surface
-    stays the true one."""
+    stays the true one.  ``varT_mult``: STOCH_EOS's (njh, nih)
+    multiplier exp(a pattern) of the Stanley variance."""
     if not vgrid.boussinesq:
         return _pressure_force_nonbouss(grid, vgrid, h, T, S, eos, p_atm,
                                         cfg, e_tidal)
@@ -137,6 +138,8 @@ def pressure_force(grid: Grid, vgrid: VerticalGrid, h, T=None, S=None,
     if cfg.stanley_coeff >= 0.0 and T is not None and eos is not None:
         p_mid = -rho0 * g * 0.5 * (e[:-1] + e[1:])
         varT = calc_varT(grid, h, T, cfg.stanley_coeff)
+        if varT_mult is not None:
+            varT = varT * varT_mult[None]
         rho = rho + 0.5 * varT * density_second_dT2(eos, T, S, p_mid)
     rho_ref = cfg.rho_ref
     pa_surf = (rho_ref * g) * e[0]

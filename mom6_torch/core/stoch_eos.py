@@ -1,5 +1,4 @@
-"""Stanley et al. (2020) subgrid temperature variance for the EOS, the
-deterministic part.
+"""Stanley et al. (2020) subgrid temperature variance for the EOS.
 
 Counterpart of ``mom6_tpu.core.stoch_eos``: ``calc_varT`` (MOM_calc_varT)
 is a stencil over the halo-filled temperature, and the density
@@ -7,9 +6,10 @@ correction rho += 0.5 varT d2rho/dT2 that the finite-volume pressure
 force takes with USE_STANLEY_PGF uses the second temperature derivative
 of the EOS density by nested forward-mode ``torch.func.jvp``, as the
 JAX package takes it by nested ``jax.jvp`` (so the EOS code stays free
-of in-place writes).  The stochastic multiplier of STOCH_EOS is not
-ported: its random pattern needs a generator that matches the JAX
-package's threefry keys.
+of in-place writes).  With STOCH_EOS the pressure force multiplies the
+variance by exp(STANLEY_A pattern), the pattern the SPPT machinery
+carries (``param/stochastic/stochastics.py``); the split steppers form
+that multiplier.
 """
 
 from __future__ import annotations

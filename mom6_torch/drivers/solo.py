@@ -22,13 +22,18 @@ Usage::
         [--fp32] [--restart-from PATH]
 
 Runs on ``cuda``, and raises when there is no card, unless ``--cpu`` is
-given; float64 unless ``--fp32``.  The diag mediator (a ``diag_table``,
-DIAG_AS_CHKSUM), particles, offline tracer mode, WRITE_OFFLINE_FIELDS,
-DEBUG, DEBUG_NANS, U_TRUNC_FILE, READ_DEPTH_LIST, the z-space
-diagnostics (NK_ZSPACE) and periodic restarts (RESTINT > 0) are not
-ported yet and raise ``NotImplementedError`` naming themselves, and so
-does any parameter the case sets that neither the builder nor the
-driver reads.
+given; float64 unless ``--fp32``.  With a ``diag_table`` in the case
+directory, or DIAG_AS_CHKSUM, the prognostic diagnostics (with their
+NK_ZSPACE z levels) are posted at each stats interval and flushed at
+the end: to ``diags.nc``, or under DIAG_AS_CHKSUM as checksum lines in
+``chksum_diag``.  DEBUG appends the checksums of u, v, h, T and S after
+every step to ``chksum_debug``.  The restart carries the stochastic
+pattern (``carry_sppt``, or ``carry_sppt_p``/``carry_sppt_k`` with
+SKEB) as the JAX driver does.  Particles, offline tracer mode,
+WRITE_OFFLINE_FIELDS, DEBUG_NANS, U_TRUNC_FILE, READ_DEPTH_LIST and
+periodic restarts (RESTINT > 0) are not ported yet and raise
+``NotImplementedError`` naming themselves, and so does any parameter
+the case sets that neither the builder nor the driver reads.
 """
 
 from __future__ import annotations
@@ -42,11 +47,14 @@ import time
 import torch
 
 from mom6_torch.diagnostics.depth_list import depth_list_setup
+from mom6_torch.diagnostics.prognostic_diags import PrognosticDiags
 from mom6_torch.diagnostics.sum_output import (collect_stats,
                                                format_stats_header,
                                                format_stats_line, stat_sums)
+from mom6_torch.framework.checksums import hchksum_str
 from mom6_torch.framework.clock import clock
 from mom6_torch.framework.config import ParamFile
+from mom6_torch.framework.diag import DiagMediator, parse_diag_table
 from mom6_torch.framework.error_handler import (MOM_error, NOTE,
                                                 set_verbosity)
 from mom6_torch.framework.restart import restore_restart, save_restart
@@ -54,7 +62,10 @@ from mom6_torch.model import default_only, build_model
 
 __all__ = ["read_driver_params", "main"]
 
-_CARRIES = ("u", "v", "mld", "kv")
+_CARRIES = ("u", "v", "mld", "kv", "sppt")
+# the SPPT and SKEB patterns of a {"sppt", "skeb"} carry, saved as two
+# single-tensor trees
+_PATTERN_PAIR = {"sppt_p": "sppt", "sppt_k": "skeb"}
 
 
 def read_driver_params(pf: ParamFile, model) -> dict:
@@ -63,9 +74,9 @@ def read_driver_params(pf: ParamFile, model) -> dict:
     dict."""
     p = {}
     pf.module("MOM_diag_mediator")
-    default_only(pf, "DIAG_AS_CHKSUM", bool, False)
-    default_only(pf, "NK_ZSPACE", int, model.vgrid.nk,
-                 desc="z levels for _z diagnostics")
+    p["as_chksum"] = pf.get("DIAG_AS_CHKSUM", bool, False)
+    p["nz_diag"] = pf.get("NK_ZSPACE", int, model.vgrid.nk,
+                          desc="z levels for _z diagnostics")
     pf.module("MOM_particles")
     default_only(pf, "USE_PARTICLES", bool, False)
     pf.module("MOM")
@@ -82,8 +93,9 @@ def read_driver_params(pf: ParamFile, model) -> dict:
                          "depth-list hypsometry in ocean.stats")
     default_only(pf, "READ_DEPTH_LIST", bool, False)
     pf.get("DEPTH_LIST_FILE", str, "Depth_list.nc")
+    # DEBUG: one block of prognostic checksums a step in chksum_debug
     pf.module("MOM_debugging")
-    default_only(pf, "DEBUG", bool, False)
+    p["debug_mode"] = pf.get("DEBUG", bool, False)
     default_only(pf, "DEBUG_NANS", bool, False)
     default_only(pf, "U_TRUNC_FILE", str, "")
     # DTBT_RESET_PERIOD: re-estimate the barotropic substep count from
@@ -127,15 +139,40 @@ def _restore(path: str, model):
             templates[name] = model.obc.init_tracer_reservoirs(
                 model.tracers)
         elif name.startswith("carry_"):
-            if name[len("carry_"):] not in _CARRIES:
+            if name[len("carry_"):] not in _CARRIES + tuple(_PATTERN_PAIR):
                 raise NotImplementedError(f"restart carry {name!r}")
             templates[name] = leaf
     trees, meta = restore_restart(path, templates)
     carry = {n: trees.get(f"carry_{n}") for n in _CARRIES + ("res",)}
+    if any(f"carry_{n}" in trees for n in _PATTERN_PAIR):
+        carry["sppt"] = {key: trees.get(f"carry_{n}")
+                         for n, key in _PATTERN_PAIR.items()}
     carry["truncs"] = int(meta.get("truncs", 0))
     return (trees["state"], trees["split"],
             trees.get("tracers", model.tracers), carry, int(meta["step"]),
             float(meta["time_days"]))
+
+
+def _diag_mediator(case_dir: str, model, dp: dict):
+    """The prognostic diagnostics on the case's ``diag_table``, or on
+    every registered field under DIAG_AS_CHKSUM with no diag_table or a
+    bare one (title and base date only); None when nothing is asked
+    for."""
+    path = os.path.join(case_dir, "diag_table")
+    text = open(path).read() if os.path.exists(path) else None
+    if text is None and not dp["as_chksum"]:
+        return None
+    if dp["as_chksum"] and text is not None \
+            and not parse_diag_table(text)[2]:
+        text = None
+    med = DiagMediator(model.domain, case_dir, diag_table_text=text,
+                       as_chksum=dp["as_chksum"])
+    diags = PrognosticDiags.create(med, model.grid, model.vgrid,
+                                   float(torch.max(model.grid.bathyT)),
+                                   dp["nz_diag"])
+    if not (diags.any_requested() or dp["as_chksum"]):
+        return None
+    return diags
 
 
 def main(argv=None) -> dict:
@@ -176,8 +213,7 @@ def main(argv=None) -> dict:
     with clock("initialization"):
         model = build_model(pf, device=device, dtype=dtype)
     dp = read_driver_params(pf, model)
-    if os.path.exists(os.path.join(args.case_dir, "diag_table")):
-        raise NotImplementedError("diag_table: the diag mediator")
+    diags = _diag_mediator(args.case_dir, model, dp)
     unused = pf.close(fatal_unused=False)
     if unused:
         raise NotImplementedError(
@@ -254,6 +290,9 @@ def main(argv=None) -> dict:
                 with open(stats_path, "a") as f:
                     f.write(line)
                 print(line, end="")
+            if diags is not None:
+                with clock("diag mediator"):
+                    diags.post_state(g, vg, state, eos=model.eos)
         if n == step0 + nsteps or stopped_on_cpu:
             break
         if dtbt_reset >= 0.0 and model.cfg.split and n > step0 \
@@ -276,6 +315,14 @@ def main(argv=None) -> dict:
         with clock("step_MOM", sync=lambda: state.h):
             state, split, tracers = step(state, split, tracers, n)
         nstep_bt.append(step.nstep_bt)
+        if dp["debug_mode"]:
+            # the checksum flood: one block of prognostic checksums a step
+            with open(os.path.join(args.case_dir, "chksum_debug"), "a") as f:
+                f.write(f"= step {n + 1}\n")
+                for nm in ("u", "v", "h", "T", "S"):
+                    fld = getattr(state, nm)
+                    if fld is not None:
+                        f.write(hchksum_str(d, fld, nm) + "\n")
     if on_card:
         ev1.record()
         torch.cuda.synchronize()
@@ -286,6 +333,9 @@ def main(argv=None) -> dict:
     pts = d.ni * d.nj * vg.nk * max(nran, 1)
     print(f"run complete: {nran} of {nsteps} steps, {loop_seconds:.2f}s "
           f"wall, {pts / max(loop_seconds, 1e-9):.3g} points/s")
+    if diags is not None:
+        with clock("diag mediator"):
+            diags.med.flush("diags.nc", time_value=daymax)
 
     with clock("restart save"):
         trees = {"state": state, "split": split}
@@ -293,7 +343,13 @@ def main(argv=None) -> dict:
             trees["tracers"] = tracers
         acc = step.carry()
         for name in _CARRIES + ("res",):
-            if acc.get(name) is not None:
+            if acc.get(name) is None:
+                continue
+            if name == "sppt" and isinstance(acc[name], dict):
+                for n, key in _PATTERN_PAIR.items():
+                    if acc[name].get(key) is not None:
+                        trees[f"carry_{n}"] = acc[name][key]
+            else:
                 trees[f"carry_{name}"] = acc[name]
         save_restart(os.path.join(args.case_dir, "RESTART", "MOM.res"), trees,
                      meta={"step": step0 + nsteps, "time_days": daymax,

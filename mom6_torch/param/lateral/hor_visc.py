@@ -10,8 +10,10 @@ bounds; free slip or NOSLIP, with the land mask applied to cell
 thicknesses or not (USE_LAND_MASK_FOR_HVISC); and the Zanna-Bolton
 (ZB2020) stress added to the result.  Tension sh_xx lives at h points,
 shearing strain sh_xy at q points; the divergence of the
-thickness-weighted stress gives (diffu, diffv).  GME and the
-VarMix/MEKE coefficient inputs raise ``NotImplementedError``.  With
+thickness-weighted stress gives (diffu, diffv).  With USE_GME the
+GME backscatter stress at the barotropic strain joins the stress
+before the thickness weighting; the VarMix/MEKE coefficient inputs are
+not ported (the steppers raise on them).  With
 open boundaries the OBC_* flags zero the strain or vorticity components
 on the q-point line of each open segment and the flow Laplacian at its
 faces.
@@ -59,7 +61,14 @@ class HorViscCfg:
     laplacian: bool = False       # LAPLACIAN
     biharmonic: bool = False      # BIHARMONIC
     dt: float = 3600.0            # used only for the stability bounds
-    use_gme: bool = False         # USE_GME (not ported: raises)
+    # GME backscatter (USE_GME): an anti-viscous stress at the
+    # barotropic strain with the coefficient
+    # GME_EFFICIENCY min(htot/GME_H0, 1)^2 KHTH, capped at GME_LIMITER
+    use_gme: bool = False         # USE_GME
+    gme_h0: float = 1000.0        # GME_H0 [m]
+    gme_efficiency: float = 1.0   # GME_EFFICIENCY
+    gme_limiter: float = 1.0e7    # GME_LIMITER [m2 s-1]
+    gme_kh: float = 0.0           # the GM coefficient fed back (KHTH)
     no_slip: bool = False         # NOSLIP
     use_land_mask: bool = True    # USE_LAND_MASK_FOR_HVISC
     # open segments: the shear and vorticity at their q points, the
@@ -69,10 +78,6 @@ class HorViscCfg:
     obc_zero_strain: bool = False       # OBC_ZERO_STRAIN
     obc_freeslip_strain: bool = False   # OBC_FREESLIP_STRAIN
     obc_zero_biharmonic: bool = False   # OBC_ZERO_BIHARMONIC
-
-    # the JAX package's GME settings, inert while USE_GME is off
-    _INERT = {"gme_h0": "use_gme", "gme_efficiency": "use_gme",
-              "gme_limiter": "use_gme", "gme_kh": "use_gme"}
 
 
 class HorViscResult(NamedTuple):
@@ -156,13 +161,38 @@ def _combine(base, les, add):
     return base + les if add else torch.maximum(base, les)
 
 
+def _smooth9(f):
+    """One 9-point smoothing pass (smooth_GME)."""
+    c = 0.25 * f
+    e = 0.125 * (ip1(f) + im1(f) + jp1(f) + jm1(f))
+    x = 0.0625 * (ip1(jp1(f)) + im1(jp1(f)) + ip1(jm1(f)) + im1(jm1(f)))
+    return c + e + x
+
+
+def _gme_stress(grid: Grid, cfg: HorViscCfg, u_bt, v_bt, htot):
+    """GME's (str_xx, str_xy): the coefficient at h and q points,
+    capped, times the barotropic strain, smoothed once."""
+    sh_xx_bt, sh_xy_bt, _, _ = _strains(grid, u_bt, v_bt, cfg.no_slip)
+    effic_h = cfg.gme_efficiency * grid.mask2dT \
+        * torch.clamp(htot / cfg.gme_h0, max=1.0) ** 2
+    htot_q = 0.25 * ((htot + ip1(jp1(htot))) + (ip1(htot) + jp1(htot)))
+    effic_q = cfg.gme_efficiency * grid.mask2dBu \
+        * torch.clamp(htot_q / cfg.gme_h0, max=1.0) ** 2
+    coeff_h = torch.clamp(effic_h * cfg.gme_kh, max=cfg.gme_limiter)
+    coeff_q = torch.clamp(effic_q * cfg.gme_kh, max=cfg.gme_limiter)
+    return (_smooth9(coeff_h * sh_xx_bt),
+            _smooth9(coeff_q * sh_xy_bt) * grid.mask2dBu)
+
+
 def horizontal_viscosity(grid: Grid, u, v, h,
-                         cfg: HorViscCfg = HorViscCfg(),
-                         obc=None) -> HorViscResult:
+                         cfg: HorViscCfg = HorViscCfg(), obc=None,
+                         u_bt=None, v_bt=None, htot=None) -> HorViscResult:
     """(diffu, diffv) [m s-2]; u, v need 2 valid halo rings, h one.
-    ``obc``: the open boundaries the OBC_* flags of ``cfg`` act on."""
-    if cfg.use_gme:
-        raise NotImplementedError("GME: USE_GME backscatter")
+    ``obc``: the open boundaries the OBC_* flags of ``cfg`` act on.
+    With USE_GME the caller gives the (2D) barotropic velocities
+    ``u_bt``/``v_bt`` and the column thickness ``htot`` (sum of h when
+    None); without u_bt the GME stress is left out, as in the JAX
+    package."""
     zb = None
     if cfg.use_zb2020:
         # imported here: the closure takes this module's strains
@@ -294,6 +324,12 @@ def horizontal_viscosity(grid: Grid, u, v, h,
         Ah_q = torch.minimum(Ah_q, 0.012 * grid_sp_q2 ** 2 / cfg.dt)
         str_xx = str_xx + Ah_h * bh_xx
         str_xy = str_xy + Ah_q * bh_xy
+
+    if cfg.use_gme and u_bt is not None:
+        gxx, gxy = _gme_stress(grid, cfg, u_bt, v_bt,
+                               torch.sum(h, dim=0) if htot is None else htot)
+        str_xx = str_xx + gxx
+        str_xy = str_xy + gxy
 
     # hq: harmonic-style mean of the four face thicknesses around a
     # corner, so vanished layers receive no stress divergence; the land

@@ -2,7 +2,7 @@
 
     python -m mom6_torch.profile_step [--full [--layered]
                                      [--dynamics rk2|rk2b|unsplit|b1|
-                                                 nonbouss|obc]]
+                                                 nonbouss|obc|stoch]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
 
@@ -18,7 +18,9 @@ first breadth item's options (``b1``: tides with spherical-harmonic
 SAL, Stanley, porous barriers, ZB2020/Leith; ``nonbouss``: the
 non-Boussinesq step), or on the regional configuration with open
 boundaries (``obc``: adiabatic and layered, with K3's open-face
-instance and the dyed OBC tracers).  After two warm-up steps it
+instance and the dyed OBC tracers), or with the rest of the first
+breadth item (``stoch``: THICKNESSDIFFUSE_FIRST, DIABATIC_FIRST, GME,
+Stanley with STOCH_EOS, SPPT and SKEB).  After two warm-up steps it
 measures:
 
 1. the step time, by CUDA events around ``--steps`` uninstrumented
@@ -33,7 +35,9 @@ measures:
    pressure force, Coriolis, viscosities, btstep, the K3/K3m subcycle,
    KPP, the tidal geopotential, the continuity kernels and, on a
    porous grid, the plain computation of each K1 sweep's open
-   fractions). Each device kernel is charged
+   fractions; the stochastic patterns, SPPT, SKEB, the Stanley terms,
+   the STOCH_EOS multiplier and GME's inputs and stress). Each device
+   kernel is charged
    to the innermost range whose host range issued its launch, which
    gives per phase: host milliseconds (the range on the host clock,
    profiler on, inclusive of the ranges inside it), device milliseconds
@@ -64,6 +68,8 @@ from mom6_torch.core import dynamics_split_rk2 as dyn
 from mom6_torch.core import dynamics_split_rk2b as dyn_b
 from mom6_torch.core import dynamics_unsplit as dyn_u
 from mom6_torch.core import orchestrator as orch
+from mom6_torch.core import pressure_force as pfm
+from mom6_torch.param.lateral import hor_visc as hvm
 from mom6_torch.param.vertical import diabatic as dia
 from mom6_torch.parallel.domain import Domain
 
@@ -81,10 +87,12 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "unsplit": (dyn_u, "step_dyn_unsplit"),
             "b1": (dyn, "step_dyn_split_rk2"),
             "nonbouss": (dyn, "step_dyn_split_rk2"),
-            "obc": (dyn, "step_dyn_split_rk2")}
+            "obc": (dyn, "step_dyn_split_rk2"),
+            "stoch": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
-              "set_up_bt_cont_cuda", "tidal_geopotential")
+              "set_up_bt_cont_cuda", "tidal_geopotential",
+              "stoch_eos_multiplier", "gme_inputs")
 # ... and the phases of step_ocean after it
 SLICE2 = (
     (orch, "thickness_diffuse", "thickness_diffuse"),
@@ -93,7 +101,17 @@ SLICE2 = (
     (orch, "tracer_hordiff", "tracer_hordiff"),
     (orch, "diabatic", "diabatic"),
     (dia, "kpp_coefficients", "diabatic/kpp_coefficients"),
-    (orch, "ale_regrid_remap", "ale"))
+    (orch, "ale_regrid_remap", "ale"),
+    # the stochastic pieces: the patterns, SPPT's and SKEB's updates, the
+    # Stanley terms of the pressure force and GME's stress
+    (orch, "init_pattern", "pattern/init_pattern"),
+    (orch, "step_pattern", "pattern/step_pattern"),
+    (orch, "apply_sppt", "apply_sppt"),
+    (orch, "apply_skeb", "apply_skeb"),
+    (pfm, "calc_varT", "dynamics/pressure_force/calc_varT"),
+    (pfm, "density_second_dT2",
+     "dynamics/pressure_force/density_second_dT2"),
+    (hvm, "_gme_stress", "dynamics/horizontal_viscosity/gme_stress"))
 
 
 def slice2_targets(dynamics: str):

@@ -192,12 +192,12 @@ def test_build_model_matches_jax(name):
     ("#override GRID_CONFIG = spherical", "GRID_CONFIG"),
     ("USE_MEKE = True", "USE_MEKE"),
     ("#override EQN_OF_STATE = TEOS10", "EQN_OF_STATE"),
-    ("STOCH_EOS = True", "STOCH_EOS"),
+    ("USE_VISBECK = True", "USE_VISBECK"),
     ("#override BULKMIXEDLAYER = True", "BULKMIXEDLAYER"),
     ("#override TOPO_CONFIG = benchmark", "TOPO_CONFIG"),
     ("#override REGRIDDING_COORDINATE_MODE = ADAPTIVE",
      "REGRIDDING_COORDINATE_MODE"),
-    ("USE_GME = True", "USE_GME"),
+    ("INTERNAL_TIDES = True", "INTERNAL_TIDES"),
 ])
 def test_options_outside_the_slice_raise(line, name):
     pf = ParamFile(text=BENCH_CONFIG + SMALL + line + "\n")

@@ -22,8 +22,7 @@ from mom6_torch import entry
 from mom6_torch.core import continuity_cuda, barotropic_cuda
 from mom6_torch.core.continuity_ppm import (ContinuityCfg, continuity_ppm,
                                             set_up_bt_cont)
-from mom6_torch.core.dynamics_split_rk2 import SplitCfg, step_dyn_split_rk2
-from mom6_torch.param.lateral.hor_visc import HorViscCfg
+from mom6_torch.core.dynamics_split_rk2 import step_dyn_split_rk2
 from mom6_torch.drivers import solo
 
 # one intra-op thread: the test workers share the machine's cores, and
@@ -130,20 +129,17 @@ def test_kernel_gate_names_the_option(option):
 
 
 # open boundaries, once the first case here, are ported
-# (tests/test_torch_obc.py); the other cases keep their ids
+# (tests/test_torch_obc.py), and so are GME and the stochastic EOS, once
+# the second and the fourth (tests/test_torch_stochastic.py); the other
+# cases keep their ids
 @pytest.mark.parametrize("kw,name", [
-    pytest.param(dict(cfg=SplitCfg(horvisc=HorViscCfg(use_gme=True))),
-                 "GME", id="kw1-GME"),
     pytest.param(dict(kv_shear=object()), "kv_shear", id="kw2-kv_shear"),
-    pytest.param(dict(stoch_pattern=object()), "stoch_eos",
-                 id="kw3-stoch_eos"),
     pytest.param(dict(kh_scale=object()), "kh_scale", id="kw4-kh_scale"),
+    pytest.param(dict(kh_extra=object()), "kh_extra", id="kw5-kh_extra"),
 ])
 def test_step_rejects_unported_options(kw, name):
     s = _small_slice()
-    cfg = kw.pop("cfg", s.cfg)
-    if "stoch_pattern" in kw:
-        cfg = SplitCfg(stoch_eos_a=0.5)
+    cfg = s.cfg
     with pytest.raises(NotImplementedError, match=name):
         step_dyn_split_rk2(s.domain, s.grid, s.vgrid, s.state, s.split,
                            s.forces, s.dt, cfg, **kw)
@@ -170,26 +166,26 @@ def test_nonboussinesq_and_porous_raise():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# the diag mediator (DIAG_AS_CHKSUM, NK_ZSPACE, a diag_table) and DEBUG,
+# once cases here, are ported (tests/test_torch_debug.py)
 @pytest.mark.parametrize("line,name", [
-    ("DIAG_AS_CHKSUM = True", "DIAG_AS_CHKSUM"),
     ("USE_PARTICLES = True", "USE_PARTICLES"),
     ("OFFLINE_TRACER_MODE = True", "OFFLINE_TRACER_MODE"),
     ("WRITE_OFFLINE_FIELDS = True", "WRITE_OFFLINE_FIELDS"),
-    ("DEBUG = True", "DEBUG"),
     ("DEBUG_NANS = True", "DEBUG_NANS"),
     ('U_TRUNC_FILE = "U_velocity_truncations"', "U_TRUNC_FILE"),
     ("READ_DEPTH_LIST = True", "READ_DEPTH_LIST"),
     ("RESTINT = 10.0", "RESTINT"),
-    ("NK_ZSPACE = 5", "NK_ZSPACE"),
     ("USE_MEKE = True", "USE_MEKE"),
     ('#override TOPO_CONFIG = "seamount"', "TOPO_CONFIG"),
-    ("diag_table", "diag_table"),
+    ("data_table", "data_table"),
 ])
 def test_driver_rejects_unported_options(tmp_path, line, name):
     case = ROOT / "cases" / "double_gyre"
     shutil.copy(case / "MOM_input", tmp_path / "MOM_input")
-    if line == "diag_table":
-        (tmp_path / "diag_table").write_text('"ocean"\n1 1 1 0 0 0\n')
+    if line == "data_table":
+        (tmp_path / "data_table").write_text('"OCN", "sst", "", "", '
+                                             '"bilinear", 1.0\n')
     else:
         with open(tmp_path / "MOM_input", "a") as f:
             f.write(line + "\n")

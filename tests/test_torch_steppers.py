@@ -19,9 +19,8 @@ the models, cases and restarts that run them.
   agree with the JAX model's to 1e-9.
 * ``cases/ref_tc0`` through the port's ``build_model`` and ``step_fn``
   against ``tests/goldens_ref_cases.json`` at the tolerances of
-  tests/test_ref_cases.py.  The port's solo driver still raises on the
-  case's DEBUG and DIAG_AS_CHKSUM by name (ROADMAP Breadth 9), so the
-  driver's own parameter audit is not run here.
+  tests/test_ref_cases.py (through the port's solo driver, with its
+  DEBUG and DIAG_AS_CHKSUM output: tests/test_torch_debug.py).
 * ``cases/tc0`` through both packages' solo drivers for the first of
   its four days: ocean.stats agree (a live run of the JAX driver).
 * An RK2b restart written by each package and read by the other.
@@ -291,9 +290,8 @@ def test_ref_tc0_matches_golden():
     """ref_tc0 (unsplit RK3, SIMPLE_2ND_PPM_CONTINUITY, BOTTOMDRAGLAW =
     False, USE_LAND_MASK_FOR_HVISC = False, a cartesian grid in degrees)
     through the port's build_model and step_fn, ocean.stats against its
-    golden.  The port's solo driver raises on the case's DEBUG and
-    DIAG_AS_CHKSUM (the diag mediator, ROADMAP Breadth 9), so the case
-    is built here without the driver."""
+    golden (tests/test_torch_debug.py runs it through the driver, with
+    its DEBUG and DIAG_AS_CHKSUM output)."""
     golden = json.loads((ROOT / "tests" / "goldens_ref_cases.json")
                         .read_text())["ref_tc0"]
     case = ROOT / "cases" / "ref_tc0"
