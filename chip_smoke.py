@@ -108,6 +108,23 @@ order; any failure ends the script with a non-zero exit:
    (CUDA events); one thermodynamic and one dynamics-only step under
    the profiler with profile_step's ranges: device time and kernels of
    the patterns, SPPT, SKEB, the Stanley terms under STOCH_EOS and GME;
+6f. the column physics of the third breadth item: configs.BENCH_CONFIG_B3
+   (ePBL with the Langmuir factor, kappa-shear, convection, double
+   diffusion, tidal, law-of-the-wall and ML-radiation mixing, full
+   convection, frazil, geothermal heating; Z* ALE), the same text with
+   PP81 in place of kappa-shear, and BENCH_CONFIG_BML (layered: the bulk
+   mixed layer, LMD94, diffusive entrainment, regularization, frazil),
+   through entry.build_full at 32x32x6 in fp64 in a weakly stratified
+   400 m column for 4 steps, card against CPU (1e-9), the frazil field
+   and the shear-viscosity and MLD carries included;
+7f. BENCH_CONFIG_B3 and BENCH_CONFIG_BML at full width, 512x512x25 fp32,
+   as in 7b (launches a step asserted: K1 4, K2 1, K3m 2), their ms/step
+   by kind of step beside bench.py's CONFIG and its layered variant of
+   phase 7, the peak of max_memory_allocated, finite fields and frazil;
+   one thermodynamic step under the profiler with profile_step's ranges:
+   device time, host time and kernels of set_diffusivity, kappa-shear,
+   ePBL, full convection, frazil, the bulk mixed layer, entrainment and
+   regularization;
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -128,9 +145,12 @@ order; any failure ends the script with a non-zero exit:
    SIMPLE_2ND_PPM_CONTINUITY, DEBUG and DIAG_AS_CHKSUM) through the
    driver in fp64 on the card against its golden in
    tests/goldens_ref_cases.json, its chksum_debug and chksum_diag
-   equal line for line to a --cpu run's, K1 untargeted alone launched.
-   Each run has every launch counter zeroed just before it and read
-   just after.
+   equal line for line to a --cpu run's, K1 untargeted alone launched;
+   and cases/layer_mode and cases/benchmark (spherical grid, bowl,
+   WRIGHT_FULL, the bulk mixed layer by its layered default) for 4
+   steps in fp64, ocean.stats every step, card against --cpu as
+   double_gyre.  Each run has every launch counter zeroed just before
+   it and read just after.
 
 The line before the last is the JSON ``kernels`` record (the porous K1
 instance and K3's open-face instance have records of their own); the
@@ -211,7 +231,32 @@ PER_STEP = {"rk2b": {"K1": 8, "K2": 1, "K3": 0, "K3m": 2, "K1u": 4,
             # the rest of the first breadth item: the same kernels as
             # bench.py's CONFIG
             "stoch": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0,
-                      "K1p": 0, "K3o": 0}}
+                      "K1p": 0, "K3o": 0},
+            # the column physics of the third breadth item, with Z* ALE
+            # and layered: the same kernels again
+            "b3": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0,
+                   "K1p": 0, "K3o": 0},
+            "bml": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0,
+                    "K1p": 0, "K3o": 0}}
+PER_STEP["b3pp81"] = PER_STEP["b3"]
+# the column texts at 32x32x6 take a weakly stratified 400 m column, as
+# their CPU tests do: kappa-shear needs Ri < 0.25 somewhere, and under
+# layers of hundreds of metres ePBL's first-interface decision compares
+# a roundoff-sized cost with a TKE decayed below it, a tie that the last
+# bits of T decide (ROADMAP.md Queue 3)
+COLUMN = "#override MAXIMUM_DEPTH = 400.0\n#override T_RANGE = 0.2\n"
+# the profile_step ranges of the column physics of a thermodynamic step
+COLUMN_PHASES = ("diabatic", "diabatic/set_diffusivity",
+                 "diabatic/set_diffusivity/kappa_shear",
+                 "diabatic/energetic_pbl", "diabatic/full_convection",
+                 "diabatic/make_frazil", "diabatic/bulk_mixed_layer",
+                 "diabatic/entrainment_diffusive",
+                 "diabatic/regularize_layers")
+# the layered cases through the driver: 4 steps of 900 s, with
+# ocean.stats every step
+LAYER_DAYS = "0.0417"
+LAYER_EDITS = (("ENERGYSAVEDAYS = 0.125",
+                "ENERGYSAVEDAYS = 0.010416666666666666"),)
 # the profile_step ranges of the stochastic pieces, the STOCH_EOS-scaled
 # Stanley terms and GME, read from a profiled thermodynamic and a
 # dynamics-only step of BENCH_CONFIG_STOCH
@@ -1065,17 +1110,19 @@ def run_slice(ni, nj, nk, dtype, device, nsteps):
 
 
 def run_full(ni, nj, nk, dtype, device, nsteps, seed, regridding,
-             dynamics="rk2", period=2, tides=True, with_carry=False):
+             dynamics="rk2", period=2, tides=True, with_carry=False,
+             extra=""):
     """``nsteps`` full steps from the configuration's initial state plus
     the seeded perturbation of ``entry.build_full``: the configuration
     starts at rest and horizontally uniform, where a comparison of the
     first steps' v and eta would compare roundoff.  ``tides=False``
     drops the split stepper's tidal forcing from the built model;
-    ``with_carry`` returns the step closure's carry fourth."""
+    ``with_carry`` returns the step closure's carry fourth; ``extra``:
+    more MOM_input lines."""
     from mom6_torch import entry
     m = entry.build_full(ni, nj, nk, seed=seed, regridding=regridding,
                          dynamics=dynamics, wide_halo_period=period,
-                         device=device, dtype=dtype)
+                         extra=extra, device=device, dtype=dtype)
     if not tides:
         m.cfg = dataclasses.replace(m.cfg, split_cfg=dataclasses.replace(
             m.cfg.split_cfg, tides_fn=None))
@@ -1363,6 +1410,47 @@ def stoch_extra(m, cur, fstep, n_done):
         if k not in dyn:
             raise AssertionError(f"stoch: no {k} in a dynamics step")
     return out
+
+
+def column_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_B3 and BENCH_CONFIG_BML: the frazil field finite
+    and non-negative, then one thermodynamic step under the profiler
+    with profile_step's ranges: the device time and kernels of
+    set_diffusivity, kappa-shear, ePBL, full convection, frazil, the
+    bulk mixed layer, entrainment and regularization, and the step's
+    idle share."""
+    from mom6_torch import profile_step
+    st = cur[0]
+    fz = m.domain.interior(st.frazil)
+    check_finite([("frazil", st.frazil)], st.h.shape)
+    if float(fz.min()) < 0.0:
+        raise AssertionError("frazil is negative")
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm != 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets("b3"),
+                                    "column thermo", None)
+    ph = summary.get("phases", {})
+    got = {k: ph[k] for k in COLUMN_PHASES if k in ph}
+    log(f"  profiled thermodynamic step: device busy "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+        f"{summary.get('kernels', 0)} kernels; "
+        + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                    f"{v['device_ms']:.4f} ms device, {v['host_ms']:.3f} "
+                    "ms host" for k, v in got.items()))
+    want = ("diabatic/energetic_pbl", "diabatic/set_diffusivity/kappa_shear",
+            "diabatic/full_convection") if m.cfg.diabatic.use_epbl else (
+        "diabatic/bulk_mixed_layer", "diabatic/entrainment_diffusive",
+        "diabatic/regularize_layers")
+    for k in want + ("diabatic/make_frazil",):
+        if k not in got:
+            raise AssertionError(f"no {k} in a thermodynamic step")
+    log(f"  frazil on the compute domain: max {float(fz.max())!r} J m-2; "
+        f"max |u| {float(st.u.abs().max()):.4f} m/s")
+    return dict(frazil_max=float(fz.max()), profiled_thermo=dict(
+        device_busy_ms=summary.get("device_busy_ms"),
+        idle_share=summary.get("idle_share_profiled"),
+        kernels=summary.get("kernels"), phases=got))
 
 
 def run_text(text, ni, nj, nk, dtype, device, nsteps, seed, tmp):
@@ -2058,6 +2146,82 @@ def main():
         raise AssertionError(f"stoch: launches {counts}, expected {expect}")
     log(f"  stoch on the card: launches {counts}")
 
+    # 6f. the column physics of the third breadth item at 32x32x6 fp64
+    for label, dyn in (("B3", "b3"), ("B3 with PP81", "b3pp81"),
+                       ("BML", "bml")):
+        n = 4
+        log(f"phase 6f {label} (build_full(dynamics={dyn!r}), a weakly "
+            "stratified 400 m column) %dx%dx%d fp64, " % SMALL_FULL
+            + f"{n} steps: card vs cpu")
+        zero_counts(wrappers)
+        gst, gsp, gtr, gcarry = run_full(*SMALL_FULL, torch.float64, DEV, n,
+                                         seed=3, regridding=True,
+                                         dynamics=dyn, with_carry=True,
+                                         extra=COLUMN)
+        counts = read_counts(wrappers)
+        cst, csp, ctr, ccarry = run_full(*SMALL_FULL, torch.float64, "cpu",
+                                         n, seed=3, regridding=True,
+                                         dynamics=dyn, with_carry=True,
+                                         extra=COLUMN)
+        conc = [("T", cst.T, gst.T), ("S", cst.S, gst.S),
+                ("age", ctr["age"], gtr["age"])]
+        pairs = [(k, getattr(cst, k), getattr(gst, k))
+                 for k in ("h", "u", "v", "frazil")]
+        if dyn == "bml":
+            # the bulk mixed layer and the entrainment leave layers of a
+            # few metres down to 1e-10 m, whose concentrations turn the
+            # last bits into ~1e-8 (a 2e-16 nudge of T on the CPU moves
+            # T by 6.6e-9, h T by 4.9e-11; ROADMAP.md Queue 3): the
+            # contents are held, the concentrations printed
+            for name, a, b in conc:
+                rel, _ = rel_err(a, b.cpu())
+                log(f"  {label} {name}: max rel err {rel:.3e} (printed)")
+            conc = [(f"h {k}", cst.h * a, gst.h * b) for k, a, b in conc]
+        kv_c, kv_g = ccarry["kv"], gcarry["kv"].cpu()
+        if dyn == "bml":
+            # so does LMD94's shear viscosity across those layers: it is
+            # held between layers thicker than 1 m (2.1e-11 in that
+            # CPU nudge, 4.3e-7 with the thin ones)
+            rel, _ = rel_err(kv_c, kv_g)
+            log(f"  {label} kv_shear carry: max rel err {rel:.3e} "
+                "(printed)")
+            thick = torch.zeros_like(kv_c, dtype=torch.bool)
+            thick[1:-1] = (cst.h[:-1] > 1.0) & (cst.h[1:] > 1.0)
+            kv_c, kv_g = kv_c * thick, kv_g * thick
+        pairs += conc + [("eta", csp.eta, gsp.eta),
+                         ("u_av", csp.u_av, gsp.u_av),
+                         ("kv_shear carry" + (" between layers over 1 m"
+                                              if dyn == "bml" else ""),
+                          kv_c, kv_g)]
+        if ccarry["mld"] is not None:
+            # ePBL's MLD is the deepest interface whose mixing cost the
+            # TKE affords: where the two are within roundoff, the last
+            # bits flip it between interfaces (ROADMAP.md Queue 3).  The
+            # last step is thermodynamic, so no step has used it yet
+            a = ccarry["mld"][4:-4, 4:-4]
+            d = (a - gcarry["mld"].cpu()[4:-4, 4:-4]).abs()
+            tie = d > 1e-9 * a.abs().max()
+            flips = int(tie.sum())
+            rest = float(d[~tie].max()) if flips < d.numel() else 0.0
+            log(f"  {label} mld carry: {flips} of {d.numel()} columns apart "
+                "by more than 1e-9 of the largest (affordability ties); "
+                f"the rest within {rest:.3e} m")
+            if flips > 0.05 * d.numel():
+                raise AssertionError(f"{label} mld carry: {flips} columns "
+                                     "apart")
+        for name, a, b in pairs:
+            rel, diff = rel_err(a, b.cpu())
+            log(f"  {label} {name}: max rel err {rel:.3e} (limit 1e-09)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"{label} {name}: {rel:.3e} > 1e-9")
+        log(f"  {label}: max kv_shear {float(gcarry['kv'].max()):.4e} "
+            "m2/s on the card")
+        expect = {k: v * n for k, v in PER_STEP[dyn].items()}
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{expect}")
+        log(f"  {label} on the card: launches {counts}")
+
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
     for label, regridding in FULL_VARIANTS:
@@ -2110,6 +2274,19 @@ def main():
         f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
     torch.cuda.empty_cache()
 
+    # 7f. the column physics of the third breadth item at full width
+    for dyn in ("b3", "bml"):
+        log(f"phase 7f {dyn} (configs.BENCH_CONFIG_{dyn.upper()}, "
+            + ("Z* ALE" if dyn == "b3" else "layered") + ") %dx%dx%d fp32"
+            % MAIN)
+        full[dyn] = run_new_timed(dyn, wrappers, shape, column_extra)
+        torch.cuda.empty_cache()
+    log(f"  b3 against bench.py's CONFIG (phase 7, Z* ALE) and bml against "
+        f"its layered variant, same process: {full['b3']['ms_step']:.3f} "
+        f"against {full['ale']['ms_step']:.3f} and "
+        f"{full['bml']['ms_step']:.3f} against "
+        f"{full['layered']['ms_step']:.3f} ms/step")
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
@@ -2135,6 +2312,14 @@ def main():
         log("phase 8 driver: cases/ref_tc0 (DEBUG, DIAG_AS_CHKSUM) fp64, "
             "card vs cpu, against its golden")
         launches_ref_tc0 = run_ref_tc0(tmp, wrappers)
+        launches_layer = {}
+        for case in ("layer_mode", "benchmark"):
+            log(f"phase 8 driver: cases/{case} 32x32x8 fp64 (spherical "
+                "grid, bowl, WRIGHT_FULL, bulk mixed layer), "
+                f"{LAYER_DAYS} days, card vs cpu")
+            launches_layer[case] = run_driver_case(
+                tmp, wrappers, case, LAYER_DAYS,
+                {"K1": 4, "K2": 1, "K3": 2, "K3m": 0}, edits=LAYER_EDITS)
     torch.cuda.empty_cache()
 
     nk, njh, nih = shape_main
@@ -2203,11 +2388,15 @@ def main():
                 "nonbouss_full_step": full["nonbouss"]["launches"][k],
                 "obc_full_step": full["obc"]["launches"][k],
                 "stoch_full_step": full["stoch"]["launches"][k],
+                "b3_full_step": full["b3"]["launches"][k],
+                "bml_full_step": full["bml"]["launches"][k],
                 "solo_double_gyre": launches_gyre[k],
                 "solo_bench_config": launches_bench[k],
                 "solo_tc0": launches_tc0[k],
                 "solo_tc3": launches_tc3[k],
-                "solo_ref_tc0": launches_ref_tc0[k]},
+                "solo_ref_tc0": launches_ref_tc0[k],
+                "solo_layer_mode": launches_layer["layer_mode"][k],
+                "solo_benchmark": launches_layer["benchmark"][k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
@@ -2261,7 +2450,7 @@ def main():
         library_ms=None, unit="per subcycle", profiled_device_ms=dev_ms,
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
-    for dyn in ("b1", "nonbouss", "obc", "stoch"):
+    for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())

@@ -46,6 +46,19 @@ DIABATIC_FIRST), the GME backscatter stress, the Stanley pressure-force
 correction with its stochastic multiplier (STOCH_EOS), and the SPPT
 tendency perturbations and SKEB backscatter, all with their defaults.
 
+``BENCH_CONFIG_B3`` is bench.py's configuration (Z* ALE) with the column
+physics of the third breadth item in place of KPP: the ePBL boundary
+layer with the Langmuir enhancement of USE_WAVES, Jackson-Hallberg-Legg
+kappa-shear (whose shear viscosity the next dynamics step adds to KV),
+CVMix convection, double diffusion, tidal mixing from a uniform energy
+flux, the law-of-the-wall bottom boundary layer, mixed-layer radiation,
+full convection, frazil and a 0.05 W m-2 geothermal flux; PEN_SW_NBANDS
+= 3 is read and inert, since the linear restoring sets no shortwave.
+``BENCH_CONFIG_BML`` is bench.py's layered variant (USE_REGRIDDING =
+False) with the layered column physics: the bulk mixed layer in place of
+KPP, LMD94 shear mixing, diffusive entrainment (on by its layered
+default), the regularization of the surface layers and frazil.
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
@@ -53,8 +66,9 @@ import numpy as np
 
 __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "BENCH_CONFIG_B1", "BENCH_CONFIG_NONBOUSS", "BENCH_CONFIG_OBC",
-           "BENCH_CONFIG_STOCH", "B1_LINES", "NONBOUSS_LINES", "OBC_LINES",
-           "STOCH_LINES", "obc_strip",
+           "BENCH_CONFIG_STOCH", "BENCH_CONFIG_B3", "BENCH_CONFIG_BML",
+           "B1_LINES", "NONBOUSS_LINES", "OBC_LINES", "STOCH_LINES",
+           "B3_LINES", "BML_LINES", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
            "write_topog_edge"]
 
@@ -167,6 +181,29 @@ DO_SPPT = True
 DO_SKEB = True
 """
 
+B3_LINES = """#override USE_KPP = False
+ENERGETICS_SFC_PBL = True
+USE_JACKSON_PARAM = True
+USE_CVMIX_CONVECTION = True
+DOUBLE_DIFFUSION = True
+INT_TIDE_DISSIPATION = True
+USE_LOTW_BBL_DIFFUSIVITY = True
+ML_RADIATION = True
+FULL_CONVECTION = True
+FRAZIL = True
+USE_WAVES = True
+GEOTHERMAL_FLUX = 0.05
+PEN_SW_NBANDS = 3
+"""
+
+BML_LINES = """#override USE_REGRIDDING = False
+#override BULKMIXEDLAYER = True
+#override USE_KPP = False
+REGULARIZE_SURFACE_LAYERS = True
+USE_LMD94 = True
+FRAZIL = True
+"""
+
 BENCH_CONFIG_B1 = BENCH_CONFIG + B1_LINES
 
 BENCH_CONFIG_NONBOUSS = BENCH_CONFIG + NONBOUSS_LINES
@@ -174,6 +211,10 @@ BENCH_CONFIG_NONBOUSS = BENCH_CONFIG + NONBOUSS_LINES
 BENCH_CONFIG_OBC = BENCH_CONFIG + OBC_LINES
 
 BENCH_CONFIG_STOCH = BENCH_CONFIG + STOCH_LINES
+
+BENCH_CONFIG_B3 = BENCH_CONFIG + B3_LINES
+
+BENCH_CONFIG_BML = BENCH_CONFIG + BML_LINES
 
 
 def obc_strip(ni: int) -> str:

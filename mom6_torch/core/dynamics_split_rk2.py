@@ -122,13 +122,9 @@ def init_split_state(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                          uh=z, vh=z, eta=e[0], diffu=diffu, diffv=diffv)
 
 
-def _check_unported(kh_scale, kh_extra, kv_shear):
-    for name, bad in (("kv_shear: shear-driven viscosity",
-                       kv_shear is not None),
-                      ("kh_scale/kh_extra viscosity inputs",
-                       kh_scale is not None or kh_extra is not None)):
-        if bad:
-            raise NotImplementedError(name)
+def _check_unported(kh_scale, kh_extra):
+    if kh_scale is not None or kh_extra is not None:
+        raise NotImplementedError("kh_scale/kh_extra viscosity inputs")
 
 
 def stoch_eos_multiplier(cfg: SplitCfg, stoch_pattern):
@@ -175,11 +171,11 @@ def tidal_geopotential(cfg, eta, t):
 
 
 def viscosity_solve(grid: Grid, cfg: SplitCfg, h, bbl, ustar, forces,
-                    rho0: float, u, v, dt_v):
+                    rho0: float, u, v, dt_v, kv_int=None):
     """The implicit vertical viscosity of a split step on (u, v) over
     ``dt_v``: (u, v, (visc_rem_u, visc_rem_v)) from one set of
-    coefficients."""
-    coefs = vertvisc_coef(grid, u, v, h, cfg=cfg.vertvisc, bbl=bbl,
+    coefficients; ``kv_int`` as in ``vertvisc_coef``."""
+    coefs = vertvisc_coef(grid, u, v, h, kv_int, cfg=cfg.vertvisc, bbl=bbl,
                           ustar=ustar)
     u, v = vertvisc(grid, u, v, h, coefs, dt_v, forces.taux, forces.tauy,
                     rho0, direct_stress=cfg.vertvisc.direct_stress,
@@ -202,8 +198,10 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                        t=None, stoch_pattern=None, kh_scale=None,
                        kh_extra=None, kv_shear=None,
                        ) -> tuple[State, SplitDynState, SplitDiags]:
-    """One split RK2 dynamics step (step_MOM_dyn_split_RK2)."""
-    _check_unported(kh_scale, kh_extra, kv_shear)
+    """One split RK2 dynamics step (step_MOM_dyn_split_RK2).  ``kv_shear``:
+    the shear-driven interface viscosity of the last diabatic phase,
+    added to KV in every vertical viscosity of the step."""
+    _check_unported(kh_scale, kh_extra)
     fill = halo_fill(domain, obc)
     rho0 = vgrid.Rho0
 
@@ -231,14 +229,15 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
 
     dt_pred = dt * cfg.be
+    kv_int = None if kv_shear is None else cfg.vertvisc.kv + kv_shear
     bbl = set_viscous_bbl(grid, u, v, h, cfg.vertvisc, vgrid, T, S, eos)
     ustar = surface_ustar(grid, rho0, forces) \
         if cfg.vertvisc.visc_ml_mode else None
     viscosity = functools.partial(viscosity_solve, grid, cfg, h, bbl, ustar,
-                                  forces, rho0)
+                                  forces, rho0, kv_int=kv_int)
 
-    coefs = vertvisc_coef(grid, u_av, v_av, h, cfg=cfg.vertvisc, bbl=bbl,
-                          ustar=ustar)
+    coefs = vertvisc_coef(grid, u_av, v_av, h, kv_int, cfg=cfg.vertvisc,
+                          bbl=bbl, ustar=ustar)
     visc_rem_u, visc_rem_v = vertvisc_remnant(grid, coefs, dt_pred)
 
     eta_cor = grid.mask2dT * ((torch.sum(h, dim=0) - grid.bathyT) - eta)

@@ -93,7 +93,11 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     """One RK2b dynamics step.  ``state.u/v`` are the filtered
     velocities; returns them updated with the new increments, eta and
     the step's transports."""
-    _check_unported(kh_scale, kh_extra, kv_shear)
+    _check_unported(kh_scale, kh_extra)
+    if kv_shear is not None:
+        # the JAX package's RK2b step takes no shear viscosity
+        raise NotImplementedError("kv_shear: the RK2b step takes no "
+                                  "shear-driven viscosity")
     fill = halo_fill(domain, obc)
     rho0 = vgrid.Rho0
     T, S = state.T, state.S

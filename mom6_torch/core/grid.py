@@ -21,7 +21,7 @@ import torch
 
 from mom6_torch.parallel.domain import Domain
 
-__all__ = ["Grid", "cartesian_grid", "spherical_grid"]
+__all__ = ["Grid", "cartesian_grid", "spherical_grid", "mercator_grid"]
 
 RADIUS_EARTH = 6.378e6     # m
 OMEGA = 7.2921e-5          # s-1
@@ -204,6 +204,52 @@ def spherical_grid(domain: Domain, west_lon: float, lenlon: float,
 
     def dy_fn(dlat_, lat):
         return np.full_like(lat, radius * deg2rad * dlat_)
+
+    def f_fn(lon, lat):
+        return 2.0 * OMEGA * np.sin(deg2rad * lat)
+
+    if depth_fn is None:
+        def depth_fn(lon, lat):
+            return np.full_like(lat, max_depth)
+
+    return _build(domain, lon_c, lat_c, lon_f, lat_f, dx_fn, dy_fn,
+                  f_fn, depth_fn, min_depth, device, dtype)
+
+
+def mercator_grid(domain: Domain, west_lon: float, lenlon: float,
+                  south_lat: float, north_lat: float | None = None,
+                  max_depth: float = 4000.0, *, device,
+                  dtype: torch.dtype, depth_fn=None, min_depth: float = 0.0,
+                  radius: float = RADIUS_EARTH) -> Grid:
+    """Isotropic Mercator grid (mom6_tpu.core.grid.mercator_grid):
+    uniform spacing in y = ln(tan(pi/4 + lat/2)) from ``south_lat`` to
+    ``north_lat`` (without it, the spacing of the longitudes, so that
+    dx = dy), dy = R cos(lat) dy_merc, f = 2 Omega sin(lat)."""
+    deg2rad = np.pi / 180.0
+
+    def to_merc(lat_deg):
+        return np.log(np.tan(np.pi / 4.0 + 0.5 * deg2rad * lat_deg))
+
+    def from_merc(y):
+        return (2.0 * np.arctan(np.exp(y)) - np.pi / 2.0) / deg2rad
+
+    dlon = lenlon / domain.ni
+    y_s = to_merc(south_lat)
+    if north_lat is None:
+        dy_m = deg2rad * dlon
+    else:
+        dy_m = (to_merc(north_lat) - y_s) / domain.nj
+    j, i = _padded_index(domain)
+    lon_c = west_lon + (i + 0.5) * dlon
+    lon_f = west_lon + (i + 1.0) * dlon
+    lat_c = from_merc(y_s + (j + 0.5) * dy_m)
+    lat_f = from_merc(y_s + (j + 1.0) * dy_m)
+
+    def dx_fn(dlon_, lat):
+        return radius * deg2rad * dlon_ * np.cos(deg2rad * lat)
+
+    def dy_fn(dlat_, lat):
+        return radius * np.cos(deg2rad * lat) * dy_m
 
     def f_fn(lon, lat):
         return 2.0 * OMEGA * np.sin(deg2rad * lat)

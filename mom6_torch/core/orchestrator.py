@@ -28,7 +28,10 @@ unsplit step ignores ``obc``, the pattern and GME's inputs, as in the
 JAX package.  Passive tracers without T/S are advected (and diffused)
 alone.  MEKE/VarMix, the interface filter, neutral and boundary
 diffusion, sponges, internal tides and BGC are not ported yet and raise
-``NotImplementedError``.
+``NotImplementedError``.  The shear viscosity of a diabatic phase
+(``kv_shear`` in the diags) feeds the next split RK2 dynamics step
+(``kv_shear_prev``); the RK2b and unsplit steps take none, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -115,7 +118,10 @@ class OceanDiags(NamedTuple):
     truncs: torch.Tensor          # velocity truncations this step
     eta_av: Optional[torch.Tensor]   # None under unsplit dynamics
     adv_residual: Optional[torch.Tensor] = None
-    mld: Optional[torch.Tensor] = None   # KPP boundary-layer depth [m]
+    mld: Optional[torch.Tensor] = None   # KPP/ePBL boundary-layer depth
+    # the shear viscosity for the next dynamics step (kv_shear_prev)
+    kv_shear: Optional[torch.Tensor] = None
+    frazil: Optional[torch.Tensor] = None   # accumulated frazil [J m-2]
     # the stochastic pattern carry: a tensor, or {"sppt", "skeb"}
     sppt_pattern: object = None
 
@@ -152,7 +158,8 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     def thermo_and_ale(state, split_state, tracers):
         """Column physics (with SPPT and SKEB), the tracers' column
         functions and ALE; returns the new (state, split_state, tracers)
-        and the carries for the diags (mld, sppt_pattern)."""
+        and the carries for the diags (frazil, mld, kv_shear,
+        sppt_pattern)."""
         extras = {}
         if cfg.thermo and not cfg.adiabatic:
             if isinstance(sppt_pattern, dict):
@@ -195,8 +202,9 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                 u2, v2 = apply_skeb(domain, grid, cfg.sppt, uf, vf, skp, dt)
                 state = state.replace(u=fill(u2), v=fill(v2))
                 extras["sppt_pattern"] = {"sppt": sp_prev, "skeb": skp}
-            if "mld" in dia:
-                extras["mld"] = dia["mld"]
+            for k in ("frazil", "mld", "kv_shear"):
+                if k in dia:
+                    extras[k] = dia[k]
         if tracer_registry is not None and tracers:
             tracers = tracer_registry.apply_column_fns(
                 tracers, state.h, dt, state=state, forces=forces, t=t)

@@ -18,6 +18,9 @@ class State:
     h: torch.Tensor                    # layer thickness [m]
     T: Optional[torch.Tensor] = None   # temperature [degC]
     S: Optional[torch.Tensor] = None   # salinity [ppt]
+    # the accumulated frazil heat deficit not yet extracted [J m-2]
+    # (FRAZIL; a restart field)
+    frazil: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "State":
         return dataclasses.replace(self, **kw)

@@ -173,11 +173,13 @@ def surface_ustar(grid: Grid, rho0: float, forces):
     return torch.sqrt(tau / rho0) * grid.mask2dT
 
 
-def vertvisc_coef(grid: Grid, u, v, h, cfg: VertViscCfg = VertViscCfg(),
-                  vgrid=None, bbl: BBLInfo | None = None,
-                  ustar=None) -> ViscCoefs:
+def vertvisc_coef(grid: Grid, u, v, h, kv_int=None,
+                  cfg: VertViscCfg = VertViscCfg(), vgrid=None,
+                  bbl: BBLInfo | None = None, ustar=None) -> ViscCoefs:
     """Interface coupling coefficients a = Kv/dz at u and v columns, with
-    the bottom drag slaving every interface inside the BBL (``bbl`` from
+    Kv the constant KV or, with ``kv_int``, that (nk+1, njh, nih)
+    interface viscosity at h points averaged to the faces; the bottom
+    drag slaves every interface inside the BBL (``bbl`` from
     set_viscous_bbl, computed here from u, v, h when not given); with no
     drag law the bottom coupling is Kv over half the bottom layer and
     ``bbl`` is not used.  ``ustar`` (the surface friction velocity at h
@@ -247,8 +249,12 @@ def vertvisc_coef(grid: Grid, u, v, h, cfg: VertViscCfg = VertViscCfg(),
 
     h_u = 0.5 * (h + ip1(h))
     h_v = 0.5 * (h + jp1(h))
-    kv = torch.full((nk + 1,) + h.shape[1:], cfg.kv, dtype=h.dtype,
-                    device=h.device)
+    if kv_int is None:
+        kv_u = kv_v = torch.full((nk + 1,) + h.shape[1:], cfg.kv,
+                                 dtype=h.dtype, device=h.device)
+    else:
+        kv_u = 0.5 * (kv_int + ip1(kv_int))
+        kv_v = 0.5 * (kv_int + jp1(kv_int))
     pu, tu, pv, tv = bbl if cfg.bottomdraglaw else (None,) * 4
     ust_u = ust_v = absf_u = absf_v = None
     if ustar is not None:
@@ -257,8 +263,8 @@ def vertvisc_coef(grid: Grid, u, v, h, cfg: VertViscCfg = VertViscCfg(),
         fq = torch.abs(grid.CoriolisBu)
         absf_u = 0.5 * (fq + jm1(fq))
         absf_v = 0.5 * (fq + im1(fq))
-    a_u = face_coefs(h_u, kv, pu, tu, ust_u, absf_u) * grid.mask2dCu[None]
-    a_v = face_coefs(h_v, kv, pv, tv, ust_v, absf_v) * grid.mask2dCv[None]
+    a_u = face_coefs(h_u, kv_u, pu, tu, ust_u, absf_u) * grid.mask2dCu[None]
+    a_v = face_coefs(h_v, kv_v, pv, tv, ust_v, absf_v) * grid.mask2dCv[None]
 
     ray_u = ray_v = None
     if cfg.channel_drag:

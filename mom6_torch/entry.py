@@ -8,8 +8,10 @@ with ``dynamics``, the split RK2b or the unsplit RK3 dynamics, or the
 first breadth item's options on the split RK2 dynamics
 (``configs.BENCH_CONFIG_B1``, ``BENCH_CONFIG_NONBOUSS``), or the
 regional configuration with open boundaries (``BENCH_CONFIG_OBC``),
-or the rest of the first breadth item (``BENCH_CONFIG_STOCH``), through
-``model.build_model``; its ``Model.step_fn`` steps it.
+or the rest of the first breadth item (``BENCH_CONFIG_STOCH``), or the
+column physics of the third (``BENCH_CONFIG_B3`` with Z* ALE,
+``BENCH_CONFIG_BML`` layered), through ``model.build_model``; its
+``Model.step_fn`` steps it.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
 alone, needs:
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_B1,
+                                BENCH_CONFIG_B3, BENCH_CONFIG_BML,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
                                 BENCH_CONFIG_RK2B, BENCH_CONFIG_STOCH,
                                 BENCH_CONFIG_UNSPLIT,
@@ -65,9 +68,12 @@ DEPTH = 4000.0
 DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "unsplit": BENCH_CONFIG_UNSPLIT, "b1": BENCH_CONFIG_B1,
             "nonbouss": BENCH_CONFIG_NONBOUSS, "obc": BENCH_CONFIG_OBC,
-            "stoch": BENCH_CONFIG_STOCH}
+            "stoch": BENCH_CONFIG_STOCH, "b3": BENCH_CONFIG_B3,
+            "b3pp81": BENCH_CONFIG_B3 + "#override USE_JACKSON_PARAM = False\n"
+            "USE_PP81 = True\n",
+            "bml": BENCH_CONFIG_BML}
 # the texts on the split RK2 dynamics
-SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch")
+SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +116,7 @@ def build(ni: int = 512, nj: int = 512, nk: int = 25, *, seed: int = 0,
 def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
                seed: int | None = None, regridding: bool = True,
                dynamics: str = "rk2", wide_halo_period: int = 2,
-               device="cuda",
+               extra: str = "", device="cuda",
                dtype: torch.dtype = torch.float32) -> Model:
     """The full step of bench.py's CONFIG (``configs.BENCH_CONFIG``) with
     BT_WIDE_HALO_PERIOD = 2, at ``ni`` x ``nj`` x ``nk`` with 10 km cells,
@@ -156,9 +162,17 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     ``configs.write_obc_data`` into a temporary directory; ``regridding``
     does not apply) or "stoch" (``BENCH_CONFIG_STOCH``: GM and the
     column physics with ALE before the dynamics, GME, the Stanley
-    correction with STOCH_EOS, SPPT and SKEB).  ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
+    correction with STOCH_EOS, SPPT and SKEB) or "b3" (``BENCH_CONFIG_B3``:
+    ePBL, kappa-shear and the rest of the third breadth item's column
+    physics with Z* ALE) or "b3pp81" (the same with PP81 shear mixing in
+    place of kappa-shear) or "bml" (``BENCH_CONFIG_BML``: layered, with
+    the bulk mixed layer, LMD94 shear mixing, diffusive entrainment,
+    regularization and frazil; ``regridding`` does not apply).
+    ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).
+
+    ``extra``: more MOM_input lines, read after the text's.
 
     With ``seed`` None the initial state is the configuration's own (at
     rest and horizontally uniform, as the JAX package builds it).  With
@@ -190,7 +204,8 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
             write_obc_data(inputdir, ni, nj, seed=0)
         if dynamics in ("b1", "obc"):
             text += f"INPUTDIR = {inputdir}\n"
-        m = build_model(ParamFile(text=text), device=device, dtype=dtype)
+        m = build_model(ParamFile(text=text + extra), device=device,
+                        dtype=dtype)
     if seed is not None:
         d, g = m.domain, m.grid
         rng = np.random.default_rng(seed)

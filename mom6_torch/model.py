@@ -10,10 +10,12 @@ step (``core/orchestrator.py``).
 
 It follows the JAX builder on the branches that bench.py's CONFIG
 (with and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
-``cases/double_gyre``, ``cases/tc0``, ``cases/ref_tc0`` and the texts
-of ``configs.py`` take: a single-device cartesian grid in km or degrees
-(TOPO_CONFIG flat, bowl or spoon) with porous-barrier face topography
-from a TOPO_AT_VEL file (SUBGRID_TOPO_AT_VEL), Boussinesq or not, split
+``cases/double_gyre``, ``cases/tc0``, ``cases/ref_tc0``,
+``cases/layer_mode``, ``cases/benchmark`` and the texts of
+``configs.py`` take: a single-device cartesian grid in km or degrees,
+or a spherical or Mercator grid (GRID_CONFIG, ISOTROPIC, an f/beta
+plane with ROTATION = beta), TOPO_CONFIG flat, bowl or spoon, with
+porous-barrier face topography from a TOPO_AT_VEL file (SUBGRID_TOPO_AT_VEL), Boussinesq or not, split
 RK2, split RK2b (SPLIT_RK2B) or unsplit (SPLIT = False) dynamics with
 every Coriolis and KE scheme, tides with scalar or spherical-harmonic
 SAL, the Stanley pressure-force correction, the barotropic options
@@ -29,8 +31,14 @@ tracers of NUM_DYE_TRACERS), the LINEAR and
 WRIGHT equations of state, THICKNESS_CONFIG uniform, TS_CONFIG uniform
 or linear, WIND_CONFIG zero/constant/gyres/2gyre, BUOY_CONFIG zero or
 linear restoring, ALE with the coordinates and remap schemes of
-``mom6_torch/ale``, background/Bryan-Lewis diffusivity, KPP, diffusive
-entrainment, GM thickness diffusion (THICKNESSDIFFUSE_FIRST too), MLE,
+``mom6_torch/ale``, the column physics of ``param/vertical`` (the
+background, Bryan-Lewis and shear, kappa-shear, convective,
+double-diffusive, tidal, user, law-of-the-wall and ML-radiation
+diffusivities, KPP or ePBL with the Langmuir factor of USE_WAVES,
+penetrating shortwave, DEPTH_LIMIT_FLUXES, geothermal heating, full
+convection, frazil, and in layer mode the bulk mixed layer, diffusive
+entrainment and the regularization of the surface layers; SPONGE still
+raises), GM thickness diffusion (THICKNESSDIFFUSE_FIRST too), MLE,
 along-layer tracer diffusion, the ideal age tracer, GME, SPPT, SKEB and
 STOCH_EOS, and DIABATIC_FIRST.  Every other value of an option it reads
 raises ``NotImplementedError`` naming the parameter; an option set to
@@ -63,7 +71,8 @@ from mom6_torch.core.dynamics_split_rk2b import (SplitBDynState,
                                                  init_split_b_state)
 from mom6_torch.core.dynamics_unsplit import UnsplitCfg
 from mom6_torch.core.forcing import Fluxes, MechForcing
-from mom6_torch.core.grid import Grid, cartesian_grid, spherical_grid
+from mom6_torch.core.grid import (Grid, cartesian_grid, mercator_grid,
+                                  spherical_grid)
 from mom6_torch.core.orchestrator import OceanCfg, step_ocean
 from mom6_torch.core.pressure_force import PressureForceCfg
 from mom6_torch.core.state import State
@@ -88,11 +97,24 @@ from mom6_torch.param.lateral.tidal_forcing import (CONSTITUENTS,
 from mom6_torch.param.lateral.thickness_diffuse import ThicknessDiffuseCfg
 from mom6_torch.param.stochastic.stochastics import StochasticsCfg
 from mom6_torch.param.vertical.bkgnd_mixing import BkgndMixingCfg
+from mom6_torch.param.vertical.bulk_mixed_layer import BulkMixedLayerCfg
+from mom6_torch.param.vertical.conv_ddiff import ConvectionCfg
 from mom6_torch.param.vertical.diabatic import DiabaticCfg
+from mom6_torch.param.vertical.diabatic_aux import FrazilCfg
+from mom6_torch.param.vertical.energetic_pbl import EPBLCfg
 from mom6_torch.param.vertical.entrain_diffusive import EntrainDiffusiveCfg
+from mom6_torch.param.vertical.geothermal import GeothermalCfg
+from mom6_torch.param.vertical.kappa_shear import KappaShearCfg
 from mom6_torch.param.vertical.kpp import KPPCfg
+from mom6_torch.param.vertical.opacity import OpacityCfg
+from mom6_torch.param.vertical.regularize_layers import RegularizeLayersCfg
 from mom6_torch.param.vertical.set_diffusivity import DiffusivityCfg
+from mom6_torch.param.vertical.shear_mixing import ShearMixingCfg
+from mom6_torch.param.vertical.tidal_mixing import TidalMixingCfg
+from mom6_torch.param.vertical.user_change_diff import UserKdCfg
+from mom6_torch.param.waves.wave_interface import WavesCfg
 from mom6_torch.parallel.domain import Domain
+from mom6_torch.parallel.stencil import ip1, jp1
 from mom6_torch.tracer.advect import TracerAdvectCfg
 from mom6_torch.tracer.hor_diff import TracerHorDiffCfg
 from mom6_torch.tracer.ideal import (register_dyed_obc_tracers,
@@ -219,9 +241,11 @@ class Model:
         JAX Model's cadence: step n is a thermodynamic step when (n + 1)
         is a multiple of DT_THERM/DT, x_first alternates with the parity
         of n, the mass transports accumulate over the thermodynamic
-        interval, and the boundary-layer depth, the shear viscosity and
-        the stochastic pattern (a tensor, or {"sppt", "skeb"} with SKEB)
-        carry from step to step.
+        interval, and the boundary-layer depth, the shear viscosity of
+        the last thermodynamic step (which the split RK2 dynamics add to
+        KV) and the stochastic pattern (a tensor, or {"sppt", "skeb"}
+        with SKEB) carry from step to step; the accumulated frazil rides
+        the state.
 
         ``nstep_bt`` overrides the barotropic substep count (the
         DTBT_RESET_PERIOD path); ``carry`` re-threads the accumulators
@@ -276,6 +300,8 @@ class Model:
                 acc["res"] = res[0]
             if diags.mld is not None:
                 acc["mld"] = diags.mld
+            if diags.kv_shear is not None:
+                acc["kv"] = diags.kv_shear
             if diags.sppt_pattern is not None:
                 acc["sppt"] = diags.sppt_pattern
             if do_thermo:
@@ -338,6 +364,33 @@ def _tides(pf: ParamFile, grid: Grid, rho0: float):
     return tides_fn(cfg, grid, sal)
 
 
+def _build_user_kd(pf: ParamFile, p_ref: float) -> UserKdCfg:
+    """USER_CHANGE_DIFFUSIVITY's bands (the JAX builder's
+    ``_build_user_kd``)."""
+    big = 1.0e9
+    lat = pf.get("USER_KD_ADD_LAT_RANGE", list, [-big, -big, big, big],
+                 units="degrees")
+    rho = pf.get("USER_KD_ADD_RHO_RANGE", list, [-big, -big, big, big],
+                 units="kg m-3")
+    return UserKdCfg(
+        kd_add=pf.get("USER_KD_ADD", float, 0.0, units="m2 s-1"),
+        lat_range=tuple(float(v) for v in lat),
+        rho_range=tuple(float(v) for v in rho),
+        use_abs_lat=pf.get("USER_KD_ADD_ABS_LAT", bool, False),
+        p_ref=p_ref).validate()
+
+
+def _build_waves_cfg(pf: ParamFile) -> Optional[WavesCfg]:
+    """USE_WAVES: the Stokes drift's parameters (the JAX builder's
+    ``_build_waves_cfg``), None without waves."""
+    if not pf.get("USE_WAVES", bool, False):
+        return None
+    return WavesCfg(
+        wave_method=pf.get("WAVE_METHOD", str, "EMPIRICAL"),
+        const_us=pf.get("CONST_STOKES_DRIFT", float, 0.0, units="m s-1"),
+        const_decay=pf.get("STOKES_DECAY_SCALE", float, 5.0, units="m"))
+
+
 def build_model(pf: ParamFile, *, device="cuda",
                 dtype: torch.dtype = torch.float64) -> Model:
     """The model that the parameters describe, on ``device`` in
@@ -365,7 +418,7 @@ def build_model(pf: ParamFile, *, device="cuda",
     pf.module("MOM_grid_init")
     grid_config = _one_of("GRID_CONFIG",
                           pf.get("GRID_CONFIG", str, "cartesian"),
-                          ("cartesian",))
+                          ("cartesian", "spherical", "mercator"))
     south = pf.get("SOUTHLAT", float, 0.0)
     lenlat = pf.get("LENLAT", float, float(nj))
     west = pf.get("WESTLON", float, 0.0)
@@ -374,36 +427,46 @@ def build_model(pf: ParamFile, *, device="cuda",
     max_depth = pf.get("MAXIMUM_DEPTH", float, 4000.0, units="m")
     min_depth = pf.get("MINIMUM_DEPTH", float, 0.0, units="m")
     topo_config = pf.get("TOPO_CONFIG", str, "flat")
-    # ROTATION selects the Coriolis form of geographic grids; a
-    # cartesian grid is an f/beta plane whatever it says
-    pf.get("ROTATION", str, "2omegasinlat")
+    # ROTATION: 2omegasinlat on geographic grids, or an f/beta plane
+    # (beta, betaplane) about BETA_LAT_REF; a cartesian grid is an
+    # f/beta plane whatever it says
+    rotation = pf.get("ROTATION", str, "2omegasinlat").lower()
     f0 = pf.get("F_0", float, 0.0, units="s-1")
     beta = pf.get("BETA", float, 0.0, units="m-1 s-1")
     axis_units = pf.get("AXIS_UNITS", str, "degrees")
     depth_fn = _topo_fn(topo_config, max_depth, min_depth, lenlon, lenlat,
                         west, south)
-    # ISOTROPIC selects Mercator metrics on spherical grids only
-    pf.get("ISOTROPIC", bool, False,
-           desc="isotropic (Mercator) spacing: dy tracks "
-           "dx*cos(lat), the meridional extent set by the "
-           "zonal resolution "
-           "(MOM_grid_initialize.F90:703); read for any "
-           "spherical-family GRID_CONFIG, selects the "
-           "Mercator metrics when GRID_CONFIG=spherical")
-    if axis_units.startswith("k"):
+    # ISOTROPIC selects Mercator metrics on spherical grids
+    isotropic = pf.get("ISOTROPIC", bool, False,
+                       desc="isotropic (Mercator) spacing: dy tracks "
+                       "dx*cos(lat), the meridional extent set by the "
+                       "zonal resolution "
+                       "(MOM_grid_initialize.F90:703); read for any "
+                       "spherical-family GRID_CONFIG, selects the "
+                       "Mercator metrics when GRID_CONFIG=spherical")
+    geo = dict(west_lon=west, lenlon=lenlon, south_lat=south,
+               depth_fn=depth_fn, max_depth=max_depth, min_depth=min_depth,
+               **dev)
+    if grid_config == "cartesian" and axis_units.startswith("k"):
         grid = cartesian_grid(domain, lenlon_km=lenlon, lenlat_km=lenlat,
                               f0=f0, beta=beta, max_depth=max_depth,
                               depth_fn=depth_fn, min_depth=min_depth,
                               south_lat=south, west_lon=west,
                               beta_lat_ref=pf.get("BETA_LAT_REF", float,
                                                   0.0, units="km"), **dev)
+    elif grid_config == "mercator" or (grid_config == "spherical"
+                                       and isotropic):
+        grid = mercator_grid(domain, north_lat=south + lenlat, **geo)
     else:
         # a cartesian grid in degrees takes the spherical metrics, as in
         # the JAX builder
-        grid = spherical_grid(domain, west_lon=west, lenlon=lenlon,
-                              south_lat=south, lenlat=lenlat,
-                              depth_fn=depth_fn, max_depth=max_depth,
-                              min_depth=min_depth, **dev)
+        grid = spherical_grid(domain, lenlat=lenlat, **geo)
+    if rotation in ("beta", "betaplane") and grid_config != "cartesian":
+        # an f/beta plane about BETA_LAT_REF [degrees] at the corners
+        y_m = (grid.geoLatT - pf.get("BETA_LAT_REF", float, 0.0,
+                                     units="degrees")) * 111194.9266
+        fq = f0 + beta * 0.25 * (y_m + jp1(y_m) + ip1(y_m) + ip1(jp1(y_m)))
+        grid = dataclasses.replace(grid, CoriolisBu=fq)
     if max_depth_diagnose and topo_config != "flat":
         max_depth = float(torch.max(grid.bathyT))
     if pf.get("SUBGRID_TOPO_AT_VEL", bool, False):
@@ -452,12 +515,12 @@ def build_model(pf: ParamFile, *, device="cuda",
     thermo = pf.get("ENABLE_THERMODYNAMICS", bool, True)
     adiabatic = pf.get("ADIABATIC", bool, False)
     use_regrid = pf.get("USE_REGRIDDING", bool, False)
-    # the bulk mixed layer defaults on in layered thermodynamic runs
-    if pf.get("BULKMIXEDLAYER", bool, thermo and not use_regrid):
-        raise NotImplementedError("BULKMIXEDLAYER = True: option not "
-                                  "ported")
-    default_only(pf, "NKML", int, 0)
-    default_only(pf, "NKBL", int, 0)
+    # the bulk mixed layer defaults on in layered thermodynamic runs;
+    # NKML and NKBL are read with the JAX builder's defaults, and only
+    # its initializers that the port does not have yet use them
+    use_bml = pf.get("BULKMIXEDLAYER", bool, thermo and not use_regrid)
+    pf.get("NKML", int, 2 if use_bml else 0)
+    pf.get("NKBL", int, 2 if use_bml else 0)
 
     pf.module("MOM_EOS")
     eos_form = pf.get("EQN_OF_STATE", str, "WRIGHT")
@@ -688,7 +751,10 @@ def build_model(pf: ParamFile, *, device="cuda",
             ("zero",))
     z = torch.zeros_like(h)
     state = State(u=z, v=z, h=h, T=T, S=S)
-    default_only(pf, "FRAZIL", bool, False)
+    if pf.get("FRAZIL", bool, False) and T is not None:
+        # the accumulated frazil is allocated up front, so that the state
+        # (and its restarts) has the same fields from step 0
+        state = state.replace(frazil=torch.zeros_like(h[0]))
 
     pf.module("MOM_surface_forcing")
     sf_cfg = SurfaceForcingCfg(
@@ -770,50 +836,154 @@ def build_model(pf: ParamFile, *, device="cuda",
             default_only(pf, "REGRID_ACCELERATE_INIT", bool, False)
 
     pf.module("MOM_set_diffusivity")
-    for name in ("USE_LMD94", "USE_PP81"):
-        default_only(pf, name, bool, False)
+    use_lmd94 = pf.get("USE_LMD94", bool, False)
+    use_pp81 = pf.get("USE_PP81", bool, False)
+    shear_cfg = ShearMixingCfg(
+        scheme="PP81" if use_pp81 else "LMD94",
+        nu_zero=pf.get("NU_ZERO", float, 5e-3, units="m2 s-1"),
+        ri_zero=pf.get("RI_ZERO", float, 0.8))
     bk_scheme = "bryan_lewis" if pf.get("BRYAN_LEWIS_DIFFUSIVITY", bool,
                                         False) else "constant"
-    for name in ("USE_JACKSON_PARAM", "INT_TIDE_DISSIPATION"):
-        default_only(pf, name, bool, False)
-    default_only(pf, "GEOTHERMAL_FLUX", float, 0.0, units="W m-2")
-    default_only(pf, "DO_GEOTHERMAL", bool, False)
-    default_only(pf, "PEN_SW_NBANDS", int, 0)
-    default_only(pf, "ENERGETICS_SFC_PBL", bool, False)
-    # PEN_SW_SCALE > 0 turns penetrating shortwave on; the JAX builder
-    # reads it three times, the last with no units and a 15 m default
-    default_only(pf, "PEN_SW_SCALE", float, 0.0, units="m")
-    default_only(pf, "PEN_SW_SCALE", float, 0.0)
-    pf.get("PEN_SW_SCALE", float, 15.0)
-    diffusivity = DiffusivityCfg(
-        kd=pf.get("KD", float, 0.0, units="m2 s-1"),
-        kd_min=pf.get("KD_MIN", float, 0.0, units="m2 s-1"),
-        kd_max=pf.get("KD_MAX", float, -1.0, units="m2 s-1"),
-        bkgnd=BkgndMixingCfg(scheme=bk_scheme,
-                             kd=pf.get("KD", float, 0.0)))
-    for name in ("USE_CVMIX_CONVECTION", "DOUBLE_DIFFUSION",
-                 "USE_LOTW_BBL_DIFFUSIVITY", "USER_CHANGE_DIFFUSIVITY",
-                 "ML_RADIATION"):
-        default_only(pf, name, bool, False)
+    if use_bml and use_regrid:
+        raise ValueError("BULKMIXEDLAYER = True requires layer mode; it "
+                         "cannot be combined with USE_REGRIDDING = True "
+                         "(use KPP or ePBL in ALE mode)")
+    use_jackson = pf.get("USE_JACKSON_PARAM", bool, False)
+    int_tide = pf.get("INT_TIDE_DISSIPATION", bool, False)
+    geo_flux = pf.get("GEOTHERMAL_FLUX", float, 0.0, units="W m-2")
+    if pf.get("DO_GEOTHERMAL", bool, False) and geo_flux == 0.0:
+        # without a heat-flux file, GEOTHERMAL_SCALE is the uniform flux
+        geo_flux = pf.get("GEOTHERMAL_SCALE", float, 0.0, units="W m-2")
+    pen_sw_nbands = pf.get("PEN_SW_NBANDS", int, 0)
+    use_epbl = pf.get("ENERGETICS_SFC_PBL", bool, False)
     dia_cfg = DiabaticCfg(
-        diffusivity=diffusivity,
+        diffusivity=DiffusivityCfg(
+            kd=pf.get("KD", float, 0.0, units="m2 s-1"),
+            kd_min=pf.get("KD_MIN", float, 0.0, units="m2 s-1"),
+            kd_max=pf.get("KD_MAX", float, -1.0, units="m2 s-1"),
+            bkgnd=BkgndMixingCfg(scheme=bk_scheme,
+                                 kd=pf.get("KD", float, 0.0)),
+            use_shear=use_lmd94 or use_pp81,
+            shear=shear_cfg,
+            prandtl_turb=pf.get("PRANDTL_TURB", float, 1.0,
+                                desc="turbulent Prandtl number "
+                                "converting shear-driven Kd into the "
+                                "Kv_shear the dynamics' vertvisc "
+                                "consumes "
+                                "(MOM_set_viscosity.F90:2957)"),
+            use_kappa_shear=use_jackson,
+            kappa_shear=KappaShearCfg(
+                rino_crit=pf.get("RINO_CRIT", float, 0.25),
+                shearmix_rate=pf.get("SHEARMIX_RATE", float, 0.089),
+                fri_curvature=pf.get("FRI_CURVATURE", float, -0.97),
+                c_n=pf.get("TKE_N_DECAY_CONST", float, 0.24),
+                c_s=pf.get("TKE_SHEAR_DECAY_CONST", float, 0.14),
+                lam=pf.get("KAPPA_SHEAR_LAMBDA", float, 0.82),
+                kd_max=pf.get("KAPPA_SHEAR_MAX", float, 1.0,
+                              units="m2 s-1"),
+                max_rino_it=pf.get("MAX_RINO_IT", int, 8)),
+            use_conv=pf.get("USE_CVMIX_CONVECTION", bool, False),
+            conv=ConvectionCfg(kd_conv=pf.get("KD_CONV", float, 1.0,
+                                              units="m2 s-1")),
+            use_ddiff=pf.get("DOUBLE_DIFFUSION", bool, False),
+            use_tidal=int_tide,
+            use_lotw_bbl=pf.get("USE_LOTW_BBL_DIFFUSIVITY", bool, False),
+            use_user_kd=pf.get("USER_CHANGE_DIFFUSIVITY", bool, False),
+            user_kd=_build_user_kd(pf, p_ref)
+            if pf.get("USER_CHANGE_DIFFUSIVITY", bool, False) else None,
+            bbl_effic=pf.get("BBL_EFFIC", float, 0.2),
+            ml_radiation=pf.get("ML_RADIATION", bool, False),
+            ml_rad_coeff=pf.get("ML_RAD_COEFF", float, 0.2),
+            ml_rad_efold=pf.get("ML_RAD_EFOLD_COEFF", float, 2.0),
+            ml_rad_kd_max=pf.get("ML_RAD_KD_MAX", float, 1e-3,
+                                 units="m2 s-1"),
+            tidal=TidalMixingCfg(
+                gamma_itides=pf.get("GAMMA_ITIDES", float, 0.2),
+                int_tide_decay_scale=pf.get("INT_TIDE_DECAY_SCALE", float,
+                                            500.0, units="m"),
+                profile=pf.get("INT_TIDE_PROFILE", str, "STLAURENT_02"),
+                polzin_decay_scale=pf.get("POLZIN_DECAY_SCALE_FACTOR",
+                                          float, 300.0, units="m")),
+            tidal_energy_flux=pf.get("TIDAL_ENERGY_FLUX", float,
+                                     1e-3 if int_tide else 0.0,
+                                     units="W m-2")),
         use_kpp=pf.get("USE_KPP", bool, False),
         kpp=KPPCfg(ri_crit=pf.get("RI_CRIT", float, 0.3),
                    cv=pf.get("KPP_CV", float, 1.7)),
+        use_epbl=use_epbl,
+        epbl=EPBLCfg(mstar=pf.get("EPBL_MSTAR", float, 1.2),
+                     use_mld_iteration=pf.get(
+                         "USE_MLD_ITERATION", bool, True,
+                         desc="iterate the ePBL MLD/mstar coupling "
+                         "(MOM_energetic_PBL.F90:2252)"),
+                     mld_iters=pf.get("EPBL_MLD_MAX_ITS", int, 3),
+                     mstar_mode=pf.get("EPBL_MSTAR_MODE", int, 0),
+                     nstar=pf.get("EPBL_NSTAR", float, 0.2),
+                     tke_decay=pf.get("TKE_DECAY", float, 2.5)),
         rho0=rho0,
         gust_const=pf.get("GUST_CONST", float, 0.0, units="Pa",
                           desc="background gustiness added to |tau| "
                           "in the u* used by the boundary-layer "
                           "schemes (MOM_surface_forcing.F90:428)"),
+        # PEN_SW_SCALE > 0 turns penetrating shortwave on and, without
+        # PEN_SW_NBANDS, selects the single exponential band
+        use_opacity=(pen_sw_nbands > 0
+                     or pf.get("PEN_SW_SCALE", float, 0.0, units="m") > 0.0),
+        opacity=OpacityCfg(
+            scheme=("EXPONENTIAL"
+                    if pf.get("PEN_SW_SCALE", float, 0.0) > 0.0
+                    and pen_sw_nbands == 0
+                    else pf.get("OPACITY_SCHEME", str, "JERLOV")),
+            pen_sw_scale=pf.get("PEN_SW_SCALE", float, 15.0) or 15.0,
+            pen_sw_frac=pf.get("PEN_SW_FRAC", float, 0.42),
+            water_type={1: "I", 2: "IA", 3: "IB", 4: "II", 5: "III"}.get(
+                pf.get("WATER_TYPE", int, 3), "IB"),
+            chl=pf.get("CHL_CONC", float, 0.1, units="mg m-3"),
+            correct_absorption_depth=pf.get("CORRECT_ABSORPTION_DEPTH",
+                                            bool, False)),
+        depth_limit_fluxes=pf.get("DEPTH_LIMIT_FLUXES", float, 0.0,
+                                  units="m"),
+        use_psurf_in_eos=pf.get("USE_PSURF_IN_EOS", bool, True),
+        use_geothermal=geo_flux > 0.0,
+        geothermal=GeothermalCfg(geothermal_flux=geo_flux, rho0=rho0),
+        use_full_conv=pf.get("FULL_CONVECTION", bool, False),
+        use_bml=use_bml,
+        # the energetics of the bulk mixed layer are read whatever
+        # BULKMIXEDLAYER says, as the JAX builder reads them
+        bml=BulkMixedLayerCfg(
+            mstar=pf.get("MSTAR", float, 1.2),
+            nstar=pf.get("NSTAR", float, 0.15), rho0=rho0,
+            bulk_ri=pf.get("BULK_RI_ML", float, 0.05,
+                           desc="efficiency with which mean kinetic "
+                           "energy released by mechanically forced "
+                           "entrainment is converted to TKE "
+                           "(MOM_bulk_mixed_layer.F90:3991)"),
+            tke_decay=pf.get("TKE_DECAY", float, 2.5,
+                             desc="ratio of the natural Ekman depth "
+                             "to the TKE decay scale "
+                             "(MOM_bulk_mixed_layer.F90:4000)"),
+            hmix_min=pf.get("HMIX_MIN", float, 0.0, units="m"),
+            omega_frac=pf.get("ML_OMEGA_FRAC", float, 0.0),
+            omega=pf.get("OMEGA", float, 7.2921e-5, units="s-1")),
         use_entrain_diffusive=pf.get("ENTRAIN_DIFFUSIVE", bool,
                                      not use_regrid),
         entrain=EntrainDiffusiveCfg(
-            max_ent_it=pf.get("MAX_ENT_IT", int, 5)))
-    default_only(pf, "DEPTH_LIMIT_FLUXES", float, 0.0, units="m")
-    default_only(pf, "FULL_CONVECTION", bool, False)
-    default_only(pf, "REGULARIZE_SURFACE_LAYERS", bool, False)
-    default_only(pf, "USE_WAVES", bool, False)
-
+            max_ent_it=pf.get("MAX_ENT_IT", int, 5)),
+        use_regularize=pf.get("REGULARIZE_SURFACE_LAYERS", bool, False),
+        regularize=RegularizeLayersCfg(
+            hmix_min=pf.get("HMIX_MIN", float, 0.0, units="m")),
+        do_frazil=pf.get("FRAZIL", bool, False),
+        frazil=FrazilCfg(rho0=rho0, g=g_earth,
+                         cp=pf.get("C_P", float, 3991.86795711963,
+                                   units="J kg-1 K-1"),
+                         reclaim=pf.get("RECLAIM_FRAZIL", bool, True,
+                                        desc="above-freezing surface "
+                                        "water melts pending frazil "
+                                        "before new frazil forms "
+                                        "(make_frazil, "
+                                        "MOM_diabatic_aux.F90:59)")),
+        use_waves=pf.get("USE_WAVES", bool, False),
+        waves=_build_waves_cfg(pf))
     pf.module("MOM_thickness_diffuse")
     thickness_diffuse_on = pf.get("THICKNESSDIFFUSE", bool, True)
     td_cfg = ThicknessDiffuseCfg(

@@ -1,7 +1,7 @@
 """Background diapycnal diffusivity profiles (counterpart of
-``mom6_tpu.param.vertical.bkgnd_mixing``): constant and the Bryan &
-Lewis (1979) arctangent profile; the Henyey latitude scaling is not
-ported yet and raises ``NotImplementedError``."""
+``mom6_tpu.param.vertical.bkgnd_mixing``): constant, the Bryan &
+Lewis (1979) arctangent profile, and the constant scaled by a
+Henyey-style function of latitude."""
 
 from __future__ import annotations
 
@@ -36,7 +36,15 @@ def bkgnd_mixing_coeffs(cfg: BkgndMixingCfg, h, lat=None):
             1.0 + (2.0 / math.pi) * torch.atan(
                 (z_int - cfg.bl_depth) * inv_w))
     elif scheme == "henyey":
-        raise NotImplementedError("background mixing scheme henyey")
+        if lat is None:
+            kd = torch.full_like(z_int, cfg.kd)
+        else:
+            absf = torch.abs(torch.sin(torch.deg2rad(lat)))
+            scale = torch.clamp(absf * (1.0 + torch.log(torch.clamp(
+                cfg.henyey_n0_2omega / torch.clamp(absf, min=1e-8),
+                min=1.0))), min=0.05)
+            scale = scale / torch.max(scale)
+            kd = cfg.kd * scale[None] * torch.ones_like(z_int)
     else:
         raise ValueError(f"Unknown background mixing scheme "
                          f"'{cfg.scheme}'")

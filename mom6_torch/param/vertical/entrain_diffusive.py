@@ -11,8 +11,9 @@ no-interaction floor minF, F turned into ea/eb, the thickness update
 and an implicit Thomas solve for the tracers.  The JAX package's
 ``lax.scan`` recursions over layers are loops over layers here, each
 step vectorized over the columns.  The explicit solver
-(``implicit=False``) is not ported yet and raises
-``NotImplementedError``.
+(``implicit=False``) is the JAX package's donor-limited forward
+exchange f = dt Kd (1/h_below - 1/h_above), clipped to a fraction of the
+donor layer, with upwind tracer contents.
 """
 
 from __future__ import annotations
@@ -194,8 +195,27 @@ def entrainment_diffusive(cfg: EntrainDiffusiveCfg, h, kd_int, dt,
     diffusivity [m2 s-1]; gprime: optional (nk+1,) reduced gravities.
     Returns (h_new, tracers_new, f), f the (nk+1, ...) interface
     exchange (positive: the layer below gained mass from above)."""
-    if not cfg.implicit:
-        raise NotImplementedError("explicit diffusive entrainment "
-                                  "(implicit=False)")
-    kdi = kd_int.expand((h.shape[0] + 1,) + tuple(h.shape[1:]))
-    return _entrain_implicit(cfg, h, kdi, dt, tracers, gprime)
+    if cfg.implicit:
+        kdi = kd_int.expand((h.shape[0] + 1,) + tuple(h.shape[1:]))
+        return _entrain_implicit(cfg, h, kdi, dt, tracers, gprime)
+    nk = h.shape[0]
+    h_up, h_dn = h[:-1], h[1:]
+    f = kd_int[1:nk] * dt * (1.0 / torch.clamp(h_dn, min=cfg.h_min)
+                             - 1.0 / torch.clamp(h_up, min=cfg.h_min))
+    # a downward transfer draws on the layer above, an upward one on the
+    # layer below
+    f = torch.minimum(torch.maximum(f, -cfg.frac_max * h_dn),
+                      cfg.frac_max * h_up)
+    zero = torch.zeros_like(h[:1])
+    f_full = torch.cat([zero, f, zero], dim=0)
+    h_new = h + f_full[:-1] - f_full[1:]
+    out = None
+    if tracers is not None:
+        out = {}
+        for name, t in tracers.items():
+            t_up = torch.cat([t[:1], t[:-1]], dim=0)
+            t_don = torch.where(f_full[:-1] > 0, t_up, t)
+            t_don_b = torch.cat([t_don[1:], t[-1:]], dim=0)
+            content = t * h + f_full[:-1] * t_don - f_full[1:] * t_don_b
+            out[name] = content / torch.clamp(h_new, min=_EPS)
+    return h_new, out, f_full

@@ -2,7 +2,8 @@
 
     python -m mom6_torch.profile_step [--full [--layered]
                                      [--dynamics rk2|rk2b|unsplit|b1|
-                                                 nonbouss|obc|stoch]]
+                                                 nonbouss|obc|stoch|b3|
+                                                 b3pp81|bml]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
 
@@ -20,7 +21,10 @@ non-Boussinesq step), or on the regional configuration with open
 boundaries (``obc``: adiabatic and layered, with K3's open-face
 instance and the dyed OBC tracers), or with the rest of the first
 breadth item (``stoch``: THICKNESSDIFFUSE_FIRST, DIABATIC_FIRST, GME,
-Stanley with STOCH_EOS, SPPT and SKEB).  After two warm-up steps it
+Stanley with STOCH_EOS, SPPT and SKEB), or with the column physics of
+the third (``b3``: ePBL, kappa-shear and the rest with Z* ALE;
+``b3pp81``: PP81 in place of kappa-shear; ``bml``: layered, the bulk
+mixed layer).  After two warm-up steps it
 measures:
 
 1. the step time, by CUDA events around ``--steps`` uninstrumented
@@ -36,7 +40,9 @@ measures:
    KPP, the tidal geopotential, the continuity kernels and, on a
    porous grid, the plain computation of each K1 sweep's open
    fractions; the stochastic patterns, SPPT, SKEB, the Stanley terms,
-   the STOCH_EOS multiplier and GME's inputs and stress). Each device
+   the STOCH_EOS multiplier and GME's inputs and stress; set_diffusivity,
+   kappa-shear, ePBL, the bulk mixed layer, diffusive entrainment, full
+   convection and frazil inside the diabatic driver). Each device
    kernel is charged
    to the innermost range whose host range issued its launch, which
    gives per phase: host milliseconds (the range on the host clock,
@@ -71,6 +77,7 @@ from mom6_torch.core import orchestrator as orch
 from mom6_torch.core import pressure_force as pfm
 from mom6_torch.param.lateral import hor_visc as hvm
 from mom6_torch.param.vertical import diabatic as dia
+from mom6_torch.param.vertical import set_diffusivity as sdm
 from mom6_torch.parallel.domain import Domain
 
 # (module, function, range name): the functions wrapped in a range
@@ -88,7 +95,10 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "b1": (dyn, "step_dyn_split_rk2"),
             "nonbouss": (dyn, "step_dyn_split_rk2"),
             "obc": (dyn, "step_dyn_split_rk2"),
-            "stoch": (dyn, "step_dyn_split_rk2")}
+            "stoch": (dyn, "step_dyn_split_rk2"),
+            "b3": (dyn, "step_dyn_split_rk2"),
+            "b3pp81": (dyn, "step_dyn_split_rk2"),
+            "bml": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential",
@@ -101,6 +111,15 @@ SLICE2 = (
     (orch, "tracer_hordiff", "tracer_hordiff"),
     (orch, "diabatic", "diabatic"),
     (dia, "kpp_coefficients", "diabatic/kpp_coefficients"),
+    # the column physics of the third breadth item
+    (dia, "set_diffusivity", "diabatic/set_diffusivity"),
+    (sdm, "kappa_shear_coeffs", "diabatic/set_diffusivity/kappa_shear"),
+    (dia, "energetic_pbl", "diabatic/energetic_pbl"),
+    (dia, "full_convection", "diabatic/full_convection"),
+    (dia, "make_frazil", "diabatic/make_frazil"),
+    (dia, "bulk_mixed_layer", "diabatic/bulk_mixed_layer"),
+    (dia, "entrainment_diffusive", "diabatic/entrainment_diffusive"),
+    (dia, "regularize_layers", "diabatic/regularize_layers"),
     (orch, "ale_regrid_remap", "ale"),
     # the stochastic pieces: the patterns, SPPT's and SKEB's updates, the
     # Stanley terms of the pressure force and GME's stress
@@ -309,8 +328,9 @@ def main(argv=None):
     step_ms = sum(per) / a.steps
     by_kind = {k: sum(t for t, kk in zip(per, kinds) if kk == k)
                / kinds.count(k) for k in dict.fromkeys(kinds)}
-    # the open-boundary text is layered whatever --layered says
-    ale = a.full and not a.layered and a.dynamics != "obc"
+    # the open-boundary and bulk-mixed-layer texts are layered whatever
+    # --layered says
+    ale = a.full and not a.layered and a.dynamics not in ("obc", "bml")
     label = ("slice 2 (full step, " + ("ALE" if ale else "layered")
              + f", {a.dynamics})") if a.full else "slice 1"
     print(f"{name}: {label} "

@@ -97,8 +97,6 @@ def test_set_diffusivity_matches_jax(scheme):
     out = tsd.set_diffusivity(_t(H), tcfg)
     _check(ref.kd_int, out.kd_int, 1e-12, "kd_int")
     _check(ref.kv_int, out.kv_int, 1e-12, "kv_int")
-    with pytest.raises(NotImplementedError, match="shear"):
-        tsd.set_diffusivity(_t(H), tsd.DiffusivityCfg(use_shear=True))
 
 
 def _ustar_buoy():
@@ -193,9 +191,6 @@ def test_diabatic_matches_jax():
     _check(ref[1]["age"], out[1]["age"], 1e-10, "age")
     _check(ref[2]["kd_int"], out[2]["kd_int"], 1e-10, "kd_int")
     _check(ref[2]["mld"], out[2]["mld"], 1e-10, "mld")
-    with pytest.raises(NotImplementedError, match="energetic PBL"):
-        tdia.diabatic(ts, None, 1200.0, tdia.DiabaticCfg(use_epbl=True),
-                      vgrid=tvg)
 
 
 def test_surface_forcing_matches_jax():

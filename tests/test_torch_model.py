@@ -188,12 +188,15 @@ def test_build_model_matches_jax(name):
         _close(jm.tracers[k], pm.tracers[k], 1e-13, k)
 
 
+# spherical grids and the bulk mixed layer, once cases here, are ported
+# (tests/test_torch_breadth3.py, test_torch_layered.py); the other cases
+# keep their ids
 @pytest.mark.parametrize("line,name", [
-    ("#override GRID_CONFIG = spherical", "GRID_CONFIG"),
+    ("#override GRID_CONFIG = mosaic", "GRID_CONFIG"),
     ("USE_MEKE = True", "USE_MEKE"),
     ("#override EQN_OF_STATE = TEOS10", "EQN_OF_STATE"),
     ("USE_VISBECK = True", "USE_VISBECK"),
-    ("#override BULKMIXEDLAYER = True", "BULKMIXEDLAYER"),
+    ("SPONGE = True", "SPONGE"),
     ("#override TOPO_CONFIG = benchmark", "TOPO_CONFIG"),
     ("#override REGRIDDING_COORDINATE_MODE = ADAPTIVE",
      "REGRIDDING_COORDINATE_MODE"),

@@ -23,6 +23,7 @@ from mom6_torch.core import continuity_cuda, barotropic_cuda
 from mom6_torch.core.continuity_ppm import (ContinuityCfg, continuity_ppm,
                                             set_up_bt_cont)
 from mom6_torch.core.dynamics_split_rk2 import step_dyn_split_rk2
+from mom6_torch.core.dynamics_split_rk2b import step_dyn_split_rk2b
 from mom6_torch.drivers import solo
 
 # one intra-op thread: the test workers share the machine's cores, and
@@ -131,18 +132,23 @@ def test_kernel_gate_names_the_option(option):
 # open boundaries, once the first case here, are ported
 # (tests/test_torch_obc.py), and so are GME and the stochastic EOS, once
 # the second and the fourth (tests/test_torch_stochastic.py); the other
-# cases keep their ids
-@pytest.mark.parametrize("kw,name", [
-    pytest.param(dict(kv_shear=object()), "kv_shear", id="kw2-kv_shear"),
-    pytest.param(dict(kh_scale=object()), "kh_scale", id="kw4-kh_scale"),
-    pytest.param(dict(kh_extra=object()), "kh_extra", id="kw5-kh_extra"),
+# cases keep their ids.  The split RK2 step takes the shear viscosity
+# kv_shear since the third breadth item (tests/test_torch_breadth3.py):
+# the RK2b step, which takes none, as in the JAX package, still refuses it
+@pytest.mark.parametrize("kw,name,stepper", [
+    pytest.param(dict(kv_shear=object()), "kv_shear", step_dyn_split_rk2b,
+                 id="kw2-kv_shear"),
+    pytest.param(dict(kh_scale=object()), "kh_scale", step_dyn_split_rk2,
+                 id="kw4-kh_scale"),
+    pytest.param(dict(kh_extra=object()), "kh_extra", step_dyn_split_rk2,
+                 id="kw5-kh_extra"),
 ])
-def test_step_rejects_unported_options(kw, name):
+def test_step_rejects_unported_options(kw, name, stepper):
     s = _small_slice()
     cfg = s.cfg
     with pytest.raises(NotImplementedError, match=name):
-        step_dyn_split_rk2(s.domain, s.grid, s.vgrid, s.state, s.split,
-                           s.forces, s.dt, cfg, **kw)
+        stepper(s.domain, s.grid, s.vgrid, s.state, s.split, s.forces,
+                s.dt, cfg, **kw)
 
 
 def test_nonboussinesq_and_porous_raise():
