@@ -65,7 +65,8 @@ order; any failure ends the script with a non-zero exit:
    own time beside its bound and its plain version's time, and the
    device kernels that one K1 sweep, one K2 call and one K3 or K3m
    subcycle launch as torch.profiler traces them, with their device
-   time from that trace;
+   time from that trace (traced at the end of phase 3: a trace taken
+   after the long phases loses kernel events);
 6b. the split RK2b step (BT_WIDE_HALO_PERIOD 1 and 2) and the unsplit
    RK3 step of bench.py's CONFIG (entry.build_full's ``dynamics``) at
    32x32x6 in fp64, card against CPU: RK2b for 4 steps, unsplit for 6
@@ -125,6 +126,28 @@ order; any failure ends the script with a non-zero exit:
    device time, host time and kernels of set_diffusivity, kappa-shear,
    ePBL, full convection, frazil, the bulk mixed layer, entrainment and
    regularization;
+6g. the lateral parameterizations of the fourth breadth item:
+   configs.BENCH_CONFIG_B4 (MEKE, VarMix with the EOS slopes, neutral
+   diffusion, the boundary diffusion in KPP's boundary layer, the
+   interface filter and the internal tides, 24 angles; Z* ALE) and
+   BENCH_CONFIG_B4V (layered: the Visbeck diffusivities, the resolution
+   scaling of KH, KHTH and KHTR, the mixed layer's epipycnal diffusion,
+   GM first; in the weakly stratified 400 m column of 6f) through
+   entry.build_full at 32x32x6 in fp64 for 4 steps, card against CPU
+   (1e-9), MEKE's energy and the internal-tide, MLD and shear-viscosity
+   carries included, B4V's concentrations by their contents as BML's
+   (its shear-viscosity carry printed: it moves with the last bits),
+   and the internal-tide energy by its total (its modal speeds are
+   ill-conditioned in the noise's statically unstable columns);
+7g. BENCH_CONFIG_B4 and BENCH_CONFIG_B4V at full width, 512x512x25
+   fp32, as in 7b (launches a step asserted: K1 4, K2 1, K3m 2), their
+   ms/step by kind of step beside bench.py's CONFIG and BML, the peak of
+   max_memory_allocated, finite fields, MEKE's energy and the
+   internal-tide energy finite and non-negative; one thermodynamic step
+   under the profiler with profile_step's ranges: device time, host time
+   and kernels of VarMix, MEKE, the interface filter, neutral and
+   boundary diffusion, the epipycnal diffusion and the internal tides
+   with their wave speeds;
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -149,8 +172,13 @@ order; any failure ends the script with a non-zero exit:
    and cases/layer_mode and cases/benchmark (spherical grid, bowl,
    WRIGHT_FULL, the bulk mixed layer by its layered default) for 4
    steps in fp64, ocean.stats every step, card against --cpu as
-   double_gyre.  Each run has every launch counter zeroed just before
-   it and read just after.
+   double_gyre; and cases/ref_tc1 (Mercator, the benchmark topography,
+   thicknesses and T/S, layered, Visbeck VarMix, RESOLN_SCALED_*,
+   DIFFUSE_ML_TO_INTERIOR) and cases/ref_tc2 (spherical, halfpipe, Z*,
+   MEKE, VarMix, neutral diffusion, ePBL) for their golden's steps in
+   fp64 on the card, against tests/goldens_ref_cases.json at the
+   tolerances of tests/test_ref_cases.py.  Each run has every launch
+   counter zeroed just before it and read just after.
 
 The line before the last is the JSON ``kernels`` record (the porous K1
 instance and K3's open-face instance have records of their own); the
@@ -239,6 +267,24 @@ PER_STEP = {"rk2b": {"K1": 8, "K2": 1, "K3": 0, "K3m": 2, "K1u": 4,
             "bml": {"K1": 4, "K2": 1, "K3": 0, "K3m": 2, "K1u": 0,
                     "K1p": 0, "K3o": 0}}
 PER_STEP["b3pp81"] = PER_STEP["b3"]
+# the lateral parameterizations of the fourth breadth item, with Z* ALE
+# and layered: the same kernels again
+PER_STEP["b4"] = PER_STEP["b4v"] = PER_STEP["b3"]
+# the profile_step ranges of the fourth breadth item, and those of them
+# each text must run in a thermodynamic step
+LATERAL_PHASES = ("varmix/resolution_function", "varmix/eady_rate",
+                  "meke/step_meke", "thickness_diffuse", "interface_filter",
+                  "neutral_diffusion", "hor_bnd_diffusion", "tracer_hordiff",
+                  "tracer_hordiff/ml_epipycnal_diff", "internal_tides",
+                  "internal_tides/wave_speeds",
+                  "internal_tides/step_internal_tides",
+                  "diabatic/set_diffusivity")
+LATERAL_NEEDED = {"b4": ("varmix/resolution_function", "meke/step_meke",
+                         "interface_filter", "neutral_diffusion",
+                         "hor_bnd_diffusion", "internal_tides",
+                         "internal_tides/wave_speeds"),
+                  "b4v": ("varmix/resolution_function", "varmix/eady_rate",
+                          "tracer_hordiff/ml_epipycnal_diff")}
 # the column texts at 32x32x6 take a weakly stratified 400 m column, as
 # their CPU tests do: kappa-shear needs Ri < 0.25 somewhere, and under
 # layers of hundreds of metres ePBL's first-interface decision compares
@@ -1053,6 +1099,45 @@ def profiled_kernels(fn, kernel, reps=1, expect=None):
     return len(mine), len(kern), sum(mine) / 1e3 / reps
 
 
+def trace_kernels(timing, wrappers):
+    """{kernel: (kernels traced of its own, device kernels in all, mean
+    device ms a call)} for K1, K2, K3, K3m and K3o: PROFILE_REPS wrapper
+    calls on the main path's inputs of ``timing`` in one torch.profiler
+    trace each, required to trace one device kernel per launch unit (and
+    for K1 and K2 nothing else).  Taken right after the kernel checks: a
+    trace taken after the long phases loses kernel events (ROADMAP.md
+    Queue 3)."""
+    import torch
+    from mom6_torch.core import barotropic_cuda
+    out = {}
+    for k in KERNELS:
+        inp = timing[k][2]
+        name, per_call = PROFILED[k]
+        call = inp if callable(inp) else functools.partial(
+            wrappers[k], *(inp[:-1] if k == "K3" else inp))
+        units_traced = PROFILE_REPS * per_call
+        n_prof, n_all, dev_ms = profiled_kernels(call, name, PROFILE_REPS,
+                                                 units_traced)
+        if n_prof != units_traced or (k not in DEVICE_COUNTED
+                                      and n_all != n_prof):
+            raise AssertionError(f"{k}: torch.profiler traced {n_prof} "
+                                 f"{name} kernels ({n_all} device kernels "
+                                 f"in all) in {units_traced} launches, "
+                                 "expected one each")
+        out[k] = (n_prof, n_all, dev_ms)
+    inp, edges = timing["K3o"][2]
+    call = functools.partial(barotropic_cuda.subcycle_cuda, *inp[:-1],
+                             obc=edges)
+    n_prof, n_all, dev_ms = profiled_kernels(call, "subcycle_kernel",
+                                             PROFILE_REPS, PROFILE_REPS)
+    if n_prof != PROFILE_REPS:
+        raise AssertionError(f"K3o: torch.profiler traced {n_prof} "
+                             f"subcycle kernels in {PROFILE_REPS} launches")
+    out["K3o"] = (n_prof, n_all, dev_ms)
+    torch.cuda.synchronize()
+    return out
+
+
 def subcycle_work(inp):
     """(elements moved, operations) of one K3/K3m subcycle: eta, ubt,
     vbt, the constant planes and the weights in, 7 sums and 3 planes
@@ -1261,6 +1346,7 @@ def run_new_timed(dynamics, wrappers, shape, extra=None):
         cur[:] = full_step(*cur, n_done[0])
         n_done[0] += 1
 
+    fstep.carry = full_step.carry
     for _ in range(2):
         fstep()
     torch.cuda.synchronize()
@@ -1453,6 +1539,54 @@ def column_extra(m, cur, fstep, n_done):
         kernels=summary.get("kernels"), phases=got))
 
 
+def lateral_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_B4 and BENCH_CONFIG_B4V: MEKE's energy and the
+    internal-tide energy (where the text has them) finite and
+    non-negative on the compute domain, then one thermodynamic step under
+    the profiler with profile_step's ranges: the device time, host time
+    and kernels of VarMix, MEKE, GM, the interface filter, neutral and
+    boundary diffusion, the epipycnal diffusion and the internal tides
+    with their wave speeds, and the step's idle share."""
+    from mom6_torch import profile_step
+    st = cur[0]
+    dyn = "b4" if m.cfg.use_meke else "b4v"
+    found = {}
+    for name, f in (("meke", st.meke), ("int_tide_en",
+                                        fstep.carry().get("iten"))):
+        if f is None:
+            continue
+        check_finite([(name, f)], st.h.shape)
+        fi = m.domain.interior(f)
+        if float(fi.min()) < 0.0:
+            raise AssertionError(f"{name} is negative")
+        found[name + "_max"] = float(fi.max())
+    if dyn == "b4" and len(found) != 2:
+        raise AssertionError(f"b4: MEKE or internal-tide energy missing "
+                             f"({sorted(found)})")
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm != 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets(dyn),
+                                    "lateral thermo", None)
+    ph = summary.get("phases", {})
+    got = {k: ph[k] for k in LATERAL_PHASES if k in ph}
+    log(f"  profiled thermodynamic step: device busy "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+        f"{summary.get('kernels', 0)} kernels; "
+        + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                    f"{v['device_ms']:.4f} ms device, {v['host_ms']:.3f} "
+                    "ms host" for k, v in got.items()))
+    for k in LATERAL_NEEDED[dyn]:
+        if k not in got:
+            raise AssertionError(f"{dyn}: no {k} in a thermodynamic step")
+    log("  " + "".join(f"{k} {v!r}, " for k, v in found.items())
+        + f"max |u| {float(st.u.abs().max()):.4f} m/s")
+    return dict(found, profiled_thermo=dict(
+        device_busy_ms=summary.get("device_busy_ms"),
+        idle_share=summary.get("idle_share_profiled"),
+        kernels=summary.get("kernels"), phases=got))
+
+
 def run_text(text, ni, nj, nk, dtype, device, nsteps, seed, tmp):
     """``nsteps`` steps of the configuration ``text`` (INPUTDIR ``tmp``,
     where configs.write_obc_data writes the E data from seed 0) at
@@ -1591,6 +1725,63 @@ def run_ref_tc0(tmp, wrappers):
         + f" (golden {json.dumps(golden)}); launches {launches}; "
         + ", ".join(f"{k} {v} lines" for k, v in lines.items())
         + ", card and cpu equal line for line")
+    return launches
+
+
+def run_ref_case(tmp, wrappers, case):
+    """cases/ref_tc1 or ref_tc2 through the solo driver in fp64 on the
+    card for its golden's steps, with every launch counter zeroed just
+    before and read just after (K1 4, K2 1, K3 2 a step): the final
+    state's ocean.stats against tests/goldens_ref_cases.json at the
+    tolerances of tests/test_ref_cases.py."""
+    import shutil
+    import torch
+    from mom6_torch.diagnostics.sum_output import collect_stats, stat_sums
+    from mom6_torch.drivers import solo
+    from mom6_torch.framework.config import ParamFile
+    from mom6_torch.model import build_model
+    golden = json.loads((ROOT / "tests" / "goldens_ref_cases.json")
+                        .read_text())[case]
+    src = ROOT / "cases" / case
+    d = Path(tmp) / f"{case}_card"
+    d.mkdir()
+    for name in ("MOM_input", "MOM_override"):
+        shutil.copy(src / name, d / name)
+    m = build_model(ParamFile(str(src / "MOM_input"),
+                              str(src / "MOM_override")),
+                    device="cpu", dtype=torch.float64)
+    n = golden["nsteps"]
+    zero_counts(wrappers)
+    run = solo.main([str(d), "--days", repr(n * m.dt / 86400.0)])
+    launches = check_driver_launches(
+        case, wrappers, {"K1": 4 * n, "K2": n, "K3": 2 * n, "K3m": 0})
+    if run["steps"] != n:
+        raise AssertionError(f"{case}: {run['steps']} steps, golden {n}")
+    s = run["state"]
+    s = s.replace(**{f.name: getattr(s, f.name).cpu()
+                     for f in dataclasses.fields(s)
+                     if getattr(s, f.name) is not None})
+    check_finite([(k, getattr(s, k)) for k in ("h", "u", "v", "T", "S")],
+                 s.h.shape)
+    st = collect_stats(stat_sums(m.domain, m.grid, m.vgrid, s, m.dt),
+                       m.vgrid, n, 0.0)
+    checks = (("energy_per_mass", "energy_per_mass", 1e-9, 0.0),
+              ("total_mass", "mass", 1e-11, 0.0),
+              ("mean_salin", "salt", 0.0, 1e-9),
+              ("mean_temp", "temp", 1e-9, 0.0),
+              ("max_cfl", "max_cfl", 1e-6, 1e-12),
+              ("mean_sea_level", "sea_level", 1e-6, 1e-12))
+    for field, key, rtol, atol in checks:
+        got, want = float(getattr(st, field)), float(golden[key])
+        log(f"  {case} {field}: {got!r}, golden {want!r}, off by "
+            f"{abs(got - want):.3e} (limit {atol + rtol * abs(want):.3e})")
+        if not abs(got - want) <= atol + rtol * abs(want):
+            raise AssertionError(f"{case} {field}: {got!r} against the "
+                                 f"golden {want!r}")
+    log(f"  {case}: {n} steps, launches {launches}, driver loop "
+        f"{run['loop_seconds'] / n * 1e3:.3f} ms/step (CUDA events)"
+        + ("" if s.meke is None else
+           f", MEKE energy max {float(s.meke.max()):.4e} m2 s-2"))
     return launches
 
 
@@ -1935,6 +2126,17 @@ def main():
         f"subcycle, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms")
     del inp
 
+    # the device kernels of each kernel's calls, traced before the long
+    # phases
+    log("phase 3 torch.profiler traces of K1, K2, K3, K3m and K3o at the "
+        "main path's shape")
+    from mom6_torch.core import barotropic_cuda, continuity_cuda
+    wrappers = {"K1": continuity_cuda.continuity_ppm_cuda,
+                "K2": continuity_cuda.set_up_bt_cont_cuda,
+                "K3": barotropic_cuda.subcycle_cuda,
+                "K3m": barotropic_cuda.subcycle_march_cuda}
+    traces = trace_kernels(timing, wrappers)
+
     # 4. slice 1 at 64x64x8 fp64: card against CPU
     log("phase 4 slice 1 %dx%dx%d fp64, 3 steps: card vs cpu" % SMALL)
     _, gst, gsp = run_slice(*SMALL, torch.float64, DEV, 3)
@@ -1947,12 +2149,7 @@ def main():
             raise AssertionError(f"slice 1 {name}: {rel:.3e} > 1e-9")
 
     from mom6_torch import entry
-    from mom6_torch.core import barotropic_cuda, continuity_cuda
     from mom6_torch.core.dynamics_split_rk2 import step_dyn_split_rk2
-    wrappers = {"K1": continuity_cuda.continuity_ppm_cuda,
-                "K2": continuity_cuda.set_up_bt_cont_cuda,
-                "K3": barotropic_cuda.subcycle_cuda,
-                "K3m": barotropic_cuda.subcycle_march_cuda}
 
     # 5. slice 1 at full width, fp32
     log("phase 5 slice 1 %dx%dx%d fp32" % MAIN)
@@ -2146,28 +2343,51 @@ def main():
         raise AssertionError(f"stoch: launches {counts}, expected {expect}")
     log(f"  stoch on the card: launches {counts}")
 
-    # 6f. the column physics of the third breadth item at 32x32x6 fp64
-    for label, dyn in (("B3", "b3"), ("B3 with PP81", "b3pp81"),
-                       ("BML", "bml")):
+    # 6f. the column physics of the third breadth item at 32x32x6 fp64,
+    # then 6g. the lateral parameterizations of the fourth
+    for phase, label, dyn, extra in (
+            ("6f", "B3", "b3", COLUMN), ("6f", "B3 with PP81", "b3pp81", COLUMN),
+            ("6f", "BML", "bml", COLUMN), ("6g", "B4", "b4", ""),
+            ("6g", "B4V", "b4v", COLUMN)):
         n = 4
-        log(f"phase 6f {label} (build_full(dynamics={dyn!r}), a weakly "
-            "stratified 400 m column) %dx%dx%d fp64, " % SMALL_FULL
-            + f"{n} steps: card vs cpu")
+        thin = dyn in ("bml", "b4v")        # layered, thin layers
+        log(f"phase {phase} {label} (build_full(dynamics={dyn!r})"
+            + (", a weakly stratified 400 m column" if extra else "")
+            + ") %dx%dx%d fp64, " % SMALL_FULL + f"{n} steps: card vs cpu")
         zero_counts(wrappers)
         gst, gsp, gtr, gcarry = run_full(*SMALL_FULL, torch.float64, DEV, n,
                                          seed=3, regridding=True,
                                          dynamics=dyn, with_carry=True,
-                                         extra=COLUMN)
+                                         extra=extra)
         counts = read_counts(wrappers)
         cst, csp, ctr, ccarry = run_full(*SMALL_FULL, torch.float64, "cpu",
                                          n, seed=3, regridding=True,
                                          dynamics=dyn, with_carry=True,
-                                         extra=COLUMN)
+                                         extra=extra)
         conc = [("T", cst.T, gst.T), ("S", cst.S, gst.S),
                 ("age", ctr["age"], gtr["age"])]
         pairs = [(k, getattr(cst, k), getattr(gst, k))
-                 for k in ("h", "u", "v", "frazil")]
-        if dyn == "bml":
+                 for k in ("h", "u", "v", "frazil", "meke")
+                 if getattr(cst, k) is not None]
+        if ccarry.get("iten") is not None:
+            # the modal speeds of a column with a statically unstable
+            # interface (the seeded T noise makes some) come from 10
+            # inverse iterations that have not converged, so they follow
+            # the last bits (ROADMAP.md Queue 3: a 1e-15 nudge of T on the
+            # CPU moves them by 9.4e-6 and En by 6.1e-7 after 4 steps):
+            # En is printed and its total over the compute domain held
+            a, b = ccarry["iten"], gcarry["iten"].cpu()
+            rel, _ = rel_err(a, b)
+            log(f"  {label} int_tide_en carry: max rel err {rel:.3e} "
+                "(printed)")
+            ta, tb = (float(x[..., 4:-4, 4:-4].sum()) for x in (a, b))
+            rel = abs(ta - tb) / abs(ta)
+            log(f"  {label} int_tide_en carry, its total: {ta!r} J m-2 "
+                f"summed, rel err {rel:.3e} (limit 1e-09)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"{label} int_tide_en total: "
+                                     f"{rel:.3e} > 1e-9")
+        if thin:
             # the bulk mixed layer and the entrainment leave layers of a
             # few metres down to 1e-10 m, whose concentrations turn the
             # last bits into ~1e-8 (a 2e-16 nudge of T on the CPU moves
@@ -2177,22 +2397,32 @@ def main():
                 rel, _ = rel_err(a, b.cpu())
                 log(f"  {label} {name}: max rel err {rel:.3e} (printed)")
             conc = [(f"h {k}", cst.h * a, gst.h * b) for k, a, b in conc]
-        kv_c, kv_g = ccarry["kv"], gcarry["kv"].cpu()
-        if dyn == "bml":
-            # so does LMD94's shear viscosity across those layers: it is
-            # held between layers thicker than 1 m (2.1e-11 in that
-            # CPU nudge, 4.3e-7 with the thin ones)
-            rel, _ = rel_err(kv_c, kv_g)
-            log(f"  {label} kv_shear carry: max rel err {rel:.3e} "
-                "(printed)")
-            thick = torch.zeros_like(kv_c, dtype=torch.bool)
-            thick[1:-1] = (cst.h[:-1] > 1.0) & (cst.h[1:] > 1.0)
-            kv_c, kv_g = kv_c * thick, kv_g * thick
         pairs += conc + [("eta", csp.eta, gsp.eta),
-                         ("u_av", csp.u_av, gsp.u_av),
-                         ("kv_shear carry" + (" between layers over 1 m"
-                                              if dyn == "bml" else ""),
-                          kv_c, kv_g)]
+                         ("u_av", csp.u_av, gsp.u_av)]
+        if ccarry["kv"] is not None:
+            kv_c, kv_g = ccarry["kv"], gcarry["kv"].cpu()
+            if thin:
+                # so does LMD94's shear viscosity across those layers: it
+                # is held between layers thicker than 1 m (2.1e-11 in that
+                # CPU nudge, 4.3e-7 with the thin ones)
+                rel, _ = rel_err(kv_c, kv_g)
+                log(f"  {label} kv_shear carry: max rel err {rel:.3e} "
+                    "(printed)")
+                thick = torch.zeros_like(kv_c, dtype=torch.bool)
+                thick[1:-1] = (cst.h[:-1] > 1.0) & (cst.h[1:] > 1.0)
+                kv_c, kv_g = kv_c * thick, kv_g * thick
+            if dyn == "b4v":
+                # under the Visbeck and epipycnal diffusion even those move
+                # with the last bits: a 1e-15 nudge of T on the CPU moves
+                # them by 5.3e-9 (ROADMAP.md Queue 3); printed, the
+                # velocities they act on held
+                rel, _ = rel_err(kv_c, kv_g)
+                log(f"  {label} kv_shear carry between layers over 1 m: max "
+                    f"rel err {rel:.3e} (printed)")
+            else:
+                pairs.append(("kv_shear carry" + (" between layers over 1 m"
+                                                  if thin else ""),
+                              kv_c, kv_g))
         if ccarry["mld"] is not None:
             # ePBL's MLD is the deepest interface whose mixing cost the
             # TKE affords: where the two are within roundoff, the last
@@ -2214,8 +2444,14 @@ def main():
             log(f"  {label} {name}: max rel err {rel:.3e} (limit 1e-09)")
             if not rel <= 1e-9:
                 raise AssertionError(f"{label} {name}: {rel:.3e} > 1e-9")
-        log(f"  {label}: max kv_shear {float(gcarry['kv'].max()):.4e} "
-            "m2/s on the card")
+        if gcarry["kv"] is not None:
+            log(f"  {label}: max kv_shear {float(gcarry['kv'].max()):.4e} "
+                "m2/s on the card")
+        if gst.meke is not None:
+            log(f"  {label}: MEKE energy in [{float(gst.meke.min()):.4e}, "
+                f"{float(gst.meke.max()):.4e}] m2 s-2, internal-tide "
+                f"energy max {float(gcarry['iten'].max()):.4e} J m-2 on "
+                "the card")
         expect = {k: v * n for k, v in PER_STEP[dyn].items()}
         if counts != expect:
             raise AssertionError(f"{label}: launches {counts}, expected "
@@ -2287,6 +2523,24 @@ def main():
         f"{full['bml']['ms_step']:.3f} against "
         f"{full['layered']['ms_step']:.3f} ms/step")
 
+    # 7g. the lateral parameterizations of the fourth breadth item at full
+    # width
+    for dyn in ("b4", "b4v"):
+        log(f"phase 7g {dyn} (configs.BENCH_CONFIG_{dyn.upper()}, "
+            + ("Z* ALE" if dyn == "b4" else "layered") + ") %dx%dx%d fp32"
+            % MAIN)
+        full[dyn] = run_new_timed(dyn, wrappers, shape, lateral_extra)
+        torch.cuda.empty_cache()
+    log(f"  b4 against bench.py's CONFIG (phase 7, Z* ALE) and b4v against "
+        f"bml (phase 7f), same process: {full['b4']['ms_step']:.3f} "
+        f"against {full['ale']['ms_step']:.3f} and "
+        f"{full['b4v']['ms_step']:.3f} against "
+        f"{full['bml']['ms_step']:.3f} ms/step; peak "
+        f"{full['b4']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['ale']['peak_bytes'] / 2**30:.3f} and "
+        f"{full['b4v']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['bml']['peak_bytes'] / 2**30:.3f} GiB")
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
@@ -2320,6 +2574,10 @@ def main():
             launches_layer[case] = run_driver_case(
                 tmp, wrappers, case, LAYER_DAYS,
                 {"K1": 4, "K2": 1, "K3": 2, "K3m": 0}, edits=LAYER_EDITS)
+        for case in ("ref_tc1", "ref_tc2"):
+            log(f"phase 8 driver: cases/{case} fp64 on the card, against "
+                "its golden")
+            launches_layer[case] = run_ref_case(tmp, wrappers, case)
     torch.cuda.empty_cache()
 
     nk, njh, nih = shape_main
@@ -2338,20 +2596,8 @@ def main():
         # the device kernels of PROFILE_REPS wrapper calls in one trace:
         # one per launch unit, and for K1 and K2 nothing else
         name, per_call = PROFILED[k]
-        if callable(inp):
-            call = inp
-        else:
-            wrap = wrappers[k]
-            call = functools.partial(wrap, *(inp[:-1] if k == "K3" else inp))
         units_traced = PROFILE_REPS * per_call
-        n_prof, n_all, dev_ms = profiled_kernels(call, name, PROFILE_REPS,
-                                                 units_traced)
-        if n_prof != units_traced or (k not in DEVICE_COUNTED
-                                      and n_all != n_prof):
-            raise AssertionError(f"{k}: torch.profiler traced {n_prof} "
-                                 f"{name} kernels ({n_all} device kernels "
-                                 f"in all) in {units_traced} launches, "
-                                 "expected one each")
+        n_prof, n_all, dev_ms = traces[k]
         extra = dict(profiled_kernels_per_call=n_prof / units_traced,
                      profiled_device_ms=dev_ms / per_call)
         log(f"  {k}: torch.profiler traces {n_prof} {name} kernels and "
@@ -2396,7 +2642,11 @@ def main():
                 "solo_tc3": launches_tc3[k],
                 "solo_ref_tc0": launches_ref_tc0[k],
                 "solo_layer_mode": launches_layer["layer_mode"][k],
-                "solo_benchmark": launches_layer["benchmark"][k]},
+                "solo_benchmark": launches_layer["benchmark"][k],
+                "b4_full_step": full["b4"]["launches"][k],
+                "b4v_full_step": full["b4v"]["launches"][k],
+                "solo_ref_tc1": launches_layer["ref_tc1"][k],
+                "solo_ref_tc2": launches_layer["ref_tc2"][k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
@@ -2428,13 +2678,7 @@ def main():
     b_ms, b_by = bound(elems + 4 * n_faces, ops + 2 * OPS_FLATHER
                        * n_faces * inp.wts.shape[1], 4, "float32")
     n_obc = full["obc"]["launches"]["K3o"]
-    call = functools.partial(barotropic_cuda.subcycle_cuda, *inp[:-1],
-                             obc=edges)
-    n_prof, n_all, dev_ms = profiled_kernels(call, "subcycle_kernel",
-                                             PROFILE_REPS, PROFILE_REPS)
-    if n_prof != PROFILE_REPS:
-        raise AssertionError(f"K3o: torch.profiler traced {n_prof} "
-                             f"subcycle kernels in {PROFILE_REPS} launches")
+    n_prof, n_all, dev_ms = traces["K3o"]
     log(f"  K3o {OBC_KERNEL['name']}: {ms:.4f} ms per subcycle (CUDA "
         f"events), {dev_ms:.4f} ms (profiler), bound {b_ms:.4f} ms "
         f"({b_by}), plain {plain_ms:.4f} ms, launches {n_obc} "
@@ -2450,7 +2694,7 @@ def main():
         library_ms=None, unit="per subcycle", profiled_device_ms=dev_ms,
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
-    for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml"):
+    for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml", "b4", "b4v"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())

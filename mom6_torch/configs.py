@@ -59,6 +59,16 @@ False) with the layered column physics: the bulk mixed layer in place of
 KPP, LMD94 shear mixing, diffusive entrainment (on by its layered
 default), the regularization of the surface layers and frazil.
 
+``BENCH_CONFIG_B4`` is bench.py's configuration (Z* ALE, KPP) with the
+fourth breadth item as ``cases/ref_tc2`` runs it: MEKE, VarMix, neutral
+and boundary diffusion, the interface filter and the internal tides.
+``BENCH_CONFIG_B4V`` is ``BENCH_CONFIG_BML`` (layered) with the item as
+``cases/ref_tc1`` runs it: the Visbeck diffusivities, the resolution
+scaling of KH, KHTH and KHTR, the mixed layer's epipycnal diffusion and
+GM before the dynamics.  Neutral diffusion and the along-layer KHTR
+path exclude each other, hence two texts.  Each text's lines are
+commented where they are defined.
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
@@ -67,8 +77,9 @@ import numpy as np
 __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "BENCH_CONFIG_B1", "BENCH_CONFIG_NONBOUSS", "BENCH_CONFIG_OBC",
            "BENCH_CONFIG_STOCH", "BENCH_CONFIG_B3", "BENCH_CONFIG_BML",
+           "BENCH_CONFIG_B4", "BENCH_CONFIG_B4V",
            "B1_LINES", "NONBOUSS_LINES", "OBC_LINES", "STOCH_LINES",
-           "B3_LINES", "BML_LINES", "obc_strip",
+           "B3_LINES", "BML_LINES", "B4_LINES", "B4V_LINES", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
            "write_topog_edge"]
 
@@ -204,6 +215,54 @@ USE_LMD94 = True
 FRAZIL = True
 """
 
+# the fourth breadth item on the Z* text, what cases/ref_tc2 runs: MEKE
+# with ref_tc2's coefficients (the GM source, KHTH/KHTR shares, its own
+# diffusion, the Ku viscosity, Rhines and Eady mixing lengths; Ku needs
+# the Laplacian operator, with KH = 0 Ku is all of it), VarMix with the
+# EOS slopes, neutral diffusion in place of the along-layer KHTR, the
+# boundary diffusion inside KPP's boundary layer, the interface filter,
+# and the internal tides (24 angles) feeding the tidal mixing
+B4_LINES = """USE_MEKE = True
+MEKE_GMCOEFF = 1.0
+MEKE_BGSRC = 1.0E-13
+MEKE_KHTH_FAC = 0.5
+MEKE_KHTR_FAC = 0.5
+MEKE_KHMEKE_FAC = 1.0
+MEKE_VISCOSITY_COEFF_KU = 1.0
+MEKE_ALPHA_RHINES = 0.15
+MEKE_ALPHA_EADY = 0.15
+LAPLACIAN = True
+USE_VARIABLE_MIXING = True
+USE_STORED_SLOPES = True
+USE_NEUTRAL_DIFFUSION = True
+USE_HORIZONTAL_BOUNDARY_DIFFUSION = True
+INTERFACE_FILTER_TIME_SCALE = 86400.0
+INTERNAL_TIDES = True
+INTERNAL_TIDE_ANGLES = 24
+UTIDE = 0.02
+INT_TIDE_DISSIPATION = True
+"""
+
+# the fourth breadth item on the layered text, what cases/ref_tc1 runs:
+# the Visbeck diffusivity (ref_tc1's length scale and VARMIX_KTOP) into
+# KHTH and KHTR, the resolution function on KH, KHTH and KHTR (averaged
+# to the faces, Pedlosky's deformation radius), the mixed layer's
+# epipycnal diffusion into the interior, and GM before the dynamics
+B4V_LINES = """USE_VARIABLE_MIXING = True
+USE_VISBECK = True
+RESOLN_SCALED_KH = True
+RESOLN_SCALED_KHTH = True
+RESOLN_SCALED_KHTR = True
+KHTH_SLOPE_CFF = 0.1
+KHTR_SLOPE_CFF = 0.1
+VARMIX_KTOP = 6
+VISBECK_L_SCALE = 3.0E+04
+INTERPOLATE_RES_FN = True
+GILL_EQUATORIAL_LD = False
+DIFFUSE_ML_TO_INTERIOR = True
+THICKNESSDIFFUSE_FIRST = True
+"""
+
 BENCH_CONFIG_B1 = BENCH_CONFIG + B1_LINES
 
 BENCH_CONFIG_NONBOUSS = BENCH_CONFIG + NONBOUSS_LINES
@@ -215,6 +274,10 @@ BENCH_CONFIG_STOCH = BENCH_CONFIG + STOCH_LINES
 BENCH_CONFIG_B3 = BENCH_CONFIG + B3_LINES
 
 BENCH_CONFIG_BML = BENCH_CONFIG + BML_LINES
+
+BENCH_CONFIG_B4 = BENCH_CONFIG + B4_LINES
+
+BENCH_CONFIG_B4V = BENCH_CONFIG_BML + B4V_LINES
 
 
 def obc_strip(ni: int) -> str:

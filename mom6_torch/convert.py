@@ -15,10 +15,9 @@ that model's device and dtype.
 dataclasses from a nested dict of plain values keyed like the JAX
 package's (``dataclasses.asdict`` of a ``mom6_tpu`` config): the
 fields the port has are taken over, and every other key must hold its
-default (the matching entry of ``defaults``), unless it belongs to a
-sub-configuration whose switch, itself a port field, is off, or is
-one of the JAX package's switches between a Pallas kernel and its jnp
-path (the port's kernel wrappers choose by the tensor's device).  A
+default (the matching entry of ``defaults``), unless it is one of the
+JAX package's switches between a Pallas kernel and its jnp path (the
+port's kernel wrappers choose by the tensor's device).  A
 key that sets an option the port lacks raises ``NotImplementedError``
 naming it.
 """
@@ -142,7 +141,6 @@ def config_from_values(cls, values: dict, defaults: dict, path: str = ""):
     every key of ``values`` (nested alike)."""
     hints = typing.get_type_hints(cls)
     names = {f.name for f in dataclasses.fields(cls)}
-    inert = getattr(cls, "_INERT", {})
     kw = {}
     for key, val in values.items():
         where = f"{path}{key}"
@@ -154,11 +152,6 @@ def config_from_values(cls, values: dict, defaults: dict, path: str = ""):
             elif isinstance(val, list):
                 val = tuple(val)
             kw[key] = val
-        elif key in inert and not any(
-                values.get(g) for g in ((inert[key],)
-                                        if isinstance(inert[key], str)
-                                        else inert[key])):
-            continue
         elif key in _KERNEL_SWITCHES:
             continue
         elif val != defaults.get(key, object()):

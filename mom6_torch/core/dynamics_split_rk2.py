@@ -28,9 +28,10 @@ Orlanski radiation after the vertical viscosity.  With STOCH_EOS
 (``cfg.stoch_eos_a`` and a ``stoch_pattern``) both pressure-force calls
 multiply the Stanley variance by exp(a pattern); with USE_GME the
 horizontal viscosity takes the barotropic velocities and column
-thickness of the incoming time-mean state.  A shear-driven viscosity
-and the VarMix/MEKE viscosity inputs are not ported yet and raise
-``NotImplementedError``.
+thickness of the incoming time-mean state.  ``kh_scale`` (the VarMix
+resolution function, RESOLN_SCALED_KH) and ``kh_extra`` (MEKE's Ku) go
+to the corrector's horizontal viscosity, and ``kv_shear`` (the shear
+viscosity of the last diabatic phase) to every vertical viscosity.
 """
 
 from __future__ import annotations
@@ -122,11 +123,6 @@ def init_split_state(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                          uh=z, vh=z, eta=e[0], diffu=diffu, diffv=diffv)
 
 
-def _check_unported(kh_scale, kh_extra):
-    if kh_scale is not None or kh_extra is not None:
-        raise NotImplementedError("kh_scale/kh_extra viscosity inputs")
-
-
 def stoch_eos_multiplier(cfg: SplitCfg, stoch_pattern):
     """STOCH_EOS: exp(STANLEY_A pattern), the multiplier of the Stanley
     variance, or None without it."""
@@ -201,7 +197,6 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     """One split RK2 dynamics step (step_MOM_dyn_split_RK2).  ``kv_shear``:
     the shear-driven interface viscosity of the last diabatic phase,
     added to KV in every vertical viscosity of the step."""
-    _check_unported(kh_scale, kh_extra)
     fill = halo_fill(domain, obc)
     rho0 = vgrid.Rho0
 
@@ -276,7 +271,8 @@ def step_dyn_split_rk2(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                         eos, p_atm=forces.p_surf, cfg=cfg.pressure,
                         e_tidal=e_tidal, varT_mult=varT_mult)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av,
-                                        cfg.horvisc, obc=obc, **gme_kw)
+                                        cfg.horvisc, obc=obc, **gme_kw,
+                                        kh_scale=kh_scale, kh_extra=kh_extra)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv

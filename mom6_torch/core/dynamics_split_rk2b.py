@@ -28,8 +28,9 @@ open boundaries (``obc``: extended halo fills, no BT_cont curves, the
 Flather radiation in the subcycle, the OBC viscosity flags), with the
 Orlanski radiation on the new filtered velocities, and so do STOCH_EOS
 and GME (its inputs from the head continuity's time-mean thickness and
-u_av); the options that it refuses raise ``NotImplementedError`` here
-too.
+u_av), and so do ``kh_scale`` and ``kh_extra`` (both horizontal
+viscosities); a shear viscosity raises ``NotImplementedError``, as
+the JAX step takes none.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from mom6_torch.core.continuity_cuda import (continuity_ppm_cuda,
                                              set_up_bt_cont_cuda)
 from mom6_torch.core.coriolis_adv import coriolis_adv
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDiags,
-                                                _check_unported, halo_fill,
+                                                halo_fill,
                                                 corrector_thickness,
                                                 gme_inputs,
                                                 stoch_eos_multiplier,
@@ -93,7 +94,6 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     """One RK2b dynamics step.  ``state.u/v`` are the filtered
     velocities; returns them updated with the new increments, eta and
     the step's transports."""
-    _check_unported(kh_scale, kh_extra)
     if kv_shear is not None:
         # the JAX package's RK2b step takes no shear viscosity
         raise NotImplementedError("kv_shear: the RK2b step takes no "
@@ -134,7 +134,8 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                         cfg=cfg.pressure, e_tidal=e_tidal,
                         varT_mult=varT_mult)
     diffu, diffv = horizontal_viscosity(grid, u_av, v_av, h_av, cfg.horvisc,
-                                        obc=obc, **gme_kw)
+                                        obc=obc, **gme_kw, kh_scale=kh_scale,
+                                        kh_extra=kh_extra)
     ca = coriolis_adv(grid, u_av, v_av, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv
@@ -188,7 +189,8 @@ def step_dyn_split_rk2b(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                         eos, p_atm=forces.p_surf, cfg=cfg.pressure,
                         e_tidal=e_tidal, varT_mult=varT_mult)
     diffu, diffv = horizontal_viscosity(grid, u_av_p, v_av_p, h_av,
-                                        cfg.horvisc, obc=obc, **gme_kw)
+                                        cfg.horvisc, obc=obc, **gme_kw,
+                                        kh_scale=kh_scale, kh_extra=kh_extra)
     ca = coriolis_adv(grid, u_av_p, v_av_p, h_av, uh, vh, cfg.coriolis)
     u_bc_accel = (ca.CAu + pf.PFu) + diffu
     v_bc_accel = (ca.CAv + pf.PFv) + diffv

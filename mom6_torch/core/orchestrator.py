@@ -26,9 +26,22 @@ tracer reservoirs (``obc_reservoirs``), keeps the boundary transports and
 thicknesses through the halo fill and advances the reservoirs; the
 unsplit step ignores ``obc``, the pattern and GME's inputs, as in the
 JAX package.  Passive tracers without T/S are advected (and diffused)
-alone.  MEKE/VarMix, the interface filter, neutral and boundary
-diffusion, sponges, internal tides and BGC are not ported yet and raise
-``NotImplementedError``.  The shear viscosity of a diabatic phase
+alone.  The lateral eddy parameterizations of the JAX package come
+in its order: the VarMix resolution function and Eady rate, the
+Visbeck and MEKE diffusivities into KHTH (RESOLN_SCALED_KHTH on the
+faces), GM with the stratification's PE release feeding the MEKE
+step, then the interface filter; the dynamics take the resolution
+function (RESOLN_SCALED_KH) and MEKE's Ku; the tracers diffuse along
+neutral surfaces (USE_NEUTRAL_DIFFUSION, in place of the along-layer
+diffusion) or along layers with MEKE's and the Visbeck share of KHTR,
+RESOLN_SCALED_KHTR and the mixed layer's epipycnal exchange, then near
+the boundary inside the previous boundary-layer depth
+(USE_HORIZONTAL_BOUNDARY_DIFFUSION); and the column physics start with
+the internal-tide energy step, whose wave-drag loss replaces the
+uniform tidal energy of the tidal mixing (``int_tide_en`` carries En
+from one thermodynamic step to the next, the diags' ``int_tide_en``).
+Sponges and BGC are not ported yet and raise ``NotImplementedError``.
+The shear viscosity of a diabatic phase
 (``kv_shear`` in the diags) feeds the next split RK2 dynamics step
 (``kv_shear_prev``); the RK2b and unsplit steps take none, as in the JAX
 package.
@@ -37,6 +50,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -50,29 +64,38 @@ from mom6_torch.core.forcing import Fluxes, MechForcing
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.state import State
 from mom6_torch.core.vertical_grid import VerticalGrid
+from mom6_torch.diagnostics.wave_speed import brunt_vaisala2, wave_speeds
+from mom6_torch.param.lateral.interface_filter import (InterfaceFilterCfg,
+                                                       interface_filter)
+from mom6_torch.param.lateral.internal_tides import (InternalTidesCfg,
+                                                     init_en,
+                                                     step_internal_tides)
+from mom6_torch.param.lateral.meke import (MEKECfg, meke_khth, meke_ku,
+                                           meke_length_scales, step_meke)
 from mom6_torch.param.lateral.mixed_layer_restrat import (
     MLRestratCfg, mixed_layer_restrat)
 from mom6_torch.param.lateral.thickness_diffuse import (
     ThicknessDiffuseCfg, thickness_diffuse)
+from mom6_torch.param.lateral.varmix import (VarMixCfg,
+                                             calc_eady_rate,
+                                             calc_resolution_function,
+                                             visbeck_kh)
 from mom6_torch.param.stochastic.stochastics import (StochasticsCfg,
                                                      apply_skeb, apply_sppt,
                                                      init_pattern,
                                                      step_pattern)
 from mom6_torch.param.vertical.diabatic import DiabaticCfg, diabatic
+from mom6_torch.param.vertical.tidal_mixing import internal_tide_input
 from mom6_torch.parallel.domain import Domain
+from mom6_torch.parallel.stencil import ip1, jp1
 from mom6_torch.tracer.advect import TracerAdvectCfg, advect_tracers
+from mom6_torch.tracer.hor_bnd_diffusion import (HorBndDiffCfg,
+                                                 hor_bnd_diffusion)
 from mom6_torch.tracer.hor_diff import TracerHorDiffCfg, tracer_hordiff
+from mom6_torch.tracer.neutral_diffusion import (NeutralDiffCfg,
+                                                 neutral_diffusion)
 
 __all__ = ["OceanCfg", "OceanDiags", "step_ocean"]
-
-_UNPORTED = (("use_meke", True, "USE_MEKE"),
-             ("use_varmix", True, "USE_VARIABLE_MIXING"),
-             ("resoln_scaled_khth", True, "RESOLN_SCALED_KHTH"),
-             ("resoln_scaled_kh", True, "RESOLN_SCALED_KH"),
-             ("resoln_scaled_khtr", True, "RESOLN_SCALED_KHTR"),
-             ("use_neutral", True, "USE_NEUTRAL_DIFFUSION"),
-             ("use_hbd", True, "USE_HORIZONTAL_BOUNDARY_DIFFUSION"))
-
 
 @dataclasses.dataclass(frozen=True)
 class OceanCfg:
@@ -84,19 +107,36 @@ class OceanCfg:
     diabatic: DiabaticCfg = DiabaticCfg()
     thickness_diffuse: ThicknessDiffuseCfg = ThicknessDiffuseCfg()
     thickness_diffuse_first: bool = False
+    interface_filter: InterfaceFilterCfg = InterfaceFilterCfg()
     ale: Optional[ALECfg] = None         # None: layered (no ALE)
     thermo: bool = True
     adiabatic: bool = False
-    use_meke: bool = False
-    use_varmix: bool = False
-    resoln_scaled_khth: bool = False
-    resoln_scaled_kh: bool = False
-    resoln_scaled_khtr: bool = False
+    # the MEKE -> VarMix -> KHTH coefficient chain
+    use_meke: bool = False               # USE_MEKE
+    meke: MEKECfg = MEKECfg()
+    meke_khth_fac: float = 0.0           # MEKE_KHTH_FAC
+    meke_khtr_fac: float = 0.0           # MEKE_KHTR_FAC
+    use_varmix: bool = False             # USE_VARIABLE_MIXING
+    varmix: VarMixCfg = VarMixCfg()
+    resoln_scaled_khth: bool = False     # RESOLN_SCALED_KHTH
+    resoln_scaled_kh: bool = False       # RESOLN_SCALED_KH
+    resoln_scaled_khtr: bool = False     # RESOLN_SCALED_KHTR
     use_mle: bool = False                # MIXEDLAYER_RESTRAT
     mlrestrat: MLRestratCfg = MLRestratCfg()
     hordiff: TracerHorDiffCfg = TracerHorDiffCfg()
-    use_neutral: bool = False
-    use_hbd: bool = False
+    use_neutral: bool = False            # USE_NEUTRAL_DIFFUSION
+    neutral: NeutralDiffCfg = NeutralDiffCfg()
+    use_hbd: bool = False                # USE_HORIZONTAL_BOUNDARY_DIFFUSION
+    hbd: Optional[HorBndDiffCfg] = None
+    # the internal-tide energy (None: off), the barotropic tidal speed
+    # UTIDE, the roughness variance TIDAL_ROUGHNESS_H2 and the
+    # reflection maps ((njh, nih) tensors or None)
+    int_tides: Optional[InternalTidesCfg] = None
+    int_tide_utide: float = 0.0
+    int_tide_h2: float = 2500.0
+    int_tide_refl_angle: Optional[torch.Tensor] = None
+    int_tide_refl_pref: Optional[torch.Tensor] = None
+    int_tide_refl_dbl: Optional[torch.Tensor] = None
     # SPPT/SKEB and STOCH_EOS's pattern (None: all three off)
     sppt: Optional[StochasticsCfg] = None
     sppt_seed: int = 12345               # SPPT_SEED
@@ -104,12 +144,6 @@ class OceanCfg:
     n_dyn_per_therm: int = 1             # DT_THERM / DT
     # DIABATIC_FIRST: the column physics and ALE before the dynamics
     diabatic_first: bool = False
-
-    # sub-configurations of the JAX package's OceanCfg that only matter
-    # when the named switch (not ported: it raises) is on
-    _INERT = {"meke": "use_meke", "meke_khth_fac": "use_meke",
-              "meke_khtr_fac": "use_meke", "varmix": "use_varmix",
-              "neutral": "use_neutral", "hbd": "use_hbd"}
 
 
 class OceanDiags(NamedTuple):
@@ -124,15 +158,8 @@ class OceanDiags(NamedTuple):
     frazil: Optional[torch.Tensor] = None   # accumulated frazil [J m-2]
     # the stochastic pattern carry: a tensor, or {"sppt", "skeb"}
     sppt_pattern: object = None
-
-
-def _check(cfg: OceanCfg, kw: dict):
-    for name, bad, what in _UNPORTED:
-        if getattr(cfg, name) == bad:
-            raise NotImplementedError(what)
-    for name, val in kw.items():
-        if val is not None:
-            raise NotImplementedError(name)
+    # the internal-tide energy (n_freq, n_mode, n_angle, njh, nih)
+    int_tide_en: Optional[torch.Tensor] = None
 
 
 def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
@@ -151,8 +178,8 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     the advanced carry comes back as the diags' ``sppt_pattern``.
     Returns (state, split_state, tracers, OceanDiags), and the advanced
     reservoirs fifth when ``obc_reservoirs`` is given."""
-    _check(cfg, {"sponge": sponge_data,
-                 "internal tides": int_tide_en})
+    if sponge_data is not None:
+        raise NotImplementedError("sponge")
     fill = domain.fill_halos
 
     def thermo_and_ale(state, split_state, tracers):
@@ -162,6 +189,12 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         sppt_pattern)."""
         extras = {}
         if cfg.thermo and not cfg.adiabatic:
+            tidal_e2d = None
+            if cfg.int_tides is not None:
+                # the internal-tide energy step; its wave-drag loss is the
+                # tidal mixing's energy
+                tidal_e2d, extras["int_tide_en"] = _internal_tides(
+                    domain, grid, vgrid, state, cfg, eos, dt, int_tide_en)
             if isinstance(sppt_pattern, dict):
                 sp_prev = sppt_pattern.get("sppt")
                 sk_prev = sppt_pattern.get("skeb")
@@ -187,7 +220,8 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                 T_b, S_b = state.T, state.S
             state, tracers, dia = diabatic(state, fluxes, dt, cfg.diabatic,
                                            tracers, vgrid=vgrid, eos=eos,
-                                           forces=forces, grid=grid)
+                                           forces=forces, grid=grid,
+                                           tidal_energy_2d=tidal_e2d)
             if sppt_on:
                 state = state.replace(
                     T=T_b + apply_sppt(cfg.sppt, state.T - T_b, pat),
@@ -215,13 +249,51 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         return state, split_state, tracers, extras
 
     def do_thickness_param(state):
-        """GM thickness diffusion: the new state and its layer transports
-        over dt (None without KHTH)."""
-        if cfg.thickness_diffuse.khth <= 0.0:
-            return state, None, None
-        td = thickness_diffuse(grid, vgrid, fill(state.h, width=2), dt,
-                               cfg.thickness_diffuse)
-        return state.replace(h=fill(td.h)), dt * td.uhD, dt * td.vhD
+        """GM thickness diffusion (with MEKE's step on its PE release)
+        and the interface filter: the new state and their layer
+        transports over dt (None without either)."""
+        uh_param = vh_param = None
+        if cfg.thickness_diffuse.khth > 0.0 or khth_2d is not None:
+            h = fill(state.h, width=2)
+            kh2 = fill(khth_2d, width=2) if khth_2d is not None else None
+            gp_int = None
+            if use_meke and state.T is not None and eos is not None:
+                # the interface reduced gravities N^2 dz of the actual
+                # stratification, for the GM energy source of MEKE
+                tt, ss = fill((state.T, state.S), width=2)
+                n2 = brunt_vaisala2(vgrid, h, tt, ss, eos)
+                zed = torch.zeros_like(h[:1])
+                gp_int = torch.cat([zed, n2 * (0.5 * (h[:-1] + h[1:])), zed],
+                                   dim=0)
+            ru = rv = None
+            if res_u is not None:
+                ru, rv = fill((res_u, res_v), width=2)
+            td = thickness_diffuse(grid, vgrid, h, dt, cfg.thickness_diffuse,
+                                   khth_2d=kh2, gprime_int=gp_int, res_u=ru,
+                                   res_v=rv)
+            state = state.replace(h=fill(td.h))
+            uh_param, vh_param = dt * td.uhD, dt * td.vhD
+            if use_meke:
+                hsum = torch.sum(h, dim=0) + 1e-30
+                u_bt = torch.sum(0.5 * (h + ip1(h)) * state.u, dim=0) / hsum
+                v_bt = torch.sum(0.5 * (h + jp1(h)) * state.v, dim=0) / hsum
+                meke_new = step_meke(cfg.meke, grid,
+                                     fill(state.meke, width=1), dt,
+                                     gm_work=td.gm_work, rd_dx=rd_dx, sn=sn,
+                                     u_bt=u_bt, v_bt=v_bt)
+                state = state.replace(meke=fill(meke_new))
+        elif use_meke:
+            meke_new = step_meke(cfg.meke, grid, fill(state.meke, width=1),
+                                 dt, rd_dx=rd_dx, sn=sn)
+            state = state.replace(meke=fill(meke_new))
+        if cfg.interface_filter.time_scale > 0.0:
+            hf, uhF, vhF = interface_filter(domain, grid, vgrid,
+                                            fill(state.h, width=2), dt,
+                                            cfg.interface_filter)
+            state = state.replace(h=fill(hf))
+            uh_param = dt * uhF if uh_param is None else uh_param + dt * uhF
+            vh_param = dt * vhF if vh_param is None else vh_param + dt * vhF
+        return state, uh_param, vh_param
 
     # DIABATIC_FIRST: the column physics and ALE on the pre-dynamics
     # state; their carries replace the late call's
@@ -229,9 +301,47 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     if cfg.diabatic_first and do_thermo:
         state, split_state, tracers, pre_extras = thermo_and_ale(
             state, split_state, tracers)
+    # the MEKE -> VarMix -> KHTH chain: the resolution function, the Eady
+    # rate, and the Visbeck and MEKE shares of the 2-D KHTH
+    use_meke = cfg.use_meke and state.meke is not None
+    khth_2d = res_fn = rd_dx = sn = vm = None
+    if cfg.use_varmix:
+        vm = calc_resolution_function(cfg.varmix, grid, vgrid, state.h,
+                                      state.T, state.S, eos)
+        res_fn, rd_dx = vm.res_fn, vm.rd_dx
+    if (cfg.use_varmix and cfg.varmix.khth_slope_cff > 0.0) or (
+            use_meke and (cfg.meke.geometric or cfg.meke.a_eady > 0.0)):
+        hh, tt, ss = fill((state.h, state.T, state.S), width=1)
+        sn = calc_eady_rate(cfg.varmix, grid, vgrid, hh, tt, ss, eos)
+    if cfg.use_varmix and cfg.varmix.khth_slope_cff > 0.0:
+        khth_2d = cfg.thickness_diffuse.khth + visbeck_kh(cfg.varmix, grid,
+                                                          sn)
+    if use_meke and cfg.meke_khth_fac > 0.0:
+        base = khth_2d if khth_2d is not None \
+            else cfg.thickness_diffuse.khth
+        khth_2d = base + cfg.meke_khth_fac * meke_khth(cfg.meke, state.meke,
+                                                        sn=sn)
+    res_u = res_v = None
+    if res_fn is not None and cfg.resoln_scaled_khth:
+        res_u, res_v = vm.res_fn_u, vm.res_fn_v
+        if khth_2d is None:
+            khth_2d = cfg.thickness_diffuse.khth * torch.ones_like(res_fn)
+
     # THICKNESSDIFFUSE_FIRST: GM before the dynamics, after them otherwise
     if cfg.thickness_diffuse_first:
         state, uh_param, vh_param = do_thickness_param(state)
+
+    # the viscosity inputs: the resolution function (RESOLN_SCALED_KH)
+    # and MEKE's Ku
+    kh_scale = kh_extra = None
+    if cfg.resoln_scaled_kh and res_fn is not None:
+        kh_scale = fill(res_fn, width=2)
+    if use_meke and cfg.meke.viscosity_coeff_ku != 0.0:
+        lmix, _, _ = meke_length_scales(
+            cfg.meke, grid, state.meke,
+            torch.clamp(grid.bathyT, min=cfg.meke.min_depth), rd_dx=rd_dx,
+            sn=sn)
+        kh_extra = fill(meke_ku(cfg.meke, state.meke, lmix=lmix), width=2)
 
     # the dynamics see the incoming pattern, also under DIABATIC_FIRST
     stoch = sppt_pattern.get("sppt") if isinstance(sppt_pattern, dict) \
@@ -240,14 +350,15 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         state, split_state, dd = step_dyn_split_rk2b(
             domain, grid, vgrid, state, split_state, forces, dt,
             cfg.split_cfg, eos=eos, x_first=x_first, obc=obc, t=t,
-            stoch_pattern=stoch)
+            stoch_pattern=stoch, kh_scale=kh_scale, kh_extra=kh_extra)
     elif cfg.split:
         kvs = None if kv_shear_prev is None else fill(kv_shear_prev,
                                                       width=1)
         state, split_state, dd = step_dyn_split_rk2(
             domain, grid, vgrid, state, split_state, forces, dt,
             cfg.split_cfg, eos=eos, x_first=x_first, obc=obc, t=t,
-            stoch_pattern=stoch, kv_shear=kvs)
+            stoch_pattern=stoch, kh_scale=kh_scale, kh_extra=kh_extra,
+            kv_shear=kvs)
     else:
         # the unsplit step takes neither the pattern nor GME's inputs
         state, dd = step_dyn_unsplit(domain, grid, vgrid, state, forces, dt,
@@ -302,7 +413,10 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         if obc is not None and obc_reservoirs is not None:
             obc_reservoirs = obc.update_tracer_reservoirs(
                 obc_reservoirs, adv, state.u, state.v, dt)
-        if cfg.hordiff.khtr > 0.0:
+        if with_ts:
+            adv = _lateral_tracer_diffusion(domain, grid, vgrid, state, adv,
+                                            cfg, eos, dt, use_meke, mld_prev)
+        elif cfg.hordiff.khtr > 0.0:
             adv, hh = fill((adv, state.h), width=1)
             adv = tracer_hordiff(domain, grid, adv, hh, dt, cfg.hordiff)
         if with_ts:
@@ -315,6 +429,86 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         state, split_state, tracers, extras = thermo_and_ale(
             state, split_state, tracers)
     return result(state, split_state, tracers, diags._replace(**extras))
+
+
+def _internal_tides(domain, grid, vgrid, state, cfg, eos, dt, en):
+    """The internal-tide energy step on the modal speeds and near-bottom
+    N of the state: (the wave-drag loss [W m-2], the new En)."""
+    fill = domain.fill_halos
+    itc = cfg.int_tides
+    hf = fill(state.h)
+    tt = fill(state.T) if state.T is not None else None
+    ss = fill(state.S) if state.S is not None else None
+    nb = torch.sqrt(torch.clamp(brunt_vaisala2(vgrid, hf, tt, ss, eos)[-1],
+                                min=0.0))
+    cn = wave_speeds(vgrid, hf, tt, ss, eos, n_mode=itc.n_mode)
+    tke_in = internal_tide_input(cfg.int_tide_utide,
+                                 math.sqrt(cfg.int_tide_h2), nb,
+                                 rho0=vgrid.Rho0,
+                                 kappa_itides=itc.kappa_itides)
+    if en is None:
+        en = init_en(itc, state.h.shape[1:], device=state.h.device,
+                     dtype=state.h.dtype)
+    itr = step_internal_tides(itc, domain, grid, en, cn, dt, tke_in, nb,
+                              torch.sum(hf, dim=0),
+                              u_bt2=cfg.int_tide_utide ** 2,
+                              h2_rough=cfg.int_tide_h2,
+                              refl_angle=cfg.int_tide_refl_angle,
+                              refl_pref=cfg.int_tide_refl_pref,
+                              refl_dbl=cfg.int_tide_refl_dbl)
+    return itr.itidal_loss, itr.En
+
+
+def _lateral_tracer_diffusion(domain, grid, vgrid, state, adv, cfg, eos, dt,
+                              use_meke, mld_prev):
+    """The lateral diffusion of T, S and the passive tracers ``adv``
+    after their advection: along neutral surfaces, or along layers (with
+    MEKE's and the Visbeck share of KHTR, RESOLN_SCALED_KHTR and the
+    mixed layer's epipycnal exchange), then near the boundary inside the
+    previous boundary-layer depth ``mld_prev``."""
+    fill = domain.fill_halos
+    hd = cfg.hordiff
+    meke_tr = use_meke and cfg.meke_khtr_fac > 0.0
+    if cfg.use_neutral and cfg.neutral.khtr > 0.0:
+        adv, hh = fill((adv, state.h), width=2)
+        adv = neutral_diffusion(domain, grid, vgrid, adv, hh, adv["T"],
+                                adv["S"], eos, dt, cfg.neutral)
+    elif hd.khtr > 0.0 or meke_tr or hd.khtr_slope_cff > 0.0:
+        ktr2 = tr_res_u = tr_res_v = tr_add_u = tr_add_v = None
+        if hd.khtr_slope_cff > 0.0:
+            # the Visbeck face term cff L^2 SN
+            sn_tr = calc_eady_rate(cfg.varmix, grid, vgrid, fill(state.h),
+                                   fill(state.T), fill(state.S), eos)
+            sn_tr = fill(sn_tr, width=2)
+            L2 = cfg.varmix.visbeck_l_scale ** 2 \
+                if cfg.varmix.visbeck_l_scale > 0.0 else grid.areaT
+            cffL2sn = hd.khtr_slope_cff * L2 * sn_tr
+            tr_add_u = 0.5 * (cffL2sn + ip1(cffL2sn))
+            tr_add_v = 0.5 * (cffL2sn + jp1(cffL2sn))
+        if cfg.resoln_scaled_khtr and cfg.use_varmix:
+            # the h-point resolution function averaged to the faces
+            rfh = fill(calc_resolution_function(
+                cfg.varmix, grid, vgrid, state.h, state.T, state.S,
+                eos).res_fn, width=2)
+            tr_res_u = 0.5 * (rfh + ip1(rfh))
+            tr_res_v = 0.5 * (rfh + jp1(rfh))
+        if meke_tr:
+            ktr2 = fill(hd.khtr + cfg.meke_khtr_fac
+                        * meke_khth(cfg.meke, state.meke), width=1)
+        adv, hh = fill((adv, state.h), width=1)
+        rho_ml = None
+        if hd.diffuse_ml_to_interior and hd.nkmb > 0 and eos is not None:
+            # the coordinate density of the mixed-layer and buffer water
+            rho_ml = eos.density(adv["T"][:hd.nkmb], adv["S"][:hd.nkmb],
+                                 hd.p_ref)
+        adv = tracer_hordiff(domain, grid, adv, hh, dt, hd, khtr_2d=ktr2,
+                             res_u=tr_res_u, res_v=tr_res_v,
+                             add_u=tr_add_u, add_v=tr_add_v,
+                             rho_ml=rho_ml, rlay=vgrid.Rlay)
+    if cfg.use_hbd and mld_prev is not None:
+        adv, hh, bldh = fill((adv, state.h, mld_prev), width=1)
+        adv = hor_bnd_diffusion(domain, grid, adv, hh, bldh, dt, cfg.hbd)
+    return adv
 
 
 def _ale(domain, grid, vgrid, state, split_state, tracers, cfg, eos, dt):

@@ -18,6 +18,8 @@ class State:
     h: torch.Tensor                    # layer thickness [m]
     T: Optional[torch.Tensor] = None   # temperature [degC]
     S: Optional[torch.Tensor] = None   # salinity [ppt]
+    # the MEKE eddy energy (njh, nih) [m2 s-2] (USE_MEKE)
+    meke: Optional[torch.Tensor] = None
     # the accumulated frazil heat deficit not yet extracted [J m-2]
     # (FRAZIL; a restart field)
     frazil: Optional[torch.Tensor] = None

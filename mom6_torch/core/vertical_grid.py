@@ -24,6 +24,22 @@ class VerticalGrid:
     g_prime: torch.Tensor = None     # interface reduced gravity (nk+1,)
 
     @staticmethod
+    def from_rlay(rlay, g_Earth: float = 9.8, Rho0: float = 1035.0,
+                  g_fs: float | None = None, *, device, dtype: torch.dtype,
+                  **kw) -> "VerticalGrid":
+        """Layer densities given directly (COORD_CONFIG ts_range):
+        g_prime[0] = g_fs (default g), g_prime[K] = g dRlay / Rho0."""
+        rlay = np.asarray(rlay, dtype=np.float64)
+        nk = rlay.shape[0]
+        gp = np.zeros(nk + 1)
+        gp[0] = g_Earth if g_fs is None else g_fs
+        gp[1:nk] = (g_Earth / Rho0) * (rlay[1:] - rlay[:-1])
+        return VerticalGrid(
+            nk=nk, g_Earth=g_Earth, Rho0=Rho0,
+            Rlay=torch.as_tensor(rlay, dtype=dtype, device=device),
+            g_prime=torch.as_tensor(gp, dtype=dtype, device=device), **kw)
+
+    @staticmethod
     def uniform(nk: int, g_Earth: float = 9.8, Rho0: float = 1035.0,
                 gint: float | None = None, light: float | None = None,
                 *, device, dtype: torch.dtype, **kw) -> "VerticalGrid":

@@ -27,11 +27,13 @@ directory, or DIAG_AS_CHKSUM, the prognostic diagnostics (with their
 NK_ZSPACE z levels) are posted at each stats interval and flushed at
 the end: to ``diags.nc``, or under DIAG_AS_CHKSUM as checksum lines in
 ``chksum_diag``.  DEBUG appends the checksums of u, v, h, T and S after
-every step to ``chksum_debug``.  The restart carries the stochastic
-pattern (``carry_sppt``, or ``carry_sppt_p``/``carry_sppt_k`` with
-SKEB) as the JAX driver does.  Particles, offline tracer mode,
-WRITE_OFFLINE_FIELDS, DEBUG_NANS, U_TRUNC_FILE, READ_DEPTH_LIST and
-periodic restarts (RESTINT > 0) are not ported yet and raise
+every step to ``chksum_debug``, and U_TRUNC_FILE the worst column after
+every step that truncated velocities.  The restart carries the
+stochastic pattern (``carry_sppt``, or ``carry_sppt_p``/``carry_sppt_k``
+with SKEB) and the internal-tide energy (``carry_iten``) as the JAX
+driver does; like it, the driver writes no periodic restarts, whatever
+RESTINT says.  Particles, offline tracer mode, WRITE_OFFLINE_FIELDS,
+DEBUG_NANS and READ_DEPTH_LIST are not ported yet and raise
 ``NotImplementedError`` naming themselves, and so does any parameter
 the case sets that neither the builder nor the driver reads.
 """
@@ -47,6 +49,7 @@ import time
 import torch
 
 from mom6_torch.diagnostics.depth_list import depth_list_setup
+from mom6_torch.diagnostics.point_accel import dump_worst_column
 from mom6_torch.diagnostics.prognostic_diags import PrognosticDiags
 from mom6_torch.diagnostics.sum_output import (collect_stats,
                                                format_stats_header,
@@ -62,7 +65,7 @@ from mom6_torch.model import default_only, build_model
 
 __all__ = ["read_driver_params", "main"]
 
-_CARRIES = ("u", "v", "mld", "kv", "sppt")
+_CARRIES = ("u", "v", "mld", "kv", "iten", "sppt")
 # the SPPT and SKEB patterns of a {"sppt", "skeb"} carry, saved as two
 # single-tensor trees
 _PATTERN_PAIR = {"sppt_p": "sppt", "sppt_k": "skeb"}
@@ -97,7 +100,8 @@ def read_driver_params(pf: ParamFile, model) -> dict:
     pf.module("MOM_debugging")
     p["debug_mode"] = pf.get("DEBUG", bool, False)
     default_only(pf, "DEBUG_NANS", bool, False)
-    default_only(pf, "U_TRUNC_FILE", str, "")
+    # U_TRUNC_FILE: the worst column after each step that truncated
+    p["u_trunc_file"] = pf.get("U_TRUNC_FILE", str, "")
     # DTBT_RESET_PERIOD: re-estimate the barotropic substep count from
     # the evolving column thickness; 0 → every dynamics step, < 0
     # disables; a fixed DTBT > 0 is never re-estimated
@@ -118,9 +122,10 @@ def read_driver_params(pf: ParamFile, model) -> dict:
                          desc="stop before exceeding this cpu budget; "
                          "<0 disables")
     p["cpu_file"] = pf.get("CPU_TIME_FILE", str, "CPU_stats")
-    # the end-of-run restart is always written; periodic ones are not
+    # the end-of-run restart is always written; periodic ones are not,
+    # whatever RESTINT says, as in the JAX driver
     pf.module("MOM_restart")
-    default_only(pf, "RESTINT", float, 0.0, units="days")
+    pf.get("RESTINT", float, 0.0, units="days")
     return p
 
 
@@ -312,8 +317,14 @@ def main(argv=None) -> dict:
                 else:
                     step = model.step_fn(nstep_bt=new_nstep, carry=acc)
                     step_cache[new_nstep] = step
+        truncs_before = step.truncations() if dp["u_trunc_file"] else 0
         with clock("step_MOM", sync=lambda: state.h):
             state, split, tracers = step(state, split, tracers, n)
+        if dp["u_trunc_file"] and step.truncations() > truncs_before:
+            dump_worst_column(
+                os.path.join(args.case_dir, dp["u_trunc_file"]), d, g,
+                state, n + 1,
+                label=f"({step.truncations() - truncs_before} truncs)")
         nstep_bt.append(step.nstep_bt)
         if dp["debug_mode"]:
             # the checksum flood: one block of prognostic checksums a step

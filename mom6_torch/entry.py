@@ -10,7 +10,8 @@ first breadth item's options on the split RK2 dynamics
 regional configuration with open boundaries (``BENCH_CONFIG_OBC``),
 or the rest of the first breadth item (``BENCH_CONFIG_STOCH``), or the
 column physics of the third (``BENCH_CONFIG_B3`` with Z* ALE,
-``BENCH_CONFIG_BML`` layered), through ``model.build_model``; its
+``BENCH_CONFIG_BML`` layered), or the fourth (``BENCH_CONFIG_B4`` with Z*
+ALE, ``BENCH_CONFIG_B4V`` layered), through ``model.build_model``; its
 ``Model.step_fn`` steps it.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
@@ -40,7 +41,8 @@ import numpy as np
 import torch
 
 from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_B1,
-                                BENCH_CONFIG_B3, BENCH_CONFIG_BML,
+                                BENCH_CONFIG_B3, BENCH_CONFIG_B4,
+                                BENCH_CONFIG_B4V, BENCH_CONFIG_BML,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
                                 BENCH_CONFIG_RK2B, BENCH_CONFIG_STOCH,
                                 BENCH_CONFIG_UNSPLIT,
@@ -71,9 +73,11 @@ DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "stoch": BENCH_CONFIG_STOCH, "b3": BENCH_CONFIG_B3,
             "b3pp81": BENCH_CONFIG_B3 + "#override USE_JACKSON_PARAM = False\n"
             "USE_PP81 = True\n",
-            "bml": BENCH_CONFIG_BML}
+            "bml": BENCH_CONFIG_BML, "b4": BENCH_CONFIG_B4,
+            "b4v": BENCH_CONFIG_B4V}
 # the texts on the split RK2 dynamics
-SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml")
+SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml",
+             "b4", "b4v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +171,12 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     physics with Z* ALE) or "b3pp81" (the same with PP81 shear mixing in
     place of kappa-shear) or "bml" (``BENCH_CONFIG_BML``: layered, with
     the bulk mixed layer, LMD94 shear mixing, diffusive entrainment,
-    regularization and frazil; ``regridding`` does not apply).
+    regularization and frazil; ``regridding`` does not apply) or "b4"
+    (``BENCH_CONFIG_B4``: MEKE, VarMix, neutral and boundary diffusion,
+    the interface filter and the internal tides with Z* ALE) or "b4v"
+    (``BENCH_CONFIG_B4V``: the layered text with the Visbeck
+    diffusivities, the resolution scaling and the mixed layer's
+    epipycnal diffusion; ``regridding`` does not apply).
     ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).

@@ -11,10 +11,11 @@ step (``core/orchestrator.py``).
 It follows the JAX builder on the branches that bench.py's CONFIG
 (with and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
 ``cases/double_gyre``, ``cases/tc0``, ``cases/ref_tc0``,
-``cases/layer_mode``, ``cases/benchmark`` and the texts of
-``configs.py`` take: a single-device cartesian grid in km or degrees,
-or a spherical or Mercator grid (GRID_CONFIG, ISOTROPIC, an f/beta
-plane with ROTATION = beta), TOPO_CONFIG flat, bowl or spoon, with
+``cases/layer_mode``, ``cases/benchmark``, ``cases/ref_tc1``,
+``cases/ref_tc2`` and the texts of ``configs.py`` take: a
+single-device cartesian grid in km or degrees, or a spherical or
+Mercator grid (GRID_CONFIG, ISOTROPIC, an f/beta plane with ROTATION =
+beta), TOPO_CONFIG flat, bowl, spoon, benchmark or halfpipe, with
 porous-barrier face topography from a TOPO_AT_VEL file (SUBGRID_TOPO_AT_VEL), Boussinesq or not, split
 RK2, split RK2b (SPLIT_RK2B) or unsplit (SPLIT = False) dynamics with
 every Coriolis and KE scheme, tides with scalar or spherical-harmonic
@@ -28,8 +29,10 @@ modified Leith, ADD_LES_VISCOSITY, anisotropic, ZB2020), open
 boundaries (OBC segments, whole or partial, with constant or file data,
 OBC_USER_CONFIG updates, the OBC viscosity flags and the dyed OBC
 tracers of NUM_DYE_TRACERS), the LINEAR and
-WRIGHT equations of state, THICKNESS_CONFIG uniform, TS_CONFIG uniform
-or linear, WIND_CONFIG zero/constant/gyres/2gyre, BUOY_CONFIG zero or
+WRIGHT equations of state, COORD_CONFIG ts_range (or the uniform
+GINT stacking), THICKNESS_CONFIG uniform or benchmark, TS_CONFIG
+uniform, linear or benchmark, WIND_CONFIG zero/constant/gyres/2gyre,
+BUOY_CONFIG zero or
 linear restoring, ALE with the coordinates and remap schemes of
 ``mom6_torch/ale``, the column physics of ``param/vertical`` (the
 background, Bryan-Lewis and shear, kappa-shear, convective,
@@ -40,7 +43,10 @@ convection, frazil, and in layer mode the bulk mixed layer, diffusive
 entrainment and the regularization of the surface layers; SPONGE still
 raises), GM thickness diffusion (THICKNESSDIFFUSE_FIRST too), MLE,
 along-layer tracer diffusion, the ideal age tracer, GME, SPPT, SKEB and
-STOCH_EOS, and DIABATIC_FIRST.  Every other value of an option it reads
+STOCH_EOS, DIABATIC_FIRST, and the lateral parameterizations of the
+fourth breadth item: MEKE, VarMix with Visbeck and RESOLN_SCALED_*,
+KHTR_SLOPE_CFF, DIFFUSE_ML_TO_INTERIOR, the interface filter, neutral
+and boundary diffusion and the internal tides.  Every other value of an option it reads
 raises ``NotImplementedError`` naming the parameter; an option set to
 its default is read and accepted.  A parameter it does not read at all
 is left for the caller's unused-parameter audit (the solo driver
@@ -83,18 +89,23 @@ from mom6_torch.drivers.surface_forcing import (SurfaceForcingCfg,
                                                 buoyancy_restoring)
 from mom6_torch.eos import EOS, make_eos
 from mom6_torch.framework.config import ParamFile
+from mom6_torch.framework.error_handler import FATAL, WARNING, MOM_error
 from mom6_torch.framework.io import read_field
 from mom6_torch.obc.boundary_update import build_obc_update
 from mom6_torch.obc.open_boundary import (build_obc_data_interp,
                                           build_open_boundaries,
                                           open_grid_masks)
 from mom6_torch.param.lateral.hor_visc import HorViscCfg
+from mom6_torch.param.lateral.interface_filter import InterfaceFilterCfg
+from mom6_torch.param.lateral.internal_tides import InternalTidesCfg
+from mom6_torch.param.lateral.meke import MEKECfg
 from mom6_torch.param.lateral.mixed_layer_restrat import MLRestratCfg
 from mom6_torch.param.lateral.self_attr_load import SALHarmonics
 from mom6_torch.param.lateral.tidal_forcing import (CONSTITUENTS,
                                                     TidalForcingCfg,
                                                     tides_fn)
 from mom6_torch.param.lateral.thickness_diffuse import ThicknessDiffuseCfg
+from mom6_torch.param.lateral.varmix import VarMixCfg
 from mom6_torch.param.stochastic.stochastics import StochasticsCfg
 from mom6_torch.param.vertical.bkgnd_mixing import BkgndMixingCfg
 from mom6_torch.param.vertical.bulk_mixed_layer import BulkMixedLayerCfg
@@ -116,10 +127,14 @@ from mom6_torch.param.waves.wave_interface import WavesCfg
 from mom6_torch.parallel.domain import Domain
 from mom6_torch.parallel.stencil import ip1, jp1
 from mom6_torch.tracer.advect import TracerAdvectCfg
+from mom6_torch.tracer.hor_bnd_diffusion import HorBndDiffCfg
 from mom6_torch.tracer.hor_diff import TracerHorDiffCfg
+from mom6_torch.tracer.neutral_diffusion import NeutralDiffCfg
 from mom6_torch.tracer.ideal import (register_dyed_obc_tracers,
                                      register_ideal_age)
 from mom6_torch.tracer.registry import TracerRegistry
+from mom6_torch.user.configs import (init_benchmark, init_benchmark_ts,
+                                     topo_benchmark, topo_halfpipe)
 
 __all__ = ["Model", "build_model", "default_only"]
 
@@ -147,12 +162,31 @@ _PARITY_POLICY = (
     ("ABSORB_ALL_SW", bool, False), ("PEN_SW_ABSORB_MINTHICK", float, 0.0),
     ("PGF_STANLEY_T2_DET_COEFF", float, -1.0),
     ("STANLEY_PRM_DET_COEFF", float, -1.0))
+# the shape parameters of the user initializers, read when a case sets
+# them (the JAX builder's list)
+_USER_IC_KEYS = (
+    "PHILLIPS_SLOPE", "PHILLIPS_AMP", "SLOSHING_AMP", "SEAMOUNT_HEIGHT",
+    "DISK_RADIUS", "DISK_IC_AMPLITUDE", "BENCHMARK_ML_DEPTH_IC",
+    "BENCHMARK_THERMOCLINE_SCALE", "BENCHMARK_T_LIGHT", "FRONT_WIDTH",
+    "DELTA_T", "DELTA_S", "ML_DEPTH", "SSH_ANOMALY_HEIGHT", "SHELF_DEPTH",
+    "INITIAL_SSS", "INITIAL_S_RANGE", "S_RANGE", "TS_RANGE_S_LIGHT",
+    "TS_RANGE_S_DENSE", "INTERFACE_IC_QUANTA", "DOME2D_T_BAY",
+    "DUMBBELL_T_SURF", "DUMBBELL_SREF", "DUMBBELL_S_RANGE")
+# behavioural reference options the JAX builder accepts without acting on
+# them: read when present, with a warning when set away from the default
+_PARITY_UNIMPL = (("LIMIT_BUFFER_DETRAIN", bool, False),)
 _REMAP_NOT_PORTED = ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN")
 
 
 def _topo_fn(config: str, max_depth: float, min_depth: float,
-             lenlon: float, lenlat: float, west: float, south: float):
-    """TOPO_CONFIG flat, bowl and spoon (the JAX builder's ``_topo_fn``)."""
+             lenlon: float, lenlat: float, west: float, south: float,
+             user_ctx: dict | None = None):
+    """TOPO_CONFIG flat, bowl and spoon (the JAX builder's ``_topo_fn``),
+    and the user topographies benchmark and halfpipe on ``user_ctx``."""
+    user = {"benchmark": topo_benchmark, "halfpipe": topo_halfpipe}
+    if config.lower() in user:
+        fn = user[config.lower()]
+        return lambda lon, lat: fn(lon, lat, user_ctx)
     if config == "flat":
         return lambda lon, lat: np.full_like(lat, max_depth)
     if config == "bowl":
@@ -243,9 +277,10 @@ class Model:
         of n, the mass transports accumulate over the thermodynamic
         interval, and the boundary-layer depth, the shear viscosity of
         the last thermodynamic step (which the split RK2 dynamics add to
-        KV) and the stochastic pattern (a tensor, or {"sppt", "skeb"}
-        with SKEB) carry from step to step; the accumulated frazil rides
-        the state.
+        KV), the stochastic pattern (a tensor, or {"sppt", "skeb"}
+        with SKEB) and the internal-tide energy (``iten``) carry from
+        step to step; the accumulated frazil and MEKE's energy ride the
+        state.
 
         ``nstep_bt`` overrides the barotropic substep count (the
         DTBT_RESET_PERIOD path); ``carry`` re-threads the accumulators
@@ -268,7 +303,7 @@ class Model:
         # carry is copied in and out, never shared
         acc = dict(carry) if carry is not None else {
             "u": None, "v": None, "truncs": 0, "mld": None, "kv": None,
-            "res": None, "sppt": None}
+            "res": None, "sppt": None, "iten": None}
         if acc.get("res") is None and self.obc is not None and self.tracers:
             acc["res"] = self.obc.init_tracer_reservoirs(self.tracers)
 
@@ -295,7 +330,7 @@ class Model:
                 do_thermo=do_thermo, uhtr_accum=ua, vhtr_accum=va,
                 mld_prev=acc["mld"], kv_shear_prev=acc["kv"], t=t, obc=ob,
                 obc_reservoirs=acc.get("res"),
-                sppt_pattern=acc.get("sppt"))
+                sppt_pattern=acc.get("sppt"), int_tide_en=acc.get("iten"))
             if res:
                 acc["res"] = res[0]
             if diags.mld is not None:
@@ -304,6 +339,8 @@ class Model:
                 acc["kv"] = diags.kv_shear
             if diags.sppt_pattern is not None:
                 acc["sppt"] = diags.sppt_pattern
+            if diags.int_tide_en is not None:
+                acc["iten"] = diags.int_tide_en
             if do_thermo:
                 acc["u"] = acc["v"] = None
             else:
@@ -391,6 +428,104 @@ def _build_waves_cfg(pf: ParamFile) -> Optional[WavesCfg]:
         const_decay=pf.get("STOKES_DECAY_SCALE", float, 5.0, units="m"))
 
 
+def _internal_tides(pf: ParamFile, domain: Domain, rho0: float, *, device,
+                    dtype) -> dict:
+    """INTERNAL_TIDES: the OceanCfg entries of the internal-tide energy
+    (its configuration with the modes, the frequency axis and the
+    advection scheme, UTIDE, TIDAL_ROUGHNESS_H2 and the reflection maps
+    of REFL_ANGLE_FILE), read as the JAX builder reads them; none when
+    off."""
+    if not pf.get("INTERNAL_TIDES", bool, False):
+        return {}
+    period1 = pf.get("FIRST_MODE_PERIOD", float, 44712.0, units="s")
+    cfg = InternalTidesCfg(
+        n_angle=pf.get("INTERNAL_TIDE_ANGLES", int, 24),
+        freq=2.0 * math.pi / period1,
+        q_itides=pf.get("GAMMA_ITIDES", float, 0.3333),
+        decay_rate=pf.get("INT_TIDE_DECAY_RATE", float, 0.0, units="s-1"),
+        apply_background_drag=pf.get("INT_TIDE_BACKGROUND_DRAG", bool,
+                                     False),
+        apply_bottom_drag=pf.get("INT_TIDE_QUAD_DRAG", bool, True),
+        apply_wave_drag=pf.get("INT_TIDE_WAVE_DRAG", bool, True),
+        apply_froude_drag=pf.get("INT_TIDE_FROUDE_DRAG", bool, False),
+        cdrag=pf.get("CDRAG", float, 0.003),
+        kappa_itides=2.0 * math.pi / pf.get("ITIDE_WAVELENGTH", float,
+                                            125e3, units="m"),
+        kappa_h2_factor=pf.get("KAPPA_H2_FACTOR", float, 0.75),
+        rho0=rho0)
+    kw = dict(int_tide_utide=pf.get("UTIDE", float, 0.0, units="m s-1"),
+              int_tide_h2=pf.get("TIDAL_ROUGHNESS_H2", float, 2500.0,
+                                 units="m2"))
+    n_mode = pf.get("INTERNAL_TIDE_MODES", int, 1)
+    frac_modes = pf.get("ENERGY_FRACTION_PER_MODE", list, [])
+    # the frequency axis: given periods, else the constituent ladder M2,
+    # S2, K1, O1, N2 for INTERNAL_TIDE_FREQS > 1
+    n_freq = pf.get("INTERNAL_TIDE_FREQS", int, 1)
+    periods = pf.get("INTERNAL_TIDE_PERIODS", list, [])
+    frac_freq = pf.get("ENERGY_FRACTION_PER_FREQ", list, [])
+    if periods:
+        freqs = tuple(2.0 * math.pi / float(p) for p in periods)
+    elif n_freq > 1:
+        freqs = (2.0 * math.pi / period1, 1.45444e-4, 7.2921e-5, 6.7598e-5,
+                 1.37880e-4)[:n_freq]
+    else:
+        freqs = (2.0 * math.pi / period1,)
+    kw["int_tides"] = dataclasses.replace(
+        cfg, n_mode=n_mode,
+        mode_fraction=tuple(float(f) for f in frac_modes), freqs=freqs,
+        freq_fraction=tuple(float(f) for f in frac_freq),
+        scheme=pf.get("INTERNAL_TIDE_X_SCHEME", str, "upwind_1st").lower())
+    refl_file = pf.get("REFL_ANGLE_FILE", str, "")
+    if refl_file:
+        indir = pf.get("INPUTDIR", str, ".")
+
+        def refl(fname, var):
+            a = np.asarray(read_field(os.path.join(indir, fname), var),
+                           dtype=np.float64)
+            return domain.fill_halos(domain.pad(torch.as_tensor(
+                a, device=device, dtype=dtype)))
+
+        ang = refl(refl_file, pf.get("REFL_ANGLE_VAR", str, "refl_angle"))
+        # sentinel "null angle" values (e.g. -999) become NaN
+        kw["int_tide_refl_angle"] = torch.where(torch.abs(ang) > 100.0,
+                                                math.nan, ang)
+        pref_file = pf.get("REFL_PREF_FILE", str, "")
+        kw["int_tide_refl_pref"] = refl(pref_file, pf.get(
+            "REFL_PREF_VAR", str, "refl_pref")) if pref_file else None
+        dbl_file = pf.get("REFL_DBL_FILE", str, "")
+        kw["int_tide_refl_dbl"] = (refl(dbl_file, pf.get(
+            "REFL_DBL_VAR", str, "refl_dbl")) > 0.5) if dbl_file else None
+    return kw
+
+
+def _ts_range_rlay(pf: ParamFile, nk: int, k_light: int, p_ref: float,
+                   eos: Optional[EOS]) -> np.ndarray:
+    """COORD_CONFIG ts_range: the layer densities at P_REF of a T/S ladder
+    from TS_RANGE_*_LIGHT to TS_RANGE_*_DENSE below the ``k_light``
+    varying-density layers, finer toward the dense end by
+    TS_RANGE_RESOLN_RATIO; the varying layers extrapolated above."""
+    t_ref0 = pf.get("T_REF", float, 10.0, units="degC")
+    s_ref0 = pf.get("S_REF", float, 35.0, units="ppt")
+    t_lt = pf.get("TS_RANGE_T_LIGHT", float, t_ref0)
+    t_dn = pf.get("TS_RANGE_T_DENSE", float, t_ref0)
+    s_lt = pf.get("TS_RANGE_S_LIGHT", float, s_ref0)
+    s_dn = pf.get("TS_RANGE_S_DENSE", float, s_ref0)
+    res_rat = pf.get("TS_RANGE_RESOLN_RATIO", float, 1.0)
+    nv = max(nk - 1 - k_light, 1)
+    a1 = 2.0 * res_rat / (1.0 + res_rat)
+    frac = np.clip((np.arange(nk, dtype=np.float64) - k_light) / nv, 0.0,
+                   None)
+    fr_d = a1 * frac + (1.0 - a1) * frac ** 2
+    eos_c = eos if eos is not None else make_eos("WRIGHT")
+    rlay = eos_c.density(*(torch.as_tensor(a, dtype=torch.float64) for a in
+                           (t_lt + fr_d * (t_dn - t_lt),
+                            s_lt + fr_d * (s_dn - s_lt),
+                            np.full(nk, p_ref)))).numpy().copy()
+    for k in range(k_light - 1, -1, -1):
+        rlay[k] = 2.0 * rlay[k + 1] - rlay[k + 2]
+    return rlay
+
+
 def build_model(pf: ParamFile, *, device="cuda",
                 dtype: torch.dtype = torch.float64) -> Model:
     """The model that the parameters describe, on ``device`` in
@@ -434,8 +569,13 @@ def build_model(pf: ParamFile, *, device="cuda",
     f0 = pf.get("F_0", float, 0.0, units="s-1")
     beta = pf.get("BETA", float, 0.0, units="m-1 s-1")
     axis_units = pf.get("AXIS_UNITS", str, "degrees")
+    user_ctx = dict(max_depth=max_depth, min_depth=min_depth, lenlon=lenlon,
+                    lenlat=lenlat, west=west, south=south, f0=f0, beta=beta)
+    if topo_config in ("halfpipe", "benchmark"):
+        user_ctx["edge_depth"] = pf.get("EDGE_DEPTH", float, 100.0,
+                                        units="m")
     depth_fn = _topo_fn(topo_config, max_depth, min_depth, lenlon, lenlat,
-                        west, south)
+                        west, south, user_ctx)
     # ISOTROPIC selects Mercator metrics on spherical grids
     isotropic = pf.get("ISOTROPIC", bool, False,
                        desc="isotropic (Mercator) spacing: dy tracks "
@@ -515,12 +655,12 @@ def build_model(pf: ParamFile, *, device="cuda",
     thermo = pf.get("ENABLE_THERMODYNAMICS", bool, True)
     adiabatic = pf.get("ADIABATIC", bool, False)
     use_regrid = pf.get("USE_REGRIDDING", bool, False)
-    # the bulk mixed layer defaults on in layered thermodynamic runs;
-    # NKML and NKBL are read with the JAX builder's defaults, and only
-    # its initializers that the port does not have yet use them
+    # the bulk mixed layer defaults on in layered thermodynamic runs; its
+    # NKML mixed and NKBL buffer layers have varying coordinate density
     use_bml = pf.get("BULKMIXEDLAYER", bool, thermo and not use_regrid)
-    pf.get("NKML", int, 2 if use_bml else 0)
-    pf.get("NKBL", int, 2 if use_bml else 0)
+    nkml = pf.get("NKML", int, 2 if use_bml else 0)
+    nkbl = pf.get("NKBL", int, 2 if use_bml else 0)
+    nk_rho_varies = (nkml + nkbl) if use_bml else 0
 
     pf.module("MOM_EOS")
     eos_form = pf.get("EQN_OF_STATE", str, "WRIGHT")
@@ -535,13 +675,18 @@ def build_model(pf: ParamFile, *, device="cuda",
 
     pf.module("MOM_coord_initialization")
     coord_cfg = pf.get("COORD_CONFIG", str, "none")
-    if coord_cfg in ("layer_ref", "linear", "ts_range", "BFB"):
+    if coord_cfg in ("layer_ref", "linear", "BFB"):
         raise NotImplementedError(f"COORD_CONFIG = {coord_cfg!r}: option "
                                   "not ported")
     p_ref = pf.get("P_REF", float, 2.0e7, units="Pa")
-    vgrid = VerticalGrid.uniform(nk=nk, g_Earth=g_earth, Rho0=rho0,
-                                 gint=gint if gint > 0 else None,
-                                 boussinesq=boussinesq, **dev)
+    if coord_cfg == "ts_range":
+        vgrid = VerticalGrid.from_rlay(
+            _ts_range_rlay(pf, nk, nk_rho_varies, p_ref, eos),
+            g_Earth=g_earth, Rho0=rho0, boussinesq=boussinesq, **dev)
+    else:
+        vgrid = VerticalGrid.uniform(nk=nk, g_Earth=g_earth, Rho0=rho0,
+                                     gint=gint if gint > 0 else None,
+                                     boussinesq=boussinesq, **dev)
 
     pf.module("MOM_continuity_PPM")
     cont = ContinuityCfg(
@@ -722,30 +867,58 @@ def build_model(pf: ParamFile, *, device="cuda",
     default_only(pf, "ICE_SHELF", bool, False)
 
     pf.module("MOM_state_initialization")
-    _one_of("THICKNESS_CONFIG", pf.get("THICKNESS_CONFIG", str, "uniform"),
-            ("uniform",))
+    thick_cfg = _one_of("THICKNESS_CONFIG",
+                        pf.get("THICKNESS_CONFIG", str, "uniform"),
+                        ("uniform", "benchmark"))
     default_only(pf, "INIT_LAYERS_FROM_Z_FILE", bool, False)
     shape = (nk, domain.njh, domain.nih)
-    # uniform nominal dz in depth, clipped by the local bathymetry
-    z_nom = (torch.arange(nk + 1, **f64) * (max_depth / nk)).reshape(-1, 1, 1)
-    z_cap = torch.minimum(z_nom, grid.bathyT.double()[None])
-    h = torch.clamp(z_cap[1:] - z_cap[:-1], min=vgrid.angstrom)
+    fields = {}
+    if thick_cfg == "benchmark":
+        # the user initializer's context, read as the JAX builder reads it
+        user_ctx2 = dict(
+            user_ctx, grid=grid, vgrid=vgrid, domain=domain, eos=eos,
+            thermo=thermo, nk_rho_varies=nk_rho_varies, p_ref=p_ref,
+            coord_mode=pf.get("REGRIDDING_COORDINATE_MODE", str, "LAYER")
+            if pf.get("USE_REGRIDDING", bool, False) else "LAYER",
+            min_thickness=pf.get("MIN_THICKNESS", float, 1.0e-3, units="m"),
+            t_ref=pf.get("T_REF", float, 10.0, units="degC"),
+            s_ref=pf.get("S_REF", float, 35.0, units="ppt"))
+        for k in _USER_IC_KEYS:
+            if pf.has(k):
+                user_ctx2[k.lower()] = pf.get(k, float)
+        fields = init_benchmark(user_ctx2)
+        h = torch.clamp(torch.as_tensor(fields["h"], **f64),
+                        min=vgrid.angstrom)
+    else:
+        # uniform nominal dz in depth, clipped by the local bathymetry
+        z_nom = (torch.arange(nk + 1, **f64)
+                 * (max_depth / nk)).reshape(-1, 1, 1)
+        z_cap = torch.minimum(z_nom, grid.bathyT.double()[None])
+        h = torch.clamp(z_cap[1:] - z_cap[:-1], min=vgrid.angstrom)
     h = domain.fill_halos(h.to(dtype))
     T = S = None
     if thermo:
         ts_cfg = _one_of("TS_CONFIG", pf.get("TS_CONFIG", str, "uniform"),
-                         ("uniform", "linear"))
+                         ("uniform", "linear", "benchmark"))
         T0 = pf.get("T_REF", float, 10.0, units="degC")
         S0 = pf.get("S_REF", float, 35.0, units="ppt")
         one = torch.ones(shape, **f64)
         if ts_cfg == "uniform":
             T, S = T0 * one, S0 * one
-        else:
+        elif ts_cfg == "linear":
             T_range = pf.get("T_RANGE", float, 0.0, units="degC")
             S_range = pf.get("S_RANGE", float, 0.0, units="ppt")
             k_frac = (torch.arange(nk, **f64) + 0.5) / nk
             T = (T0 + T_range * (0.5 - k_frac)).reshape(-1, 1, 1) * one
             S = (S0 + S_range * (k_frac - 0.5)).reshape(-1, 1, 1) * one
+        elif thick_cfg == "benchmark":
+            # T and S come with the benchmark thicknesses
+            T, S = (torch.as_tensor(fields[k], **f64) for k in ("T", "S"))
+        else:
+            T, S = (torch.as_tensor(a, **f64) for a in init_benchmark_ts(
+                dict(user_ctx, grid=grid, vgrid=vgrid, eos=eos,
+                     nk_rho_varies=nk_rho_varies, p_ref=p_ref, s_ref=S0),
+                shape))
         T, S = T.to(dtype), S.to(dtype)
     _one_of("VELOCITY_CONFIG", pf.get("VELOCITY_CONFIG", str, "zero"),
             ("zero",))
@@ -991,12 +1164,60 @@ def build_model(pf: ParamFile, *, device="cuda",
               if thickness_diffuse_on else 0.0),
         khth_max=pf.get("KHTH_MAX", float, 0.0, units="m2 s-1"))
     pf.module("MOM_interface_filter")
-    default_only(pf, "INTERFACE_FILTER_TIME_SCALE", float, 0.0, units="s")
+    if_cfg = InterfaceFilterCfg(
+        time_scale=pf.get("INTERFACE_FILTER_TIME_SCALE", float, 0.0,
+                          units="s"))
+    # the MEKE -> VarMix coefficient chain; every MEKE parameter is read
+    # whatever USE_MEKE says, as the JAX builder reads them
     pf.module("MOM_MEKE")
-    default_only(pf, "USE_MEKE", bool, False)
+    use_meke = pf.get("USE_MEKE", bool, False)
+    meke_cfg = MEKECfg(
+        frcoeff=pf.get("MEKE_FRCOEFF", float, 0.1),
+        gmcoeff=pf.get("MEKE_GMCOEFF", float, 0.1),
+        damping=pf.get("MEKE_DAMPING", float, 0.0, units="s-1"),
+        cdrag=pf.get("MEKE_CDRAG", float, 0.003),
+        cb=pf.get("MEKE_CB", float, 25.0),
+        ct=pf.get("MEKE_CT", float, 50.0),
+        cd_scale=pf.get("MEKE_CD_SCALE", float, 0.0),
+        ks_coeff=pf.get("MEKE_KHCOEFF", float, 1.0),
+        bgsrc=pf.get("MEKE_BGSRC", float, 0.0, units="W kg-1"),
+        khmeke_fac=pf.get("MEKE_KHMEKE_FAC", float, 0.0),
+        viscosity_coeff_ku=pf.get("MEKE_VISCOSITY_COEFF_KU", float, 0.0,
+                                  units="nondim"),
+        advection_factor=pf.get("MEKE_ADVECTION_FACTOR", float, 0.0),
+        a_deform=pf.get("MEKE_ALPHA_DEFORM", float, 0.0),
+        a_frict=pf.get("MEKE_ALPHA_FRICT", float, 0.0),
+        a_rhines=pf.get("MEKE_ALPHA_RHINES", float, 0.0),
+        a_eady=pf.get("MEKE_ALPHA_EADY", float, 0.0),
+        a_grid=pf.get("MEKE_ALPHA_GRID", float, 0.0),
+        l_fixed=pf.get("MEKE_FIXED_MIXING_LENGTH", float,
+                       pf.get("MEKE_LSCALE", float, 1e4, units="m"),
+                       units="m"),
+        use_min_lscale=pf.get("MEKE_USE_MIN_LSCALE", bool, False),
+        geometric=pf.get("MEKE_GEOMETRIC", bool, False),
+        geometric_alpha=pf.get("MEKE_GEOMETRIC_ALPHA", float, 0.05))
+    if use_meke and meke_cfg.viscosity_coeff_ku != 0.0 and not hv.laplacian:
+        MOM_error(FATAL, "MEKE_VISCOSITY_COEFF_KU is true but LAPLACIAN is "
+                  "false (MOM_MEKE.F90:1375)")
     pf.module("MOM_lateral_mixing_coeffs")
-    default_only(pf, "USE_VARIABLE_MIXING", bool, False)
-    default_only(pf, "USE_VISBECK", bool, False)
+    # USE_VISBECK needs the VarMix slope machinery; both are read
+    use_varmix_param = pf.get("USE_VARIABLE_MIXING", bool, False)
+    use_visbeck = pf.get("USE_VISBECK", bool, False)
+    use_varmix = use_varmix_param or use_visbeck
+    varmix_cfg = VarMixCfg(
+        use_variable_mixing=use_varmix,
+        res_fn_power=pf.get("KH_RES_FN_POWER", int, 2),
+        res_coef=pf.get("KH_RES_SCALE_COEF", float, 1.0),
+        khth_slope_cff=pf.get("KHTH_SLOPE_CFF", float, 0.0),
+        visbeck_l_scale=pf.get("VISBECK_L_SCALE", float, 0.0, units="m"),
+        gill_equatorial_ld=pf.get("GILL_EQUATORIAL_LD", bool, True),
+        interpolate_res_fn=pf.get("INTERPOLATE_RES_FN", bool, False),
+        varmix_ktop=pf.get("VARMIX_KTOP", int, 2),
+        use_stored_slopes=pf.get(
+            "USE_STORED_SLOPES", bool, False,
+            desc="Eady rate from true EOS isoneutral slopes instead "
+            "of interface-height gradients "
+            "(MOM_lateral_mixing_coeffs.F90:495)"))
     pf.module("MOM_mixed_layer_restrat")
     use_mle = pf.get("MIXEDLAYER_RESTRAT", bool, False)
     mle_cfg = MLRestratCfg(
@@ -1008,10 +1229,13 @@ def build_model(pf: ParamFile, *, device="cuda",
     hordiff_cfg = TracerHorDiffCfg(
         khtr=pf.get("KHTR", float, 0.0, units="m2 s-1"),
         khtr_min=pf.get("KHTR_MIN", float, 0.0, units="m2 s-1"),
-        khtr_max=pf.get("KHTR_MAX", float, -1.0, units="m2 s-1"))
-    default_only(pf, "KHTR_SLOPE_CFF", float, 0.0)
-    default_only(pf, "DIFFUSE_ML_TO_INTERIOR", bool, False)
-    default_only(pf, "USE_NEUTRAL_DIFFUSION", bool, False)
+        khtr_max=pf.get("KHTR_MAX", float, -1.0, units="m2 s-1"),
+        khtr_slope_cff=pf.get("KHTR_SLOPE_CFF", float, 0.0),
+        diffuse_ml_to_interior=pf.get("DIFFUSE_ML_TO_INTERIOR", bool, False),
+        ml_khtr_scale=pf.get("ML_KHTR_SCALE", float, 1.0),
+        nkml=nkml, nkmb=nk_rho_varies, p_ref=p_ref)
+    use_neutral = pf.get("USE_NEUTRAL_DIFFUSION", bool, False)
+    neutral_cfg = NeutralDiffCfg(khtr=hordiff_cfg.khtr)
     n_dyn_per_therm = max(1, int(round(dt_therm / dt)))
     pf.module("MOM_sponge")
     default_only(pf, "SPONGE", bool, False)
@@ -1024,7 +1248,7 @@ def build_model(pf: ParamFile, *, device="cuda",
     adv_cfg = dataclasses.replace(adv, n_sweep_pairs=max(2, int(math.ceil(
         n_dyn_per_therm * vv.cfl_trunc / adv.max_cfl))))
     pf.module("MOM_internal_tides")
-    default_only(pf, "INTERNAL_TIDES", bool, False)
+    it_kw = _internal_tides(pf, domain, rho0, **dev)
     # stochastic physics: SPPT, SKEB and the STOCH_EOS pattern
     pf.module("MOM_stochastics")
     sppt_cfg = None
@@ -1044,15 +1268,19 @@ def build_model(pf: ParamFile, *, device="cuda",
             skeb_taper_width=pf.get("SKEB_TAPER_WIDTH", int, 4),
             skeb_amplitude=pf.get("SKEB_AMPLITUDE", float, 1.0))
     pf.module("MOM_hor_bnd_diffusion")
-    default_only(pf, "USE_HORIZONTAL_BOUNDARY_DIFFUSION", bool, False)
+    use_hbd = pf.get("USE_HORIZONTAL_BOUNDARY_DIFFUSION", bool, False)
+    hbd_cfg = None
+    if use_hbd:
+        hbd_cfg = HorBndDiffCfg(khtr_bnd=pf.get(
+            "HBD_KHTR", float, pf.get("KHTR", float, 0.0, units="m2 s-1"),
+            units="m2 s-1"))
     diabatic_first = pf.get("DIABATIC_FIRST", bool, False)
     thickness_diffuse_first = pf.get(
         "THICKNESSDIFFUSE_FIRST", bool, False,
         desc="diffuse thickness before the dynamics instead of after it "
         "(MOM.F90:1157,1297)")
-    for name in ("RESOLN_SCALED_KH", "RESOLN_SCALED_KHTH",
-                 "RESOLN_SCALED_KHTR"):
-        default_only(pf, name, bool, False)
+    meke_khth_fac = pf.get("MEKE_KHTH_FAC", float, 0.0)
+    meke_khtr_fac = pf.get("MEKE_KHTR_FAC", float, 0.0)
     ocean_cfg = OceanCfg(split=split, split_rk2b=split_rk2b,
                          split_cfg=split_cfg, unsplit_cfg=unsplit_cfg,
                          n_dyn_per_therm=n_dyn_per_therm,
@@ -1060,11 +1288,26 @@ def build_model(pf: ParamFile, *, device="cuda",
                          tracer_adv=adv_cfg, diabatic=dia_cfg, ale=ale_cfg,
                          thickness_diffuse=td_cfg,
                          thickness_diffuse_first=thickness_diffuse_first,
+                         interface_filter=if_cfg,
                          thermo=thermo, adiabatic=adiabatic,
+                         use_meke=use_meke, meke=meke_cfg,
+                         meke_khth_fac=meke_khth_fac,
+                         meke_khtr_fac=meke_khtr_fac,
+                         use_varmix=use_varmix, varmix=varmix_cfg,
+                         resoln_scaled_kh=pf.get("RESOLN_SCALED_KH", bool,
+                                                 False),
+                         resoln_scaled_khth=pf.get("RESOLN_SCALED_KHTH",
+                                                   bool, False),
+                         resoln_scaled_khtr=pf.get("RESOLN_SCALED_KHTR",
+                                                   bool, False),
                          use_mle=use_mle, mlrestrat=mle_cfg,
-                         hordiff=hordiff_cfg, sppt=sppt_cfg,
-                         stoch_eos=use_stoch_eos,
+                         hordiff=hordiff_cfg, use_neutral=use_neutral,
+                         neutral=neutral_cfg, use_hbd=use_hbd, hbd=hbd_cfg,
+                         **it_kw, sppt=sppt_cfg, stoch_eos=use_stoch_eos,
                          sppt_seed=pf.get("SPPT_SEED", int, 12345))
+    if use_meke:
+        state = state.replace(meke=torch.zeros_like(state.h[0]) + pf.get(
+            "MEKE_INIT", float, 1e-7, units="m2 s-2"))
 
     pf.module("MOM_tracer_flow_control")
     registry = TracerRegistry()
@@ -1086,6 +1329,15 @@ def build_model(pf: ParamFile, *, device="cuda",
                    desc="accepted for reference-config parity; a "
                    "no-op by design (solver policy / IO naming "
                    "/ answer-date switch)")
+    for name, ptype, default in _PARITY_UNIMPL:
+        if pf.has(name):
+            val = pf.get(name, ptype, default,
+                         desc="WARNING: accepted but NOT IMPLEMENTED — this "
+                         "reference option is not differentiated here "
+                         "and results may differ from the reference")
+            if val != default:
+                MOM_error(WARNING, f"parameter {name}={val} accepted but not "
+                          "implemented; behavior follows the default")
     default_only(pf, "PHASED_JIT", bool, False, module="MOM",
                  desc="run thermo steps as two executables "
                  "(dynamics, then tracer+thermo/ALE) to halve "

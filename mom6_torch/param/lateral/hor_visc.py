@@ -186,13 +186,18 @@ def _gme_stress(grid: Grid, cfg: HorViscCfg, u_bt, v_bt, htot):
 
 def horizontal_viscosity(grid: Grid, u, v, h,
                          cfg: HorViscCfg = HorViscCfg(), obc=None,
-                         u_bt=None, v_bt=None, htot=None) -> HorViscResult:
+                         u_bt=None, v_bt=None, htot=None, kh_scale=None,
+                         kh_extra=None) -> HorViscResult:
     """(diffu, diffv) [m s-2]; u, v need 2 valid halo rings, h one.
     ``obc``: the open boundaries the OBC_* flags of ``cfg`` act on.
     With USE_GME the caller gives the (2D) barotropic velocities
     ``u_bt``/``v_bt`` and the column thickness ``htot`` (sum of h when
     None); without u_bt the GME stress is left out, as in the JAX
-    package."""
+    package.  ``kh_scale``: an (njh, nih) factor on the Laplacian
+    viscosity (the resolution function, RESOLN_SCALED_KH; its 4-point
+    mean at corners); ``kh_extra``: an (njh, nih) viscosity added after
+    that scaling (MEKE's Ku); it may be negative, and the CFL bound then
+    clips the coefficient from below as well."""
     zb = None
     if cfg.use_zb2020:
         # imported here: the closure takes this module's strains
@@ -279,8 +284,19 @@ def horizontal_viscosity(grid: Grid, u, v, h,
             # the isotropic part of the anisotropic tensor
             Kh_h = Kh_h + cfg.kh_aniso * (1.0 - n1n2 ** 2)
             Kh_q = Kh_q + cfg.kh_aniso * n1n2 ** 2
+        if kh_scale is not None:
+            Kh_h = Kh_h * kh_scale
+            Kh_q = Kh_q * (0.25 * ((kh_scale + ip1(jp1(kh_scale)))
+                                   + (ip1(kh_scale) + jp1(kh_scale))))
+        if kh_extra is not None:
+            Kh_h = Kh_h + kh_extra
+            Kh_q = Kh_q + 0.25 * ((kh_extra + ip1(jp1(kh_extra)))
+                                  + (ip1(kh_extra) + jp1(kh_extra)))
         Kh_h = torch.minimum(Kh_h, 0.2 * grid_sp_h2 / cfg.dt)
         Kh_q = torch.minimum(Kh_q, 0.2 * grid_sp_q2 / cfg.dt)
+        if kh_extra is not None:
+            Kh_h = torch.maximum(Kh_h, -0.2 * grid_sp_h2 / cfg.dt)
+            Kh_q = torch.maximum(Kh_q, -0.2 * grid_sp_q2 / cfg.dt)
         str_xx = str_xx - Kh_h * sh_xx
         str_xy = str_xy - Kh_q * sh_xy
         if cfg.anisotropic and cfg.kh_aniso != 0.0:

@@ -1,15 +1,16 @@
 """Thickness (Gent-McWilliams) diffusion.
 
-Counterpart of ``mom6_tpu.param.lateral.thickness_diffuse`` for a
-constant KHTH: interface-height diffusion through a streamfunction at
-interfaces, psi(K) = -KhTh dy (e(i+1,K) - e(i,K)) / dx, zero at the
-surface and bottom, so the layer transports uhD(k) = psi(K) - psi(K+1)
-move no net column mass; the face coefficient is bounded by
-KHTH_MAX_CFL and each face transport by a fifth of the upwind layer's
-volume per step.  Also returns the column PE-release rate of the JAX
-package.  A 2D coefficient (the MEKE/VarMix chain), resolution
-scaling and given interface reduced gravities are not ported yet and
-raise ``NotImplementedError``.
+Counterpart of ``mom6_tpu.param.lateral.thickness_diffuse``:
+interface-height diffusion through a streamfunction at interfaces,
+psi(K) = -KhTh dy (e(i+1,K) - e(i,K)) / dx, zero at the surface and
+bottom, so the layer transports uhD(k) = psi(K) - psi(K+1) move no net
+column mass.  The coefficient is the constant KHTH or a 2-D field at h
+points (the MEKE/VarMix chain, capped by KHTH_MAX) averaged to faces,
+optionally scaled by the face resolution functions (RESOLN_SCALED_KHTH);
+the face coefficient is bounded by KHTH_MAX_CFL and each face transport
+by a fifth of the upwind layer's volume per step.  Also returns the
+column PE-release rate (the GM source of MEKE) on the given interface
+reduced gravities, or on the target-density ones.
 """
 
 from __future__ import annotations
@@ -49,24 +50,32 @@ def _rev_cumsum0(x):
 def thickness_diffuse(grid: Grid, vgrid: VerticalGrid, h, dt,
                       cfg: ThicknessDiffuseCfg, khth_2d=None,
                       gprime_int=None, res_u=None, res_v=None):
-    """Apply interface-height diffusion over dt; h needs 2 halo rings."""
-    for name, val in (("khth_2d: spatially varying KHTH", khth_2d),
-                      ("gprime_int: stratification-based PE release",
-                       gprime_int),
-                      ("RESOLN_SCALED_KHTH", res_u if res_u is not None
-                       else res_v)):
-        if val is not None:
-            raise NotImplementedError(name)
-    if cfg.khth <= 0.0:
+    """Apply interface-height diffusion over dt; h needs 2 halo rings.
+    ``khth_2d``: an (njh, nih) coefficient replacing KHTH; ``res_u``/
+    ``res_v``: face factors on the coefficient; ``gprime_int``: the
+    (nk+1, njh, nih) interface reduced gravities of the PE release."""
+    if cfg.khth <= 0.0 and khth_2d is None:
         z = torch.zeros_like(h)
         return ThicknessDiffuseResult(h=h, uhD=z, vhD=z,
                                       gm_work=torch.zeros_like(h[0]))
 
     e = interface_heights(vgrid, h, grid.bathyT)
+    if khth_2d is not None:
+        kh = khth_2d
+        if cfg.khth_max > 0.0:
+            kh = torch.clamp(kh, max=cfg.khth_max)
+        kh_u0 = 0.5 * (kh + ip1(kh))
+        kh_v0 = 0.5 * (kh + jp1(kh))
+    else:
+        kh_u0 = kh_v0 = cfg.khth
+    if res_u is not None:
+        kh_u0 = kh_u0 * res_u
+    if res_v is not None:
+        kh_v0 = kh_v0 * res_v
     kh_u = torch.clamp(cfg.khth_max_cfl * grid.dxCu * grid.dxCu / dt,
-                       max=cfg.khth)
+                       max=kh_u0)
     kh_v = torch.clamp(cfg.khth_max_cfl * grid.dyCv * grid.dyCv / dt,
-                       max=cfg.khth)
+                       max=kh_v0)
     de_u = (ip1(e) - e) * grid.mask2dCu
     de_v = (jp1(e) - e) * grid.mask2dCv
     psi_u = -kh_u * grid.dyCu * grid.IdxCu * de_u
@@ -82,12 +91,15 @@ def thickness_diffuse(grid: Grid, vgrid: VerticalGrid, h, dt,
     vhD = torch.minimum(torch.maximum(vhD, -jp1(lim)), lim)
 
     # PE release rate with the streamfunction rebuilt from the clipped
-    # transports and the target-density reduced gravities
-    rl = vgrid.Rlay
-    gprime = torch.clamp(vgrid.g_Earth * (rl[1:] - rl[:-1]) / vgrid.Rho0,
-                         min=0.0)
-    gz = torch.zeros(1, dtype=h.dtype, device=h.device)
-    gp = torch.cat([gz, gprime, gz]).reshape(-1, 1, 1)
+    # transports
+    if gprime_int is not None:
+        gp = torch.clamp(gprime_int, min=0.0)
+    else:
+        rl = vgrid.Rlay
+        gprime = torch.clamp(vgrid.g_Earth * (rl[1:] - rl[:-1])
+                             / vgrid.Rho0, min=0.0)
+        gz = torch.zeros(1, dtype=h.dtype, device=h.device)
+        gp = torch.cat([gz, gprime, gz]).reshape(-1, 1, 1)
     psi_u_eff = torch.cat([_rev_cumsum0(uhD), zrow], dim=0)
     psi_v_eff = torch.cat([_rev_cumsum0(vhD), zrow], dim=0)
     wu = torch.sum(-gp * psi_u_eff * de_u * grid.IdxCu, dim=0)

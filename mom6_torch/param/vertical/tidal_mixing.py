@@ -5,7 +5,9 @@ tide loses to internal tides deposits as
 
   Kd = q Gamma E F(z) / (rho0 max(N^2, N0^2)),
 
-F the bottom-intensified profile of unit integral, capped at kd_max."""
+F the bottom-intensified profile of unit integral, capped at kd_max;
+``internal_tide_input`` is the barotropic-to-internal conversion that
+feeds the internal-tide energy (Jayne and St Laurent 2001)."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["TidalMixingCfg", "tidal_mixing_coeffs"]
+__all__ = ["TidalMixingCfg", "tidal_mixing_coeffs", "internal_tide_input"]
 
 _EPS = 1e-14
 
@@ -28,6 +30,14 @@ class TidalMixingCfg:
     min_n2: float = 1e-8               # N0^2 floor [s-2]
     profile: str = "STLAURENT_02"      # INT_TIDE_PROFILE | POLZIN_09
     polzin_decay_scale: float = 300.0  # z_p [m]
+
+
+def internal_tide_input(u_tide_amp, h_rough, n_bot, rho0=1035.0,
+                        kappa_itides=2.0 * 3.14159265 / 1.0e4):
+    """Barotropic-to-internal tide energy flux E = 0.5 rho0 kappa h^2
+    N_bot U^2 [W m-2]."""
+    return 0.5 * rho0 * kappa_itides * h_rough ** 2 * n_bot \
+        * u_tide_amp ** 2
 
 
 def tidal_mixing_coeffs(cfg: TidalMixingCfg, h, n2, e_flux,

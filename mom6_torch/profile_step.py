@@ -3,9 +3,10 @@
     python -m mom6_torch.profile_step [--full [--layered]
                                      [--dynamics rk2|rk2b|unsplit|b1|
                                                  nonbouss|obc|stoch|b3|
-                                                 b3pp81|bml]]
+                                                 b3pp81|bml|b4|b4v]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
+                                     [--count-ops]
 
 Builds the kernels and runs, in fp32, slice 1 of ``mom6_torch.entry``
 (``build``: the split RK2 dynamics step) or, with ``--full``, slice 2
@@ -24,7 +25,11 @@ breadth item (``stoch``: THICKNESSDIFFUSE_FIRST, DIABATIC_FIRST, GME,
 Stanley with STOCH_EOS, SPPT and SKEB), or with the column physics of
 the third (``b3``: ePBL, kappa-shear and the rest with Z* ALE;
 ``b3pp81``: PP81 in place of kappa-shear; ``bml``: layered, the bulk
-mixed layer).  After two warm-up steps it
+mixed layer), or with the lateral parameterizations of the fourth
+(``b4``: MEKE, VarMix, neutral and boundary diffusion, the interface
+filter and the internal tides with Z* ALE; ``b4v``: layered, the
+Visbeck diffusivities and the mixed layer's epipycnal diffusion).
+After two warm-up steps it
 measures:
 
 1. the step time, by CUDA events around ``--steps`` uninstrumented
@@ -42,7 +47,10 @@ measures:
    fractions; the stochastic patterns, SPPT, SKEB, the Stanley terms,
    the STOCH_EOS multiplier and GME's inputs and stress; set_diffusivity,
    kappa-shear, ePBL, the bulk mixed layer, diffusive entrainment, full
-   convection and frazil inside the diabatic driver). Each device
+   convection and frazil inside the diabatic driver; VarMix's resolution
+   function and Eady rate, the MEKE step, the interface filter, neutral
+   and boundary diffusion, the mixed layer's epipycnal diffusion and the
+   internal tides with their wave speeds). Each device
    kernel is charged
    to the innermost range whose host range issued its launch, which
    gives per phase: host milliseconds (the range on the host clock,
@@ -54,6 +62,12 @@ measures:
 Prints the tables and, last, one JSON line; with ``--out`` the
 profiler's chrome traces are kept there.  A profiler that records no
 device activity is reported as such.
+
+With ``--full --count-ops`` it runs on the CPU instead, needing no card,
+and counts the aten operators (CUDA kernel launches, near enough) of a
+thermodynamic and of a dynamics-only step, in all and inside each range,
+with a ``TorchDispatchMode`` (small ``--ni``/``--nj`` give the counts of
+the full width: they depend on the layers, not on the points).
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ from mom6_torch.param.lateral import hor_visc as hvm
 from mom6_torch.param.vertical import diabatic as dia
 from mom6_torch.param.vertical import set_diffusivity as sdm
 from mom6_torch.parallel.domain import Domain
+from mom6_torch.tracer import hor_diff as hdm
 
 # (module, function, range name): the functions wrapped in a range
 SLICE1 = tuple((dyn, n, n) for n in (
@@ -98,7 +113,9 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "stoch": (dyn, "step_dyn_split_rk2"),
             "b3": (dyn, "step_dyn_split_rk2"),
             "b3pp81": (dyn, "step_dyn_split_rk2"),
-            "bml": (dyn, "step_dyn_split_rk2")}
+            "bml": (dyn, "step_dyn_split_rk2"),
+            "b4": (dyn, "step_dyn_split_rk2"),
+            "b4v": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential",
@@ -130,7 +147,18 @@ SLICE2 = (
     (pfm, "calc_varT", "dynamics/pressure_force/calc_varT"),
     (pfm, "density_second_dT2",
      "dynamics/pressure_force/density_second_dT2"),
-    (hvm, "_gme_stress", "dynamics/horizontal_viscosity/gme_stress"))
+    (hvm, "_gme_stress", "dynamics/horizontal_viscosity/gme_stress"),
+    # the lateral parameterizations of the fourth breadth item
+    (orch, "calc_resolution_function", "varmix/resolution_function"),
+    (orch, "calc_eady_rate", "varmix/eady_rate"),
+    (orch, "step_meke", "meke/step_meke"),
+    (orch, "interface_filter", "interface_filter"),
+    (orch, "neutral_diffusion", "neutral_diffusion"),
+    (orch, "hor_bnd_diffusion", "hor_bnd_diffusion"),
+    (hdm, "ml_epipycnal_diff", "tracer_hordiff/ml_epipycnal_diff"),
+    (orch, "_internal_tides", "internal_tides"),
+    (orch, "wave_speeds", "internal_tides/wave_speeds"),
+    (orch, "step_internal_tides", "internal_tides/step_internal_tides"))
 
 
 def slice2_targets(dynamics: str):
@@ -260,6 +288,51 @@ def _profile(step, targets, label, out_dir):
     return summary
 
 
+def count_ops(step, kind, targets, per_kind: int = 1) -> dict:
+    """The aten operators each kind of step dispatches (on CUDA tensors
+    each is one kernel launch, near enough), in all and inside each
+    range of ``targets`` (inclusive of the ranges inside it), counted by
+    a ``TorchDispatchMode`` over ``per_kind`` steps of each kind; runs
+    on any device."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    stack, counts = [], collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts["step"] += 1
+            for r in set(stack):
+                counts[r] += 1
+            return func(*args, **(kwargs or {}))
+
+    def counted(name, fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            stack.append(name)
+            try:
+                return fn(*args, **kw)
+            finally:
+                stack.pop()
+        return inner
+
+    saved = [(obj, n, getattr(obj, n)) for obj, n, _ in targets]
+    out = {}
+    try:
+        for obj, n, r in targets:
+            setattr(obj, n, counted(r, getattr(obj, n)))
+        for want in ("dynamics-only", "thermo"):
+            counts.clear()
+            for _ in range(per_kind):
+                while kind() != want:
+                    step()
+                with Count():
+                    step()
+            out[want] = {k: v / per_kind for k, v in counts.items()}
+    finally:
+        for obj, n, fn in saved:
+            setattr(obj, n, fn)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--full", action="store_true",
@@ -273,13 +346,20 @@ def main(argv=None):
     p.add_argument("--nk", type=int, default=25)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default=None)
+    p.add_argument("--count-ops", action="store_true",
+                   help="with --full: count the aten operators of each "
+                   "kind of step and of each range, on the CPU")
     a = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step: needs a CUDA card")
-    cuda_build.build()
+    dev = "cpu" if a.count_ops else "cuda"
+    if a.count_ops and not a.full:
+        raise SystemExit("profile_step: --count-ops needs --full")
+    if not a.count_ops:
+        if not torch.cuda.is_available():
+            raise SystemExit("profile_step: needs a CUDA card")
+        cuda_build.build()
     if a.full:
         m = entry.build_full(a.ni, a.nj, a.nk, regridding=not a.layered,
-                             dynamics=a.dynamics, device="cuda",
+                             dynamics=a.dynamics, device=dev,
                              dtype=torch.float32)
         full_step = m.step_fn()
         cur = [m.state, m.split, m.tracers]
@@ -293,6 +373,18 @@ def main(argv=None):
             return "thermo" if (n_done[0] + 1) % m.cfg.n_dyn_per_therm \
                 == 0 else "dynamics-only"
         targets = slice2_targets(a.dynamics)
+        if a.count_ops:
+            for _ in range(2):
+                step()
+            ops = count_ops(step, kind, targets)
+            for k, c in ops.items():
+                print(f"{a.dynamics} {a.nk}x{a.nj}x{a.ni}, a {k} step: "
+                      f"{c['step']:.0f} aten ops; " + ", ".join(
+                          f"{r} {v:.0f}" for r, v in sorted(c.items())
+                          if r != "step"))
+            print(json.dumps(dict(dynamics=a.dynamics,
+                                  shape=[a.nk, a.nj, a.ni], aten_ops=ops)))
+            return
     else:
         s = entry.build(a.ni, a.nj, a.nk, device="cuda",
                         dtype=torch.float32)

@@ -189,18 +189,20 @@ def test_build_model_matches_jax(name):
 
 
 # spherical grids and the bulk mixed layer, once cases here, are ported
-# (tests/test_torch_breadth3.py, test_torch_layered.py); the other cases
-# keep their ids
+# (tests/test_torch_breadth3.py, test_torch_layered.py), and so are
+# USE_MEKE, USE_VISBECK, the benchmark topography and INTERNAL_TIDES
+# (tests/test_torch_breadth4.py): their cases now name options still
+# refused
 @pytest.mark.parametrize("line,name", [
     ("#override GRID_CONFIG = mosaic", "GRID_CONFIG"),
-    ("USE_MEKE = True", "USE_MEKE"),
+    ("ICE_SHELF = True", "ICE_SHELF"),
     ("#override EQN_OF_STATE = TEOS10", "EQN_OF_STATE"),
-    ("USE_VISBECK = True", "USE_VISBECK"),
+    ("USE_OCMIP2_CFC = True", "USE_OCMIP2_CFC"),
     ("SPONGE = True", "SPONGE"),
-    ("#override TOPO_CONFIG = benchmark", "TOPO_CONFIG"),
+    ("#override TOPO_CONFIG = seamount", "TOPO_CONFIG"),
     ("#override REGRIDDING_COORDINATE_MODE = ADAPTIVE",
      "REGRIDDING_COORDINATE_MODE"),
-    ("INTERNAL_TIDES = True", "INTERNAL_TIDES"),
+    ("#override EQN_OF_STATE = UNESCO", "EQN_OF_STATE"),
 ])
 def test_options_outside_the_slice_raise(line, name):
     pf = ParamFile(text=BENCH_CONFIG + SMALL + line + "\n")

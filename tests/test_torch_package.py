@@ -131,17 +131,15 @@ def test_kernel_gate_names_the_option(option):
 
 # open boundaries, once the first case here, are ported
 # (tests/test_torch_obc.py), and so are GME and the stochastic EOS, once
-# the second and the fourth (tests/test_torch_stochastic.py); the other
-# cases keep their ids.  The split RK2 step takes the shear viscosity
-# kv_shear since the third breadth item (tests/test_torch_breadth3.py):
-# the RK2b step, which takes none, as in the JAX package, still refuses it
+# the second and the fourth (tests/test_torch_stochastic.py), and the
+# VarMix and MEKE viscosity inputs kh_scale and kh_extra, once the fifth
+# and sixth (tests/test_torch_breadth4.py); the other case keeps its id.
+# The split RK2 step takes the shear viscosity kv_shear since the third
+# breadth item (tests/test_torch_breadth3.py): the RK2b step, which takes
+# none, as in the JAX package, still refuses it
 @pytest.mark.parametrize("kw,name,stepper", [
     pytest.param(dict(kv_shear=object()), "kv_shear", step_dyn_split_rk2b,
                  id="kw2-kv_shear"),
-    pytest.param(dict(kh_scale=object()), "kh_scale", step_dyn_split_rk2,
-                 id="kw4-kh_scale"),
-    pytest.param(dict(kh_extra=object()), "kh_extra", step_dyn_split_rk2,
-                 id="kw5-kh_extra"),
 ])
 def test_step_rejects_unported_options(kw, name, stepper):
     s = _small_slice()
@@ -173,16 +171,19 @@ def test_nonboussinesq_and_porous_raise():
 
 
 # the diag mediator (DIAG_AS_CHKSUM, NK_ZSPACE, a diag_table) and DEBUG,
-# once cases here, are ported (tests/test_torch_debug.py)
+# once cases here, are ported (tests/test_torch_debug.py), and so are
+# U_TRUNC_FILE, RESTINT (read and, as in the JAX driver, without periodic
+# restarts) and USE_MEKE (tests/test_torch_breadth4.py): their cases now
+# name options still refused
 @pytest.mark.parametrize("line,name", [
     ("USE_PARTICLES = True", "USE_PARTICLES"),
     ("OFFLINE_TRACER_MODE = True", "OFFLINE_TRACER_MODE"),
     ("WRITE_OFFLINE_FIELDS = True", "WRITE_OFFLINE_FIELDS"),
     ("DEBUG_NANS = True", "DEBUG_NANS"),
-    ('U_TRUNC_FILE = "U_velocity_truncations"', "U_TRUNC_FILE"),
+    ("ICE_SHELF = True", "ICE_SHELF"),
     ("READ_DEPTH_LIST = True", "READ_DEPTH_LIST"),
-    ("RESTINT = 10.0", "RESTINT"),
-    ("USE_MEKE = True", "USE_MEKE"),
+    ("USE_NPZD = True", "USE_NPZD"),
+    ("SPONGE = True", "SPONGE"),
     ('#override TOPO_CONFIG = "seamount"', "TOPO_CONFIG"),
     ("data_table", "data_table"),
 ])

@@ -155,6 +155,6 @@ def test_main_without_cpu_needs_a_card(tmp_path, monkeypatch):
 
 def test_unread_parameters_raise(tmp_path):
     (tmp_path / "MOM_input").write_text(
-        (CASE / "MOM_input").read_text() + "MEKE_GMCOEFF = 0.5\n")
-    with pytest.raises(NotImplementedError, match="MEKE_GMCOEFF"):
+        (CASE / "MOM_input").read_text() + "SPONGE_DAMPING_FILE = x.nc\n")
+    with pytest.raises(NotImplementedError, match="SPONGE_DAMPING_FILE"):
         solo.main([str(tmp_path), "--days", DAYS, "--cpu"])

@@ -125,10 +125,16 @@ def test_tracer_hordiff_matches_jax():
                              _t(A["h"]), 1200.0, thd.TracerHorDiffCfg(**kw))
     for k in names:
         _check(ref[k], out[k], k)
-    with pytest.raises(NotImplementedError, match="KHTR_SLOPE_CFF"):
-        thd.tracer_hordiff(TD, TG, {}, _t(A["h"]), 1200.0,
-                           thd.TracerHorDiffCfg(khtr=1.0,
-                                                khtr_slope_cff=0.1))
+    # a 2-D coefficient (the MEKE share of KHTR), ported since the fourth
+    # breadth item (its other branches: tests/test_torch_breadth4.py)
+    ref = jhd.tracer_hordiff(JD, JG, {"age": jnp.asarray(A["age"])},
+                             jnp.asarray(A["h"]), 1200.0,
+                             jhd.TracerHorDiffCfg(**kw),
+                             khtr_2d=jnp.asarray(A["hml"]))
+    out = thd.tracer_hordiff(TD, TG, {"age": _t(A["age"])}, _t(A["h"]),
+                             1200.0, thd.TracerHorDiffCfg(**kw),
+                             khtr_2d=_t(A["hml"]))
+    _check(ref["age"], out["age"], "age 2-D")
 
 
 def test_ideal_age_column_matches_jax():
@@ -152,10 +158,15 @@ def test_thickness_diffuse_matches_jax():
                                 ttd.ThicknessDiffuseCfg(khth=600.0))
     for name in ("h", "uhD", "vhD", "gm_work"):
         _check(getattr(ref, name), getattr(out, name), name)
-    with pytest.raises(NotImplementedError, match="khth_2d"):
-        ttd.thickness_diffuse(TG, tvg, _t(A["h"]), 600.0,
-                              ttd.ThicknessDiffuseCfg(khth=600.0),
-                              khth_2d=_t(A["hml"]))
+    # a 2-D coefficient, ported since the fourth breadth item
+    ref = jtd.thickness_diffuse(JG, jvg, jnp.asarray(A["h"]), 600.0,
+                                jtd.ThicknessDiffuseCfg(khth=600.0),
+                                khth_2d=jnp.asarray(A["hml"]))
+    out = ttd.thickness_diffuse(TG, tvg, _t(A["h"]), 600.0,
+                                ttd.ThicknessDiffuseCfg(khth=600.0),
+                                khth_2d=_t(A["hml"]))
+    for name in ("h", "uhD", "vhD", "gm_work"):
+        _check(getattr(ref, name), getattr(out, name), name + " 2-D")
 
 
 @pytest.mark.parametrize("with_hml", [False, True])
