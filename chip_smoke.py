@@ -148,6 +148,30 @@ order; any failure ends the script with a non-zero exit:
    and kernels of VarMix, MEKE, the interface filter, neutral and
    boundary diffusion, the epipycnal diffusion and the internal tides
    with their wave speeds;
+6h. the other equations of state and the hybrid coordinates of the
+   fifth and sixth breadth items: configs.BENCH_CONFIG_HYBGEN (TEOS10,
+   the hybgen coordinate with PPM_HYBGEN and WENO_HYBGEN remaps, the
+   initial grid regridded three times), BENCH_CONFIG_ADAPT (ROQUET_RHO,
+   ADAPTIVE, PLM_HYBGEN) and BENCH_CONFIG_UNMIX (ROQUET_SPV, HYCOM1 with
+   hybgen unmixing) through entry.build_full at 32x32x6 in fp64 for 3
+   steps, card against CPU (1e-9 on h, u, v, T, S, age, eta, uh and vh),
+   then each in fp32 on the card against fp64 (finite; the departure
+   printed);
+6i. every EQN_OF_STATE form's density (with and without rho_ref),
+   spec_vol (with and without spv_ref), derivatives, compressibility and
+   second derivatives on seeded T, S > 0 and p at 25x66x66, card against
+   CPU in fp64 (1e-12; 5e-12 for d2rho/dS2 of the polynomial forms); and
+   hybgen_regrid, hybgen_unmix, the ADAPTIVE coordinate and the three
+   hybgen remap schemes (by the remapped cells' contents) on seeded
+   25-layer columns, card against CPU in fp64 (1e-12; ADAPTIVE 1e-11, whose stiff grid diffusion amplifies the
+   last bit of the column sums, which the card takes in another order);
+7h. BENCH_CONFIG_HYBGEN and BENCH_CONFIG_ADAPT at full width, 512x512x25
+   fp32, as in 7b (launches a step asserted: K1 4, K2 1, K3m 2), their
+   ms/step beside bench.py's CONFIG of phase 7; one regrid and one
+   density call of the text's EOS alone (CUDA events, host clock and
+   their device kernels); one thermodynamic step under the profiler with
+   profile_step's ranges: device time, host time and kernels of the ALE
+   call, the regrid, the remaps and the polynomial EOS;
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -285,6 +309,19 @@ LATERAL_NEEDED = {"b4": ("varmix/resolution_function", "meke/step_meke",
                          "internal_tides/wave_speeds"),
                   "b4v": ("varmix/resolution_function", "varmix/eady_rate",
                           "tracer_hordiff/ml_epipycnal_diff")}
+# the other equations of state and the hybrid coordinates of the fifth and
+# sixth breadth items: the same kernels again
+PER_STEP["hybgen"] = PER_STEP["adapt"] = PER_STEP["unmix"] = PER_STEP["b3"]
+# the profile_step ranges of the hybrid coordinates and the polynomial
+# equations of state, and those each text must run in a thermodynamic step
+HYBRID_PHASES = ("ale", "ale/hybgen_unmix", "ale/build_grid",
+                 "ale/build_grid/hybgen_regrid", "ale/build_grid/build_adapt",
+                 "ale/remap_column_means", "eos_poly",
+                 "dynamics/pressure_force")
+HYBRID_NEEDED = {"hybgen": ("ale/build_grid/hybgen_regrid", "eos_poly"),
+                 "adapt": ("ale/build_grid/build_adapt", "eos_poly")}
+EOS_FORMS = ("LINEAR", "WRIGHT", "WRIGHT_FULL", "WRIGHT_RED", "UNESCO",
+             "JACKETT_06", "ROQUET_RHO", "ROQUET_SPV", "TEOS10")
 # the column texts at 32x32x6 take a weakly stratified 400 m column, as
 # their CPU tests do: kappa-shear needs Ri < 0.25 somewhere, and under
 # layers of hundreds of metres ePBL's first-interface decision compares
@@ -1587,6 +1624,191 @@ def lateral_extra(m, cur, fstep, n_done):
         kernels=summary.get("kernels"), phases=got))
 
 
+def hybrid_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_HYBGEN and BENCH_CONFIG_ADAPT: one regrid
+    (``build_grid`` on the current state) and one density call of the
+    text's equation of state alone, each timed with CUDA events and the
+    host clock and traced for its kernels; then one thermodynamic step
+    under the profiler with profile_step's ranges: the device time, host
+    time and kernels of the ALE call, the regrid, the remaps and the
+    polynomial EOS, and the step's idle share."""
+    import torch
+    from mom6_torch import profile_step
+    from mom6_torch.ale.regridding import build_grid
+    st = cur[0]
+    dyn = "hybgen" if m.cfg.ale.regrid.mode.upper() == "HYBGEN" else "adapt"
+    vg, g = m.vgrid, m.grid
+
+    def regrid():
+        return build_grid(m.cfg.ale.regrid, st.h, g.bathyT, st.T, st.S,
+                          m.eos, rlay=vg.Rlay, rho0=vg.Rho0, g=vg.g_Earth,
+                          mask2dT=g.mask2dT)
+
+    p = torch.full_like(st.T, 2.0e7)
+
+    def density():
+        return m.eos.density(st.T, st.S, p)
+
+    out = {}
+    for name, fn in (("regrid", regrid), ("eos_density", density)):
+        if not bool(torch.isfinite(m.domain.interior(fn())).all()):
+            raise AssertionError(f"{dyn} {name} is not finite")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = cuda_ms(fn, 3)
+        host = (time.perf_counter() - t0) / 4 * 1e3
+        summary = profile_step._profile(fn, (), f"{dyn} {name}", None)
+        out[name] = dict(ms=ms, host_ms=host,
+                         kernels=summary.get("kernels"),
+                         device_busy_ms=summary.get("device_busy_ms"))
+        log(f"  {dyn} {name} alone: {ms:.3f} ms (CUDA events), ~{host:.3f} "
+            f"ms a call on the host clock, {summary.get('kernels')} device "
+            f"kernels, {summary.get('device_busy_ms', 0.0):.3f} ms device "
+            "busy (profiler)")
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm != 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets(dyn),
+                                    f"{dyn} thermo", None)
+    ph = summary.get("phases", {})
+    got = {k: ph[k] for k in HYBRID_PHASES if k in ph}
+    log(f"  profiled thermodynamic step: device busy "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+        f"{summary.get('kernels', 0)} kernels; "
+        + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                    f"{v['device_ms']:.4f} ms device, {v['host_ms']:.3f} "
+                    "ms host" for k, v in got.items()))
+    for k in HYBRID_NEEDED[dyn]:
+        if k not in got:
+            raise AssertionError(f"{dyn}: no {k} in a thermodynamic step")
+    return dict(out, profiled_thermo=dict(
+        device_busy_ms=summary.get("device_busy_ms"),
+        idle_share=summary.get("idle_share_profiled"),
+        kernels=summary.get("kernels"), phases=got))
+
+
+def _eos_methods(e, T, S, p):
+    """Every EOS method's outputs, by name."""
+    out = {"density": e.density(T, S, p),
+           "density rho_ref": e.density(T, S, p, rho_ref=1035.0),
+           "spec_vol": e.spec_vol(T, S, p),
+           "spec_vol spv_ref": e.spec_vol(T, S, p, spv_ref=1.0 / 1035.0),
+           "compressibility": e.compressibility(T, S, p)}
+    out.update(zip(("drho_dT", "drho_dS"), e.density_derivs(T, S, p)))
+    out.update(zip(("d2_SS", "d2_ST", "d2_TT", "d2_SP", "d2_TP"),
+                   e.density_second_derivs(T, S, p)))
+    return out
+
+
+def check_eos_forms():
+    """Every EQN_OF_STATE form's every method on the card against the CPU
+    in fp64, on seeded T in [-2, 30] degC, S in [30, 38] and p in [0, 6e7]
+    Pa at 25x66x66: 1e-12 relative to each field's maximum; 5e-12 for
+    d2rho/dS2 of the polynomial forms, whose matrix product sums in
+    another order on the card (the CPU tests hold the JAX package's to
+    the same)."""
+    import numpy as np
+    import torch
+    from mom6_torch.eos import make_eos
+    rng = np.random.default_rng(21)
+    shape = (25, 66, 66)
+    x = [rng.uniform(-2.0, 30.0, shape), rng.uniform(30.0, 38.0, shape),
+         rng.uniform(0.0, 6e7, shape)]
+    worst = 0.0
+    for form in EOS_FORMS:
+        e = make_eos(form)
+        cpu = _eos_methods(e, *(torch.tensor(a) for a in x))
+        card = _eos_methods(e, *(torch.tensor(a, device=DEV) for a in x))
+        errs = {}
+        for k, a in cpu.items():
+            rel, _ = rel_err(a, card[k].cpu(), H=0)
+            errs[k] = rel
+            tol = 5e-12 if (k == "d2_SS" and form in (
+                "ROQUET_RHO", "ROQUET_SPV", "TEOS10")) else 1e-12
+            if not rel <= tol:
+                raise AssertionError(f"EOS {form} {k}: card vs cpu {rel:.3e}"
+                                     f" > {tol:.0e}")
+        worst = max(worst, max(errs.values()))
+        log(f"  EOS {form}: card vs cpu max rel err "
+            + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    return worst
+
+
+def check_hybrid_modules():
+    """hybgen_regrid, hybgen_unmix (with a tracer), the ADAPTIVE
+    coordinate (with and without ADAPT_DO_MIN_DEPTH, on a land mask) and
+    the three hybgen remap schemes (the remapped cells' contents) on
+    seeded 25-layer columns at 25x66x66 in fp64, on the card against the
+    CPU, under WRIGHT: 1e-12 relative to each field's maximum, ADAPTIVE
+    1e-11."""
+    import numpy as np
+    import torch
+    from mom6_torch.ale import hybgen_regrid as hr, hybgen_unmix as hu
+    from mom6_torch.ale import regridding as rg, remapping as rm
+    from mom6_torch.eos import make_eos
+    nk, nj, ni = 25, 66, 66
+    rng = np.random.default_rng(22)
+    h = rng.uniform(0.0, 300.0, (nk, nj, ni))
+    h[:, :4, :4] *= 1e-3
+    rcv = (np.sort(1025.0 + rng.uniform(-1.0, 5.0, h.shape), axis=0)
+           + rng.normal(0.0, 0.3, h.shape))
+    tgt = np.sort(1025.0 + rng.uniform(0.0, 4.0, nk))
+    depth = h.sum(0) * rng.uniform(0.7, 1.3, (nj, ni))
+    T = (np.sort(rng.uniform(2.0, 20.0, h.shape), axis=0)[::-1]
+         + rng.normal(0.0, 1.0, h.shape))
+    S = 35.0 + rng.normal(0.0, 0.5, h.shape)
+    age = rng.uniform(0.0, 10.0, h.shape)
+    mask = (rng.random((nj, ni)) > 0.2).astype(float)
+    w = rng.uniform(0.0, 50.0, h.shape)
+    h_dst = w / w.sum(0) * h.sum(0)
+    eos = make_eos("WRIGHT")
+    cfg = hr.HybgenRegridCfg(dp0k=tuple(rng.uniform(5.0, 50.0, nk)),
+                             ds0k=tuple(rng.uniform(1.0, 5.0, nk)),
+                             nsigma=3, qhybrlx=0.5)
+    rlay = np.sort(eos.density(torch.tensor(T.mean((1, 2))),
+                               torch.tensor(S.mean((1, 2))), 2e7).numpy())
+
+    def cases(dev):
+        def t(a):
+            return torch.tensor(np.ascontiguousarray(a), device=dev)
+        out = {"hybgen_regrid": hr.hybgen_regrid(cfg, t(h), t(rcv), t(tgt),
+                                                 t(depth))}
+        hu_out = hu.hybgen_unmix(t(h), t(T), t(S), {"age": t(age)}, eos,
+                                 t(rlay), hu.HybgenUnmixCfg(hybiso=0.5))
+        out.update({f"hybgen_unmix {k}": v for k, v in
+                    zip(("h", "T", "S"), hu_out[:3])},
+                   **{"hybgen_unmix age": hu_out[3]["age"]})
+        for do_min in (False, True):
+            out[f"adaptive do_min={do_min}"] = rg.build_grid(
+                rg.RegridCfg(mode="ADAPTIVE", adapt_do_min=do_min,
+                             min_thickness=0.5), t(h) + 1.0,
+                t(h.sum(0) + nk), t(T), t(S), eos, mask2dT=t(mask))
+        for scheme in ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN"):
+            # the cells' contents h u: a mean is a difference of column
+            # integrals over its thickness, and the card sums the pair
+            # space in another order (a thin cell's mean parts by 7.8e-12
+            # on an H100)
+            out[f"{scheme} contents"] = t(h_dst) * rm.remap_column_means(
+                t(h), t(T), t(h_dst), rm.RemapCfg(scheme=scheme))
+        return out
+
+    cpu, card = cases("cpu"), cases(DEV)
+    errs = {}
+    for k, a in cpu.items():
+        rel, _ = rel_err(a, card[k].cpu(), H=0)
+        errs[k] = rel
+        # ADAPTIVE's column sums (torch.sum) take another order on the
+        # card, and its implicit grid diffusion, with diffusivities of
+        # ADAPT_TIME_RATIO nk^2 depth, amplifies that last bit (1.5e-12
+        # on an H100)
+        tol = 1e-11 if k.startswith("adaptive") else 1e-12
+        if not rel <= tol:
+            raise AssertionError(f"{k}: card vs cpu {rel:.3e} > {tol:.0e}")
+    log("  hybrid modules card vs cpu max rel err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    return max(errs.values())
+
+
 def run_text(text, ni, nj, nk, dtype, device, nsteps, seed, tmp):
     """``nsteps`` steps of the configuration ``text`` (INPUTDIR ``tmp``,
     where configs.write_obc_data writes the E data from seed 0) at
@@ -2458,6 +2680,53 @@ def main():
                                  f"{expect}")
         log(f"  {label} on the card: launches {counts}")
 
+    # 6h. the other equations of state and the hybrid coordinates of the
+    # fifth and sixth breadth items at 32x32x6 fp64, card against CPU;
+    # then fp32 against fp64 on the card
+    for label, dyn in (("HYBGEN", "hybgen"), ("ADAPT", "adapt"),
+                       ("UNMIX", "unmix")):
+        n = 3
+        log(f"phase 6h {label} (configs.BENCH_CONFIG_{label}) %dx%dx%d "
+            "fp64, " % SMALL_FULL + f"{n} steps: card vs cpu")
+        zero_counts(wrappers)
+        gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, n, seed=3,
+                                 regridding=True, dynamics=dyn)
+        counts = read_counts(wrappers)
+        cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", n,
+                                 seed=3, regridding=True, dynamics=dyn)
+        for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
+                           ("v", cst.v, gst.v), ("T", cst.T, gst.T),
+                           ("S", cst.S, gst.S),
+                           ("age", ctr["age"], gtr["age"]),
+                           ("eta", csp.eta, gsp.eta), ("uh", csp.uh, gsp.uh),
+                           ("vh", csp.vh, gsp.vh)):
+            rel, diff = rel_err(a, b.cpu())
+            log(f"  {label} {name}: max rel err {rel:.3e} (limit 1e-09)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"{label} {name}: {rel:.3e} > 1e-9")
+        expect = {k: v * n for k, v in PER_STEP[dyn].items()}
+        if counts != expect:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{expect}")
+        log(f"  {label} on the card: launches {counts}")
+        fst, fsp, ftr = run_full(*SMALL_FULL, torch.float32, DEV, n, seed=3,
+                                 regridding=True, dynamics=dyn)
+        check_finite((("h", fst.h[:, 4:-4, 4:-4]),
+                      ("T", fst.T[:, 4:-4, 4:-4]),
+                      ("u", fst.u[:, 4:-4, 4:-4])),
+                     fst.h[:, 4:-4, 4:-4].shape)
+        log(f"  {label}: fp32 against fp64 on the card after {n} steps, max "
+            "rel err " + ", ".join(
+                f"{k} {rel_err(getattr(gst, k), getattr(fst, k))[0]:.3e}"
+                for k in ("h", "u", "v", "T", "S"))
+            + f", eta {rel_err(gsp.eta, fsp.eta)[0]:.3e} (printed)")
+    # 6i. every equation of state and the hybrid modules, card against CPU
+    log("phase 6i every EQN_OF_STATE form, card vs cpu fp64")
+    check_eos_forms()
+    log("phase 6i hybgen, unmixing, ADAPTIVE and the hybgen remap schemes, "
+        "card vs cpu fp64")
+    check_hybrid_modules()
+
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
     for label, regridding in FULL_VARIANTS:
@@ -2540,6 +2809,20 @@ def main():
         f"{full['ale']['peak_bytes'] / 2**30:.3f} and "
         f"{full['b4v']['peak_bytes'] / 2**30:.3f} against "
         f"{full['bml']['peak_bytes'] / 2**30:.3f} GiB")
+
+    # 7h. the hybrid coordinates at full width
+    for dyn in ("hybgen", "adapt"):
+        log(f"phase 7h {dyn} (configs.BENCH_CONFIG_{dyn.upper()}) "
+            "%dx%dx%d fp32" % MAIN)
+        full[dyn] = run_new_timed(dyn, wrappers, shape, hybrid_extra)
+        torch.cuda.empty_cache()
+    log(f"  hybgen and adapt against bench.py's CONFIG (phase 7, Z* ALE), "
+        f"same process: {full['hybgen']['ms_step']:.3f} and "
+        f"{full['adapt']['ms_step']:.3f} against "
+        f"{full['ale']['ms_step']:.3f} ms/step; peak "
+        f"{full['hybgen']['peak_bytes'] / 2**30:.3f} and "
+        f"{full['adapt']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
 
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
@@ -2645,6 +2928,8 @@ def main():
                 "solo_benchmark": launches_layer["benchmark"][k],
                 "b4_full_step": full["b4"]["launches"][k],
                 "b4v_full_step": full["b4v"]["launches"][k],
+                "hybgen_full_step": full["hybgen"]["launches"][k],
+                "adapt_full_step": full["adapt"]["launches"][k],
                 "solo_ref_tc1": launches_layer["ref_tc1"][k],
                 "solo_ref_tc2": launches_layer["ref_tc2"][k]},
             max_abs_err=res.err[k]["float32"][1],
@@ -2694,7 +2979,8 @@ def main():
         library_ms=None, unit="per subcycle", profiled_device_ms=dev_ms,
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
-    for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml", "b4", "b4v"):
+    for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml", "b4", "b4v",
+                "hybgen", "adapt"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())

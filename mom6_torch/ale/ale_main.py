@@ -3,16 +3,19 @@
 Counterpart of ``mom6_tpu.ale.ale_main``: build the new vertical grid
 from the evolved state, then remap the tracers on cell columns and the
 velocities on face columns, whose source and target thicknesses are the
-means of the two adjacent cell columns.  Hybgen unmixing is not ported
-yet: an ``ALECfg`` asking for it raises ``NotImplementedError``.
+means of the two adjacent cell columns.  With ``hybgen_unmix`` the
+deepest inflated layer of each column is unmixed toward its target
+density before the regrid.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from mom6_torch.ale.hybgen_unmix import HybgenUnmixCfg, hybgen_unmix
 from mom6_torch.ale.regridding import RegridCfg, build_grid
 from mom6_torch.ale.remapping import (RemapCfg, remap_column_means,
                                       remap_column_means_banded)
@@ -40,11 +43,8 @@ class ALECfg:
     # ALE_REMAP_BAND: only the (target interface, source cell) pairs
     # with |k - m| <= band, the full remap where that misses; 0 disables
     remap_band: int = 0
-    hybgen_unmix: object = None       # HYBGEN_UNMIX (raises)
-
-    def __post_init__(self):
-        if self.hybgen_unmix is not None:
-            raise NotImplementedError("HYBGEN_UNMIX: hybgen unmixing")
+    # hybgen unmixing before the regrid (HYBGEN_UNMIX); None disables
+    hybgen_unmix: Optional[HybgenUnmixCfg] = None
 
 
 def _filter_grid_motion(cfg: ALECfg, h_old, h_new, dt: float):
@@ -97,6 +97,14 @@ def ale_regrid_remap(grid: Grid, vgrid: VerticalGrid, state: State,
     ``aux_u``/``aux_v`` are extra face fields remapped with the velocity
     face-thickness rule (the split scheme's u_av/v_av and diffu/diffv).
     Returns (new_state, new_tracers, h_new, aux_u, aux_v)."""
+    if (cfg.hybgen_unmix is not None and eos is not None
+            and state.T is not None):
+        h_u, T_u, S_u, tr_u = hybgen_unmix(state.h, state.T, state.S,
+                                           tracers, eos, vgrid.Rlay,
+                                           cfg.hybgen_unmix)
+        state = state.replace(h=h_u, T=T_u, S=S_u)
+        if tracers is not None:
+            tracers = tr_u
     h = state.h
     h_new = build_grid(cfg.regrid, h, grid.bathyT, state.T, state.S, eos,
                        rlay=vgrid.Rlay, rho0=vgrid.Rho0, g=vgrid.g_Earth,

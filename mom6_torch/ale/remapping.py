@@ -9,8 +9,9 @@ Exactly conservative when the column totals agree, which the regridding
 guarantees.
 
 Schemes (REMAPPING_SCHEME): PCM, PLM, PPM_H4, PPM_IH4, PPM_CW,
-PQM_IH4IH3 and PQM_IH6IH5.  The HYCOM schemes PLM_HYBGEN, PPM_HYBGEN
-and WENO_HYBGEN are not ported yet and raise ``NotImplementedError``.
+PQM_IH4IH3 and PQM_IH6IH5, and the HYCOM schemes PLM_HYBGEN (a
+thickness-weighted limited slope), WENO_HYBGEN (the WENO-reconciled
+parabola) and PPM_HYBGEN (PPM on the WENO edges).
 
 Every function takes (nk, ...) tensors with the layer axis first and
 keeps the JAX package's operation order: the small linear systems are
@@ -33,7 +34,6 @@ __all__ = ["RemapCfg", "Reconstruction", "remap_column_means",
            "edge_slopes_ih3", "edge_slopes_ih5", "interface_positions"]
 
 _H_NEGLECT = 1e-30
-_HYBGEN = ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -502,6 +502,81 @@ def edge_slopes_ih5(h, u):
     return _wa6_tridiag(torch.clamp(h, min=_H_NEGLECT), u, slopes=True)
 
 
+def _hybgen_plm_slope(h, u, thin=1e-10):
+    """The PLM slope times h with hybgen's thickness weighting: the
+    smallest of the centred and the two one-sided differences where they
+    agree in sign, 0 at an extremum, in the end cells and in cells no
+    thicker than ``thin``."""
+    dp = torch.clamp(h, min=thin)
+    u_up, u_dn = _shift_k(u, -1), _shift_k(u, 1)
+    qcen = dp / (dp + 0.5 * (_shift_k(dp, -1) + _shift_k(dp, 1)))
+    ztop = 2.0 * (u - u_up)
+    zbot = 2.0 * (u_dn - u)
+    zcen = qcen * (u_dn - u_up)
+    slope = torch.sign(zbot) * torch.minimum(
+        zcen.abs(), torch.minimum(zbot.abs(), ztop.abs()))
+    slope = torch.where(ztop * zbot > 0.0, slope, 0.0)
+    K = _kcol(h.shape[0], h)
+    slope = torch.where((K == 0) | (K == h.shape[0] - 1), 0.0, slope)
+    return torch.where(h <= thin, 0.0, slope)
+
+
+def _hybgen_weno_edges(h, u, thin=1e-10):
+    """The WENO-reconciled parabola's edge values (eL, eR): each cell's
+    edge estimates from its limited one-sided slopes, each interface's
+    value a blend of its two cells' estimates by their smoothness
+    weights, and a final monotonic adjustment within each cell.  End
+    cells, cells no thicker than ``thin`` and cells at an extremum are
+    constant."""
+    nk = h.shape[0]
+    dp = torch.clamp(h, min=thin)
+    pcm = h <= thin
+    dpm1, dpp1 = _shift_k(dp, -1), _shift_k(dp, 1)
+    qdpkm = 1.0 / (dpm1 + dp)
+    qdpkmkp = 1.0 / (dpm1 + dp + dpp1)
+    dpkm2kp = dpm1 + 2.0 * dp + dpp1
+    # the slopes at the interfaces above and below each cell
+    sl_above = qdpkm * (u - _shift_k(u, -1))
+    K = _kcol(nk, h)
+    sl_below = torch.where(K == nk - 1, sl_above, _shift_k(sl_above, 1))
+    use_pcm = (sl_above * sl_below < 0.0) | pcm | (K == 0) | (K == nk - 1)
+    seh1 = dp * sl_below
+    seh2 = dp * sl_above
+    q01 = dpkm2kp * sl_below
+    q02 = dpkm2kp * sl_above
+    seh1 = torch.where(seh1.abs() > q02.abs(), q02, seh1)
+    seh2 = torch.where(seh2.abs() > q01.abs(), q01, seh2)
+    curv = (seh1 - seh2) * qdpkmkp
+    q001 = seh1 - curv * dpp1
+    q002 = seh2 + curv * dpm1
+    eR0 = torch.where(use_pcm, u, u + q001)
+    eL0 = torch.where(use_pcm, u, u - q002)
+    w1, w2 = 2.0 * q001 - q002, 2.0 * q002 - q001
+    zw1 = torch.where(use_pcm, 0.0, w1 * w1)
+    zw2 = torch.where(use_pcm, 0.0, w2 * w2)
+    # each interface's value from its two cells' estimates
+    min_ratio = 1e-8
+    tot = zw1 + _shift_k(zw2, -1)
+    wt1 = torch.where(tot <= 0.0, 0.5,
+                      torch.clamp(zw1 / torch.clamp(tot, min=1e-300),
+                                  min_ratio, 1.0 - min_ratio))
+    val_edge = wt1 * _shift_k(eR0, -1) + (1.0 - wt1) * eL0
+    val_below = torch.where(K == nk - 1, 2.0 * u - val_edge,
+                            _shift_k(val_edge, 1))
+    # the monotonic adjustment within each cell (an if/elif chain)
+    q01 = val_below - u
+    q02 = u - val_edge
+    bad = q01 * q02 < 0.0
+    q01z = torch.where(bad, 0.0, q01)
+    q02z = torch.where(bad, 0.0, q02)
+    c1 = (~bad) & (q01z.abs() > (2.0 * q02z).abs())
+    c2 = (~bad) & (~c1) & (q02z.abs() > (2.0 * q01z).abs())
+    q01f = torch.where(c1, 2.0 * q02z, q01z)
+    q02f = torch.where(c2, 2.0 * q01z, q02z)
+    return (torch.where(use_pcm, u, u - q02f),
+            torch.where(use_pcm, u, u + q01f))
+
+
 def _limit_edges(u, eL, eR):
     """Bound edge values between adjacent cell means."""
     u_up = _shift_k(u, -1)
@@ -623,9 +698,6 @@ def reconstruct(h, u, cfg: RemapCfg) -> Reconstruction:
     """Per-cell polynomials over xi in [0, 1] (top to bottom of a
     cell)."""
     scheme = cfg.scheme.upper()
-    if scheme in _HYBGEN:
-        raise NotImplementedError(f"REMAPPING_SCHEME = {scheme}: the "
-                                  "HYCOM hybgen remap schemes")
     if scheme == "PCM":
         z = torch.zeros_like(u)
         return Reconstruction(c0=u, c1=z, c2=z)
@@ -639,6 +711,14 @@ def reconstruct(h, u, cfg: RemapCfg) -> Reconstruction:
         slope = torch.where(s_l * s_r > 0.0, slope, 0.0)
         return Reconstruction(c0=u - 0.5 * slope, c1=slope,
                               c2=torch.zeros_like(u))
+    if scheme == "PLM_HYBGEN":
+        slope = _hybgen_plm_slope(h, u)
+        return Reconstruction(c0=u - 0.5 * slope, c1=slope,
+                              c2=torch.zeros_like(u))
+    if scheme == "WENO_HYBGEN":
+        eL, eR = _hybgen_weno_edges(h, u)
+        u6 = 6.0 * u - 3.0 * (eL + eR)
+        return Reconstruction(c0=eL, c1=(eR - eL) + u6, c2=-u6)
     if scheme in ("PQM_IH4IH3", "PQM_IH6IH5"):
         # White & Adcroft (2008) piecewise quartic, pinned by the cell
         # mean, the edge values and the edge slopes
@@ -657,11 +737,13 @@ def reconstruct(h, u, cfg: RemapCfg) -> Reconstruction:
         a3 = -60.0 * u + (6.0 * dL - 4.0 * dR) + 28.0 * eR + 32.0 * eL
         a4 = 30.0 * u + 2.5 * (dR - dL) - 15.0 * (eL + eR)
         return Reconstruction(c0=eL, c1=dL, c2=a2, c3=a3, c4=a4)
-    if scheme in ("PPM_H4", "PPM_IH4", "PPM_CW"):
+    if scheme in ("PPM_H4", "PPM_IH4", "PPM_CW", "PPM_HYBGEN"):
         if scheme == "PPM_CW":
             edges = edge_values_h2(h, u)
         elif scheme == "PPM_IH4":
             edges = edge_values_ih4(h, u)
+        elif scheme == "PPM_HYBGEN":
+            edges = _mean_edges(*_hybgen_weno_edges(h, u))
         else:
             edges = edge_values_h4(h, u)
         eL, eR = edges[:-1], edges[1:]

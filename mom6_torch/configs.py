@@ -66,8 +66,19 @@ and boundary diffusion, the interface filter and the internal tides.
 ``cases/ref_tc1`` runs it: the Visbeck diffusivities, the resolution
 scaling of KH, KHTH and KHTR, the mixed layer's epipycnal diffusion and
 GM before the dynamics.  Neutral diffusion and the along-layer KHTR
-path exclude each other, hence two texts.  Each text's lines are
-commented where they are defined.
+path exclude each other, hence two texts.
+
+``BENCH_CONFIG_HYBGEN`` is bench.py's configuration on the HYCOM hybrid
+coordinate that regional and coastal users run: the TEOS-10 equation of
+state, target densities from a 16 to 4 degC ladder at P_REF
+(COORD_CONFIG ts_range), the hybgen generator with the PPM_HYBGEN remap
+for tracers and WENO_HYBGEN for velocities, and the initial grid
+regridded three times before the first step (REGRID_ACCELERATE_INIT).
+``BENCH_CONFIG_ADAPT`` is bench.py's configuration on the ADAPTIVE
+coordinate with the ROQUET_RHO polynomial and the PLM_HYBGEN remap.
+``BENCH_CONFIG_UNMIX`` is bench.py's configuration on HYCOM1 with hybgen
+unmixing, the ROQUET_SPV polynomial and the same density ladder.  Each
+text's lines are commented where they are defined.
 
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
@@ -77,9 +88,11 @@ import numpy as np
 __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "BENCH_CONFIG_B1", "BENCH_CONFIG_NONBOUSS", "BENCH_CONFIG_OBC",
            "BENCH_CONFIG_STOCH", "BENCH_CONFIG_B3", "BENCH_CONFIG_BML",
-           "BENCH_CONFIG_B4", "BENCH_CONFIG_B4V",
+           "BENCH_CONFIG_B4", "BENCH_CONFIG_B4V", "BENCH_CONFIG_HYBGEN",
+           "BENCH_CONFIG_ADAPT", "BENCH_CONFIG_UNMIX",
            "B1_LINES", "NONBOUSS_LINES", "OBC_LINES", "STOCH_LINES",
-           "B3_LINES", "BML_LINES", "B4_LINES", "B4V_LINES", "obc_strip",
+           "B3_LINES", "BML_LINES", "B4_LINES", "B4V_LINES",
+           "HYBGEN_LINES", "ADAPT_LINES", "UNMIX_LINES", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
            "write_topog_edge"]
 
@@ -263,6 +276,46 @@ DIFFUSE_ML_TO_INTERIOR = True
 THICKNESSDIFFUSE_FIRST = True
 """
 
+# the fifth and sixth breadth items: a TEOS-10 ocean on the hybgen
+# hybrid coordinate, its layer targets the densities at P_REF of a T
+# ladder from 16 degC (light) to 4 degC (dense) at S_REF, the hybgen
+# remap schemes (PPM for tracers, WENO for velocities), and the initial
+# z* grid regridded three times toward its attractor before the first
+# step
+HYBGEN_LINES = """#override EQN_OF_STATE = TEOS10
+COORD_CONFIG = ts_range
+TS_RANGE_T_LIGHT = 16.0
+TS_RANGE_T_DENSE = 4.0
+#override REGRIDDING_COORDINATE_MODE = HYBGEN
+REMAPPING_SCHEME = PPM_HYBGEN
+VELOCITY_REMAPPING_SCHEME = WENO_HYBGEN
+REGRID_ACCELERATE_INIT = True
+REGRID_ACCELERATE_ITERATIONS = 3
+"""
+
+# the ADAPTIVE coordinate (interfaces chase the lateral curvature of
+# neutral density under a vertical grid diffusion) with the 55-term
+# Roquet density polynomial and the PLM_HYBGEN remap for every field
+ADAPT_LINES = """#override EQN_OF_STATE = ROQUET_RHO
+#override REGRIDDING_COORDINATE_MODE = ADAPTIVE
+REMAPPING_SCHEME = PLM_HYBGEN
+"""
+
+# HYCOM1 (isopycnal interfaces held below the nominal z* depths) on the
+# same density ladder, with the deepest inflated layer unmixed toward
+# its target before each regrid, and the Roquet specific-volume fit.  S
+# rises by 1 ppt down the column: under a uniform S the unmixing's
+# T/S split divides S differences of roundoff size by each other, and
+# its result follows the last bits of the state
+UNMIX_LINES = """#override EQN_OF_STATE = ROQUET_SPV
+S_RANGE = 1.0
+COORD_CONFIG = ts_range
+TS_RANGE_T_LIGHT = 16.0
+TS_RANGE_T_DENSE = 4.0
+#override REGRIDDING_COORDINATE_MODE = HYCOM1
+HYBGEN_UNMIX = True
+"""
+
 BENCH_CONFIG_B1 = BENCH_CONFIG + B1_LINES
 
 BENCH_CONFIG_NONBOUSS = BENCH_CONFIG + NONBOUSS_LINES
@@ -278,6 +331,12 @@ BENCH_CONFIG_BML = BENCH_CONFIG + BML_LINES
 BENCH_CONFIG_B4 = BENCH_CONFIG + B4_LINES
 
 BENCH_CONFIG_B4V = BENCH_CONFIG_BML + B4V_LINES
+
+BENCH_CONFIG_HYBGEN = BENCH_CONFIG + HYBGEN_LINES
+
+BENCH_CONFIG_ADAPT = BENCH_CONFIG + ADAPT_LINES
+
+BENCH_CONFIG_UNMIX = BENCH_CONFIG + UNMIX_LINES
 
 
 def obc_strip(ni: int) -> str:

@@ -11,8 +11,10 @@ regional configuration with open boundaries (``BENCH_CONFIG_OBC``),
 or the rest of the first breadth item (``BENCH_CONFIG_STOCH``), or the
 column physics of the third (``BENCH_CONFIG_B3`` with Z* ALE,
 ``BENCH_CONFIG_BML`` layered), or the fourth (``BENCH_CONFIG_B4`` with Z*
-ALE, ``BENCH_CONFIG_B4V`` layered), through ``model.build_model``; its
-``Model.step_fn`` steps it.
+ALE, ``BENCH_CONFIG_B4V`` layered), or the other equations of state and
+hybrid coordinates of the fifth and sixth (``BENCH_CONFIG_HYBGEN``,
+``BENCH_CONFIG_ADAPT``, ``BENCH_CONFIG_UNMIX``), through
+``model.build_model``; its ``Model.step_fn`` steps it.
 
 ``build`` returns everything the slice-1 path, ``step_dyn_split_rk2``
 alone, needs:
@@ -40,12 +42,13 @@ import tempfile
 import numpy as np
 import torch
 
-from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_B1,
-                                BENCH_CONFIG_B3, BENCH_CONFIG_B4,
-                                BENCH_CONFIG_B4V, BENCH_CONFIG_BML,
+from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_ADAPT,
+                                BENCH_CONFIG_B1, BENCH_CONFIG_B3,
+                                BENCH_CONFIG_B4, BENCH_CONFIG_B4V,
+                                BENCH_CONFIG_BML, BENCH_CONFIG_HYBGEN,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
                                 BENCH_CONFIG_RK2B, BENCH_CONFIG_STOCH,
-                                BENCH_CONFIG_UNSPLIT,
+                                BENCH_CONFIG_UNMIX, BENCH_CONFIG_UNSPLIT,
                                 obc_strip, write_obc_data,
                                 write_topog_edge)
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
@@ -74,10 +77,11 @@ DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "b3pp81": BENCH_CONFIG_B3 + "#override USE_JACKSON_PARAM = False\n"
             "USE_PP81 = True\n",
             "bml": BENCH_CONFIG_BML, "b4": BENCH_CONFIG_B4,
-            "b4v": BENCH_CONFIG_B4V}
+            "b4v": BENCH_CONFIG_B4V, "hybgen": BENCH_CONFIG_HYBGEN,
+            "adapt": BENCH_CONFIG_ADAPT, "unmix": BENCH_CONFIG_UNMIX}
 # the texts on the split RK2 dynamics
 SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml",
-             "b4", "b4v")
+             "b4", "b4v", "hybgen", "adapt", "unmix")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +180,12 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     the interface filter and the internal tides with Z* ALE) or "b4v"
     (``BENCH_CONFIG_B4V``: the layered text with the Visbeck
     diffusivities, the resolution scaling and the mixed layer's
-    epipycnal diffusion; ``regridding`` does not apply).
+    epipycnal diffusion; ``regridding`` does not apply) or "hybgen"
+    (``BENCH_CONFIG_HYBGEN``: TEOS10, the hybgen coordinate with its
+    remap schemes, REGRID_ACCELERATE_INIT) or "adapt"
+    (``BENCH_CONFIG_ADAPT``: ROQUET_RHO, the ADAPTIVE coordinate) or
+    "unmix" (``BENCH_CONFIG_UNMIX``: ROQUET_SPV, HYCOM1 with hybgen
+    unmixing).
     ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).

@@ -8,33 +8,34 @@ the configuration dataclasses of the port, the forcing and the initial
 state, and returns a ``Model`` whose ``step_fn`` steps the full ocean
 step (``core/orchestrator.py``).
 
-It follows the JAX builder on the branches that bench.py's CONFIG
-(with and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
+It follows the JAX builder on the branches that bench.py's CONFIG (with
+and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
 ``cases/double_gyre``, ``cases/tc0``, ``cases/ref_tc0``,
 ``cases/layer_mode``, ``cases/benchmark``, ``cases/ref_tc1``,
-``cases/ref_tc2`` and the texts of ``configs.py`` take: a
-single-device cartesian grid in km or degrees, or a spherical or
-Mercator grid (GRID_CONFIG, ISOTROPIC, an f/beta plane with ROTATION =
-beta), TOPO_CONFIG flat, bowl, spoon, benchmark or halfpipe, with
-porous-barrier face topography from a TOPO_AT_VEL file (SUBGRID_TOPO_AT_VEL), Boussinesq or not, split
-RK2, split RK2b (SPLIT_RK2B) or unsplit (SPLIT = False) dynamics with
-every Coriolis and KE scheme, tides with scalar or spherical-harmonic
-SAL, the Stanley pressure-force correction, the barotropic options
-BEGW, BT_PROJECT_VELOCITY (read, unused), BOUND_BT_CORRECTION,
-MAXCFL_BT_CONT and BT_STRONG_DRAG, the vertical-friction options
-(linear and channel drag, DYNAMIC_BBL, BBL_USE_EOS, the fixed and
-dynamic viscous mixed layer, DIRECT_STRESS, HARMONIC_VISC, KV_ML_INVZ2)
-and the horizontal-viscosity options (velocity scales, Leith and
-modified Leith, ADD_LES_VISCOSITY, anisotropic, ZB2020), open
-boundaries (OBC segments, whole or partial, with constant or file data,
-OBC_USER_CONFIG updates, the OBC viscosity flags and the dyed OBC
-tracers of NUM_DYE_TRACERS), the LINEAR and
-WRIGHT equations of state, COORD_CONFIG ts_range (or the uniform
-GINT stacking), THICKNESS_CONFIG uniform or benchmark, TS_CONFIG
-uniform, linear or benchmark, WIND_CONFIG zero/constant/gyres/2gyre,
-BUOY_CONFIG zero or
-linear restoring, ALE with the coordinates and remap schemes of
-``mom6_torch/ale``, the column physics of ``param/vertical`` (the
+``cases/ref_tc2`` and the texts of ``configs.py`` take: a single-device
+cartesian grid in km or degrees, or a spherical or Mercator grid
+(GRID_CONFIG, ISOTROPIC, an f/beta plane with ROTATION = beta),
+TOPO_CONFIG flat, bowl, spoon, benchmark or halfpipe, with
+porous-barrier face topography from a TOPO_AT_VEL file
+(SUBGRID_TOPO_AT_VEL), Boussinesq or not, split RK2, split RK2b
+(SPLIT_RK2B) or unsplit (SPLIT = False) dynamics with every Coriolis and
+KE scheme, tides with scalar or spherical-harmonic SAL, the Stanley
+pressure-force correction, the barotropic options BEGW,
+BT_PROJECT_VELOCITY (read, unused), BOUND_BT_CORRECTION, MAXCFL_BT_CONT
+and BT_STRONG_DRAG, the vertical-friction options (linear and channel
+drag, DYNAMIC_BBL, BBL_USE_EOS, the fixed and dynamic viscous mixed
+layer, DIRECT_STRESS, HARMONIC_VISC, KV_ML_INVZ2) and the
+horizontal-viscosity options (velocity scales, Leith and modified Leith,
+ADD_LES_VISCOSITY, anisotropic, ZB2020), open boundaries (OBC segments,
+whole or partial, with constant or file data, OBC_USER_CONFIG updates,
+the OBC viscosity flags and the dyed OBC tracers of NUM_DYE_TRACERS),
+every EQN_OF_STATE form of ``mom6_torch/eos``, COORD_CONFIG ts_range (or
+the uniform GINT stacking), THICKNESS_CONFIG uniform or benchmark,
+TS_CONFIG uniform, linear or benchmark, WIND_CONFIG
+zero/constant/gyres/2gyre, BUOY_CONFIG zero or linear restoring, ALE
+with the coordinates and remap schemes of ``mom6_torch/ale`` (hybgen
+with HYBGEN_*, ADAPTIVE with ADAPT_*, HYBGEN_UNMIX under HYCOM1) and
+REGRID_ACCELERATE_INIT, the column physics of ``param/vertical`` (the
 background, Bryan-Lewis and shear, kappa-shear, convective,
 double-diffusive, tidal, user, law-of-the-wall and ML-radiation
 diffusivities, KPP or ePBL with the Langmuir factor of USE_WAVES,
@@ -46,11 +47,11 @@ along-layer tracer diffusion, the ideal age tracer, GME, SPPT, SKEB and
 STOCH_EOS, DIABATIC_FIRST, and the lateral parameterizations of the
 fourth breadth item: MEKE, VarMix with Visbeck and RESOLN_SCALED_*,
 KHTR_SLOPE_CFF, DIFFUSE_ML_TO_INTERIOR, the interface filter, neutral
-and boundary diffusion and the internal tides.  Every other value of an option it reads
-raises ``NotImplementedError`` naming the parameter; an option set to
-its default is read and accepted.  A parameter it does not read at all
-is left for the caller's unused-parameter audit (the solo driver
-raises on it).
+and boundary diffusion and the internal tides. Every other value of an
+option it reads raises ``NotImplementedError`` naming the parameter; an
+option set to its default is read and accepted. A parameter it does not
+read at all is left for the caller's unused-parameter audit (the solo
+driver raises on it).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -65,7 +66,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from mom6_torch.ale.ale_main import ALECfg
+from mom6_torch.ale.ale_main import ALECfg, ale_regrid_accelerated
+from mom6_torch.ale.hybgen_regrid import HybgenRegridCfg
+from mom6_torch.ale.hybgen_unmix import HybgenUnmixCfg
 from mom6_torch.ale.regridding import RegridCfg
 from mom6_torch.ale.remapping import RemapCfg
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
@@ -175,7 +178,6 @@ _USER_IC_KEYS = (
 # behavioural reference options the JAX builder accepts without acting on
 # them: read when present, with a warning when set away from the default
 _PARITY_UNIMPL = (("LIMIT_BUFFER_DETRAIN", bool, False),)
-_REMAP_NOT_PORTED = ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN")
 
 
 def _topo_fn(config: str, max_depth: float, min_depth: float,
@@ -969,24 +971,75 @@ def build_model(pf: ParamFile, *, device="cuda",
     ale_cfg = None
     if use_regrid:
         mode = pf.get("REGRIDDING_COORDINATE_MODE", str, "Z*")
-        if mode.upper().startswith("ADAPT") or mode.upper() == "HYBGEN":
-            raise NotImplementedError(f"REGRIDDING_COORDINATE_MODE = "
-                                      f"{mode!r}: option not ported")
         res = pf.get("ALE_RESOLUTION", list, [])
         scheme = pf.get("REMAPPING_SCHEME", str, "PPM_H4")
-        default_only(pf, "HYBGEN_UNMIX", bool, False)
-        vel_scheme = pf.get("VELOCITY_REMAPPING_SCHEME", str, scheme)
-        for name, s in (("REMAPPING_SCHEME", scheme),
-                        ("VELOCITY_REMAPPING_SCHEME", vel_scheme)):
-            if s.upper() in _REMAP_NOT_PORTED:
-                raise NotImplementedError(f"{name} = {s!r}: option not "
-                                          "ported")
+        adapt_kw = {}
+        if mode.upper().startswith("ADAPT"):
+            adapt_kw = dict(
+                adapt_time_ratio=pf.get("ADAPT_TIME_RATIO", float, 0.1),
+                adapt_zoom=pf.get("ADAPT_ZOOM_DEPTH", float, 200.0,
+                                  units="m"),
+                adapt_zoom_coeff=pf.get("ADAPT_ZOOM_COEFF", float, 0.2),
+                adapt_buoy_coeff=pf.get("ADAPT_BUOY_COEFF", float, 0.8),
+                adapt_alpha=pf.get("ADAPT_ALPHA", float, 1.0),
+                adapt_drho0=pf.get("ADAPT_DRHO0", float, 0.5,
+                                   units="kg m-3"),
+                adapt_do_min=pf.get("ADAPT_DO_MIN_DEPTH", bool, False))
+        # hybgen unmixing ahead of a HYCOM1 regrid
+        unmix_cfg = None
+        if pf.get("HYBGEN_UNMIX", bool,
+                  False) and mode.upper() in ("HYCOM1", "HYBRID"):
+            unmix_cfg = HybgenUnmixCfg(
+                hybiso=pf.get("HYBGEN_REMAP_DENSITY_MATCH", float, 0.01,
+                              units="kg m-3"),
+                qhybrlx=pf.get("HYBGEN_REGRID_RELAX", float, 0.25),
+                fixlay=pf.get("HYBGEN_UNMIX_FIXLAY", int, 2),
+                ref_pressure=p_ref)
+        hybgen_kw = {}
+        if mode.upper() == "HYBGEN":
+            # the hybgen generator's parameters (the reference spells
+            # PR0FILE with a zero)
+            nomdz = res if res else [max_depth / nk] * nk
+            dp0k = pf.get("HYBGEN_DEEP_DZ_PR0FILE", list, list(nomdz),
+                          units="m")
+            ds0k = pf.get("HYBGEN_SHALLOW_DZ_PR0FILE", list,
+                          [0.1 * v for v in nomdz], units="m")
+            hybgen_kw["hybgen"] = HybgenRegridCfg(
+                dp0k=tuple(dp0k), ds0k=tuple(ds0k),
+                nsigma=pf.get("HYBGEN_N_SIGMA", int, 0),
+                dp00i=pf.get("HYBGEN_ISOPYCNAL_DZ_MIN", float, 1.0,
+                             units="m"),
+                qhybrlx=1.0 / max(pf.get("HYBGEN_RELAX_PERIOD", float, 4.0,
+                                         units="timesteps"), 1.0),
+                topiso_const=pf.get("HYBGEN_MIN_ISO_DEPTH", float, 0.0,
+                                    units="m"),
+                hybiso=pf.get("HYBGEN_REMAP_DENSITY_MATCH", float, 0.01,
+                              units="kg m-3"),
+                thkbot=pf.get("HYBGEN_BBL_THICKNESS", float, 6.0,
+                              units="m"),
+                min_thickness=pf.get("HYBGEN_MIN_THICKNESS", float, 1e-3,
+                                     units="m"),
+                rho_eps=pf.get("HYBGEN_DENSITY_EPSILON", float, 1e-11,
+                               units="kg m-3"),
+                h_thin=pf.get("HYBGEN_H_THIN", float, 1e-6, units="m"),
+                dp_far_from_sfc=pf.get("HYBGEN_FAR_FROM_SURFACE", float,
+                                       0.25, units="m"),
+                dp_far_from_bot=pf.get("HYBGEN_FAR_FROM_BOTTOM", float,
+                                       0.25, units="m"),
+                min_dilate=pf.get("HYBGEN_REMAP_MIN_ZSTAR_DILATE", float,
+                                  0.5),
+                max_dilate=pf.get("HYBGEN_REMAP_MAX_ZSTAR_DILATE", float,
+                                  2.0),
+                ref_pressure=pf.get("P_REF", float, 2.0e7, units="Pa"))
         ale_cfg = ALECfg(
             regrid=RegridCfg(mode=mode, resolution=tuple(res),
                              min_thickness=pf.get("MIN_THICKNESS", float,
-                                                  1e-3, units="m")),
+                                                  1e-3, units="m"),
+                             **adapt_kw, **hybgen_kw),
             remap=RemapCfg(scheme=scheme),
-            vel_remap=RemapCfg(scheme=vel_scheme),
+            vel_remap=RemapCfg(scheme=pf.get("VELOCITY_REMAPPING_SCHEME",
+                                             str, scheme)),
+            hybgen_unmix=unmix_cfg,
             sequential_remap=pf.get(
                 "ALE_SEQUENTIAL_REMAP", bool, False,
                 desc="remap fields one at a time behind optimization "
@@ -1005,8 +1058,25 @@ def build_model(pf: ParamFile, *, device="cuda",
                                         float, 0.0, units="m"),
             filter_deep_depth=pf.get("REGRID_FILTER_DEEP_DEPTH",
                                      float, 0.0, units="m"))
-        if thermo:
-            default_only(pf, "REGRID_ACCELERATE_INIT", bool, False)
+        # REGRID_ACCELERATE_INIT: the initial grid regridded
+        # REGRID_ACCELERATE_ITERATIONS times toward the coordinate's
+        # attractor, the state remapped once onto it, and the split
+        # state made anew on the new grid
+        if thermo and state.T is not None \
+                and pf.get("REGRID_ACCELERATE_INIT", bool, False):
+            n_acc = pf.get("REGRID_ACCELERATE_ITERATIONS", int, 1)
+            fill = domain.fill_halos
+            state = state.replace(h=fill(state.h), T=fill(state.T),
+                                  S=fill(state.S))
+            state, _, _ = ale_regrid_accelerated(grid, vgrid, state, ale_cfg,
+                                                 n_acc, eos=eos)
+            state = state.replace(h=fill(state.h), T=fill(state.T),
+                                  S=fill(state.S))
+            if split and split_rk2b:
+                split_state = init_split_b_state(domain, grid, vgrid, state)
+            elif split:
+                split_state = init_split_state(domain, grid, vgrid, state,
+                                               horvisc_cfg=hv)
 
     pf.module("MOM_set_diffusivity")
     use_lmd94 = pf.get("USE_LMD94", bool, False)

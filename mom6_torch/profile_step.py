@@ -3,7 +3,8 @@
     python -m mom6_torch.profile_step [--full [--layered]
                                      [--dynamics rk2|rk2b|unsplit|b1|
                                                  nonbouss|obc|stoch|b3|
-                                                 b3pp81|bml|b4|b4v]]
+                                                 b3pp81|bml|b4|b4v|hybgen|
+                                                 adapt|unmix]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
                                      [--count-ops]
@@ -83,12 +84,14 @@ import time
 import torch
 
 from mom6_torch import cuda_build, entry
+from mom6_torch.ale import ale_main, regridding
 from mom6_torch.core import barotropic_cuda, continuity_cuda
 from mom6_torch.core import dynamics_split_rk2 as dyn
 from mom6_torch.core import dynamics_split_rk2b as dyn_b
 from mom6_torch.core import dynamics_unsplit as dyn_u
 from mom6_torch.core import orchestrator as orch
 from mom6_torch.core import pressure_force as pfm
+from mom6_torch.eos.poly import Poly3
 from mom6_torch.param.lateral import hor_visc as hvm
 from mom6_torch.param.vertical import diabatic as dia
 from mom6_torch.param.vertical import set_diffusivity as sdm
@@ -115,7 +118,10 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "b3pp81": (dyn, "step_dyn_split_rk2"),
             "bml": (dyn, "step_dyn_split_rk2"),
             "b4": (dyn, "step_dyn_split_rk2"),
-            "b4v": (dyn, "step_dyn_split_rk2")}
+            "b4v": (dyn, "step_dyn_split_rk2"),
+            "hybgen": (dyn, "step_dyn_split_rk2"),
+            "adapt": (dyn, "step_dyn_split_rk2"),
+            "unmix": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential",
@@ -158,7 +164,17 @@ SLICE2 = (
     (hdm, "ml_epipycnal_diff", "tracer_hordiff/ml_epipycnal_diff"),
     (orch, "_internal_tides", "internal_tides"),
     (orch, "wave_speeds", "internal_tides/wave_speeds"),
-    (orch, "step_internal_tides", "internal_tides/step_internal_tides"))
+    (orch, "step_internal_tides", "internal_tides/step_internal_tides"),
+    # the hybrid coordinates of the sixth breadth item inside the ALE
+    # call, and the polynomial equations of state of the fifth wherever
+    # they are called (their kernels are charged to this range, not to
+    # the phase that calls them)
+    (ale_main, "hybgen_unmix", "ale/hybgen_unmix"),
+    (ale_main, "build_grid", "ale/build_grid"),
+    (regridding, "hybgen_regrid", "ale/build_grid/hybgen_regrid"),
+    (regridding, "_build_adapt", "ale/build_grid/build_adapt"),
+    (ale_main, "remap_column_means", "ale/remap_column_means"),
+    (Poly3, "__call__", "eos_poly"))
 
 
 def slice2_targets(dynamics: str):

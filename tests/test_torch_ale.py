@@ -11,8 +11,9 @@ float64, and their ports on device="cpu" in float64:
 * the banded remap (ALE_REMAP_BAND) equals the full remap, when the band
   holds every interface and when it misses one;
 * build_grid in the LAYER, Z*, SIGMA, RHO and HYCOM1 modes (1e-13, with
-  the column totals kept); ADAPTIVE, HYBGEN and the hybgen remap schemes
-  raise;
+  the column totals kept); the hybgen remap schemes conserve (the JAX
+  comparisons of them, of ADAPTIVE and of HYBGEN are in
+  tests/test_torch_hybgen.py), and an unknown scheme or mode raises;
 * the grid-motion filter (REGRID_TIME_SCALE) with and without a blend
   depth range;
 * ale_regrid_remap with a tracer and face auxiliaries, batched,
@@ -36,6 +37,7 @@ from mom6_tpu.eos import make_eos as j_make_eos
 from mom6_tpu.parallel.domain import Domain as JDomain
 
 from mom6_torch.ale import ale_main as tale
+from mom6_torch.ale.hybgen_unmix import HybgenUnmixCfg
 from mom6_torch.ale import regridding as trg
 from mom6_torch.ale import remapping as trm
 from mom6_torch.convert import grid_from_numpy
@@ -126,11 +128,17 @@ def test_banded_remap_equals_full(motion):
 
 
 def test_hybgen_schemes_raise():
+    """The hybgen schemes are ported (tests/test_torch_hybgen.py holds
+    them to the JAX package): they remap, conserving each column's
+    integral, and what still raises is a scheme no package knows."""
     h_src, u, h_dst = _columns(4)
+    args = [_t(a) for a in (h_src, u, h_dst)]
     for scheme in ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN"):
-        with pytest.raises(NotImplementedError, match=scheme):
-            trm.remap_column_means(*(_t(a) for a in (h_src, u, h_dst)),
-                                   trm.RemapCfg(scheme=scheme))
+        out = trm.remap_column_means(*args, trm.RemapCfg(scheme=scheme))
+        assert torch.allclose((out * args[2]).sum(0),
+                              (args[1] * args[0]).sum(0), rtol=1e-12)
+    with pytest.raises(ValueError, match="PPM_H8"):
+        trm.remap_column_means(*args, trm.RemapCfg(scheme="PPM_H8"))
 
 
 NK = 6
@@ -182,12 +190,16 @@ def test_build_grid_matches_jax(mode):
 
 
 def test_unported_regrid_modes_raise():
+    """ADAPTIVE, HYBGEN and hybgen unmixing are ported
+    (tests/test_torch_hybgen.py); what still raises is ADAPTIVE without
+    T, S and an EOS, and a mode no package knows."""
     h = torch.ones(3, 2, 2, dtype=F64)
-    for mode in ("ADAPTIVE", "HYBGEN"):
-        with pytest.raises(NotImplementedError, match=mode):
-            trg.build_grid(trg.RegridCfg(mode=mode), h, h[0])
-    with pytest.raises(NotImplementedError, match="HYBGEN_UNMIX"):
-        tale.ALECfg(hybgen_unmix=object())
+    with pytest.raises(ValueError, match="ADAPTIVE"):
+        trg.build_grid(trg.RegridCfg(mode="ADAPTIVE"), h, h[0])
+    with pytest.raises(ValueError, match="ISOPYCNAL"):
+        trg.build_grid(trg.RegridCfg(mode="ISOPYCNAL"), h, h[0])
+    assert tale.ALECfg(hybgen_unmix=HybgenUnmixCfg()).hybgen_unmix.fixlay \
+        == 2
 
 
 @pytest.mark.parametrize("depths", [(0.0, 0.0), (50.0, 400.0)])

@@ -191,18 +191,18 @@ def test_build_model_matches_jax(name):
 # spherical grids and the bulk mixed layer, once cases here, are ported
 # (tests/test_torch_breadth3.py, test_torch_layered.py), and so are
 # USE_MEKE, USE_VISBECK, the benchmark topography and INTERNAL_TIDES
-# (tests/test_torch_breadth4.py): their cases now name options still
-# refused
+# (tests/test_torch_breadth4.py), and the TEOS10 and UNESCO equations of
+# state and the ADAPTIVE coordinate (tests/test_torch_eos_forms.py,
+# test_torch_hybgen.py): their cases now name options still refused
 @pytest.mark.parametrize("line,name", [
     ("#override GRID_CONFIG = mosaic", "GRID_CONFIG"),
     ("ICE_SHELF = True", "ICE_SHELF"),
-    ("#override EQN_OF_STATE = TEOS10", "EQN_OF_STATE"),
+    ("USE_REGIONAL_DYES = True", "USE_REGIONAL_DYES"),
     ("USE_OCMIP2_CFC = True", "USE_OCMIP2_CFC"),
     ("SPONGE = True", "SPONGE"),
     ("#override TOPO_CONFIG = seamount", "TOPO_CONFIG"),
-    ("#override REGRIDDING_COORDINATE_MODE = ADAPTIVE",
-     "REGRIDDING_COORDINATE_MODE"),
-    ("#override EQN_OF_STATE = UNESCO", "EQN_OF_STATE"),
+    ("COORD_CONFIG = layer_ref", "COORD_CONFIG"),
+    ("USE_DOME_TRACER = True", "USE_DOME_TRACER"),
 ])
 def test_options_outside_the_slice_raise(line, name):
     pf = ParamFile(text=BENCH_CONFIG + SMALL + line + "\n")
