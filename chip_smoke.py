@@ -172,6 +172,19 @@ order; any failure ends the script with a non-zero exit:
    their device kernels); one thermodynamic step under the profiler with
    profile_step's ranges: device time, host time and kernels of the ALE
    call, the regrid, the remaps and the polynomial EOS;
+6x. the ninth breadth item: configs.BENCH_CONFIG_FILE (topography, z-file
+   T/S, ALE sponge, monthly wind and buoyancy files and a data_table, from
+   configs.write_file_inputs) through entry.build_full at 32x32x6 in fp64
+   for 3 steps, card against CPU (1e-9; the largest printed); and its
+   modules card against CPU in fp64 (1e-12): the land fill and bilinear
+   regrid of the z file, the z-space initial T/S, the sponge targets
+   and the layer, ALE (33 reference levels onto 6) and interface
+   sponges, and the data override with the file forcing at a model time;
+7i. BENCH_CONFIG_FILE at full width, 512x512x25 fp32, as in 7b (launches
+   a step asserted: K1 4, K2 1, K3m 2), its ms/step beside bench.py's
+   CONFIG of phase 7, and one thermodynamic step under the profiler with
+   profile_step's ranges: the sponge, the file forcing and the data
+   override (device time, host time, kernels);
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -201,8 +214,15 @@ order; any failure ends the script with a non-zero exit:
    DIFFUSE_ML_TO_INTERIOR) and cases/ref_tc2 (spherical, halfpipe, Z*,
    MEKE, VarMix, neutral diffusion, ePBL) for their golden's steps in
    fp64 on the card, against tests/goldens_ref_cases.json at the
-   tolerances of tests/test_ref_cases.py.  Each run has every launch
-   counter zeroed just before it and read just after.
+   tolerances of tests/test_ref_cases.py; then cases/tc4 (topography,
+   T/S and sponge from files, Z*) through the driver in fp64 on the card
+   against the JAX driver's ocean.stats (TC4_JAX_STATS, as
+   tests/test_torch_cases.py holds the port on the CPU), cases/ref_tc4
+   (mosaic grid, z-file initial state, ALE sponge, COORD_CONFIG linear)
+   against its golden, and cases/tc2 (PPM_H4 over the spoon's vanished
+   layers) finite with the step and day columns of the JAX driver's
+   ocean.stats (TC2_JAX_STEPS).  Each run has every launch counter zeroed just before
+   it and read just after.
 
 The line before the last is the JSON ``kernels`` record (the porous K1
 instance and K3's open-face instance have records of their own); the
@@ -312,6 +332,8 @@ LATERAL_NEEDED = {"b4": ("varmix/resolution_function", "meke/step_meke",
 # the other equations of state and the hybrid coordinates of the fifth and
 # sixth breadth items: the same kernels again
 PER_STEP["hybgen"] = PER_STEP["adapt"] = PER_STEP["unmix"] = PER_STEP["b3"]
+# the ninth breadth item: the same kernels again
+PER_STEP["file"] = PER_STEP["b3"]
 # the profile_step ranges of the hybrid coordinates and the polynomial
 # equations of state, and those each text must run in a thermodynamic step
 HYBRID_PHASES = ("ale", "ale/hybgen_unmix", "ale/build_grid",
@@ -320,6 +342,27 @@ HYBRID_PHASES = ("ale", "ale/hybgen_unmix", "ale/build_grid",
                  "dynamics/pressure_force")
 HYBRID_NEEDED = {"hybgen": ("ale/build_grid/hybgen_regrid", "eos_poly"),
                  "adapt": ("ale/build_grid/build_adapt", "eos_poly")}
+# the ninth breadth item's profile_step ranges, and those of them a
+# thermodynamic step of BENCH_CONFIG_FILE must run
+FILE_PHASES = ("sponge", "sponge_eta", "file_forcing", "data_override/mech",
+               "data_override/fluxes", "ale", "ale/remap_column_means",
+               "diabatic")
+FILE_NEEDED = ("sponge", "file_forcing", "data_override/mech",
+               "data_override/fluxes")
+# cases/tc4 through the JAX driver on the CPU in fp64 (most XLA
+# optimizations off), the ocean.stats lines that tests/test_torch_cases.py
+# holds the port's to on the CPU
+TC4_JAX_STATS = """\
+     0,      0.000,       0, En 2.7578984764E-23, CFL  0.00000, SL  6.5711E-11, M 5.799776E+15, S  34.1031, T  11.1749, Me  0.00E+00
+     2,      0.014,       0, En 6.9201265738E-04, CFL  0.01813, SL  6.5841E-11, M 5.799776E+15, S  34.1031, T  11.1749, Me  3.45E-16
+     4,      0.028,       0, En 2.4147076918E-03, CFL  0.03421, SL  6.5854E-11, M 5.799776E+15, S  34.1031, T  11.1748, Me  3.45E-16
+     6,      0.042,       0, En 4.8720486157E-03, CFL  0.04746, SL  6.5861E-11, M 5.799776E+15, S  34.1032, T  11.1748, Me  3.45E-16
+"""
+# the (step, day) columns of cases/tc2's ocean.stats from the JAX driver:
+# its other columns part from the port's (the JAX package's jitted and
+# eager runs of this case part by 2.2e-5 in T after one step)
+TC2_JAX_STEPS = [(0, 0.0), (6, 0.062), (12, 0.125), (18, 0.188),
+                 (24, 0.25)]
 EOS_FORMS = ("LINEAR", "WRIGHT", "WRIGHT_FULL", "WRIGHT_RED", "UNESCO",
              "JACKETT_06", "ROQUET_RHO", "ROQUET_SPV", "TEOS10")
 # the column texts at 32x32x6 take a weakly stratified 400 m column, as
@@ -1348,7 +1391,9 @@ def run_full_timed(label, regridding, nsteps, wrappers, shape):
     if regridding:
         check_ale(m, st, sp, tr)
     return dict(ms_step=ms_full, launches=launches, device=device,
-                peak_bytes=peak, state=st)
+                peak_bytes=peak, state=st,
+                by_kind={k: sum(v) / len(v) for k, v in by_kind.items()
+                         if v})
 
 
 def read_counts(wrappers):
@@ -1790,6 +1835,12 @@ def check_hybrid_modules():
             # on an H100)
             out[f"{scheme} contents"] = t(h_dst) * rm.remap_column_means(
                 t(h), t(T), t(h_dst), rm.RemapCfg(scheme=scheme))
+        # the means themselves, printed: a thin cell's mean parts by
+        # 7.8e-12 on an H100; of these only PPM_H4 takes the boundary
+        # cubic of its edges
+        for scheme in ("PLM_HYBGEN", "PPM_HYBGEN", "WENO_HYBGEN", "PPM_H4"):
+            out[f"{scheme} means"] = rm.remap_column_means(
+                t(h), t(T), t(h_dst), rm.RemapCfg(scheme=scheme))
         return out
 
     cpu, card = cases("cpu"), cases(DEV)
@@ -1797,6 +1848,8 @@ def check_hybrid_modules():
     for k, a in cpu.items():
         rel, _ = rel_err(a, card[k].cpu(), H=0)
         errs[k] = rel
+        if k.endswith(" means"):
+            continue
         # ADAPTIVE's column sums (torch.sum) take another order on the
         # card, and its implicit grid diffusion, with diffusivities of
         # ADAPT_TIME_RATIO nk^2 depth, amplifies that last bit (1.5e-12
@@ -1805,8 +1858,9 @@ def check_hybrid_modules():
         if not rel <= tol:
             raise AssertionError(f"{k}: card vs cpu {rel:.3e} > {tol:.0e}")
     log("  hybrid modules card vs cpu max rel err "
-        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
-    return max(errs.values())
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+        + " (the means printed, not checked)")
+    return max(v for k, v in errs.items() if not k.endswith(" means"))
 
 
 def run_text(text, ni, nj, nk, dtype, device, nsteps, seed, tmp):
@@ -1950,12 +2004,13 @@ def run_ref_tc0(tmp, wrappers):
     return launches
 
 
-def run_ref_case(tmp, wrappers, case):
-    """cases/ref_tc1 or ref_tc2 through the solo driver in fp64 on the
-    card for its golden's steps, with every launch counter zeroed just
-    before and read just after (K1 4, K2 1, K3 2 a step): the final
+def run_ref_case(tmp, wrappers, case, d=None):
+    """cases/ref_tc1, ref_tc2 or ref_tc4 through the solo driver in fp64
+    on the card for its golden's steps, with every launch counter zeroed
+    just before and read just after (K1 4, K2 1, K3 2 a step): the final
     state's ocean.stats against tests/goldens_ref_cases.json at the
-    tolerances of tests/test_ref_cases.py."""
+    tolerances of tests/test_ref_cases.py.  ``d``: a case directory
+    made already (with the case's input files)."""
     import shutil
     import torch
     from mom6_torch.diagnostics.sum_output import collect_stats, stat_sums
@@ -1965,10 +2020,11 @@ def run_ref_case(tmp, wrappers, case):
     golden = json.loads((ROOT / "tests" / "goldens_ref_cases.json")
                         .read_text())[case]
     src = ROOT / "cases" / case
-    d = Path(tmp) / f"{case}_card"
-    d.mkdir()
-    for name in ("MOM_input", "MOM_override"):
-        shutil.copy(src / name, d / name)
+    if d is None:
+        d = Path(tmp) / f"{case}_card"
+        d.mkdir()
+        for name in ("MOM_input", "MOM_override"):
+            shutil.copy(src / name, d / name)
     m = build_model(ParamFile(str(src / "MOM_input"),
                               str(src / "MOM_override")),
                     device="cpu", dtype=torch.float64)
@@ -2005,6 +2061,217 @@ def run_ref_case(tmp, wrappers, case):
         + ("" if s.meke is None else
            f", MEKE energy max {float(s.meke.max()):.4e} m2 s-2"))
     return launches
+
+
+def check_file_modules():
+    """The ninth breadth item's modules on the card against the CPU in
+    fp64, 1e-12 relative to each field's maximum: the land fill and
+    bilinear regrid of BENCH_CONFIG_FILE's z file, the z-space initial T
+    and S and the sponge targets of its build at 32x32x6 (each device
+    builds its own), the layer, ALE (33 reference levels onto 6) and
+    interface sponges on seeded inputs, and the data override with the
+    file wind and fluxes at a model time."""
+    import numpy as np
+    import torch
+    from mom6_torch import configs, entry
+    from mom6_torch.initialization import bilinear_regrid, fill_missing
+    from mom6_torch.param.vertical.sponge import (apply_eta_sponge,
+                                                  apply_sponge)
+    ff = configs.file_fields(32, 32, 0)["ts_z.nc"]
+    src = ff["ptemp"].astype(np.float64)
+    dst = np.meshgrid(np.linspace(-5.0, 330.0, 40), np.linspace(0.0, 320.0,
+                                                                 40))
+
+    def regrid(dev):
+        f = fill_missing(src, src > -1e10, device=dev)
+        return f, bilinear_regrid(f, ff["lon"], ff["lat"], dst[0], dst[1])
+
+    out = {}
+    (out["cpu fill"], out["cpu regrid"]), (out["card fill"],
+                                           out["card regrid"]) = (
+        regrid("cpu"), regrid(DEV))
+    ms = {lab: (dev, entry.build_full(*SMALL_FULL, dynamics="file",
+                                      device=dev, dtype=torch.float64))
+          for lab, dev in (("cpu", "cpu"), ("card", DEV))}
+    rng = np.random.default_rng(9)
+    mc = ms["cpu"][1]
+    nk = mc.state.h.shape[0]
+    shape = tuple(mc.state.h.shape)
+    idamp = rng.uniform(0.0, 1.0 / 86400.0, shape[1:])
+    T_l = rng.uniform(2.0, 20.0, shape)
+    d_ref = np.cumsum(np.concatenate([np.zeros((1,) + shape[1:]),
+                                      rng.uniform(10.0, 900.0, shape)]), 0)
+    for lab, (dev, m) in ms.items():
+        def t(a, dev=dev):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                   device=dev)
+        sd, st = m.cfg.sponge, m.state
+        out[f"{lab} z-init T"], out[f"{lab} z-init S"] = st.T, st.S
+        for k in ("idamp", "T", "S", "ref_h"):
+            out[f"{lab} sponge {k}"] = sd[k]
+        out[f"{lab} ALE sponge T"] = apply_sponge(
+            {"T": st.T}, st.h, sd["idamp"], 1200.0, {"T": sd["T"]},
+            ref_h=sd["ref_h"])["T"]
+        out[f"{lab} layer sponge T"] = apply_sponge(
+            {"T": st.T}, st.h, t(idamp), 1200.0, {"T": t(T_l)})["T"]
+        out[f"{lab} eta sponge h"] = apply_eta_sponge(
+            st.h, t(idamp), 1200.0, t(d_ref))
+        fc, fl = m.forcing(st, 5.3e6, True)
+        for k in ("taux", "tauy"):
+            out[f"{lab} forcing {k}"] = getattr(fc, k)
+        for k in ("sw", "lw", "latent", "sensible", "evap", "lprec"):
+            out[f"{lab} forcing {k}"] = getattr(fl, k)
+    errs = {}
+    for k in [k[4:] for k in out if k.startswith("cpu ")]:
+        rel, _ = rel_err(out["cpu " + k], out["card " + k].cpu(), H=0)
+        errs[k] = rel
+        if not rel <= 1e-12:
+            raise AssertionError(f"{k}: card vs cpu {rel:.3e} > 1e-12")
+    if nk == mc.cfg.sponge["ref_h"].shape[0]:
+        raise AssertionError("the ALE sponge's reference grid has NK levels")
+    log("  file-driven modules card vs cpu max rel err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    return max(errs.values())
+
+
+def file_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_FILE: one thermodynamic step under the profiler
+    with profile_step's ranges: the device time, host time and kernels
+    of the sponge, the file forcing's interpolation in time, the data
+    override, the ALE call and the diabatic driver, and the step's idle
+    share."""
+    from mom6_torch import profile_step
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm != 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets(
+        "file"), "file thermo", None)
+    ph = summary.get("phases", {})
+    got = {k: ph[k] for k in FILE_PHASES if k in ph}
+    log(f"  profiled thermodynamic step: device busy "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+        f"{summary.get('kernels', 0)} kernels; "
+        + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                    f"{v['device_ms']:.4f} ms device, {v['host_ms']:.3f} "
+                    "ms host" for k, v in got.items()))
+    for k in FILE_NEEDED:
+        if k not in got:
+            raise AssertionError(f"file: no {k} in a thermodynamic step")
+    return dict(profiled_thermo=dict(
+        device_busy_ms=summary.get("device_busy_ms"),
+        idle_share=summary.get("idle_share_profiled"),
+        kernels=summary.get("kernels"), phases=got))
+
+
+def parse_stats(text):
+    """[(step, {field: value})] of ocean.stats lines without their
+    header; day and truncs among the fields."""
+    rows = []
+    for line in text.splitlines():
+        step, day, truncs, *rest = [c.strip() for c in line.split(",")]
+        row = {"day": float(day), "truncs": int(truncs)}
+        row.update((k, float(v)) for k, v in (c.split(None, 1)
+                                               for c in rest))
+        rows.append((int(step), row))
+    return rows
+
+
+def gen_ref_tc4(d):
+    """cases/ref_tc4's input files (not in the repository) written into
+    ``d`` by the case's own gen_data.py, with the port's NetCDF writer
+    in place of the JAX package's."""
+    src = (ROOT / "cases" / "ref_tc4" / "gen_data.py").read_text()
+    old = "from mom6_tpu.framework.io import write_fields"
+    if old not in src:
+        raise AssertionError("cases/ref_tc4/gen_data.py: no writer import")
+    ns = {"__name__": "ref_tc4_gen_data",
+          "__file__": str(Path(d) / "gen_data.py")}
+    exec(compile(src.replace(old, "from mom6_torch.framework.io import "
+                             "write_fields"), "gen_data.py", "exec"), ns)
+    ns["gen"](str(d))
+
+
+def run_file_cases(tmp, wrappers):
+    """cases/tc4, ref_tc4 and tc2 through the solo driver in fp64 on the
+    card, each with every launch counter zeroed just before and read
+    just after (K1 4, K2 1, K3 2 a step): tc4 against the JAX driver's
+    ocean.stats (TC4_JAX_STATS: the same steps, days and truncations,
+    En, CFL, M, S and T to 1e-9 relative, SL and Me to 1e-12 absolute);
+    ref_tc4, run in its case directory (its INPUTDIR is "."), against
+    its golden as run_ref_case holds ref_tc1; tc2 finite, with the step
+    and day columns of the JAX driver's ocean.stats (TC2_JAX_STEPS).
+    Returns the launches of each."""
+    import os
+    import shutil
+    from mom6_torch.drivers import solo
+    out = {}
+    per = {"K1": 4, "K2": 1, "K3": 2, "K3m": 0}
+    # tc4 reads INPUTDIR = "cases/tc4" from the root of the checkout
+    d = Path(tmp) / "tc4_card"
+    d.mkdir()
+    shutil.copy(ROOT / "cases" / "tc4" / "MOM_input", d / "MOM_input")
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        zero_counts(wrappers)
+        run = solo.main([str(d)])
+    finally:
+        os.chdir(cwd)
+    n = run["steps"]
+    out["tc4"] = check_driver_launches(
+        "driver tc4", wrappers, {k: v * n for k, v in per.items()})
+    got, want = read_stats(d / "ocean.stats"), parse_stats(TC4_JAX_STATS)
+    if [s for s, _ in got] != [s for s, _ in want]:
+        raise AssertionError(f"driver tc4: stats steps {got} against "
+                             f"{want}")
+    worst = {}
+    for (step, w), (_, g) in zip(want, got):
+        for k, a in w.items():
+            absolute = k in ("SL", "Me")
+            err = abs(g[k] - a) if absolute or a == 0.0 else \
+                abs(g[k] - a) / abs(a)
+            worst[k] = max(worst.get(k, 0.0), err)
+            if k in ("day", "truncs") and g[k] != a or \
+                    not err <= (1e-12 if absolute else 1e-9):
+                raise AssertionError(f"driver tc4 step {step} {k}: "
+                                     f"{g[k]!r} against the JAX {a!r}")
+    log(f"  tc4: {n} steps, card against the JAX driver's ocean.stats: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (SL [m] and Me absolute); launches {out['tc4']}")
+    # ref_tc4 reads its files from its case directory
+    d = Path(tmp) / "ref_tc4_card"
+    shutil.copytree(ROOT / "cases" / "ref_tc4", d)
+    gen_ref_tc4(d)
+    os.chdir(d)
+    try:
+        out["ref_tc4"] = run_ref_case(tmp, wrappers, "ref_tc4", d)
+    finally:
+        os.chdir(cwd)
+    # tc2: PPM_H4 over the spoon's vanished layers
+    d = Path(tmp) / "tc2_card"
+    d.mkdir()
+    shutil.copy(ROOT / "cases" / "tc2" / "MOM_input", d / "MOM_input")
+    zero_counts(wrappers)
+    run = solo.main([str(d)])
+    n = run["steps"]
+    out["tc2"] = check_driver_launches(
+        "driver tc2", wrappers, {k: v * n for k, v in per.items()})
+    got = read_stats(d / "ocean.stats")
+    if [(s, r["day"]) for s, r in got] != TC2_JAX_STEPS:
+        raise AssertionError(f"driver tc2: steps and days "
+                             f"{[(s, r['day']) for s, r in got]}")
+    for step, row in got:
+        bad = [k for k, v in row.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"driver tc2 step {step}: {row}")
+    s = run["state"]
+    check_finite([(k, getattr(s, k)) for k in ("h", "u", "v", "T", "S")],
+                 s.h.shape)
+    log(f"  tc2: {n} steps finite, steps and days those of the JAX "
+        f"driver; last line En {got[-1][1]['En']!r}, CFL "
+        f"{got[-1][1]['CFL']!r}, truncations {got[-1][1]['truncs']}; "
+        f"launches {out['tc2']}")
+    return out
 
 
 def check_ale(m, st, sp, tr):
@@ -2055,14 +2322,8 @@ def check_finite(fields, shape):
 def read_stats(path):
     """[(step, {field: value})] of an ocean.stats file, in file order;
     day and truncs among the fields."""
-    rows = []
-    for line in Path(path).read_text().splitlines()[2:]:
-        step, day, truncs, *rest = [c.strip() for c in line.split(",")]
-        row = {"day": float(day), "truncs": int(truncs)}
-        row.update((k, float(v)) for k, v in (c.split(None, 1)
-                                               for c in rest))
-        rows.append((int(step), row))
-    return rows
+    return parse_stats("\n".join(
+        Path(path).read_text().splitlines()[2:]))
 
 
 def case_dir(tmp, name, text):
@@ -2726,6 +2987,34 @@ def main():
     log("phase 6i hybgen, unmixing, ADAPTIVE and the hybgen remap schemes, "
         "card vs cpu fp64")
     check_hybrid_modules()
+    # 6x. the ninth breadth item's text at 32x32x6 fp64, then its modules
+    n = 3
+    log("phase 6x FILE (configs.BENCH_CONFIG_FILE) %dx%dx%d fp64, " % SMALL_FULL
+        + f"{n} steps: card vs cpu")
+    zero_counts(wrappers)
+    gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, n, seed=3,
+                             regridding=True, dynamics="file")
+    counts = read_counts(wrappers)
+    cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", n, seed=3,
+                             regridding=True, dynamics="file")
+    worst_file = 0.0
+    for name, a, b in (("h", cst.h, gst.h), ("u", cst.u, gst.u),
+                       ("v", cst.v, gst.v), ("T", cst.T, gst.T),
+                       ("S", cst.S, gst.S), ("age", ctr["age"], gtr["age"]),
+                       ("eta", csp.eta, gsp.eta), ("uh", csp.uh, gsp.uh),
+                       ("vh", csp.vh, gsp.vh)):
+        rel, diff = rel_err(a, b.cpu())
+        worst_file = max(worst_file, rel)
+        log(f"  FILE {name}: max rel err {rel:.3e} (limit 1e-09)")
+        if not rel <= 1e-9:
+            raise AssertionError(f"FILE {name}: {rel:.3e} > 1e-9")
+    expect = {k: v * n for k, v in PER_STEP["file"].items()}
+    if counts != expect:
+        raise AssertionError(f"FILE: launches {counts}, expected {expect}")
+    log(f"  FILE on the card: launches {counts}, largest rel err "
+        f"{worst_file:.3e}")
+    log("phase 6x the file-driven modules, card vs cpu fp64")
+    check_file_modules()
 
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
@@ -2824,6 +3113,18 @@ def main():
         f"{full['adapt']['peak_bytes'] / 2**30:.3f} against "
         f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
 
+    # 7i. set up and forced from files at full width
+    log("phase 7i file (configs.BENCH_CONFIG_FILE) %dx%dx%d fp32" % MAIN)
+    full["file"] = run_new_timed("file", wrappers, shape, file_extra)
+    torch.cuda.empty_cache()
+    log(f"  file against bench.py's CONFIG (phase 7, Z* ALE), same "
+        f"process: {full['file']['ms_step']:.3f} against "
+        f"{full['ale']['ms_step']:.3f} ms/step ("
+        + ", ".join(f"{k} {v:.3f} against {full['ale']['by_kind'][k]:.3f}"
+                    for k, v in full["file"]["by_kind"].items())
+        + f"); peak {full['file']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
@@ -2861,6 +3162,9 @@ def main():
             log(f"phase 8 driver: cases/{case} fp64 on the card, against "
                 "its golden")
             launches_layer[case] = run_ref_case(tmp, wrappers, case)
+        log("phase 8 driver: cases/tc4, cases/ref_tc4 and cases/tc2 fp64 "
+            "on the card")
+        launches_layer.update(run_file_cases(tmp, wrappers))
     torch.cuda.empty_cache()
 
     nk, njh, nih = shape_main
@@ -2931,7 +3235,11 @@ def main():
                 "hybgen_full_step": full["hybgen"]["launches"][k],
                 "adapt_full_step": full["adapt"]["launches"][k],
                 "solo_ref_tc1": launches_layer["ref_tc1"][k],
-                "solo_ref_tc2": launches_layer["ref_tc2"][k]},
+                "solo_ref_tc2": launches_layer["ref_tc2"][k],
+                "file_full_step": full["file"]["launches"][k],
+                "solo_tc4": launches_layer["tc4"][k],
+                "solo_ref_tc4": launches_layer["ref_tc4"][k],
+                "solo_tc2": launches_layer["tc2"][k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
@@ -2980,7 +3288,7 @@ def main():
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
     for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml", "b4", "b4v",
-                "hybgen", "adapt"):
+                "hybgen", "adapt", "file"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())

@@ -160,6 +160,15 @@ def _cumsum0(x):
                      dim=0)
 
 
+# An integral-cubic boundary value further than this many times the range
+# of its 4 cells (plus a relative slack of their magnitude: this, or that
+# many rounding errors of the dtype, whichever is larger) outside that
+# range counts as amplified.  A well-conditioned fit overshoots by a few
+# ranges at most, and a column of 4 equal cells keeps its fit in fp32.
+_AMPLIFIED = 1.0e3
+_AMPLIFIED_REL = 1.0e-8
+
+
 def _boundary_cubic(h, u, bottom: bool):
     """Edge values at the outermost two interfaces from an integral
     cubic fit over the 4 cells nearest the boundary, on positions
@@ -178,7 +187,23 @@ def _boundary_cubic(h, u, bottom: bool):
     B = uu * dz
     C0, C1, C2, C3 = _solve4(A, B)
     x1 = x[1]
-    return C0, C0 + x1 * (C1 + x1 * (C2 + x1 * C3))
+    e0, e1 = C0, C0 + x1 * (C1 + x1 * (C2 + x1 * C3))
+    # Two nearly coincident thin cells make the moment matrix itself
+    # near singular (its leading minors stay regular, so pivoting cannot
+    # help): the solve returns 0/0 or an edge value amplified far past
+    # the cells' range.  Such columns take the h2 estimates instead.  A
+    # value is kept where |e - mid| <= lim, with mid and 2 rad the
+    # cells' midrange and range (max(|lo|, |hi|) = |mid| + rad); NaN
+    # fails the comparison.
+    lo, hi = torch.aminmax(uu, dim=0)
+    mid, rng = 0.5 * (hi + lo), hi - lo
+    rel = max(_AMPLIFIED_REL, _AMPLIFIED * torch.finfo(u.dtype).eps)
+    lim = torch.add(rel * mid.abs(), rng, alpha=0.5 * (1.0 + rel)
+                    + _AMPLIFIED)
+    keep = ((e0 - mid).abs() <= lim) & ((e1 - mid).abs() <= lim)
+    hk0, hk1 = hh[0] + _H_NEGLECT, hh[1] + _H_NEGLECT
+    e1_h2 = (uu[0] * hk1 + uu[1] * hk0) / (hk1 + hk0)
+    return torch.where(keep, e0, uu[0]), torch.where(keep, e1, e1_h2)
 
 
 def _pin(e, nk, rows):

@@ -80,6 +80,18 @@ coordinate with the ROQUET_RHO polynomial and the PLM_HYBGEN remap.
 unmixing, the ROQUET_SPV polynomial and the same density ladder.  Each
 text's lines are commented where they are defined.
 
+``BENCH_CONFIG_FILE`` is bench.py's configuration set up and forced from
+files, the way regional and global runs are: the bottom from a
+topography file (the flat 4000 m with a land peninsula from the southern
+wall), T and S from a coarser lon/lat/depth file on 33 WOA-like levels
+(filled under land, regridded bilinearly, remapped onto the z* layers),
+an ALE sponge over N and S strips restoring toward targets on those 33
+levels, a monthly wind and monthly shortwave, longwave, latent,
+sensible, evaporation and rain files, and a ``data_table`` with one
+constant and one off-grid (bilinear) override.  ``write_file_inputs``
+writes the files from a seed; TS_CONFIG and T_RANGE stay in the text
+unread.
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
@@ -92,7 +104,9 @@ __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "BENCH_CONFIG_ADAPT", "BENCH_CONFIG_UNMIX",
            "B1_LINES", "NONBOUSS_LINES", "OBC_LINES", "STOCH_LINES",
            "B3_LINES", "BML_LINES", "B4_LINES", "B4V_LINES",
-           "HYBGEN_LINES", "ADAPT_LINES", "UNMIX_LINES", "obc_strip",
+           "HYBGEN_LINES", "ADAPT_LINES", "UNMIX_LINES", "BENCH_CONFIG_FILE",
+           "FILE_LINES", "FILE_DATA_TABLE", "WOA_DEPTHS", "file_fields",
+           "write_file_inputs", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
            "write_topog_edge"]
 
@@ -337,6 +351,171 @@ BENCH_CONFIG_HYBGEN = BENCH_CONFIG + HYBGEN_LINES
 BENCH_CONFIG_ADAPT = BENCH_CONFIG + ADAPT_LINES
 
 BENCH_CONFIG_UNMIX = BENCH_CONFIG + UNMIX_LINES
+
+# the set-up and forcing from files; the files are those of
+# write_file_inputs, in INPUTDIR
+FILE_LINES = """#override TOPO_CONFIG = file
+TOPO_FILE = topog.nc
+INIT_LAYERS_FROM_Z_FILE = True
+TEMP_SALT_Z_INIT_FILE = ts_z.nc
+Z_INIT_ALE_REMAPPING = True
+SPONGE = True
+SPONGE_DAMPING_FILE = sponge.nc
+SPONGE_STATE_FILE = sponge_ts.nc
+SPONGE_PTEMP_VAR = ptemp
+SPONGE_SALT_VAR = salt
+#override WIND_CONFIG = file
+WIND_FILE = wind.nc
+WINDSTRESS_X_VAR = taux
+WINDSTRESS_Y_VAR = tauy
+#override BUOY_CONFIG = file
+SHORTWAVE_FILE = buoy.nc
+LONGWAVE_FILE = buoy.nc
+LATENTHEAT_FILE = buoy.nc
+SENSIBLEHEAT_FILE = buoy.nc
+EVAPORATION_FILE = buoy.nc
+RAIN_FILE = buoy.nc
+"""
+
+BENCH_CONFIG_FILE = BENCH_CONFIG + FILE_LINES
+
+# a constant sensible heat flux, and the meridional stress from an
+# off-grid monthly file regridded bilinearly to the v points
+FILE_DATA_TABLE = """# gridname, field, file variable, file, ongrid, factor
+"OCN", "sensible", "", "", .false., -12.0
+"OCN", "tauy", "tauy", "override.nc", .false., 1.0
+"""
+
+# the 33 standard depths of the World Ocean Atlas [m]
+WOA_DEPTHS = (0.0, 10.0, 20.0, 30.0, 50.0, 75.0, 100.0, 125.0, 150.0,
+              200.0, 250.0, 300.0, 400.0, 500.0, 600.0, 700.0, 800.0,
+              900.0, 1000.0, 1100.0, 1200.0, 1300.0, 1400.0, 1500.0,
+              1750.0, 2000.0, 2500.0, 3000.0, 3500.0, 4000.0, 4500.0,
+              5000.0, 5500.0)
+_MISSING = -1.0e20
+
+
+def _profiles(z, y):
+    """WOA-like T and S at depths ``z`` [m] and fractional latitude
+    ``y`` in [0, 1]: a 700 m thermocline warmer to the south, a fresher
+    surface to the north."""
+    T = 2.0 + (14.0 + 8.0 * (0.5 - y)) * np.exp(-z / 700.0)
+    S = 34.7 + (0.5 - 0.6 * (y - 0.5)) * np.exp(-z / 500.0)
+    return T, S
+
+
+def file_fields(ni: int, nj: int, seed: int, dx_km: float = 10.0) -> dict:
+    """The inputs of ``BENCH_CONFIG_FILE`` on an ``ni`` x ``nj`` grid of
+    ``dx_km`` cells, as {file name: {variable: array}} (each with its
+    ``dims`` and ``attrs`` under the keys of the same name):
+
+    * topog.nc: 4000 m, with land (0 m) over the middle tenth in x from
+      the southern wall to 0.6 of the way north;
+    * ts_z.nc: ptemp and salt (33 levels, ``WOA_DEPTHS``) on a
+      min(128, max(8, ni // 4))-point square lon/lat grid over the
+      domain, missing (-1e20) under the peninsula, with seeded noise of
+      0.05 degC and 0.005 ppt;
+    * sponge.nc: Idamp, 1/day at the N and S walls falling linearly to 0
+      over strips of min(32, max(2, nj // 8)) rows; sponge_ts.nc: the
+      noise-free profiles on the model's points and the 33 levels;
+    * wind.nc: 12 monthly records (mid-month, 360-day modulo axis) of
+      taux (gyres, 0.1 Pa, with a 30 % seasonal swing) and tauy;
+    * buoy.nc: 12 monthly records of SW, LW, latent, sensible, evap and
+      liq_precip on the grid, near a zero net budget;
+    * override.nc: 12 monthly records of tauy on the coarse lon/lat
+      grid."""
+    rng = np.random.default_rng(seed)
+    lenlon, lenlat = ni * dx_km, nj * dx_km
+    yc = (np.arange(nj) + 0.5) / nj
+    xc = (np.arange(ni) + 0.5) / ni
+    Y, X = np.meshgrid(yc, xc, indexing="ij")
+    land = (X >= 0.45) & (X < 0.55) & (Y < 0.6)
+    depth = np.where(land, 0.0, 4000.0)
+
+    ns = min(128, max(8, ni // 4))
+    ys = (np.arange(ns) + 0.5) / ns
+    Ys, Xs = np.meshgrid(ys, ys, indexing="ij")
+    z = np.asarray(WOA_DEPTHS)[:, None, None]
+    T, S = _profiles(z, Ys[None])
+    T = T + 0.05 * rng.standard_normal(T.shape)
+    S = S + 0.005 * rng.standard_normal(S.shape)
+    land_s = ((Xs >= 0.45) & (Xs < 0.55) & (Ys < 0.6))[None]
+    T = np.where(land_s, _MISSING, T)
+    S = np.where(land_s, _MISSING, S)
+
+    strip = min(32, max(2, nj // 8))
+    j = np.arange(nj)[:, None] + np.zeros((1, ni))
+    dist = np.minimum(j, nj - 1 - j)
+    idamp = np.clip(1.0 - dist / strip, 0.0, 1.0) / 86400.0
+    T_sp, S_sp = _profiles(z, Y[None])
+
+    month = (np.arange(12) + 0.5) / 12.0
+    season = np.sin(2.0 * np.pi * month)[:, None, None]
+    taux = 0.1 * -np.cos(2.0 * np.pi * Y)[None] * (1.0 + 0.3 * season)
+    tauy = 0.02 * np.sin(2.0 * np.pi * X)[None] * np.cos(
+        2.0 * np.pi * month)[:, None, None]
+    sw = 180.0 + 60.0 * season * (1.0 - Y[None])
+    lw = np.full_like(sw, -60.0)
+    latent = np.broadcast_to(-95.0 + 10.0 * season, sw.shape)
+    sensible = np.full_like(sw, -12.0)
+    evap = np.broadcast_to(3.5e-5 + 0.5e-5 * season, sw.shape)
+    lprec = np.full_like(sw, 3.4e-5)
+    tauy_s = 0.03 * np.sin(2.0 * np.pi * Xs)[None] * np.cos(
+        2.0 * np.pi * month)[:, None, None]
+
+    f32 = np.float32
+    time_ax = {"time": (30.0 * np.arange(12) + 15.0)}
+    t_attrs = {"time": {"units": "days since 0001-01-01",
+                        "modulo": "360"}}
+    lonlat = {"lon": (np.arange(ns) + 0.5) * lenlon / ns,
+              "lat": (np.arange(ns) + 0.5) * lenlat / ns}
+    zyx = ("depth", "lat", "lon")
+    tyx = ("time", "ny", "nx")
+    return {
+        "topog.nc": {"depth": depth},
+        "ts_z.nc": dict(lonlat, depth=np.asarray(WOA_DEPTHS),
+                        ptemp=T.astype(f32), salt=S.astype(f32),
+                        dims={"lon": ("lon",), "lat": ("lat",),
+                              "depth": ("depth",), "ptemp": zyx,
+                              "salt": zyx}),
+        "sponge.nc": {"Idamp": idamp},
+        "sponge_ts.nc": {"depth": np.asarray(WOA_DEPTHS),
+                         "ptemp": T_sp.astype(f32), "salt": S_sp.astype(f32),
+                         "dims": {"depth": ("depth",),
+                                  "ptemp": ("depth", "ny", "nx"),
+                                  "salt": ("depth", "ny", "nx")}},
+        "wind.nc": dict(time_ax, taux=taux.astype(f32),
+                        tauy=tauy.astype(f32),
+                        dims={"time": ("time",), "taux": tyx, "tauy": tyx},
+                        attrs=t_attrs),
+        "buoy.nc": dict(time_ax, SW=sw.astype(f32), LW=lw.astype(f32),
+                        latent=latent.astype(f32),
+                        sensible=sensible.astype(f32),
+                        evap=evap.astype(f32), liq_precip=lprec.astype(f32),
+                        dims=dict({"time": ("time",)}, **{
+                            k: tyx for k in ("SW", "LW", "latent",
+                                             "sensible", "evap",
+                                             "liq_precip")}),
+                        attrs=t_attrs),
+        "override.nc": dict(time_ax, **lonlat, tauy=tauy_s.astype(f32),
+                            dims={"time": ("time",), "lon": ("lon",),
+                                  "lat": ("lat",),
+                                  "tauy": ("time", "lat", "lon")},
+                            attrs=t_attrs)}
+
+
+def write_file_inputs(indir: str, ni: int, nj: int, seed: int = 0) -> None:
+    """The files of ``file_fields`` and the ``data_table`` of
+    ``FILE_DATA_TABLE`` in ``indir``."""
+    import os
+    from mom6_torch.framework.io import write_fields
+    for name, fields in file_fields(ni, nj, seed).items():
+        fields = dict(fields)
+        dims, attrs = fields.pop("dims", None), fields.pop("attrs", None)
+        write_fields(os.path.join(indir, name), fields, dims=dims,
+                     attrs=attrs)
+    with open(os.path.join(indir, "data_table"), "w") as fh:
+        fh.write(FILE_DATA_TABLE)
 
 
 def obc_strip(ni: int) -> str:

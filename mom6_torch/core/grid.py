@@ -21,7 +21,8 @@ import torch
 
 from mom6_torch.parallel.domain import Domain
 
-__all__ = ["Grid", "cartesian_grid", "spherical_grid", "mercator_grid"]
+__all__ = ["Grid", "cartesian_grid", "spherical_grid", "mercator_grid",
+           "mosaic_grid"]
 
 RADIUS_EARTH = 6.378e6     # m
 OMEGA = 7.2921e-5          # s-1
@@ -260,3 +261,83 @@ def mercator_grid(domain: Domain, west_lon: float, lenlon: float,
 
     return _build(domain, lon_c, lat_c, lon_f, lat_f, dx_fn, dy_fn,
                   f_fn, depth_fn, min_depth, device, dtype)
+
+
+def _pad_metric(domain: Domain, interior: np.ndarray) -> np.ndarray:
+    """A (nj, ni) field padded to the halo: wrapped along reentrant axes,
+    edge copies at walls."""
+    H = domain.halo
+    out = np.pad(interior, ((H, H), (0, 0)),
+                 mode="wrap" if domain.reentrant_y else "edge")
+    return np.pad(out, ((0, 0), (H, H)),
+                  mode="wrap" if domain.reentrant_x else "edge")
+
+
+def mosaic_grid(domain: Domain, grid_file: str, *, device,
+                dtype: torch.dtype, depth_fn=None,
+                min_depth: float = 0.0) -> Grid:
+    """The horizontal grid of an FMS mosaic supergrid file
+    (GRID_CONFIG = mosaic; mom6_tpu.core.grid.mosaic_grid).
+
+    The supergrid has its coordinates x, y at (2 nj + 1, 2 ni + 1)
+    points, segment lengths dx (2 nj + 1, 2 ni) and dy (2 nj, 2 ni + 1)
+    and areas (2 nj, 2 ni) at twice the resolution: model cell (j, i)
+    covers supergrid cells [2j:2j+2, 2i:2i+2], its centre is supergrid
+    point (2j+1, 2i+1) and its NE corner (2j+2, 2i+2).  A metric sums
+    the two supergrid segments through its point; the last face's
+    second segment, beyond the file, wraps on a reentrant axis and
+    repeats the last one at a wall.  Halos wrap along reentrant axes
+    and copy the edge at walls; f = 2 Omega sin(lat) at the corners."""
+    from mom6_torch.framework.io import read_field
+
+    def rd(name):
+        return np.asarray(read_field(grid_file, name), np.float64)
+
+    x, y, sdx, sdy, sarea = (rd(n) for n in ("x", "y", "dx", "dy", "area"))
+    nj, ni = domain.nj, domain.ni
+    if x.shape != (2 * nj + 1, 2 * ni + 1):
+        raise ValueError(
+            f"supergrid x shape {x.shape} incompatible with "
+            f"NIGLOBAL={ni}, NJGLOBAL={nj} (want {(2*nj+1, 2*ni+1)})")
+    jc = 2 * np.arange(nj) + 1          # centre rows/columns
+    ic = 2 * np.arange(ni) + 1
+    jf = 2 * np.arange(nj) + 2          # north faces, NE corners
+    if_ = 2 * np.arange(ni) + 2         # east faces
+    j0, i0 = 2 * np.arange(nj), 2 * np.arange(ni)
+    ix2 = np.where(if_ < 2 * ni, if_, 0 if domain.reentrant_x
+                   else 2 * ni - 1)
+    jy2 = np.where(jf < 2 * nj, jf, 0 if domain.reentrant_y
+                   else 2 * nj - 1)
+    dxT = sdx[jc][:, i0] + sdx[jc][:, ic]
+    dyT = sdy[j0][:, ic] + sdy[jc][:, ic]
+    dxCu = sdx[jc][:, ic] + sdx[jc][:, ix2]
+    dyCu = sdy[j0][:, if_] + sdy[jc][:, if_]
+    dxCv = sdx[jf][:, i0] + sdx[jf][:, ic]
+    dyCv = sdy[jc][:, ic] + sdy[jy2][:, ic]
+    dxBu = sdx[jf][:, ic] + sdx[jf][:, ix2]
+    dyBu = sdy[jc][:, if_] + sdy[jy2][:, if_]
+    areaT = (sarea[::2, ::2] + sarea[1::2, ::2]
+             + sarea[::2, 1::2] + sarea[1::2, 1::2])
+
+    def P(a):
+        return _pad_metric(domain, a)
+
+    metrics = dict(dxT=P(dxT), dyT=P(dyT), areaT=P(areaT),
+                   dxCu=P(dxCu), dyCu=P(dyCu), areaCu=P(dxCu) * P(dyCu),
+                   dxCv=P(dxCv), dyCv=P(dyCv), areaCv=P(dxCv) * P(dyCv),
+                   dxBu=P(dxBu), dyBu=P(dyBu), areaBu=P(dxBu) * P(dyBu))
+    coords = dict(geoLatT=P(y[jc[:, None], ic]),
+                  geoLonT=P(x[jc[:, None], ic]),
+                  geoLatCu=P(y[jc[:, None], if_]),
+                  geoLonCu=P(x[jc[:, None], if_]),
+                  geoLatCv=P(y[jf[:, None], ic]),
+                  geoLonCv=P(x[jf[:, None], ic]),
+                  geoLatBu=P(y[jf[:, None], if_]),
+                  geoLonBu=P(x[jf[:, None], if_]))
+    f = 2.0 * OMEGA * np.sin(np.pi / 180.0 * coords["geoLatBu"])
+    if depth_fn is None:
+        def depth_fn(lon, lat):
+            return np.full_like(lat, 4000.0)
+    depth = depth_fn(coords["geoLonT"], coords["geoLatT"])
+    return _assemble(domain, depth, min_depth, f, metrics, coords, device,
+                     dtype)

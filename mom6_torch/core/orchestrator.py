@@ -40,7 +40,10 @@ the boundary inside the previous boundary-layer depth
 the internal-tide energy step, whose wave-drag loss replaces the
 uniform tidal energy of the tidal mixing (``int_tide_en`` carries En
 from one thermodynamic step to the next, the diags' ``int_tide_en``).
-Sponges and BGC are not ported yet and raise ``NotImplementedError``.
+At the end of the column physics the sponges restore toward their
+targets (``cfg.sponge``): the interface heights first (layered), then T
+and S (remapped from their own grid under an ALE sponge), then u and v
+toward rest (SPONGE_UV).  BGC is not ported yet.
 The shear viscosity of a diabatic phase
 (``kv_shear`` in the diags) feeds the next split RK2 dynamics step
 (``kv_shear_prev``); the RK2b and unsplit steps take none, as in the JAX
@@ -85,6 +88,7 @@ from mom6_torch.param.stochastic.stochastics import (StochasticsCfg,
                                                      init_pattern,
                                                      step_pattern)
 from mom6_torch.param.vertical.diabatic import DiabaticCfg, diabatic
+from mom6_torch.param.vertical.sponge import apply_eta_sponge, apply_sponge
 from mom6_torch.param.vertical.tidal_mixing import internal_tide_input
 from mom6_torch.parallel.domain import Domain
 from mom6_torch.parallel.stencil import ip1, jp1
@@ -144,6 +148,30 @@ class OceanCfg:
     n_dyn_per_therm: int = 1             # DT_THERM / DT
     # DIABATIC_FIRST: the column physics and ALE before the dynamics
     diabatic_first: bool = False
+    # the sponge: {"idamp": (njh, nih) [s-1], "T"/"S": targets or None,
+    # "ref_h": their own thicknesses (ALE sponge), "eta": interface
+    # depth targets (layered), "uv": damp u and v toward rest}
+    sponge: Optional[dict] = None
+
+
+def _sponge(state: State, sd: dict, dt: float) -> State:
+    """The sponge phase: interface heights, then T and S, then u and v."""
+    if sd.get("eta") is not None:
+        # layered interface restoring; also without T and S
+        state = state.replace(h=apply_eta_sponge(state.h, sd["idamp"], dt,
+                                                 sd["eta"]))
+    if state.T is not None and sd.get("T") is not None:
+        damped = apply_sponge({"T": state.T, "S": state.S}, state.h,
+                              sd["idamp"], dt, {"T": sd["T"], "S": sd["S"]},
+                              ref_h=sd.get("ref_h"))
+        state = state.replace(T=damped["T"], S=damped["S"])
+    if sd.get("uv"):
+        # SPONGE_UV: u and v toward rest at the faces' mean rates
+        idu = 0.5 * (sd["idamp"] + ip1(sd["idamp"]))
+        idv = 0.5 * (sd["idamp"] + jp1(sd["idamp"]))
+        state = state.replace(u=state.u / (1.0 + dt * idu)[None],
+                              v=state.v / (1.0 + dt * idv)[None])
+    return state
 
 
 class OceanDiags(NamedTuple):
@@ -168,7 +196,7 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
                cfg: OceanCfg, eos=None, x_first: bool = True,
                tracer_registry=None, do_thermo: bool = True,
                uhtr_accum=None, vhtr_accum=None, mld_prev=None,
-               kv_shear_prev=None, t=None, obc=None, sponge_data=None,
+               kv_shear_prev=None, t=None, obc=None,
                int_tide_en=None, sppt_pattern=None, obc_reservoirs=None):
     """One full ocean step of length dt.  On steps with ``do_thermo``
     False the transports accumulate into the returned diags' uhtr/vhtr,
@@ -178,8 +206,6 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
     the advanced carry comes back as the diags' ``sppt_pattern``.
     Returns (state, split_state, tracers, OceanDiags), and the advanced
     reservoirs fifth when ``obc_reservoirs`` is given."""
-    if sponge_data is not None:
-        raise NotImplementedError("sponge")
     fill = domain.fill_halos
 
     def thermo_and_ale(state, split_state, tracers):
@@ -239,6 +265,8 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
             for k in ("frazil", "mld", "kv_shear"):
                 if k in dia:
                     extras[k] = dia[k]
+        if cfg.sponge is not None:
+            state = _sponge(state, cfg.sponge, dt)
         if tracer_registry is not None and tracers:
             tracers = tracer_registry.apply_column_fns(
                 tracers, state.h, dt, state=state, forces=forces, t=t)

@@ -8,19 +8,26 @@ would sit if levelled over the real hypsometry) and from that the
 available potential energy.
 
 The list is built once on the host (a numpy sort of the bathymetry) and
-then lives on the grid's device as three 1D float64 tensors.  Reading
-and writing a depth-list file (READ_DEPTH_LIST) is not ported yet:
-``depth_list_setup`` raises ``NotImplementedError`` when asked to.
+then lives on the grid's device as three 1D float64 tensors.  With
+READ_DEPTH_LIST ``depth_list_setup`` reads the list from a file when the
+file's checksum of the bathymetry (a bit count, ``depth_chksum``)
+matches the grid's, and otherwise computes the list and writes the file.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import os
+
 import numpy as np
 import torch
 
-__all__ = ["DepthList", "create_depth_list", "depth_list_setup"]
+from mom6_torch.framework.error_handler import WARNING, MOM_error
+from mom6_torch.framework.io import read_attrs, read_field, write_fields
+
+__all__ = ["DepthList", "create_depth_list", "depth_list_setup",
+           "write_depth_list"]
 
 
 class DepthList(NamedTuple):
@@ -76,11 +83,48 @@ def create_depth_list(domain, grid, min_depth_inc: float = 0.0
                      vol_below=dev_t(vols))
 
 
+def _grid_chksum(domain, grid) -> int:
+    """The number of set bits of the compute domain's bathymetry in
+    float64: the tag that ties a depth-list file to its topography."""
+    d = np.ascontiguousarray(domain.interior(grid.bathyT).detach().to(
+        "cpu", torch.float64).numpy())
+    return int(np.unpackbits(np.frombuffer(d.tobytes(),
+                                           dtype=np.uint8)).sum())
+
+
+def write_depth_list(path: str, dl: DepthList, domain, grid) -> None:
+    """The list to a NetCDF-3 file, tagged with the bathymetry's
+    checksum."""
+    write_fields(path, {k: getattr(dl, k).cpu().numpy()
+                        for k in ("depth", "area", "vol_below")},
+                 dims={k: ("list",) for k in ("depth", "area", "vol_below")},
+                 global_attrs={"depth_chksum": _grid_chksum(domain, grid)})
+
+
 def depth_list_setup(domain, grid, *, read_file: bool = False,
-                     min_depth_inc: float = 0.0) -> DepthList:
-    """The depth list of the model bathymetry; READ_DEPTH_LIST (a cached
-    list file) raises."""
+                     path: str = "Depth_list.nc", min_depth_inc: float = 0.0
+                     ) -> DepthList:
+    """The depth list of the model bathymetry.  With ``read_file``
+    (READ_DEPTH_LIST): the list of ``path`` when its checksum matches
+    the bathymetry, else (with a warning) the computed list, which is
+    then written to ``path``."""
+    if read_file and os.path.exists(path):
+        try:
+            stored = int(read_attrs(path).get("depth_chksum", -1))
+            now = _grid_chksum(domain, grid)
+            if stored == now:
+                dev = grid.bathyT.device
+                return DepthList(*(torch.as_tensor(
+                    np.asarray(read_field(path, k), np.float64),
+                    device=dev) for k in ("depth", "area", "vol_below")))
+            MOM_error(WARNING, f"Depth list file {path} checksum {stored} "
+                      f"does not match topography {now}; regenerating")
+        except (OSError, ValueError, KeyError, TypeError):
+            pass
+    dl = create_depth_list(domain, grid, min_depth_inc)
     if read_file:
-        raise NotImplementedError("READ_DEPTH_LIST = True: depth-list file "
-                                  "input/output")
-    return create_depth_list(domain, grid, min_depth_inc)
+        try:
+            write_depth_list(path, dl, domain, grid)
+        except OSError:
+            pass
+    return dl

@@ -32,10 +32,14 @@ every step that truncated velocities.  The restart carries the
 stochastic pattern (``carry_sppt``, or ``carry_sppt_p``/``carry_sppt_k``
 with SKEB) and the internal-tide energy (``carry_iten``) as the JAX
 driver does; like it, the driver writes no periodic restarts, whatever
-RESTINT says.  Particles, offline tracer mode, WRITE_OFFLINE_FIELDS,
-DEBUG_NANS and READ_DEPTH_LIST are not ported yet and raise
-``NotImplementedError`` naming themselves, and so does any parameter
-the case sets that neither the builder nor the driver reads.
+RESTINT says.  READ_DEPTH_LIST reads the APE's depth list from
+DEPTH_LIST_FILE in the case directory when it matches the bathymetry,
+and writes it otherwise; under DEBUG_NANS a step whose outputs hold a
+NaN runs again with every operation checked, and the first that makes a
+NaN raises (``framework/debug_nans.py``).  Particles,
+offline tracer mode and WRITE_OFFLINE_FIELDS are not ported yet and
+raise ``NotImplementedError`` naming themselves, and so does any
+parameter the case sets that neither the builder nor the driver reads.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from mom6_torch.diagnostics.sum_output import (collect_stats,
 from mom6_torch.framework.checksums import hchksum_str
 from mom6_torch.framework.clock import clock
 from mom6_torch.framework.config import ParamFile
+from mom6_torch.framework.debug_nans import NanCheck, has_nan
 from mom6_torch.framework.diag import DiagMediator, parse_diag_table
 from mom6_torch.framework.error_handler import (MOM_error, NOTE,
                                                 set_verbosity)
@@ -94,12 +99,14 @@ def read_driver_params(pf: ParamFile, model) -> dict:
     p["do_ape"] = pf.get("CALCULATE_APE", bool, True,
                          desc="available potential energy vs the "
                          "depth-list hypsometry in ocean.stats")
-    default_only(pf, "READ_DEPTH_LIST", bool, False)
-    pf.get("DEPTH_LIST_FILE", str, "Depth_list.nc")
+    p["read_depth_list"] = pf.get("READ_DEPTH_LIST", bool, False)
+    p["depth_list_file"] = pf.get("DEPTH_LIST_FILE", str, "Depth_list.nc")
     # DEBUG: one block of prognostic checksums a step in chksum_debug
     pf.module("MOM_debugging")
     p["debug_mode"] = pf.get("DEBUG", bool, False)
-    default_only(pf, "DEBUG_NANS", bool, False)
+    # DEBUG_NANS: a step whose outputs hold a NaN names the operation
+    # that made it
+    p["debug_nans"] = pf.get("DEBUG_NANS", bool, False)
     # U_TRUNC_FILE: the worst column after each step that truncated
     p["u_trunc_file"] = pf.get("U_TRUNC_FILE", str, "")
     # DTBT_RESET_PERIOD: re-estimate the barotropic substep count from
@@ -239,7 +246,10 @@ def main(argv=None) -> dict:
     # count
     step_cache = {step.nstep_bt: step}
     d, g, vg, dt = model.domain, model.grid, model.vgrid, model.dt
-    dlist = depth_list_setup(d, g) if dp["do_ape"] else None
+    dlist = depth_list_setup(
+        d, g, read_file=dp["read_depth_list"],
+        path=os.path.join(args.case_dir, dp["depth_list_file"])) \
+        if dp["do_ape"] else None
     nsteps = int(round((daymax - t_days) * 86400.0 / dt))
     summary = {"state": state, "split": split, "tracers": tracers,
                "nstep_bt": [], "steps": 0, "loop_seconds": 0.0}
@@ -318,8 +328,19 @@ def main(argv=None) -> dict:
                     step = model.step_fn(nstep_bt=new_nstep, carry=acc)
                     step_cache[new_nstep] = step
         truncs_before = step.truncations() if dp["u_trunc_file"] else 0
+        acc_before = step.carry() if dp["debug_nans"] else None
         with clock("step_MOM", sync=lambda: state.h):
-            state, split, tracers = step(state, split, tracers, n)
+            out = step(state, split, tracers, n)
+        if dp["debug_nans"] and has_nan(*out):
+            # as jax_debug_nans: the step runs again from its inputs, op
+            # by op, to name the operation that made the NaN
+            step.set_carry(acc_before)
+            with NanCheck(step=n):
+                step(state, split, tracers, n)
+            raise FloatingPointError(
+                f"DEBUG_NANS: step {n} made a NaN outside the aten "
+                "operations")
+        state, split, tracers = out
         if dp["u_trunc_file"] and step.truncations() > truncs_before:
             dump_worst_column(
                 os.path.join(args.case_dir, dp["u_trunc_file"]), d, g,

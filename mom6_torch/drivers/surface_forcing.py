@@ -1,10 +1,12 @@
 """Analytic surface forcing of the solo driver.
 
 Counterpart of ``mom6_tpu.drivers.surface_forcing``: the named wind
-configurations (zero, constant, gyres, 2gyre) and the linear-target
-surface restoring of BUOY_CONFIG = linear_restoring, producing
-(MechForcing, Fluxes).  File-driven forcing and the other buoyancy
-configurations are not ported yet and raise ``NotImplementedError``.
+configurations (zero, constant, gyres, 2gyre), the linear-target
+surface restoring of BUOY_CONFIG = linear_restoring, and the forcing read
+from files (WIND_CONFIG = file, BUOY_CONFIG = file), time-interpolated
+at the step's model time, producing (MechForcing, Fluxes).  The other
+wind and buoyancy configurations are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from mom6_torch.core.forcing import Fluxes, MechForcing
 from mom6_torch.core.grid import Grid
 
-__all__ = ["SurfaceForcingCfg", "build_wind", "buoyancy_restoring"]
+__all__ = ["SurfaceForcingCfg", "build_wind", "buoyancy_restoring",
+           "wind_forcing_from_file", "buoyancy_forcing_from_files"]
 
 _CP = 3991.86795711963
 
@@ -65,7 +68,7 @@ def build_wind(cfg: SurfaceForcingCfg, grid: Grid, south: float,
         taux = cfg.taux_magnitude * (1.0 - torch.cos(2.0 * math.pi * yn)) \
             * 0.5
         return MechForcing(taux=taux * grid.mask2dCu)
-    if cfg.wind_config in ("file", "SCM_CVMix_tests", "dumbbell"):
+    if cfg.wind_config in ("SCM_CVMix_tests", "dumbbell"):
         raise NotImplementedError(f"WIND_CONFIG {cfg.wind_config}")
     raise ValueError(f"Unknown WIND_CONFIG '{cfg.wind_config}'")
 
@@ -90,3 +93,51 @@ def buoyancy_restoring(cfg: SurfaceForcingCfg, grid: Grid, sst, south,
             salt = piston * cfg.rho0 * (sss_target - sss) / 1000.0 \
                 * grid.mask2dT
     return Fluxes(sensible=heat * grid.mask2dT, salt_flux=salt)
+
+
+def wind_forcing_from_file(grid: Grid, wind_file: str, x_var: str,
+                           y_var: str, scale: float = 1.0):
+    """WIND_CONFIG = file: a function t [s] -> MechForcing with the
+    stresses of ``wind_file`` interpolated in time.  A field on the
+    compute domain is taken as on the u/v points (WIND_STAGGER C);
+    any other is regridded from the file's lon/lat to them.  The
+    function's ``time_varying`` says whether the file has more than
+    one record."""
+    from mom6_torch.framework.interp_external import load_external_field
+    tx = load_external_field(wind_file, x_var, grid=grid, stagger="U",
+                             scale=scale)
+    ty = load_external_field(wind_file, y_var, grid=grid, stagger="V",
+                             scale=scale)
+
+    def forces_fn(t):
+        return MechForcing(taux=tx.at(t) * grid.mask2dCu,
+                           tauy=ty.at(t) * grid.mask2dCv)
+    forces_fn.time_varying = not (tx.static and ty.static)
+    return forces_fn
+
+
+_BUOY_FILE_FIELDS = (
+    # (Fluxes field, MOM_input parameter, file variable)
+    ("lw", "LONGWAVE_FILE", "LW"),
+    ("sw", "SHORTWAVE_FILE", "SW"),
+    ("latent", "LATENTHEAT_FILE", "latent"),
+    ("sensible", "SENSIBLEHEAT_FILE", "sensible"),
+    ("evap", "EVAPORATION_FILE", "evap"),
+    ("lprec", "RAIN_FILE", "liq_precip"),
+    ("fprec", "SNOW_FILE", "froz_precip"),
+)
+
+
+def buoyancy_forcing_from_files(grid: Grid, files: dict):
+    """BUOY_CONFIG = file: a function (state, t) -> Fluxes with the
+    heat and freshwater fluxes of per-component files interpolated in
+    time.  ``files`` maps a Fluxes field to (path, variable)."""
+    from mom6_torch.framework.interp_external import load_external_field
+    efs = {name: load_external_field(path, var, grid=grid, stagger="T")
+           for name, (path, var) in files.items()}
+
+    def fluxes_fn(state, t):
+        return Fluxes(**{name: ef.at(t) * grid.mask2dT
+                         for name, ef in efs.items()})
+    fluxes_fn.time_varying = any(not ef.static for ef in efs.values())
+    return fluxes_fn

@@ -45,12 +45,13 @@ import torch
 from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_ADAPT,
                                 BENCH_CONFIG_B1, BENCH_CONFIG_B3,
                                 BENCH_CONFIG_B4, BENCH_CONFIG_B4V,
-                                BENCH_CONFIG_BML, BENCH_CONFIG_HYBGEN,
+                                BENCH_CONFIG_BML, BENCH_CONFIG_FILE,
+                                BENCH_CONFIG_HYBGEN,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
                                 BENCH_CONFIG_RK2B, BENCH_CONFIG_STOCH,
                                 BENCH_CONFIG_UNMIX, BENCH_CONFIG_UNSPLIT,
-                                obc_strip, write_obc_data,
-                                write_topog_edge)
+                                obc_strip, write_file_inputs,
+                                write_obc_data, write_topog_edge)
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
                                                 init_split_state)
@@ -78,10 +79,11 @@ DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "USE_PP81 = True\n",
             "bml": BENCH_CONFIG_BML, "b4": BENCH_CONFIG_B4,
             "b4v": BENCH_CONFIG_B4V, "hybgen": BENCH_CONFIG_HYBGEN,
-            "adapt": BENCH_CONFIG_ADAPT, "unmix": BENCH_CONFIG_UNMIX}
+            "adapt": BENCH_CONFIG_ADAPT, "unmix": BENCH_CONFIG_UNMIX,
+            "file": BENCH_CONFIG_FILE}
 # the texts on the split RK2 dynamics
 SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml",
-             "b4", "b4v", "hybgen", "adapt", "unmix")
+             "b4", "b4v", "hybgen", "adapt", "unmix", "file")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,7 +187,10 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     remap schemes, REGRID_ACCELERATE_INIT) or "adapt"
     (``BENCH_CONFIG_ADAPT``: ROQUET_RHO, the ADAPTIVE coordinate) or
     "unmix" (``BENCH_CONFIG_UNMIX``: ROQUET_SPV, HYCOM1 with hybgen
-    unmixing).
+    unmixing) or "file" (``BENCH_CONFIG_FILE``: the topography, initial
+    T/S, sponge, wind, buoyancy fluxes and data_table from the files of
+    ``configs.write_file_inputs``, written from seed 0 into a temporary
+    directory that is the case directory of the build).
     ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).
@@ -220,10 +225,19 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
                              seed=0)
         elif dynamics == "obc":
             write_obc_data(inputdir, ni, nj, seed=0)
-        if dynamics in ("b1", "obc"):
+        elif dynamics == "file":
+            write_file_inputs(inputdir, ni, nj, seed=0)
+        if dynamics in ("b1", "obc", "file"):
             text += f"INPUTDIR = {inputdir}\n"
-        m = build_model(ParamFile(text=text + extra), device=device,
-                        dtype=dtype)
+        if dynamics == "file":
+            # the data_table is read from the case directory
+            path = os.path.join(inputdir, "MOM_input")
+            with open(path, "w") as fh:
+                fh.write(text + extra)
+            pf = ParamFile(path)
+        else:
+            pf = ParamFile(text=text + extra)
+        m = build_model(pf, device=device, dtype=dtype)
     if seed is not None:
         d, g = m.domain, m.grid
         rng = np.random.default_rng(seed)

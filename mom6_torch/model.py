@@ -12,10 +12,12 @@ It follows the JAX builder on the branches that bench.py's CONFIG (with
 and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
 ``cases/double_gyre``, ``cases/tc0``, ``cases/ref_tc0``,
 ``cases/layer_mode``, ``cases/benchmark``, ``cases/ref_tc1``,
-``cases/ref_tc2`` and the texts of ``configs.py`` take: a single-device
+``cases/ref_tc2``, ``cases/tc1``, ``cases/tc2``, ``cases/tc4``,
+``cases/ref_tc4`` and the texts of ``configs.py`` take: a single-device
 cartesian grid in km or degrees, or a spherical or Mercator grid
-(GRID_CONFIG, ISOTROPIC, an f/beta plane with ROTATION = beta),
-TOPO_CONFIG flat, bowl, spoon, benchmark or halfpipe, with
+(GRID_CONFIG, ISOTROPIC, an f/beta plane with ROTATION = beta), or an
+FMS mosaic supergrid file (GRID_CONFIG mosaic),
+TOPO_CONFIG flat, bowl, spoon, benchmark, halfpipe or file, with
 porous-barrier face topography from a TOPO_AT_VEL file
 (SUBGRID_TOPO_AT_VEL), Boussinesq or not, split RK2, split RK2b
 (SPLIT_RK2B) or unsplit (SPLIT = False) dynamics with every Coriolis and
@@ -29,10 +31,14 @@ horizontal-viscosity options (velocity scales, Leith and modified Leith,
 ADD_LES_VISCOSITY, anisotropic, ZB2020), open boundaries (OBC segments,
 whole or partial, with constant or file data, OBC_USER_CONFIG updates,
 the OBC viscosity flags and the dyed OBC tracers of NUM_DYE_TRACERS),
-every EQN_OF_STATE form of ``mom6_torch/eos``, COORD_CONFIG ts_range (or
-the uniform GINT stacking), THICKNESS_CONFIG uniform or benchmark,
-TS_CONFIG uniform, linear or benchmark, WIND_CONFIG
-zero/constant/gyres/2gyre, BUOY_CONFIG zero or linear restoring, ALE
+every EQN_OF_STATE form of ``mom6_torch/eos``, COORD_CONFIG ts_range or
+linear (or the uniform GINT stacking), THICKNESS_CONFIG uniform or
+benchmark, or z-space initial T/S from a file remapped onto the z*
+layers (INIT_LAYERS_FROM_Z_FILE with Z_INIT_ALE_REMAPPING,
+TRACER_Z_INIT_FILE), TS_CONFIG uniform, linear, benchmark or from_file,
+VELOCITY_CONFIG zero or file, WIND_CONFIG zero/constant/gyres/2gyre or
+file, BUOY_CONFIG zero, linear restoring or file, a data_table of
+overrides in the case directory, ALE
 with the coordinates and remap schemes of ``mom6_torch/ale`` (hybgen
 with HYBGEN_*, ADAPTIVE with ADAPT_*, HYBGEN_UNMIX under HYCOM1) and
 REGRID_ACCELERATE_INIT, the column physics of ``param/vertical`` (the
@@ -41,8 +47,9 @@ double-diffusive, tidal, user, law-of-the-wall and ML-radiation
 diffusivities, KPP or ePBL with the Langmuir factor of USE_WAVES,
 penetrating shortwave, DEPTH_LIMIT_FLUXES, geothermal heating, full
 convection, frazil, and in layer mode the bulk mixed layer, diffusive
-entrainment and the regularization of the surface layers; SPONGE still
-raises), GM thickness diffusion (THICKNESSDIFFUSE_FIRST too), MLE,
+entrainment and the regularization of the surface layers), the sponges
+of SPONGE (SPONGE_CONFIG file, with layer, z-space (ALE) or interface
+targets, BFB and RGC with SPONGE_UV), GM thickness diffusion (THICKNESSDIFFUSE_FIRST too), MLE,
 along-layer tracer diffusion, the ideal age tracer, GME, SPPT, SKEB and
 STOCH_EOS, DIABATIC_FIRST, and the lateral parameterizations of the
 fourth breadth item: MEKE, VarMix with Visbeck and RESOLN_SCALED_*,
@@ -81,19 +88,23 @@ from mom6_torch.core.dynamics_split_rk2b import (SplitBDynState,
 from mom6_torch.core.dynamics_unsplit import UnsplitCfg
 from mom6_torch.core.forcing import Fluxes, MechForcing
 from mom6_torch.core.grid import (Grid, cartesian_grid, mercator_grid,
-                                  spherical_grid)
+                                  mosaic_grid, spherical_grid)
 from mom6_torch.core.orchestrator import OceanCfg, step_ocean
 from mom6_torch.core.pressure_force import PressureForceCfg
 from mom6_torch.core.state import State
 from mom6_torch.core.vert_friction import VertViscCfg
 from mom6_torch.core.vertical_grid import VerticalGrid
-from mom6_torch.drivers.surface_forcing import (SurfaceForcingCfg,
-                                                build_wind,
-                                                buoyancy_restoring)
+from mom6_torch.drivers.surface_forcing import (
+    _BUOY_FILE_FIELDS, SurfaceForcingCfg, build_wind, buoyancy_restoring,
+    buoyancy_forcing_from_files, wind_forcing_from_file)
 from mom6_torch.eos import EOS, make_eos
 from mom6_torch.framework.config import ParamFile
 from mom6_torch.framework.error_handler import FATAL, WARNING, MOM_error
-from mom6_torch.framework.io import read_field
+from mom6_torch.framework.data_override import DataOverride
+from mom6_torch.framework.io import field_names, read_field
+from mom6_torch.initialization import (temp_salt_from_z,
+                                       thickness_from_z_edges, tracer_from_z,
+                                       z_edges_from_centers)
 from mom6_torch.obc.boundary_update import build_obc_update
 from mom6_torch.obc.open_boundary import (build_obc_data_interp,
                                           build_open_boundaries,
@@ -141,7 +152,7 @@ from mom6_torch.user.configs import (init_benchmark, init_benchmark_ts,
 
 __all__ = ["Model", "build_model", "default_only"]
 
-_WINDS = ("zero", "constant", "gyres", "2gyre")
+_WINDS = ("zero", "constant", "gyres", "2gyre", "file")
 # parameters the reference cases set that change nothing here by design
 # (solver tolerances, file names and run guards of the driver, answer-date
 # and bug-compatibility switches, IO layout hints), read when present so
@@ -207,6 +218,13 @@ def _topo_fn(config: str, max_depth: float, min_depth: float,
     raise NotImplementedError(f"TOPO_CONFIG = {config!r}: option not ported")
 
 
+def _drop_time(a) -> np.ndarray:
+    """A file field without its leading time axis (the first record of
+    a 4-D field)."""
+    a = np.asarray(a, np.float64)
+    return a[0] if a.ndim == 4 else a
+
+
 def default_only(pf: ParamFile, name: str, ptype: type, default: Any,
                   **kw) -> Any:
     """Read an option whose other values are not ported: its default is
@@ -252,15 +270,37 @@ class Model:
     # external data each step (file data in time, OBC_USER_CONFIG)
     obc: Any = None
     obc_update_fn: Any = None
+    # file forcing: fn(t) -> MechForcing of a time-varying file wind
+    # (None: ``forces``), fn(state, t) -> Fluxes of BUOY_CONFIG file;
+    # and the data_table's overrides on top of both
+    forces_fn: Any = None
+    fluxes_fn: Any = None
+    data_override: Optional[DataOverride] = None
 
-    def fluxes(self, state: State) -> Optional[Fluxes]:
-        """Buoyancy fluxes on the given state (BUOY_CONFIG), None without
-        buoyancy forcing."""
+    def fluxes(self, state: State, t: float = 0.0) -> Optional[Fluxes]:
+        """Buoyancy fluxes on the given state at model time ``t`` [s]
+        (BUOY_CONFIG), None without buoyancy forcing."""
         if not self.thermo or state.T is None \
                 or self.forcing_cfg.buoy_config in ("zero", "NONE"):
             return None
+        if self.fluxes_fn is not None:
+            return self.fluxes_fn(state, t)
         return buoyancy_restoring(self.forcing_cfg, self.grid, state.T[0],
                                   self.south, self.lenlat, sss=state.S[0])
+
+    def forcing(self, state: State, t: float, do_thermo: bool):
+        """(MechForcing, Fluxes or None) of a step centred at ``t`` [s]:
+        the file wind (or the static stresses), the buoyancy fluxes on
+        thermodynamic steps, then the data_table's overrides."""
+        fc = self.forces_fn(t) if self.forces_fn is not None \
+            else self.forces
+        fl = self.fluxes(state, t) if do_thermo else None
+        dov = self.data_override
+        if dov is not None:
+            fc = dov.mech(fc, t, self.grid)
+            if do_thermo and state.T is not None:
+                fl = dov.fluxes(fl, t, self.grid)
+        return fc, fl
 
     def reset_dtbt(self, state: State) -> int:
         """DTBT_RESET_PERIOD: the barotropic substep count re-estimated
@@ -316,18 +356,18 @@ class Model:
 
         def step(state, split, tracers=None, n=0):
             do_thermo = (n + 1) % n_per == 0
-            fl = self.fluxes(state) if do_thermo else None
             ua = acc["u"] if acc["u"] is not None \
                 else torch.zeros_like(state.h)
             va = acc["v"] if acc["v"] is not None \
                 else torch.zeros_like(state.h)
             t = (n + 0.5) * self.dt
+            fc, fl = self.forcing(state, t, do_thermo)
             ob = self.obc
             if ob is not None and self.obc_update_fn is not None:
                 ob = self.obc_update_fn(ob, self.grid, state.h, t)
             st, sp, tr, diags, *res = step_ocean(
                 self.domain, self.grid, self.vgrid, state, split, tracers,
-                self.forces, fl, self.dt, cfg, eos=self.eos,
+                fc, fl, self.dt, cfg, eos=self.eos,
                 x_first=(n % 2 == 0), tracer_registry=self.registry,
                 do_thermo=do_thermo, uhtr_accum=ua, vhtr_accum=va,
                 mld_prev=acc["mld"], kv_shear_prev=acc["kv"], t=t, obc=ob,
@@ -528,6 +568,113 @@ def _ts_range_rlay(pf: ParamFile, nk: int, k_light: int, p_ref: float,
     return rlay
 
 
+def _sponge_data(pf: ParamFile, domain: Domain, grid: Grid,
+                 vgrid: VerticalGrid, *, south: float, lenlon: float,
+                 max_depth: float, device, dtype) -> Optional[dict]:
+    """The sponge of SPONGE/SPONGE_CONFIG (None without one): its inverse
+    damping time ``idamp`` and its targets, in the layout of
+    ``OceanCfg.sponge``.
+
+    * BFB: 1/day within 2 degrees of the southern edge, falling linearly
+      to 0 over the next 2, toward uniform interface depths;
+    * RGC: a ramp over the eastern LENSPONGE strip at 1/RGC_TNUDG, T/S
+      targets on the file's own thicknesses (SPONGE_H_VAR), and with
+      SPONGE_UV u and v toward rest;
+    * file: Idamp and the targets of SPONGE_STATE_FILE.  Layer targets
+      with the model's NK are restored as they are; targets on other
+      levels with a ``depth`` axis keep their z-cells (the ALE sponge,
+      remapped onto the model each time); an ETA variable of NK + 1
+      interface heights is restored in layer space."""
+    if not pf.get("SPONGE", bool, False):
+        return None
+    dev = dict(device=device, dtype=dtype)
+    H = domain.halo
+    nk = vgrid.nk
+
+    def pad3(a):
+        return np.pad(a, ((0, 0), (H, H), (H, H)), mode="edge")
+
+    def ten(a):
+        return torch.as_tensor(np.array(a, np.float64), **dev)
+
+    config = pf.get("SPONGE_CONFIG", str, "file")
+    if config == "BFB":
+        latT = grid.geoLatT.double().cpu().numpy()
+        max_damp = 1.0 / 86400.0
+        idamp = np.where(latT < south + 2.0, max_damp,
+                         np.where(latT < south + 4.0,
+                                  max_damp * (south + 4.0 - latT) / 2.0,
+                                  0.0))
+        d0 = np.concatenate([max_depth * np.arange(nk) / nk, [max_depth]])
+        return {"idamp": ten(idamp) * grid.mask2dT, "T": None, "S": None,
+                "eta": ten(np.broadcast_to(d0[:, None, None],
+                                           (nk + 1,) + latT.shape))}
+    if config == "RGC":
+        tnudg = pf.get("RGC_TNUDG", float, 0.0, units="days") * 86400.0
+        lensponge = pf.get("LENSPONGE", float, 10.0)
+        sponge_uv = pf.get("SPONGE_UV", bool, False)
+        sfile = os.path.join(pf.get("INPUTDIR", str, "."),
+                             pf.get("RGC_SPONGE_FILE", str))
+        tvar = pf.get("SPONGE_PTEMP_VAR", str, "Temp")
+        svar = pf.get("SPONGE_SALT_VAR", str, "Salt")
+        hvar = pf.get("SPONGE_H_VAR", str, "h")
+        lonT = grid.geoLonT.double().cpu().numpy()
+        ramp = np.clip((lonT - (lenlon - lensponge))
+                       / max(lensponge, 1e-30), 0.0, 1.0)
+        rate = 1.0 / max(tnudg, 1e-30)
+        idamp = np.where(lonT >= lenlon - lensponge, rate * ramp, 0.0)
+        sd = {"idamp": ten(idamp) * grid.mask2dT}
+        sd.update((k, ten(pad3(_drop_time(read_field(sfile, v)))))
+                  for k, v in (("T", tvar), ("S", svar), ("ref_h", hvar)))
+        if sponge_uv:
+            sd["uv"] = True
+        return sd
+    indir = pf.get("INPUTDIR", str, ".")
+    dfile = pf.get("SPONGE_DAMPING_FILE", str, "sponge.nc")
+    sfile = pf.get("SPONGE_STATE_FILE", str, dfile)
+    ivar = pf.get("SPONGE_IDAMP_VAR", str, "Idamp")
+    pvar = pf.get("SPONGE_PTEMP_VAR", str, "PTEMP")
+    svar = pf.get("SPONGE_SALT_VAR", str, "SALT")
+
+    def load(path, var):
+        a = np.asarray(read_field(os.path.join(indir, path), var),
+                       np.float64)
+        while a.ndim > 3 or (a.ndim == 3 and var == ivar):
+            a = a[0]          # drop time (and depth for Idamp)
+        return a
+
+    # with one on-grid record these two reduce to reading it
+    pf.get("INTERPOLATE_SPONGE_TIME_SPACE", bool, False)
+    pf.get("SPONGE_DATA_ONGRID", bool, False)
+    fill = domain.fill_halos
+    idamp = fill(domain.pad(ten(load(dfile, ivar))))
+    spath = os.path.join(indir, sfile)
+    names = field_names(spath)
+    # T/S targets are optional: a layered sponge may restore ETA only
+    have_ts = pvar in names
+    t_ref = load(sfile, pvar) if have_ts else None
+    s_ref = load(sfile, svar) if have_ts else None
+    sd = {"idamp": idamp, "T": None, "S": None}
+    if have_ts and t_ref.shape[0] != nk and "depth" in names:
+        # targets on the file's own z-cells, remapped each time onto the
+        # model's thicknesses (the ALE sponge)
+        z_cent = np.asarray(read_field(spath, "depth"), np.float64)
+        ze = z_edges_from_centers(z_cent, max_depth)
+        sd["ref_h"] = fill(thickness_from_z_edges(
+            ze, grid.bathyT.double(), vgrid.angstrom).to(dtype))
+        sd["T"], sd["S"] = (fill(ten(pad3(a))) for a in (t_ref, s_ref))
+    elif have_ts:
+        sd["T"], sd["S"] = (fill(domain.pad(ten(a))) for a in (t_ref, s_ref))
+    evar = pf.get("SPONGE_ETA_VAR", str, "ETA")
+    if evar in names:
+        # NK + 1 interface heights (up positive), kept as depths below
+        # the surface
+        e_tgt = _drop_time(read_field(spath, evar))
+        if e_tgt.shape[0] == nk + 1:
+            sd["eta"] = fill(domain.pad(ten(e_tgt[0:1] - e_tgt)))
+    return sd
+
+
 def build_model(pf: ParamFile, *, device="cuda",
                 dtype: torch.dtype = torch.float64) -> Model:
     """The model that the parameters describe, on ``device`` in
@@ -555,7 +702,7 @@ def build_model(pf: ParamFile, *, device="cuda",
     pf.module("MOM_grid_init")
     grid_config = _one_of("GRID_CONFIG",
                           pf.get("GRID_CONFIG", str, "cartesian"),
-                          ("cartesian", "spherical", "mercator"))
+                          ("cartesian", "spherical", "mercator", "mosaic"))
     south = pf.get("SOUTHLAT", float, 0.0)
     lenlat = pf.get("LENLAT", float, float(nj))
     west = pf.get("WESTLON", float, 0.0)
@@ -576,8 +723,22 @@ def build_model(pf: ParamFile, *, device="cuda",
     if topo_config in ("halfpipe", "benchmark"):
         user_ctx["edge_depth"] = pf.get("EDGE_DEPTH", float, 100.0,
                                         units="m")
-    depth_fn = _topo_fn(topo_config, max_depth, min_depth, lenlon, lenlat,
-                        west, south, user_ctx)
+    if topo_config == "file":
+        # the bottom depth at the cell centres from a file
+        topo_file = pf.get("TOPO_FILE", str, "topog.nc")
+        topo_var = pf.get("TOPO_VARNAME", str, "depth")
+        depth_2d = np.asarray(read_field(os.path.join(
+            pf.get("INPUTDIR", str, "."), topo_file), topo_var), np.float64)
+        if depth_2d.shape != (nj, ni):
+            raise ValueError(
+                f"TOPO_FILE depth shape {depth_2d.shape} != ({nj},{ni})")
+        depth_pad = np.pad(depth_2d, halo, mode="edge")
+
+        def depth_fn(lon, lat):
+            return depth_pad
+    else:
+        depth_fn = _topo_fn(topo_config, max_depth, min_depth, lenlon,
+                            lenlat, west, south, user_ctx)
     # ISOTROPIC selects Mercator metrics on spherical grids
     isotropic = pf.get("ISOTROPIC", bool, False,
                        desc="isotropic (Mercator) spacing: dy tracks "
@@ -596,6 +757,12 @@ def build_model(pf: ParamFile, *, device="cuda",
                               south_lat=south, west_lon=west,
                               beta_lat_ref=pf.get("BETA_LAT_REF", float,
                                                   0.0, units="km"), **dev)
+    elif grid_config == "mosaic":
+        # an FMS supergrid file
+        grid = mosaic_grid(domain, os.path.join(
+            pf.get("INPUTDIR", str, "."),
+            pf.get("GRID_FILE", str, "ocean_hgrid.nc")),
+            depth_fn=depth_fn, min_depth=min_depth, **dev)
     elif grid_config == "mercator" or (grid_config == "spherical"
                                        and isotropic):
         grid = mercator_grid(domain, north_lat=south + lenlat, **geo)
@@ -677,11 +844,19 @@ def build_model(pf: ParamFile, *, device="cuda",
 
     pf.module("MOM_coord_initialization")
     coord_cfg = pf.get("COORD_CONFIG", str, "none")
-    if coord_cfg in ("layer_ref", "linear", "BFB"):
+    if coord_cfg in ("layer_ref", "BFB"):
         raise NotImplementedError(f"COORD_CONFIG = {coord_cfg!r}: option "
                                   "not ported")
     p_ref = pf.get("P_REF", float, 2.0e7, units="Pa")
-    if coord_cfg == "ts_range":
+    if coord_cfg == "linear":
+        # layer densities evenly spaced over DENSITY_RANGE, at the
+        # middle of each interval
+        light = pf.get("LIGHTEST_DENSITY", float, rho0, units="kg m-3")
+        rrange = pf.get("DENSITY_RANGE", float, 2.0, units="kg m-3")
+        vgrid = VerticalGrid.from_rlay(
+            light + rrange * (np.arange(nk) + 0.5) / nk, g_Earth=g_earth,
+            Rho0=rho0, boussinesq=boussinesq, **dev)
+    elif coord_cfg == "ts_range":
         vgrid = VerticalGrid.from_rlay(
             _ts_range_rlay(pf, nk, nk_rho_varies, p_ref, eos),
             g_Earth=g_earth, Rho0=rho0, boussinesq=boussinesq, **dev)
@@ -869,13 +1044,40 @@ def build_model(pf: ParamFile, *, device="cuda",
     default_only(pf, "ICE_SHELF", bool, False)
 
     pf.module("MOM_state_initialization")
-    thick_cfg = _one_of("THICKNESS_CONFIG",
-                        pf.get("THICKNESS_CONFIG", str, "uniform"),
-                        ("uniform", "benchmark"))
-    default_only(pf, "INIT_LAYERS_FROM_Z_FILE", bool, False)
+    thick_cfg = pf.get("THICKNESS_CONFIG", str, "uniform")
+    init_from_z = pf.get("INIT_LAYERS_FROM_Z_FILE", bool, False)
+    if not init_from_z:
+        _one_of("THICKNESS_CONFIG", thick_cfg, ("uniform", "benchmark"))
     shape = (nk, domain.njh, domain.nih)
     fields = {}
-    if thick_cfg == "benchmark":
+    T = S = None
+    if init_from_z:
+        # z-space initial T/S remapped straight onto the model's z*
+        # target thicknesses (Z_INIT_ALE_REMAPPING)
+        pf.module("MOM_initialize_layers_from_Z")
+        zfile = os.path.join(
+            pf.get("INPUTDIR", str, "."),
+            pf.get("TEMP_SALT_Z_INIT_FILE", str, "temp_salt_z.nc"))
+        pvar = pf.get("Z_INIT_FILE_PTEMP_VAR", str, "ptemp")
+        svar = pf.get("Z_INIT_FILE_SALT_VAR", str, "salt")
+        pf.get("Z_INIT_ALE_REMAPPING", bool, False,
+               desc="remap straight to the model coordinate")
+        T_zf, S_zf = (_drop_time(read_field(zfile, v)) for v in (pvar, svar))
+        src_lon, src_lat, z_cent = (
+            np.asarray(read_field(zfile, v), np.float64)
+            for v in ("lon", "lat", "depth"))
+        # the ALE_RESOLUTION z* levels (default uniform), cut by the
+        # bottom
+        res = pf.get("ALE_RESOLUTION", list, [max_depth / nk] * nk)
+        z_nom = torch.as_tensor(np.concatenate([[0.0], np.cumsum(res)]),
+                                **f64).reshape(-1, 1, 1)
+        z_cap = torch.minimum(z_nom, grid.bathyT.double()[None])
+        h = torch.clamp(z_cap[1:] - z_cap[:-1], min=vgrid.angstrom)
+        T, S = temp_salt_from_z(T_zf, S_zf, src_lon, src_lat, z_cent,
+                                grid.geoLonT, grid.geoLatT,
+                                grid.bathyT.double(), h, vgrid.angstrom)
+        T, S = domain.fill_halos((T.to(dtype), S.to(dtype)))
+    elif thick_cfg == "benchmark":
         # the user initializer's context, read as the JAX builder reads it
         user_ctx2 = dict(
             user_ctx, grid=grid, vgrid=vgrid, domain=domain, eos=eos,
@@ -898,15 +1100,23 @@ def build_model(pf: ParamFile, *, device="cuda",
         z_cap = torch.minimum(z_nom, grid.bathyT.double()[None])
         h = torch.clamp(z_cap[1:] - z_cap[:-1], min=vgrid.angstrom)
     h = domain.fill_halos(h.to(dtype))
-    T = S = None
-    if thermo:
+    if thermo and not init_from_z:
         ts_cfg = _one_of("TS_CONFIG", pf.get("TS_CONFIG", str, "uniform"),
-                         ("uniform", "linear", "benchmark"))
+                         ("uniform", "linear", "benchmark", "from_file"))
         T0 = pf.get("T_REF", float, 10.0, units="degC")
         S0 = pf.get("S_REF", float, 35.0, units="ppt")
         one = torch.ones(shape, **f64)
         if ts_cfg == "uniform":
             T, S = T0 * one, S0 * one
+        elif ts_cfg == "from_file":
+            # layer T and S on the compute domain, halos copied from the
+            # edge
+            ts_file = os.path.join(pf.get("INPUTDIR", str, "."),
+                                   pf.get("TS_FILE", str, "ts.nc"))
+            T, S = (torch.as_tensor(np.pad(
+                np.asarray(read_field(ts_file, pf.get(k, str, d))),
+                ((0, 0), (halo, halo), (halo, halo)), mode="edge"), **f64)
+                for k, d in (("TEMP_VAR", "PTEMP"), ("SALT_VAR", "SALT")))
         elif ts_cfg == "linear":
             T_range = pf.get("T_RANGE", float, 0.0, units="degC")
             S_range = pf.get("S_RANGE", float, 0.0, units="ppt")
@@ -922,10 +1132,19 @@ def build_model(pf: ParamFile, *, device="cuda",
                      nk_rho_varies=nk_rho_varies, p_ref=p_ref, s_ref=S0),
                 shape))
         T, S = T.to(dtype), S.to(dtype)
-    _one_of("VELOCITY_CONFIG", pf.get("VELOCITY_CONFIG", str, "zero"),
-            ("zero",))
-    z = torch.zeros_like(h)
-    state = State(u=z, v=z, h=h, T=T, S=S)
+    vel_cfg = _one_of("VELOCITY_CONFIG",
+                      pf.get("VELOCITY_CONFIG", str, "zero"),
+                      ("zero", "file"))
+    u0 = v0 = torch.zeros_like(h)
+    if vel_cfg == "file":
+        # velocities on the compute domain, zero halos, masked
+        vfile = os.path.join(pf.get("INPUTDIR", str, "."),
+                             pf.get("VELOCITY_FILE", str, "velocity.nc"))
+        u0, v0 = (domain.pad(torch.as_tensor(
+            _drop_time(read_field(vfile, pf.get(k, str, d))), **dev))
+            for k, d in (("U_IC_VAR", "u"), ("V_IC_VAR", "v")))
+        u0, v0 = u0 * grid.mask2dCu, v0 * grid.mask2dCv
+    state = State(u=u0, v=v0, h=h, T=T, S=S)
     if pf.get("FRAZIL", bool, False) and T is not None:
         # the accumulated frazil is allocated up front, so that the state
         # (and its restarts) has the same fields from step 0
@@ -951,14 +1170,47 @@ def build_model(pf: ParamFile, *, device="cuda",
         restore_sss=pf.has("SSS_NORTH") or pf.has("SSS_SOUTH"),
         rho0=rho0,
         cp=pf.get("C_P", float, 3991.86795711963, units="J kg-1 K-1"))
-    pf.get("INPUTDIR", str, ".")
+    indir = pf.get("INPUTDIR", str, ".")
     _one_of("WIND_CONFIG", sf_cfg.wind_config, _WINDS)
-    forces = build_wind(sf_cfg, grid, south, lenlat)
+    forces_fn = fluxes_fn = None
+    if sf_cfg.wind_config.lower() == "file":
+        # the file's shape decides: stresses on the compute domain sit on
+        # the u and v points, any other shape is regridded to them from
+        # the file's lon/lat; an A-grid file of on-grid shape is not
+        # ported
+        if pf.get("WIND_STAGGER", str, "C").upper() != "C":
+            raise NotImplementedError(
+                "WIND_STAGGER: only C (on-grid stresses at the u and v "
+                "points, or stresses regridded from the file's lon/lat) "
+                "is ported")
+        forces_fn = wind_forcing_from_file(
+            grid, os.path.join(indir, pf.get("WIND_FILE", str)),
+            pf.get("WINDSTRESS_X_VAR", str, "STRESS_X"),
+            pf.get("WINDSTRESS_Y_VAR", str, "STRESS_Y"),
+            scale=pf.get("WINDSTRESS_SCALE", float, 1.0))
+        forces = forces_fn(0.0)
+        if not forces_fn.time_varying:
+            forces_fn = None            # a static file wind is baked in
+    else:
+        forces = build_wind(sf_cfg, grid, south, lenlat)
     if thermo and sf_cfg.buoy_config not in ("zero", "NONE"):
         _one_of("BUOY_CONFIG", sf_cfg.buoy_config,
-                ("linear_restoring", "linear"))
-    if os.path.exists(os.path.join(pf.case_dir, "data_table")):
-        raise NotImplementedError("data_table: data override")
+                ("linear_restoring", "linear", "file"))
+        if sf_cfg.buoy_config == "file":
+            files = {}
+            for fld, param, default_var in _BUOY_FILE_FIELDS:
+                if pf.has(param):
+                    fpath = os.path.join(indir, pf.get(param, str))
+                    files[fld] = (fpath, pf.get(
+                        param.replace("_FILE", "_VAR"), str, default_var))
+            if not files:
+                raise ValueError("BUOY_CONFIG='file' but no *_FILE "
+                                 "parameters were set")
+            fluxes_fn = buoyancy_forcing_from_files(grid, files)
+    # the case's data_table replaces forcing fields by file data or
+    # constants
+    data_override = DataOverride.build(
+        os.path.join(pf.case_dir, "data_table"), grid, indir=indir)
 
     split_state = None
     if split and split_rk2b:
@@ -1308,7 +1560,8 @@ def build_model(pf: ParamFile, *, device="cuda",
     neutral_cfg = NeutralDiffCfg(khtr=hordiff_cfg.khtr)
     n_dyn_per_therm = max(1, int(round(dt_therm / dt)))
     pf.module("MOM_sponge")
-    default_only(pf, "SPONGE", bool, False)
+    sponge = _sponge_data(pf, domain, grid, vgrid, south=south,
+                          lenlon=lenlon, max_depth=max_depth, **dev)
 
     # transports accumulate over n_dyn_per_therm dynamics steps, so the
     # tracer advection gets enough sweep pairs to exhaust the worst-case
@@ -1360,6 +1613,7 @@ def build_model(pf: ParamFile, *, device="cuda",
                          thickness_diffuse_first=thickness_diffuse_first,
                          interface_filter=if_cfg,
                          thermo=thermo, adiabatic=adiabatic,
+                         sponge=sponge,
                          use_meke=use_meke, meke=meke_cfg,
                          meke_khth_fac=meke_khth_fac,
                          meke_khtr_fac=meke_khtr_fac,
@@ -1392,7 +1646,20 @@ def build_model(pf: ParamFile, *, device="cuda",
     if num_dye > 0:
         tracers.update(register_dyed_obc_tracers(registry, shape, num_dye,
                                                  **dev))
-    default_only(pf, "TRACER_Z_INIT_FILE", str, "")
+    # a z-space file variable named as a registered tracer gives that
+    # tracer's initial state (regridded, remapped onto the layers)
+    trz_file = pf.get("TRACER_Z_INIT_FILE", str, "")
+    if trz_file and tracers:
+        zpath = os.path.join(pf.get("INPUTDIR", str, "."), trz_file)
+        zlon, zlat, zdep = (np.asarray(read_field(zpath, v), np.float64)
+                            for v in ("lon", "lat", "depth"))
+        znames = field_names(zpath)
+        for tname in [n for n in tracers if n in znames]:
+            trz = tracer_from_z(_drop_time(read_field(zpath, tname)), zlon,
+                                zlat, zdep, grid.geoLonT, grid.geoLatT,
+                                grid.bathyT.double(), state.h.double(),
+                                vgrid.angstrom)
+            tracers[tname] = domain.fill_halos(trz.to(dtype)) * grid.mask2dT
     for name, ptype, default in _PARITY_POLICY:
         if pf.has(name):
             pf.get(name, ptype, default,
@@ -1419,4 +1686,5 @@ def build_model(pf: ParamFile, *, device="cuda",
                  state=state, split=split_state, tracers=tracers or None,
                  dt=dt, dt_therm=dt_therm, dt_forcing=dt_forcing,
                  daymax=daymax, thermo=thermo, obc=obc,
-                 obc_update_fn=obc_update_fn)
+                 obc_update_fn=obc_update_fn, forces_fn=forces_fn,
+                 fluxes_fn=fluxes_fn, data_override=data_override)

@@ -4,7 +4,7 @@
                                      [--dynamics rk2|rk2b|unsplit|b1|
                                                  nonbouss|obc|stoch|b3|
                                                  b3pp81|bml|b4|b4v|hybgen|
-                                                 adapt|unmix]]
+                                                 adapt|unmix|file]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
                                      [--count-ops]
@@ -29,7 +29,9 @@ the third (``b3``: ePBL, kappa-shear and the rest with Z* ALE;
 mixed layer), or with the lateral parameterizations of the fourth
 (``b4``: MEKE, VarMix, neutral and boundary diffusion, the interface
 filter and the internal tides with Z* ALE; ``b4v``: layered, the
-Visbeck diffusivities and the mixed layer's epipycnal diffusion).
+Visbeck diffusivities and the mixed layer's epipycnal diffusion), or
+set up and forced from files (``file``: the ALE sponge, the file wind
+and buoyancy fluxes interpolated in time, the data_table's overrides).
 After two warm-up steps it
 measures:
 
@@ -92,6 +94,8 @@ from mom6_torch.core import dynamics_unsplit as dyn_u
 from mom6_torch.core import orchestrator as orch
 from mom6_torch.core import pressure_force as pfm
 from mom6_torch.eos.poly import Poly3
+from mom6_torch.framework.data_override import DataOverride
+from mom6_torch.framework.interp_external import ExternalField
 from mom6_torch.param.lateral import hor_visc as hvm
 from mom6_torch.param.vertical import diabatic as dia
 from mom6_torch.param.vertical import set_diffusivity as sdm
@@ -121,7 +125,8 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "b4v": (dyn, "step_dyn_split_rk2"),
             "hybgen": (dyn, "step_dyn_split_rk2"),
             "adapt": (dyn, "step_dyn_split_rk2"),
-            "unmix": (dyn, "step_dyn_split_rk2")}
+            "unmix": (dyn, "step_dyn_split_rk2"),
+            "file": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential",
@@ -174,7 +179,14 @@ SLICE2 = (
     (regridding, "hybgen_regrid", "ale/build_grid/hybgen_regrid"),
     (regridding, "_build_adapt", "ale/build_grid/build_adapt"),
     (ale_main, "remap_column_means", "ale/remap_column_means"),
-    (Poly3, "__call__", "eos_poly"))
+    (Poly3, "__call__", "eos_poly"),
+    # the ninth breadth item: the sponges, the file forcing's records
+    # interpolated in time, and the data_table's overrides
+    (orch, "apply_sponge", "sponge"),
+    (orch, "apply_eta_sponge", "sponge_eta"),
+    (ExternalField, "at", "file_forcing"),
+    (DataOverride, "mech", "data_override/mech"),
+    (DataOverride, "fluxes", "data_override/fluxes"))
 
 
 def slice2_targets(dynamics: str):

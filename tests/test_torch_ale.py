@@ -8,6 +8,9 @@ float64, and their ports on device="cpu" in float64:
   layers and on 3-layer columns (the h2 / ih3 short-column paths):
   1e-12 relative to the result's maximum (the implicit schemes with
   vanished source layers at the bottom only, see IMPLICIT);
+* the tc2 column (two thick layers over six of 1e-10 m), where the
+  JAX package's boundary cubic divides 0 by 0: the port's remap stays
+  finite and conserves (PPM_H4, PPM_IH4);
 * the banded remap (ALE_REMAP_BAND) equals the full remap, when the band
   holds every interface and when it misses one;
 * build_grid in the LAYER, Z*, SIGMA, RHO and HYCOM1 modes (1e-13, with
@@ -125,6 +128,41 @@ def test_banded_remap_equals_full(motion):
     ref = jrm.remap_column_means_banded(
         *(jnp.asarray(a) for a in (h_src, u, h_dst)), 1, jrm.RemapCfg())
     _check(ref, banded, 1e-12, f"banded {motion}")
+
+
+def _tc2_column():
+    """cases/tc2's first wet row at its first remap: two thick layers over
+    six of 1e-10 m (the top boundary cubic's 4 cells hold two of them),
+    beside a column of 8 thick layers; a Z* target of equal totals."""
+    h_src = np.array([[300.0, 325.0] + [1e-10] * 6,
+                      [60.0, 70.0, 80.0, 90.0, 85.0, 75.0, 65.0, 55.0]]).T
+    u = np.array([[12.0, 9.0, 8.5, 8.1, 7.9, 7.2, 6.8, 6.1],
+                  [14.0, 12.5, 11.0, 9.0, 7.5, 6.0, 5.0, 4.5]]).T
+    h_dst = np.ones_like(h_src) / 8.0 * h_src.sum(0)
+    return (a.reshape(8, 1, 2) for a in (h_src, u, h_dst))
+
+
+@pytest.mark.parametrize("scheme", ["PPM_H4", "PPM_IH4"])
+def test_tc2_column_remaps_finite(scheme):
+    """The boundary cubic's pivot vanishes on the tc2 column: the JAX
+    package, called eagerly, returns NaN in the whole column; the port
+    takes the h2 boundary estimates there and remaps it finite,
+    conserving its content to 1e-12, and the thick column as the JAX
+    package does (1e-12)."""
+    h_src, u, h_dst = _tc2_column()
+    ref = np.asarray(jrm.remap_column_means(
+        *(jnp.asarray(a) for a in (h_src, u, h_dst)),
+        jrm.RemapCfg(scheme=scheme)))
+    assert np.isnan(ref[:, :, 0]).all()
+    out = trm.remap_column_means(*(_t(a) for a in (h_src, u, h_dst)),
+                                 trm.RemapCfg(scheme=scheme))
+    assert bool(torch.isfinite(out).all())
+    content = (out * _t(h_dst)).sum(0)
+    want = (_t(u) * _t(h_src)).sum(0)
+    assert float(((content - want) / want).abs().max()) <= 1e-12
+    _check(ref[:, :, 1:], out[:, :, 1:], 1e-12, f"{scheme} thick column")
+    lo, hi = u[:, :, 0].min(), u[:, :, 0].max()
+    assert float(out[:, :, 0].min()) >= lo and float(out[:, :, 0].max()) <= hi
 
 
 def test_hybgen_schemes_raise():

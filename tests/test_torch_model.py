@@ -193,16 +193,19 @@ def test_build_model_matches_jax(name):
 # USE_MEKE, USE_VISBECK, the benchmark topography and INTERNAL_TIDES
 # (tests/test_torch_breadth4.py), and the TEOS10 and UNESCO equations of
 # state and the ADAPTIVE coordinate (tests/test_torch_eos_forms.py,
-# test_torch_hybgen.py): their cases now name options still refused
+# test_torch_hybgen.py), and the mosaic grid and the sponges
+# (tests/test_torch_breadth9.py): their cases now name options still
+# refused
 @pytest.mark.parametrize("line,name", [
-    ("#override GRID_CONFIG = mosaic", "GRID_CONFIG"),
+    ("#override THICKNESS_CONFIG = phillips", "THICKNESS_CONFIG"),
     ("ICE_SHELF = True", "ICE_SHELF"),
     ("USE_REGIONAL_DYES = True", "USE_REGIONAL_DYES"),
     ("USE_OCMIP2_CFC = True", "USE_OCMIP2_CFC"),
-    ("SPONGE = True", "SPONGE"),
+    ("#override BUOY_CONFIG = const_heat", "BUOY_CONFIG"),
     ("#override TOPO_CONFIG = seamount", "TOPO_CONFIG"),
     ("COORD_CONFIG = layer_ref", "COORD_CONFIG"),
     ("USE_DOME_TRACER = True", "USE_DOME_TRACER"),
+    ("#override WIND_CONFIG = file\nWIND_STAGGER = A", "WIND_STAGGER"),
 ])
 def test_options_outside_the_slice_raise(line, name):
     pf = ParamFile(text=BENCH_CONFIG + SMALL + line + "\n")

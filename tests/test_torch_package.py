@@ -173,29 +173,26 @@ def test_nonboussinesq_and_porous_raise():
 # the diag mediator (DIAG_AS_CHKSUM, NK_ZSPACE, a diag_table) and DEBUG,
 # once cases here, are ported (tests/test_torch_debug.py), and so are
 # U_TRUNC_FILE, RESTINT (read and, as in the JAX driver, without periodic
-# restarts) and USE_MEKE (tests/test_torch_breadth4.py): their cases now
-# name options still refused
+# restarts) and USE_MEKE (tests/test_torch_breadth4.py), and DEBUG_NANS,
+# READ_DEPTH_LIST, SPONGE and the data_table (tests/test_torch_breadth9.py):
+# their cases now name options still refused
 @pytest.mark.parametrize("line,name", [
     ("USE_PARTICLES = True", "USE_PARTICLES"),
     ("OFFLINE_TRACER_MODE = True", "OFFLINE_TRACER_MODE"),
     ("WRITE_OFFLINE_FIELDS = True", "WRITE_OFFLINE_FIELDS"),
-    ("DEBUG_NANS = True", "DEBUG_NANS"),
+    ("USE_OIL_TRACER = True", "USE_OIL_TRACER"),
     ("ICE_SHELF = True", "ICE_SHELF"),
-    ("READ_DEPTH_LIST = True", "READ_DEPTH_LIST"),
+    ("USE_MARBL_TRACERS = True", "USE_MARBL_TRACERS"),
     ("USE_NPZD = True", "USE_NPZD"),
-    ("SPONGE = True", "SPONGE"),
+    ("USE_ADVECTION_TEST_TRACER = True", "USE_ADVECTION_TEST_TRACER"),
     ('#override TOPO_CONFIG = "seamount"', "TOPO_CONFIG"),
-    ("data_table", "data_table"),
+    ("USE_BOUNDARY_IMPULSE_TRACER = True", "USE_BOUNDARY_IMPULSE_TRACER"),
 ])
 def test_driver_rejects_unported_options(tmp_path, line, name):
     case = ROOT / "cases" / "double_gyre"
     shutil.copy(case / "MOM_input", tmp_path / "MOM_input")
-    if line == "data_table":
-        (tmp_path / "data_table").write_text('"OCN", "sst", "", "", '
-                                             '"bilinear", 1.0\n')
-    else:
-        with open(tmp_path / "MOM_input", "a") as f:
-            f.write(line + "\n")
+    with open(tmp_path / "MOM_input", "a") as f:
+        f.write(line + "\n")
     with pytest.raises(NotImplementedError, match=name):
         solo.main([str(tmp_path), "--days", "0.25", "--cpu"])
     assert not (tmp_path / "ocean.stats").exists()
