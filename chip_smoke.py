@@ -185,6 +185,28 @@ order; any failure ends the script with a non-zero exit:
    CONFIG of phase 7, and one thermodynamic step under the profiler with
    profile_step's ranges: the sponge, the file forcing and the data
    override (device time, host time, kernels);
+6y. the seventh breadth item: configs.BENCH_CONFIG_BGC (the MARBL-shaped
+   coupler with every channel fed from configs.write_bgc_inputs, the
+   coupled CFCs and pseudo-salt: 13 passive tracers) through
+   entry.build_full at 32x32x6 in fp64 for 3 steps, card against CPU
+   (2.5e-12 on every field and tracer; launches K1 4, K2 1, K3m 2 a
+   step); and its modules card against CPU in fp64 (1e-12), with the
+   ideal packages of IDEAL_LINES beside the coupler: every tracer's
+   initial field and column function, the gas fluxes, the coupler's
+   column physics (with the shortwave's light, and through the implicit
+   vertical diffusion), NPZD, the restoring remap and step_offline;
+7j. BENCH_CONFIG_BGC at full width, 512x512x25 fp32, as in 7b (launches
+   a step asserted: K1 4, K2 1, K3m 2), its ms/step and peak memory
+   beside bench.py's CONFIG of phase 7, every BGC tracer >= 0, and one
+   thermodynamic step under the profiler with profile_step's ranges: the
+   coupler's column physics and its restoring remap, advect_tracers, the
+   tracer diffusion, the diabatic driver and the ALE call and remaps
+   (device time, host time, kernels);
+7k. offline mode at full width: step_offline on 7j's tracers from the
+   (uhtr, vhtr, h_end) of 4 thermodynamic intervals recorded through
+   step.offline_fields(), ms a step by CUDA events, no kernel launched,
+   and each tracer without a column function keeping its content over a
+   step to 1e-5 (fp32);
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -221,8 +243,16 @@ order; any failure ends the script with a non-zero exit:
    (mosaic grid, z-file initial state, ALE sponge, COORD_CONFIG linear)
    against its golden, and cases/tc2 (PPM_H4 over the spoon's vanished
    layers) finite with the step and day columns of the JAX driver's
-   ocean.stats (TC2_JAX_STEPS).  Each run has every launch counter zeroed just before
-   it and read just after.
+   ocean.stats (TC2_JAX_STEPS); then cases/ref_tc3 (circle_obcs,
+   layer_ref, four Flather/Orlanski edges, the DOME dyes) in fp64 on the
+   card against its golden, K3 launched only as its open-face instance
+   and K2 not; then the offline round trip of
+   tests/test_offline_driver.py in fp64: online with
+   WRITE_OFFLINE_FIELDS on the card, then OFFLINE_TRACER_MODE from its
+   files on the card and with --cpu (no kernel launched), the uniform dye
+   equal to the online dye to 1e-10, a dye in a box equal to the --cpu
+   run's to 1e-12, the content of each kept to 1e-12.  Each run has
+   every launch counter zeroed just before it and read just after.
 
 The line before the last is the JSON ``kernels`` record (the porous K1
 instance and K3's open-face instance have records of their own); the
@@ -349,6 +379,66 @@ FILE_PHASES = ("sponge", "sponge_eta", "file_forcing", "data_override/mech",
                "diabatic")
 FILE_NEEDED = ("sponge", "file_forcing", "data_override/mech",
                "data_override/fluxes")
+# the seventh breadth item: the same kernels again
+PER_STEP["bgc"] = PER_STEP["b3"]
+# the profile_step ranges of a thermodynamic step of BENCH_CONFIG_BGC,
+# each of which it must run: the coupler's column physics and its
+# restoring remap, and the phases whose work grows with the tracer count
+BGC_PHASES = ("bgc", "bgc/restoring", "advect_tracers", "tracer_hordiff",
+              "diabatic", "ale", "ale/remap_column_means")
+# the ideal packages beside the BGC text's coupler in the card-against-CPU
+# module checks, at SMALL_FULL's 32x32 cells of 10 km (positions in km)
+IDEAL_LINES = """USE_REGIONAL_DYES = True
+DYE_SOURCE_MINLON = 80.0
+DYE_SOURCE_MAXLON = 240.0
+DYE_SOURCE_MINLAT = 60.0
+DYE_SOURCE_MAXLAT = 200.0
+USE_DOME_TRACER = True
+USE_BOUNDARY_IMPULSE_TRACER = True
+IMPULSE_SOURCE_TIME = 5000.0
+USE_OIL_TRACER = True
+OIL_SOURCE_LONGITUDE = 165.0
+OIL_SOURCE_LATITUDE = 155.0
+OIL_SOURCE_LAYER = 1
+OIL_DECAY_DAYS = 3.0
+USE_ADVECTION_TEST_TRACER = True
+ADVECTION_TEST_X_ORIGIN = 160.0
+ADVECTION_TEST_Y_ORIGIN = 160.0
+ADVECTION_TEST_X_WIDTH = 80.0
+ADVECTION_TEST_Y_WIDTH = 60.0
+"""
+# the offline round trip of tests/test_offline_driver.py: its case (a
+# reentrant channel, adiabatic and layered, 8 steps of 1200 s, a
+# thermodynamic step every second) and the dye in a box that moves it
+OFFLINE_CASE = """SPLIT = True
+ENABLE_THERMODYNAMICS = False
+ADIABATIC = True
+DT = 1200.0
+DT_THERM = 2400.0
+DAYMAX = 0.11111111111
+ENERGYSAVEDAYS = 0.055555
+NIGLOBAL = 10
+NJGLOBAL = 10
+NK = 3
+GRID_CONFIG = "cartesian"
+AXIS_UNITS = "k"
+LENLAT = 100.0
+LENLON = 100.0
+TOPO_CONFIG = "flat"
+MAXIMUM_DEPTH = 300.0
+F_0 = 1.0E-04
+REENTRANT_X = True
+THICKNESS_CONFIG = "uniform"
+WIND_CONFIG = "gyres"
+TAUX_MAGNITUDE = 0.2
+USE_REGIONAL_DYES = True
+"""
+DYE_BOX = """DYE_SOURCE_MINLON = 20.0
+DYE_SOURCE_MAXLON = 60.0
+DYE_SOURCE_MINLAT = 30.0
+DYE_SOURCE_MAXLAT = 70.0
+"""
+OFFLINE_STEPS = 4              # 7k's offline steps (thermo intervals)
 # cases/tc4 through the JAX driver on the CPU in fp64 (most XLA
 # optimizations off), the ocean.stats lines that tests/test_torch_cases.py
 # holds the port's to on the CPU
@@ -1429,6 +1519,7 @@ def run_new_timed(dynamics, wrappers, shape, extra=None):
         n_done[0] += 1
 
     fstep.carry = full_step.carry
+    fstep.offline_fields = full_step.offline_fields
     for _ in range(2):
         fstep()
     torch.cuda.synchronize()
@@ -2004,13 +2095,14 @@ def run_ref_tc0(tmp, wrappers):
     return launches
 
 
-def run_ref_case(tmp, wrappers, case, d=None):
-    """cases/ref_tc1, ref_tc2 or ref_tc4 through the solo driver in fp64
-    on the card for its golden's steps, with every launch counter zeroed
-    just before and read just after (K1 4, K2 1, K3 2 a step): the final
-    state's ocean.stats against tests/goldens_ref_cases.json at the
-    tolerances of tests/test_ref_cases.py.  ``d``: a case directory
-    made already (with the case's input files)."""
+def run_ref_case(tmp, wrappers, case, d=None, per_step=None):
+    """cases/ref_tc1, ref_tc2, ref_tc3 or ref_tc4 through the solo driver
+    in fp64 on the card for its golden's steps, with every launch counter
+    zeroed just before and read just after (``per_step`` a step, by
+    default K1 4, K2 1, K3 2): the final state's ocean.stats against
+    tests/goldens_ref_cases.json at the tolerances of
+    tests/test_ref_cases.py.  ``d``: a case directory made already (with
+    the case's input files)."""
     import shutil
     import torch
     from mom6_torch.diagnostics.sum_output import collect_stats, stat_sums
@@ -2031,16 +2123,17 @@ def run_ref_case(tmp, wrappers, case, d=None):
     n = golden["nsteps"]
     zero_counts(wrappers)
     run = solo.main([str(d), "--days", repr(n * m.dt / 86400.0)])
+    per_step = per_step or {"K1": 4, "K2": 1, "K3": 2, "K3m": 0}
     launches = check_driver_launches(
-        case, wrappers, {"K1": 4 * n, "K2": n, "K3": 2 * n, "K3m": 0})
+        case, wrappers, {k: v * n for k, v in per_step.items()})
     if run["steps"] != n:
         raise AssertionError(f"{case}: {run['steps']} steps, golden {n}")
     s = run["state"]
     s = s.replace(**{f.name: getattr(s, f.name).cpu()
                      for f in dataclasses.fields(s)
                      if getattr(s, f.name) is not None})
-    check_finite([(k, getattr(s, k)) for k in ("h", "u", "v", "T", "S")],
-                 s.h.shape)
+    check_finite([(k, getattr(s, k)) for k in ("h", "u", "v", "T", "S")
+                  if getattr(s, k) is not None], s.h.shape)
     st = collect_stats(stat_sums(m.domain, m.grid, m.vgrid, s, m.dt),
                        m.vgrid, n, 0.0)
     checks = (("energy_per_mass", "energy_per_mass", 1e-9, 0.0),
@@ -2271,6 +2364,267 @@ def run_file_cases(tmp, wrappers):
         f"driver; last line En {got[-1][1]['En']!r}, CFL "
         f"{got[-1][1]['CFL']!r}, truncations {got[-1][1]['truncs']}; "
         f"launches {out['tc2']}")
+    return out
+
+
+def check_bgc_modules():
+    """The seventh breadth item's modules on the card against the CPU in
+    fp64, 1e-12 relative to each field's largest value, on seeded inputs
+    at the 32x32x6 build of BENCH_CONFIG_BGC with the ideal packages of
+    IDEAL_LINES beside its coupler (each device builds its own): every
+    tracer's initial field and its column function, GasSpec.flux of the
+    O2, CO2 and CFC specs, the coupler's column_physics with every
+    channel on and a gas_fields override (once with the shortwave's
+    light, once through the implicit vertical diffusion), NPZD's own
+    column_physics, RestoringData.tendencies (33 file levels onto 6) and
+    step_offline.  Returns the largest error."""
+    import numpy as np
+    import torch
+    from mom6_torch import entry
+    from mom6_torch.core.forcing import Fluxes
+    from mom6_torch.tracer.bgc_interface import NPZDPackage
+    from mom6_torch.tracer.offline import OfflineCfg, step_offline
+    ms = {lab: (dev, entry.build_full(*SMALL_FULL, dynamics="bgc",
+                                      extra=IDEAL_LINES, device=dev,
+                                      dtype=torch.float64))
+          for lab, dev in (("cpu", "cpu"), ("card", DEV))}
+    mc = ms["cpu"][1]
+    shape = tuple(mc.state.h.shape)
+    rng = np.random.default_rng(19)
+    h = rng.uniform(20.0, 300.0, shape)
+    T = rng.uniform(0.0, 28.0, shape)
+    S = rng.uniform(32.0, 37.0, shape)
+    sw = rng.uniform(0.0, 300.0, shape[1:])
+    kd = rng.uniform(1e-5, 1e-2, (shape[0] + 1,) + shape[1:])
+    salt = rng.uniform(-1e-6, 1e-6, shape[1:])
+    open_frac = rng.uniform(0.0, 1.0, shape[1:])
+    gas = {"atm_co2": rng.uniform(3e-4, 5e-4, shape[1:]),
+           "u10": rng.uniform(2.0, 12.0, shape[1:])}
+    trs = {k: rng.uniform(0.5, 1.5, shape) * max(float(v.max()), 1.0)
+           for k, v in mc.tracers.items()}
+    npzd = {k: rng.uniform(0.0, 12.0, shape)
+            for k in ("no3", "phyto", "zoo", "det")}
+    area = mc.grid.areaT.numpy()
+    # transports of at most a fifth of the cell volumes, none at the walls
+    uh = 0.2 * rng.uniform(-1.0, 1.0, shape) * h * area \
+        * mc.grid.mask2dCu.numpy()
+    vh = 0.2 * rng.uniform(-1.0, 1.0, shape) * h * area \
+        * mc.grid.mask2dCv.numpy()
+    out = {}
+    for lab, (dev, m) in ms.items():
+        def t(a, dev=dev):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                   device=dev)
+        bgc = m.cfg.bgc
+        for k, v in m.tracers.items():
+            out[f"{lab} initial {k}"] = v
+        st = m.state.replace(h=t(h), T=t(T), S=t(S))
+        got = m.registry.apply_column_fns({k: t(v) for k, v in trs.items()},
+                                          st.h, 1200.0, state=st, t=1800.0)
+        for k in trs:
+            out[f"{lab} column function {k}"] = got[k]
+        fl = Fluxes(salt_flux=t(salt), sw=t(sw),
+                    gas_fields={k: t(v) for k, v in gas.items()})
+        for kw in ({"sw": t(sw)}, {"kd_int": t(kd)}):
+            got = bgc.column_physics({k: t(v) for k, v in trs.items()},
+                                     t(h), t(T), t(S), 1200.0, t=4.1e6,
+                                     fluxes=fl, **kw)
+            for k in bgc._specs:
+                out[f"{lab} column_physics ({next(iter(kw))}) {k}"] = got[k]
+        for name, spec in bgc._specs.items():
+            if spec.gas is not None:
+                out[f"{lab} GasSpec.flux {name}"] = spec.gas.flux(
+                    t(trs[name][0]), t(T[0]), t(S[0]), t(gas["u10"]),
+                    t(gas["atm_co2"]), t(open_frac))
+        got = bgc.restoring.tendencies(
+            {k: t(trs[k]) for k in bgc.restoring.clim}, t(h))
+        for k, v in got.items():
+            out[f"{lab} RestoringData {k}"] = v
+        got = NPZDPackage().column_physics(
+            {k: t(v) for k, v in npzd.items()}, t(h), None, None, 1800.0)
+        for k, v in got.items():
+            out[f"{lab} NPZD {k}"] = v
+        got, h_off = step_offline(
+            m.domain, m.grid, {k: t(v) for k, v in trs.items()}, t(h), t(uh),
+            t(vh), t(kd), OfflineCfg(dt_offline=7200.0), registry=m.registry)
+        out[f"{lab} step_offline h_end"] = h_off
+        for k, v in got.items():
+            out[f"{lab} step_offline {k}"] = v
+    errs = {}
+    for k in [k[4:] for k in out if k.startswith("cpu ")]:
+        rel, _ = rel_err(out["cpu " + k], out["card " + k].cpu(), H=0)
+        errs[k] = rel
+        if not rel <= 1e-12:
+            raise AssertionError(f"{k}: card vs cpu {rel:.3e} > 1e-12")
+    worst = max(errs, key=errs.get)
+    log(f"  BGC modules card vs cpu: {len(errs)} fields, max rel err "
+        f"{errs[worst]:.3e} ({worst}); by module: " + ", ".join(
+            f"{mod} {max(v for k, v in errs.items() if k.startswith(mod)):.1e}"
+            for mod in ("initial", "column function", "column_physics",
+                        "GasSpec.flux", "RestoringData", "NPZD",
+                        "step_offline")))
+    return errs[worst]
+
+
+def bgc_extra(m, cur, fstep, n_done, wrappers):
+    """For BENCH_CONFIG_BGC: every BGC tracer >= 0 on the compute domain;
+    one thermodynamic step under the profiler with profile_step's ranges
+    (BGC_PHASES: device time, host time, kernels); then phase 7k,
+    offline mode at full width: 2 OFFLINE_STEPS more steps record the
+    (uhtr, vhtr, h_end) of OFFLINE_STEPS thermodynamic intervals through
+    step.offline_fields(), and step_offline advances the text's 13
+    passive tracers from them with the registry's column functions, as
+    the driver runs it, each step timed by CUDA events, with no kernel
+    launched; every tracer without a column function keeps its content
+    (over the step's own start volumes, in fp64 sums) to 1e-5
+    relative."""
+    import torch
+    from mom6_torch import profile_step
+    from mom6_torch.parallel.stencil import im1, jm1
+    from mom6_torch.tracer.offline import OfflineCfg, step_offline
+    d, g = m.domain, m.grid
+    _, _, tr = cur
+    bgc = list(m.cfg.bgc._specs)
+    lows = {k: float(d.interior(tr[k]).min()) for k in bgc}
+    if min(lows.values()) < 0.0:
+        raise AssertionError(f"bgc: a BGC tracer below 0: {lows}")
+    log("  BGC tracers on the compute domain, min: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in lows.items()))
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm != 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets(
+        "bgc"), "bgc thermo", None)
+    ph = summary.get("phases", {})
+    got = {k: ph[k] for k in BGC_PHASES if k in ph}
+    log(f"  profiled thermodynamic step: device busy "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+        f"{summary.get('kernels', 0)} kernels; "
+        + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                    f"{v['device_ms']:.4f} ms device, {v['host_ms']:.3f} "
+                    "ms host" for k, v in got.items()))
+    missing = [k for k in BGC_PHASES if k not in got]
+    if missing:
+        raise AssertionError(f"bgc: no {missing} in a thermodynamic step")
+
+    # 7k. offline mode at full width
+    log(f"phase 7k offline mode (step_offline) %dx%dx%d fp32, "
+        % MAIN + f"{OFFLINE_STEPS} steps from the recorded intervals")
+    records = []
+    while len(records) < OFFLINE_STEPS:
+        fstep()
+        off = fstep.offline_fields()
+        if off is not None and (not records or off is not records[-1]):
+            records.append(off)
+    _, _, tr = cur
+    tracers = dict(tr)
+    cfg = OfflineCfg(dt_offline=m.dt_therm)
+    area = g.areaT.double()
+    with_fn = {k for k in tracers if m.registry.meta(k).column_fn}
+    ms, worst = [], 0.0
+    zero_counts(wrappers)
+    for n, (uh, vh, h_end) in enumerate(records):
+        he, uf, vf = (x.double() for x in d.fill_halos((h_end, uh, vh),
+                                                        width=2))
+        vol0 = he * area + (uf - im1(uf)) + (vf - jm1(vf))
+        before = {k: float(torch.sum(d.interior(v.double() * vol0)))
+                  for k, v in tracers.items() if k not in with_fn}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        tracers, h_out = step_offline(d, g, tracers, h_end, uh, vh, None,
+                                      cfg, registry=m.registry,
+                                      x_first=(n % 2 == 0))
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        for k, c0 in before.items():
+            c1 = float(torch.sum(d.interior(tracers[k].double()
+                                            * h_out.double() * area)))
+            rel = abs(c1 - c0) / max(abs(c0), 1e-300)
+            worst = max(worst, rel)
+            if not rel <= 1e-5:
+                raise AssertionError(f"offline step {n} {k}: content "
+                                     f"{c1!r} against {c0!r}")
+    launched = {k: v for k, v in read_counts(wrappers).items() if v}
+    if launched:
+        raise AssertionError(f"offline mode launched kernels: {launched}")
+    check_finite(sorted(tracers.items()), h_out.shape)
+    log(f"  {len(records)} offline steps ({len(tracers)} tracers, "
+        f"{cfg.tracer_adv.n_sweep_pairs} sweep pairs, dt {m.dt_therm:g} s): "
+        f"{sum(ms[1:]) / max(len(ms) - 1, 1):.3f} ms a step after the first "
+        f"(CUDA events; each: {', '.join(f'{x:.3f}' for x in ms)}); no "
+        f"kernel launched; the {len(before)} tracers without a column "
+        f"function keep their content to {worst:.3e} relative")
+    return dict(profiled_thermo=dict(
+        device_busy_ms=summary.get("device_busy_ms"),
+        idle_share=summary.get("idle_share_profiled"),
+        kernels=summary.get("kernels"), phases=got),
+        bgc_min=lows, offline_ms=ms, offline_conservation=worst)
+
+
+def run_offline_cases(tmp, wrappers):
+    """The offline round trip of tests/test_offline_driver.py through the
+    solo driver in fp64 on the card: online with WRITE_OFFLINE_FIELDS
+    (K1 4, K2 1, K3 2 a step), then OFFLINE_TRACER_MODE from its files
+    (no launch), each with every launch counter zeroed just before and
+    read just after.  With the case's uniform dye the offline dye
+    equals the online one to 1e-10; with the dye in a box (DYE_BOX) the
+    card's offline dye equals a --cpu offline run's from the same files
+    to 1e-12 (it parts from the online dye, in both packages: the
+    offline steps alternate x_first, the online thermodynamic steps all
+    sweep y first).  Each offline run keeps the dye's content to 1e-12.
+    Returns the online runs' launches."""
+    import torch
+    from mom6_torch.drivers import solo
+    from mom6_torch.framework.config import ParamFile
+    from mom6_torch.model import build_model
+    out = {}
+    for label, box in (("uniform", ""), ("box", DYE_BOX)):
+        on = case_dir(tmp, f"offline_{label}_online",
+                      OFFLINE_CASE + box + "WRITE_OFFLINE_FIELDS = True\n")
+        zero_counts(wrappers)
+        online = solo.main([on])
+        n = online["steps"]
+        out[label] = check_driver_launches(
+            f"offline {label} online", wrappers,
+            {"K1": 4 * n, "K2": n, "K3": 2 * n, "K3m": 0})
+        off_text = OFFLINE_CASE + box + (
+            f"OFFLINE_TRACER_MODE = True\nOFFLINEDIR = {on}\n"
+            "DT_OFFLINE = 2400.0\n")
+        runs = {}
+        for dev_label, args in (("card", []), ("cpu", ["--cpu"])):
+            d = case_dir(tmp, f"offline_{label}_{dev_label}", off_text)
+            zero_counts(wrappers)
+            runs[dev_label] = solo.main([d] + args)
+            check_driver_launches(f"offline {label} {dev_label}", wrappers,
+                                  {"K1": 0, "K2": 0, "K3": 0, "K3m": 0})
+        m = build_model(ParamFile(text=OFFLINE_CASE + box), device="cpu",
+                        dtype=torch.float64)
+        dm, area = m.domain, m.domain.interior(m.grid.areaT)
+        dye_on = dm.interior(online["tracers"]["dye1"]).cpu()
+        dye_off = dm.interior(runs["card"]["tracers"]["dye1"]).cpu()
+        dye_cpu = dm.interior(runs["cpu"]["tracers"]["dye1"])
+        tot0 = float(torch.sum(dm.interior(m.tracers["dye1"] * m.state.h)
+                               * area))
+        tot1 = float(torch.sum(dye_off * dm.interior(online["state"].h)
+                               .cpu() * area))
+        cons = abs(tot1 - tot0) / abs(tot0)
+        on_err = float((dye_off - dye_on).abs().max())
+        cpu_err = rel_err(dye_cpu, dye_off, H=0)[0]
+        log(f"  offline round trip, {label} dye: {n} online steps, "
+            f"{runs['card']['steps']} offline steps; offline against online "
+            f"{on_err:.3e} (abs), card against cpu offline {cpu_err:.3e} "
+            f"(rel), content {tot1!r} against {tot0!r} ({cons:.3e} rel); "
+            f"online launches {out[label]}")
+        if label == "uniform" and not on_err <= 1e-10:
+            raise AssertionError(f"offline dye {on_err:.3e} off the online")
+        if not cpu_err <= 1e-12:
+            raise AssertionError(f"offline {label}: card vs cpu {cpu_err}")
+        if not cons <= 1e-12:
+            raise AssertionError(f"offline {label}: content {cons:.3e}")
+        if label == "box" and torch.equal(dye_on, dm.interior(
+                m.tracers["dye1"])):
+            raise AssertionError("offline box: the online dye did not move")
     return out
 
 
@@ -3015,6 +3369,36 @@ def main():
         f"{worst_file:.3e}")
     log("phase 6x the file-driven modules, card vs cpu fp64")
     check_file_modules()
+    # 6y. the seventh breadth item's text at 32x32x6 fp64, then its modules
+    n = 3
+    log("phase 6y BGC (configs.BENCH_CONFIG_BGC) %dx%dx%d fp64, " % SMALL_FULL
+        + f"{n} steps: card vs cpu")
+    zero_counts(wrappers)
+    gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, n, seed=3,
+                             regridding=True, dynamics="bgc")
+    counts = read_counts(wrappers)
+    cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", n, seed=3,
+                             regridding=True, dynamics="bgc")
+    worst_bgc = {}
+    for name, a, b in ([(k, getattr(cst, k), getattr(gst, k))
+                        for k in ("h", "u", "v", "T", "S")]
+                       + [(k, getattr(csp, k), getattr(gsp, k))
+                          for k in ("eta", "uh", "vh")]
+                       + [(k, ctr[k], gtr[k]) for k in ctr]):
+        worst_bgc[name] = rel_err(a, b.cpu())[0]
+    log("  BGC card vs cpu max rel err (limit 2.5e-12): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst_bgc.items()))
+    bad = {k: v for k, v in worst_bgc.items() if not v <= 2.5e-12}
+    if bad:
+        raise AssertionError(f"BGC card vs cpu above 2.5e-12: {bad}")
+    expect = {k: v * n for k, v in PER_STEP["bgc"].items()}
+    if counts != expect:
+        raise AssertionError(f"BGC: launches {counts}, expected {expect}")
+    log(f"  BGC on the card: {len(gtr)} tracers, launches {counts}, "
+        f"largest rel err {max(worst_bgc.values()):.3e}")
+    log("phase 6y the tracer packages, the BGC coupler, NPZD, the restoring "
+        "and step_offline, card vs cpu fp64")
+    check_bgc_modules()
 
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
@@ -3125,6 +3509,20 @@ def main():
         + f"); peak {full['file']['peak_bytes'] / 2**30:.3f} against "
         f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
 
+    # 7j. biogeochemistry at full width, then 7k, offline mode, from it
+    log("phase 7j bgc (configs.BENCH_CONFIG_BGC, Z* ALE, 13 passive "
+        "tracers) %dx%dx%d fp32" % MAIN)
+    full["bgc"] = run_new_timed("bgc", wrappers, shape, functools.partial(
+        bgc_extra, wrappers=wrappers))
+    torch.cuda.empty_cache()
+    log(f"  bgc against bench.py's CONFIG (phase 7, Z* ALE), same "
+        f"process: {full['bgc']['ms_step']:.3f} against "
+        f"{full['ale']['ms_step']:.3f} ms/step ("
+        + ", ".join(f"{k} {v:.3f} against {full['ale']['by_kind'][k]:.3f}"
+                    for k, v in full["bgc"]["by_kind"].items())
+        + f"); peak {full['bgc']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
@@ -3165,6 +3563,19 @@ def main():
         log("phase 8 driver: cases/tc4, cases/ref_tc4 and cases/tc2 fp64 "
             "on the card")
         launches_layer.update(run_file_cases(tmp, wrappers))
+        log("phase 8 driver: cases/ref_tc3 (circle_obcs, layer_ref, four "
+            "open edges, the DOME dyes) fp64 on the card, against its "
+            "golden")
+        launches_layer["ref_tc3"] = run_ref_case(
+            tmp, wrappers, "ref_tc3",
+            per_step={"K1": 4, "K2": 0, "K3": 2, "K3m": 0})
+        if barotropic_cuda.subcycle_cuda.obc_launches \
+                != launches_layer["ref_tc3"]["K3"]:
+            raise AssertionError("driver ref_tc3: K3 ran its closed "
+                                 "instance")
+        log("phase 8 driver: the offline round trip of "
+            "tests/test_offline_driver.py fp64 on the card")
+        launches_offline = run_offline_cases(tmp, wrappers)
     torch.cuda.empty_cache()
 
     nk, njh, nih = shape_main
@@ -3239,7 +3650,11 @@ def main():
                 "file_full_step": full["file"]["launches"][k],
                 "solo_tc4": launches_layer["tc4"][k],
                 "solo_ref_tc4": launches_layer["ref_tc4"][k],
-                "solo_tc2": launches_layer["tc2"][k]},
+                "solo_tc2": launches_layer["tc2"][k],
+                "bgc_full_step": full["bgc"]["launches"][k],
+                "solo_ref_tc3": launches_layer["ref_tc3"][k],
+                "solo_offline_online_run": launches_offline["box"][k],
+                "offline_mode": 0},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
@@ -3279,7 +3694,8 @@ def main():
     records.append(dict(
         OBC_KERNEL, launches=n_obc,
         launches_by_path={"obc_full_step": n_obc,
-                          "solo_tc3": launches_tc3["K3"]},
+                          "solo_tc3": launches_tc3["K3"],
+                          "solo_ref_tc3": launches_layer["ref_tc3"]["K3"]},
         max_abs_err=res.err["K3o"]["float32"][1],
         max_rel_err_fp32=res.err["K3o"]["float32"][0],
         max_rel_err_fp64=res.err["K3o"]["float64"][0],
@@ -3288,7 +3704,7 @@ def main():
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
     for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml", "b4", "b4v",
-                "hybgen", "adapt", "file"):
+                "hybgen", "adapt", "file", "bgc"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())

@@ -92,6 +92,17 @@ constant and one off-grid (bilinear) override.  ``write_file_inputs``
 writes the files from a seed; TS_CONFIG and T_RANGE stay in the text
 unread.
 
+``BENCH_CONFIG_BGC`` is bench.py's configuration with biogeochemistry on,
+as a regional or global MOM6-MARBL run has it: the MARBL-shaped coupler
+with its base-bio package (no3, po4, sio3, fe, dic, alk, o2, doc and a
+sinking poc), the CFC pair riding its gas exchange and a pseudo-salt
+tracer, 13 passive tracers beside T and S and the ideal age.  Every
+channel is fed from files (``write_bgc_inputs``): no3, po4 and sio3
+restored toward nutricline-shaped climatologies on the 33 WOA levels
+with a 30-day timescale over the N and S strips, monthly river sources
+along the two walls, monthly dust and nitrogen deposition and a static
+sediment iron flux.
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
@@ -106,7 +117,8 @@ __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "B3_LINES", "BML_LINES", "B4_LINES", "B4V_LINES",
            "HYBGEN_LINES", "ADAPT_LINES", "UNMIX_LINES", "BENCH_CONFIG_FILE",
            "FILE_LINES", "FILE_DATA_TABLE", "WOA_DEPTHS", "file_fields",
-           "write_file_inputs", "obc_strip",
+           "write_file_inputs", "BENCH_CONFIG_BGC", "BGC_LINES",
+           "BGC_RIVERS", "bgc_fields", "write_bgc_inputs", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
            "write_topog_edge"]
 
@@ -516,6 +528,117 @@ def write_file_inputs(indir: str, ni: int, nj: int, seed: int = 0) -> None:
                      attrs=attrs)
     with open(os.path.join(indir, "data_table"), "w") as fh:
         fh.write(FILE_DATA_TABLE)
+
+
+# biogeochemistry with every coupling channel fed from the files of
+# write_bgc_inputs, in INPUTDIR
+BGC_LINES = """USE_PSEUDO_SALT_TRACER = True
+USE_MARBL_TRACERS = True
+USE_OCMIP2_CFC = True
+MARBL_TRACER_RESTORING_SOURCE = file
+MARBL_TRACER_RESTORING_FILE = bgc_restoring.nc
+READ_RIV_FLUXES = True
+RIV_FLUX_FILE = bgc_riv.nc
+MARBL_DUST_FLUX_FILE = bgc_dust.nc
+MARBL_NDEP_FILE = bgc_ndep.nc
+MARBL_FESEDFLUX_FILE = bgc_fesed.nc
+"""
+
+BENCH_CONFIG_BGC = BENCH_CONFIG + BGC_LINES
+
+# the tracers of the river file, and each one's source strength at a
+# river mouth [mmol m-2 s-1]
+BGC_RIVERS = {"no3": 2.0e-4, "po4": 1.2e-5, "sio3": 3.0e-4, "fe": 1.0e-7,
+              "dic": 1.5e-2, "alk": 1.5e-2, "doc": 1.0e-3}
+
+
+def bgc_fields(ni: int, nj: int, seed: int) -> dict:
+    """The inputs of ``BENCH_CONFIG_BGC`` on the ``ni`` x ``nj`` compute
+    domain, as {file name: {variable: array}} (each with its ``dims``
+    and ``attrs`` under the keys of the same name); every field float64:
+
+    * bgc_restoring.nc: ``z_edges`` (34, about the 33 ``WOA_DEPTHS``),
+      no3, po4 and sio3 nutriclines (30, 2.2 and 110 mmol m-3 at depth
+      over e-folding depths of 400, 400 and 1000 m, with seeded noise of
+      2 % of their deep values, kept >= 0) and I_TAU, 1/(30 days) over
+      the N and S strips of min(32, max(2, nj // 8)) rows and 0
+      elsewhere;
+    * bgc_riv.nc: 12 monthly records of <tracer>_riv_flux for the
+      tracers of ``BGC_RIVERS``, 0 but at max(2, ni // 32) river mouths
+      along each of the two walls (the first and last rows), with a
+      seasonal swing of 50 % and seeded strengths of 0.5-1.5 times the
+      nominal;
+    * bgc_dust.nc: 12 monthly records of ``dust`` [kg m-2 s-1], 1e-10
+      falling northward with a seasonal swing, and bgc_ndep.nc of
+      ``ndep`` [mmol m-2 s-1], 1e-6 with seeded noise;
+    * bgc_fesed.nc: a static ``FESEDFLUX`` [mmol m-2 s-1], 1e-7 with
+      seeded noise."""
+    rng = np.random.default_rng(seed)
+    z = np.asarray(WOA_DEPTHS)
+    z_edges = np.concatenate([[0.0], 0.5 * (z[1:] + z[:-1]),
+                              [z[-1] + 0.5 * (z[-1] - z[-2])]])
+    zc = z[:, None, None]
+    shape3 = (len(z), nj, ni)
+    clim = {}
+    for name, deep, scale in (("no3", 30.0, 400.0), ("po4", 2.2, 400.0),
+                              ("sio3", 110.0, 1000.0)):
+        prof = deep * (1.0 - np.exp(-(zc + 5.0) / scale))
+        clim[name] = np.maximum(
+            prof + 0.02 * deep * rng.standard_normal(shape3), 0.0)
+    strip = min(32, max(2, nj // 8))
+    j = np.arange(nj)[:, None] + np.zeros((1, ni))
+    in_strip = np.minimum(j, nj - 1 - j) < strip
+    i_tau = np.broadcast_to(np.where(in_strip, 1.0 / (30.0 * 86400.0), 0.0),
+                            shape3).copy()
+
+    month = (np.arange(12) + 0.5) / 12.0
+    season = np.sin(2.0 * np.pi * month)[:, None, None]
+    nsrc = max(2, ni // 32)
+    mouths = ((np.arange(nsrc) + 0.5) * ni / nsrc).astype(int)
+    rivers = {}
+    for name, q in BGC_RIVERS.items():
+        f = np.zeros((12, nj, ni))
+        for row in (0, nj - 1):
+            f[:, row, mouths] = q * rng.uniform(0.5, 1.5, nsrc)
+        rivers[f"{name}_riv_flux"] = f * (1.0 + 0.5 * season)
+    yc = (np.arange(nj) + 0.5) / nj
+    dust = 1e-10 * np.exp(-2.0 * yc)[None, :, None] \
+        * (1.0 + 0.4 * season) * np.ones((12, nj, ni))
+    ndep = 1e-6 * (1.0 + 0.1 * rng.standard_normal((12, nj, ni)))
+    fesed = 1e-7 * (1.0 + 0.2 * rng.standard_normal((nj, ni)))
+
+    time_ax = {"time": (30.0 * np.arange(12) + 15.0)}
+    t_attrs = {"time": {"units": "days since 0001-01-01",
+                        "modulo": "360"}}
+    zyx = ("depth", "ny", "nx")
+    tyx = ("time", "ny", "nx")
+    return {
+        "bgc_restoring.nc": dict(
+            z_edges=z_edges, I_TAU=i_tau, **clim,
+            dims=dict({"z_edges": ("edge",), "I_TAU": zyx},
+                      **{k: zyx for k in clim})),
+        "bgc_riv.nc": dict(time_ax, **rivers,
+                           dims=dict({"time": ("time",)},
+                                     **{k: tyx for k in rivers}),
+                           attrs=t_attrs),
+        "bgc_dust.nc": dict(time_ax, dust=dust,
+                            dims={"time": ("time",), "dust": tyx},
+                            attrs=t_attrs),
+        "bgc_ndep.nc": dict(time_ax, ndep=ndep,
+                            dims={"time": ("time",), "ndep": tyx},
+                            attrs=t_attrs),
+        "bgc_fesed.nc": {"FESEDFLUX": fesed}}
+
+
+def write_bgc_inputs(indir: str, ni: int, nj: int, seed: int = 0) -> None:
+    """The files of ``bgc_fields`` in ``indir``."""
+    import os
+    from mom6_torch.framework.io import write_fields
+    for name, fields in bgc_fields(ni, nj, seed).items():
+        fields = dict(fields)
+        dims, attrs = fields.pop("dims", None), fields.pop("attrs", None)
+        write_fields(os.path.join(indir, name), fields, dims=dims,
+                     attrs=attrs)
 
 
 def obc_strip(ni: int) -> str:

@@ -30,3 +30,9 @@ class Fluxes:
     lprec: Optional[torch.Tensor] = None     # [kg m-2 s-1]
     fprec: Optional[torch.Tensor] = None     # [kg m-2 s-1]
     salt_flux: Optional[torch.Tensor] = None  # [kg m-2 s-1 of salt]
+    # a coupler's gas-exchange fields: {name: (njh, nih) tensor}, the
+    # atmospheric partial pressures under the BGC packages' atm_field
+    # names (pco2_atm, po2_atm, pcfc11_atm, ...) and optionally "u10"
+    # and "ice_frac"; they take precedence over the packages' own
+    # constants and files
+    gas_fields: Optional[dict] = None

@@ -43,7 +43,9 @@ from one thermodynamic step to the next, the diags' ``int_tide_en``).
 At the end of the column physics the sponges restore toward their
 targets (``cfg.sponge``): the interface heights first (layered), then T
 and S (remapped from their own grid under an ALE sponge), then u and v
-toward rest (SPONGE_UV).  BGC is not ported yet.
+toward rest (SPONGE_UV).  After the tracers' column functions the BGC
+coupler (``cfg.bgc``, ``tracer/marbl_driver.py``) steps its packages
+with the model time, the buoyancy fluxes and their shortwave.
 The shear viscosity of a diabatic phase
 (``kv_shear`` in the diags) feeds the next split RK2 dynamics step
 (``kv_shear_prev``); the RK2b and unsplit steps take none, as in the JAX
@@ -152,6 +154,8 @@ class OceanCfg:
     # "ref_h": their own thicknesses (ALE sponge), "eta": interface
     # depth targets (layered), "uv": damp u and v toward rest}
     sponge: Optional[dict] = None
+    # the BGC coupler (marbl_driver.BGCCoupler), None without BGC
+    bgc: Optional[object] = None
 
 
 def _sponge(state: State, sd: dict, dt: float) -> State:
@@ -270,6 +274,11 @@ def step_ocean(domain: Domain, grid: Grid, vgrid: VerticalGrid,
         if tracer_registry is not None and tracers:
             tracers = tracer_registry.apply_column_fns(
                 tracers, state.h, dt, state=state, forces=forces, t=t)
+            if cfg.bgc is not None:
+                tracers = cfg.bgc.column_physics(
+                    tracers, state.h, state.T, state.S, dt, t=t,
+                    fluxes=fluxes,
+                    sw=fluxes.sw if fluxes is not None else None)
         if cfg.ale is not None:
             state, split_state, tracers = _ale(domain, grid, vgrid, state,
                                                split_state, tracers, cfg,

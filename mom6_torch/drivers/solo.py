@@ -36,10 +36,16 @@ RESTINT says.  READ_DEPTH_LIST reads the APE's depth list from
 DEPTH_LIST_FILE in the case directory when it matches the bathymetry,
 and writes it otherwise; under DEBUG_NANS a step whose outputs hold a
 NaN runs again with every operation checked, and the first that makes a
-NaN raises (``framework/debug_nans.py``).  Particles,
-offline tracer mode and WRITE_OFFLINE_FIELDS are not ported yet and
-raise ``NotImplementedError`` naming themselves, and so does any
-parameter the case sets that neither the builder nor the driver reads.
+NaN raises (``framework/debug_nans.py``).  WRITE_OFFLINE_FIELDS
+writes the transports and end thickness of every thermodynamic interval
+to ``off_sum.nc`` and ``off_snap.nc`` in the case directory; under
+OFFLINE_TRACER_MODE the driver advances only the registered tracers,
+from those files in OFFLINEDIR (``tracer/offline.py``), looping over
+their NUMTIME records with DT_OFFLINE steps, writes the tracers' totals
+to ``ocean.stats`` at the end of each loop and the tracers to the
+restart.  Particles are not ported yet and raise
+``NotImplementedError``, and so does any parameter the case sets that
+neither the builder nor the driver reads.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from mom6_torch.diagnostics.depth_list import depth_list_setup
@@ -65,8 +72,10 @@ from mom6_torch.framework.debug_nans import NanCheck, has_nan
 from mom6_torch.framework.diag import DiagMediator, parse_diag_table
 from mom6_torch.framework.error_handler import (MOM_error, NOTE,
                                                 set_verbosity)
+from mom6_torch.framework.io import read_field, write_fields
 from mom6_torch.framework.restart import restore_restart, save_restart
 from mom6_torch.model import default_only, build_model
+from mom6_torch.tracer.offline import OfflineCfg, step_offline
 
 __all__ = ["read_driver_params", "main"]
 
@@ -88,9 +97,21 @@ def read_driver_params(pf: ParamFile, model) -> dict:
     pf.module("MOM_particles")
     default_only(pf, "USE_PARTICLES", bool, False)
     pf.module("MOM")
-    default_only(pf, "OFFLINE_TRACER_MODE", bool, False)
-    default_only(pf, "WRITE_OFFLINE_FIELDS", bool, False,
-                 desc="write OFF_SUM/OFF_SNAP files from this online run")
+    p["offline_mode"] = pf.get("OFFLINE_TRACER_MODE", bool, False)
+    p["off_cfg"] = None
+    if p["offline_mode"]:
+        pf.module("MOM_offline")
+        p["off_cfg"] = dict(
+            dir=pf.get("OFFLINEDIR", str, pf.get("INPUTDIR", str, ".")),
+            sum_file=pf.get("OFF_SUM_FILE", str, "off_sum.nc"),
+            snap_file=pf.get("OFF_SNAP_FILE", str, "off_snap.nc"),
+            numtime=pf.get("NUMTIME", int, 0,
+                           desc="time levels before looping back"),
+            dt_offline=pf.get("DT_OFFLINE", float, model.dt_therm,
+                              units="s"))
+    p["write_offline"] = pf.get(
+        "WRITE_OFFLINE_FIELDS", bool, False,
+        desc="write OFF_SUM/OFF_SNAP files from this online run")
     pf.module("MOM_sum_output")
     # ENERGYSAVEDAYS counts TIMEUNIT seconds like DAYMAX
     timeunit = pf.get("TIMEUNIT", float, 86400.0, units="s")
@@ -241,6 +262,10 @@ def main(argv=None) -> dict:
         state, split, tracers, carry, step0, t_days = _restore(
             args.restart_from, model)
 
+    if dp["offline_mode"]:
+        return _run_offline(args.case_dir, model, dp["off_cfg"], tracers,
+                            daymax, t_days)
+
     step = model.step_fn(carry=carry)
     # DTBT_RESET_PERIOD swaps between these closures, one per substep
     # count
@@ -277,6 +302,7 @@ def main(argv=None) -> dict:
     cpu_prev = 0.0
     stopped_on_cpu = False
     nstep_bt = []
+    off_records, off_last = [], None
     for n in range(step0, step0 + nsteps + 1):
         if n % stats_every == 0 and n > step0:
             # write_cputime: log the interval's cpu cost and project
@@ -347,6 +373,13 @@ def main(argv=None) -> dict:
                 state, n + 1,
                 label=f"({step.truncations() - truncs_before} truncs)")
         nstep_bt.append(step.nstep_bt)
+        if dp["write_offline"]:
+            off = step.offline_fields()
+            if off is not None and off is not off_last:
+                off_last = off
+                off_records.append(tuple(
+                    d.interior(x).detach().cpu().double().numpy()
+                    for x in off))
         if dp["debug_mode"]:
             # the checksum flood: one block of prognostic checksums a step
             with open(os.path.join(args.case_dir, "chksum_debug"), "a") as f:
@@ -361,6 +394,8 @@ def main(argv=None) -> dict:
         loop_seconds = ev0.elapsed_time(ev1) / 1e3
     else:
         loop_seconds = time.perf_counter() - wall0
+    if dp["write_offline"] and off_records:
+        _write_offline_fields(args.case_dir, off_records)
     nran = n - step0
     pts = d.ni * d.nj * vg.nk * max(nran, 1)
     print(f"run complete: {nran} of {nsteps} steps, {loop_seconds:.2f}s "
@@ -394,6 +429,76 @@ def main(argv=None) -> dict:
     summary.update(state=state, split=split, tracers=tracers,
                    nstep_bt=nstep_bt, steps=nran, loop_seconds=loop_seconds)
     return summary
+
+
+def _write_offline_fields(case_dir: str, records) -> None:
+    """``off_sum.nc`` (uhtr, vhtr) and ``off_snap.nc`` (h_end) from the
+    (uhtr, vhtr, h_end) records of an online run's thermodynamic
+    intervals, on the compute domain."""
+    uh, vh, h = (np.stack([r[i] for r in records]) for i in range(3))
+    t = np.arange(len(records), dtype=np.float64)
+    dims4 = ("time", "zl", "yh", "xh")
+    write_fields(os.path.join(case_dir, "off_sum.nc"),
+                 {"time": t, "uhtr": uh, "vhtr": vh},
+                 dims={"time": ("time",), "uhtr": dims4, "vhtr": dims4},
+                 attrs={"uhtr": {"units": "m3"}, "vhtr": {"units": "m3"}})
+    write_fields(os.path.join(case_dir, "off_snap.nc"),
+                 {"time": t, "h_end": h},
+                 dims={"time": ("time",), "h_end": dims4},
+                 attrs={"h_end": {"units": "m"}})
+    print(f"offline fields written: {len(records)} intervals")
+
+
+def _run_offline(case_dir: str, model, off: dict, tracers, daymax: float,
+                 t_days: float) -> dict:
+    """Offline tracer mode: the registered tracers advanced from the
+    stored transports and thicknesses, looping over NUMTIME file
+    records, x_first alternating by step; the tracers' totals go to
+    ``ocean.stats`` and the tracers to the closing restart.  Returns the
+    summary of ``main`` (``state`` and ``split`` None)."""
+    if not tracers:
+        raise SystemExit("OFFLINE_TRACER_MODE requires registered "
+                         "tracers (e.g. USE_IDEAL_AGE_TRACER)")
+    d = model.domain
+    dev = dict(device=model.state.h.device, dtype=model.state.h.dtype)
+    sum_path = os.path.join(off["dir"], off["sum_file"])
+    snap_path = os.path.join(off["dir"], off["snap_file"])
+    uh_all = np.asarray(read_field(sum_path, "uhtr"), np.float64)
+    vh_all = np.asarray(read_field(sum_path, "vhtr"), np.float64)
+    h_all = np.asarray(read_field(snap_path, "h_end"), np.float64)
+    numtime = off["numtime"] or uh_all.shape[0]
+    dt_off = off["dt_offline"]
+    nsteps = int(round((daymax - t_days) * 86400.0 / dt_off))
+    cfg = OfflineCfg(dt_offline=dt_off)
+    area = d.interior(model.grid.areaT)
+    stats_path = os.path.join(case_dir, "ocean.stats")
+    with open(stats_path, "w") as f:
+        f.write("# offline tracer mode: step, day, "
+                + ", ".join(f"total[{k}]" for k in sorted(tracers))
+                + "\n")
+    wall0 = time.perf_counter()
+    for n in range(nsteps):
+        lvl = n % numtime
+        h_end, uhtr, vhtr = (d.pad(torch.as_tensor(a[lvl], **dev))
+                             for a in (h_all, uh_all, vh_all))
+        tracers, h = step_offline(d, model.grid, tracers, h_end, uhtr, vhtr,
+                                  None, cfg, registry=model.registry,
+                                  x_first=(n % 2 == 0))
+        if n % max(1, numtime) == numtime - 1 or n == nsteps - 1:
+            tots = [float(torch.sum(d.interior(tracers[k] * h) * area))
+                    for k in sorted(tracers)]
+            line = (f"{n + 1}, {(n + 1) * dt_off / 86400.0:.4f}, "
+                    + ", ".join(f"{v:.10e}" for v in tots) + "\n")
+            with open(stats_path, "a") as f:
+                f.write(line)
+            print(line, end="")
+    wall = time.perf_counter() - wall0
+    print(f"offline run complete: {nsteps} steps, {wall:.2f}s wall")
+    save_restart(os.path.join(case_dir, "RESTART", "MOM.res"),
+                 {"tracers": tracers},
+                 meta={"step": nsteps, "time_days": daymax})
+    return {"state": None, "split": None, "tracers": tracers,
+            "nstep_bt": [], "steps": nsteps, "loop_seconds": wall}
 
 
 if __name__ == "__main__":

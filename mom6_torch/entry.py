@@ -45,13 +45,15 @@ import torch
 from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_ADAPT,
                                 BENCH_CONFIG_B1, BENCH_CONFIG_B3,
                                 BENCH_CONFIG_B4, BENCH_CONFIG_B4V,
-                                BENCH_CONFIG_BML, BENCH_CONFIG_FILE,
+                                BENCH_CONFIG_BGC, BENCH_CONFIG_BML,
+                                BENCH_CONFIG_FILE,
                                 BENCH_CONFIG_HYBGEN,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
                                 BENCH_CONFIG_RK2B, BENCH_CONFIG_STOCH,
                                 BENCH_CONFIG_UNMIX, BENCH_CONFIG_UNSPLIT,
-                                obc_strip, write_file_inputs,
-                                write_obc_data, write_topog_edge)
+                                obc_strip, write_bgc_inputs,
+                                write_file_inputs, write_obc_data,
+                                write_topog_edge)
 from mom6_torch.core.barotropic import BarotropicCfg, set_dtbt
 from mom6_torch.core.dynamics_split_rk2 import (SplitCfg, SplitDynState,
                                                 init_split_state)
@@ -80,10 +82,17 @@ DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "bml": BENCH_CONFIG_BML, "b4": BENCH_CONFIG_B4,
             "b4v": BENCH_CONFIG_B4V, "hybgen": BENCH_CONFIG_HYBGEN,
             "adapt": BENCH_CONFIG_ADAPT, "unmix": BENCH_CONFIG_UNMIX,
-            "file": BENCH_CONFIG_FILE}
+            "file": BENCH_CONFIG_FILE, "bgc": BENCH_CONFIG_BGC}
 # the texts on the split RK2 dynamics
 SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml",
-             "b4", "b4v", "hybgen", "adapt", "unmix", "file")
+             "b4", "b4v", "hybgen", "adapt", "unmix", "file", "bgc")
+# the texts that read files from INPUTDIR, and each one's writer
+INPUT_WRITERS = {
+    "b1": lambda d, ni, nj: write_topog_edge(os.path.join(d, "topog_edge.nc"),
+                                             ni, nj, seed=0),
+    "obc": lambda d, ni, nj: write_obc_data(d, ni, nj, seed=0),
+    "file": lambda d, ni, nj: write_file_inputs(d, ni, nj, seed=0),
+    "bgc": lambda d, ni, nj: write_bgc_inputs(d, ni, nj, seed=0)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,7 +199,11 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     unmixing) or "file" (``BENCH_CONFIG_FILE``: the topography, initial
     T/S, sponge, wind, buoyancy fluxes and data_table from the files of
     ``configs.write_file_inputs``, written from seed 0 into a temporary
-    directory that is the case directory of the build).
+    directory that is the case directory of the build) or "bgc"
+    (``BENCH_CONFIG_BGC``: the MARBL-shaped coupler, the coupled CFCs and
+    pseudo-salt, its restoring, river, deposition and sediment files
+    written from seed 0 by ``configs.write_bgc_inputs`` into a temporary
+    directory).
     ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).
@@ -220,14 +233,8 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     elif not regridding:
         text += "#override USE_REGRIDDING = False\n"
     with tempfile.TemporaryDirectory() as inputdir:
-        if dynamics == "b1":
-            write_topog_edge(os.path.join(inputdir, "topog_edge.nc"), ni, nj,
-                             seed=0)
-        elif dynamics == "obc":
-            write_obc_data(inputdir, ni, nj, seed=0)
-        elif dynamics == "file":
-            write_file_inputs(inputdir, ni, nj, seed=0)
-        if dynamics in ("b1", "obc", "file"):
+        if dynamics in INPUT_WRITERS:
+            INPUT_WRITERS[dynamics](inputdir, ni, nj)
             text += f"INPUTDIR = {inputdir}\n"
         if dynamics == "file":
             # the data_table is read from the case directory

@@ -144,10 +144,11 @@ from mom6_torch.tracer.advect import TracerAdvectCfg
 from mom6_torch.tracer.hor_bnd_diffusion import HorBndDiffCfg
 from mom6_torch.tracer.hor_diff import TracerHorDiffCfg
 from mom6_torch.tracer.neutral_diffusion import NeutralDiffCfg
-from mom6_torch.tracer.ideal import (register_dyed_obc_tracers,
-                                     register_ideal_age)
+from mom6_torch.tracer import ideal
+from mom6_torch.tracer.cfc import register_cfcs
+from mom6_torch.tracer.marbl_driver import build_bgc_coupler
 from mom6_torch.tracer.registry import TracerRegistry
-from mom6_torch.user.configs import (init_benchmark, init_benchmark_ts,
+from mom6_torch.user.configs import (init_benchmark_ts, thickness_registry,
                                      topo_benchmark, topo_halfpipe)
 
 __all__ = ["Model", "build_model", "default_only"]
@@ -330,8 +331,10 @@ class Model:
         ``truncations()`` (the cumulative velocity-truncation count; the
         count stays on the device until asked for), ``carry()`` (a copy
         of its accumulators), ``set_carry(c)``, ``obc_reservoirs()``
-        (the tracer reservoirs of open boundaries, None without) and
-        ``nstep_bt`` (None under unsplit dynamics)."""
+        (the tracer reservoirs of open boundaries, None without),
+        ``offline_fields()`` ((uhtr, vhtr, h_end) of the last completed
+        thermodynamic interval, None before the first) and ``nstep_bt``
+        (None under unsplit dynamics)."""
         cfg = self.cfg
         bt = cfg.split_cfg.barotropic if cfg.split else None
         if bt is not None and nstep_bt and nstep_bt != bt.nstep:
@@ -384,6 +387,10 @@ class Model:
             if diags.int_tide_en is not None:
                 acc["iten"] = diags.int_tide_en
             if do_thermo:
+                # a completed interval: the transports the tracer
+                # advection consumed and the thickness at its end, the
+                # offline-mode fields
+                acc["off"] = (diags.uhtr, diags.vhtr, st.h)
                 acc["u"] = acc["v"] = None
             else:
                 acc["u"], acc["v"] = diags.uhtr, diags.vhtr
@@ -394,6 +401,7 @@ class Model:
         step.carry = lambda: dict(acc)
         step.set_carry = set_carry
         step.obc_reservoirs = lambda: acc.get("res")
+        step.offline_fields = lambda: acc.get("off")
         step.nstep_bt = cfg.split_cfg.barotropic.nstep if cfg.split \
             else None
         return step
@@ -844,11 +852,18 @@ def build_model(pf: ParamFile, *, device="cuda",
 
     pf.module("MOM_coord_initialization")
     coord_cfg = pf.get("COORD_CONFIG", str, "none")
-    if coord_cfg in ("layer_ref", "BFB"):
+    if coord_cfg == "BFB":
         raise NotImplementedError(f"COORD_CONFIG = {coord_cfg!r}: option "
                                   "not ported")
     p_ref = pf.get("P_REF", float, 2.0e7, units="Pa")
-    if coord_cfg == "linear":
+    if coord_cfg == "layer_ref":
+        # layer densities evenly spaced over RLAY_RANGE from the lightest
+        light = pf.get("LIGHTEST_DENSITY", float, rho0, units="kg m-3")
+        rrange = pf.get("RLAY_RANGE", float, 2.0, units="kg m-3")
+        vgrid = VerticalGrid.from_rlay(
+            light + rrange * np.arange(nk) / max(nk - 1, 1), g_Earth=g_earth,
+            Rho0=rho0, boussinesq=boussinesq, **dev)
+    elif coord_cfg == "linear":
         # layer densities evenly spaced over DENSITY_RANGE, at the
         # middle of each interval
         light = pf.get("LIGHTEST_DENSITY", float, rho0, units="kg m-3")
@@ -1046,8 +1061,11 @@ def build_model(pf: ParamFile, *, device="cuda",
     pf.module("MOM_state_initialization")
     thick_cfg = pf.get("THICKNESS_CONFIG", str, "uniform")
     init_from_z = pf.get("INIT_LAYERS_FROM_Z_FILE", bool, False)
-    if not init_from_z:
-        _one_of("THICKNESS_CONFIG", thick_cfg, ("uniform", "benchmark"))
+    thick_lut = {k.lower(): v for k, v in thickness_registry.items()}
+    if not init_from_z and thick_cfg != "uniform" \
+            and thick_cfg.lower() not in thick_lut:
+        raise NotImplementedError(f"THICKNESS_CONFIG = {thick_cfg!r}: "
+                                  "option not ported")
     shape = (nk, domain.njh, domain.nih)
     fields = {}
     T = S = None
@@ -1077,7 +1095,7 @@ def build_model(pf: ParamFile, *, device="cuda",
                                 grid.geoLonT, grid.geoLatT,
                                 grid.bathyT.double(), h, vgrid.angstrom)
         T, S = domain.fill_halos((T.to(dtype), S.to(dtype)))
-    elif thick_cfg == "benchmark":
+    elif thick_cfg.lower() in thick_lut:
         # the user initializer's context, read as the JAX builder reads it
         user_ctx2 = dict(
             user_ctx, grid=grid, vgrid=vgrid, domain=domain, eos=eos,
@@ -1090,7 +1108,7 @@ def build_model(pf: ParamFile, *, device="cuda",
         for k in _USER_IC_KEYS:
             if pf.has(k):
                 user_ctx2[k.lower()] = pf.get(k, float)
-        fields = init_benchmark(user_ctx2)
+        fields = thick_lut[thick_cfg.lower()](user_ctx2)
         h = torch.clamp(torch.as_tensor(fields["h"], **f64),
                         min=vgrid.angstrom)
     else:
@@ -1636,16 +1654,63 @@ def build_model(pf: ParamFile, *, device="cuda",
     pf.module("MOM_tracer_flow_control")
     registry = TracerRegistry()
     tracers = {}
+    # the packages in the JAX builder's order of registration, which the
+    # z-space initialization and the restarts walk
     if pf.get("USE_IDEAL_AGE_TRACER", bool, False):
-        tracers["age"] = register_ideal_age(registry, shape, **dev)
-    for name in ("USE_PSEUDO_SALT_TRACER", "USE_REGIONAL_DYES",
-                 "USE_DOME_TRACER", "USE_BOUNDARY_IMPULSE_TRACER",
-                 "USE_OIL_TRACER", "USE_ADVECTION_TEST_TRACER",
-                 "USE_MARBL_TRACERS", "USE_OCMIP2_CFC", "USE_NPZD"):
-        default_only(pf, name, bool, False)
+        tracers["age"] = ideal.register_ideal_age(registry, shape, **dev)
+    if pf.get("USE_PSEUDO_SALT_TRACER", bool, False) and S is not None:
+        tracers["pseudo_salt"] = ideal.register_pseudo_salt(registry, S)
+    if pf.get("USE_REGIONAL_DYES", bool, False):
+        tracers["dye1"] = ideal.register_regional_dye(
+            registry, grid, shape,
+            lon_range=(pf.get("DYE_SOURCE_MINLON", float, -1.0e30),
+                       pf.get("DYE_SOURCE_MAXLON", float, 1.0e30)),
+            lat_range=(pf.get("DYE_SOURCE_MINLAT", float, -1.0e30),
+                       pf.get("DYE_SOURCE_MAXLAT", float, 1.0e30)))
+    if pf.get("USE_DOME_TRACER", bool, False):
+        tracers.update(ideal.register_dome_tracers(registry, shape, **dev))
     if num_dye > 0:
-        tracers.update(register_dyed_obc_tracers(registry, shape, num_dye,
-                                                 **dev))
+        tracers.update(ideal.register_dyed_obc_tracers(registry, shape,
+                                                       num_dye, **dev))
+    if pf.get("USE_BOUNDARY_IMPULSE_TRACER", bool, False):
+        tracers["boundary_impulse"] = ideal.register_boundary_impulse(
+            registry, shape, source_time=pf.get(
+                "IMPULSE_SOURCE_TIME", float, 31536000.0, units="s"), **dev)
+    if pf.get("USE_OIL_TRACER", bool, False):
+        tracers["oil1"] = ideal.register_oil_tracer(
+            registry, grid, shape,
+            source_lon=pf.get("OIL_SOURCE_LONGITUDE", float, 0.0),
+            source_lat=pf.get("OIL_SOURCE_LATITUDE", float, 0.0),
+            source_k=pf.get("OIL_SOURCE_LAYER", int, 0),
+            source_rate=pf.get("OIL_SOURCE_RATE", float, 1.0,
+                               units="kg s-1"),
+            decay_days=pf.get("OIL_DECAY_DAYS", float, 0.0, units="days"))
+    if pf.get("USE_ADVECTION_TEST_TRACER", bool, False):
+        tracers.update(ideal.register_advection_test(
+            registry, grid, shape,
+            x_origin=pf.get("ADVECTION_TEST_X_ORIGIN", float, 0.0),
+            y_origin=pf.get("ADVECTION_TEST_Y_ORIGIN", float, 0.0),
+            x_width=pf.get("ADVECTION_TEST_X_WIDTH", float, 0.0),
+            y_width=pf.get("ADVECTION_TEST_Y_WIDTH", float, 0.0)))
+    use_marbl = pf.get("USE_MARBL_TRACERS", bool, False)
+    use_cfc = pf.get("USE_OCMIP2_CFC", bool, False)
+    use_npzd = pf.get("USE_NPZD", bool, False)
+    if use_cfc and not use_marbl:
+        # standalone CFCs, each with its own column function; with MARBL
+        # they ride the coupler's gas exchange instead
+        tracers.update(register_cfcs(
+            registry, shape,
+            u10=pf.get("CFC_EXCHANGE_WIND", float, 8.0, units="m s-1"),
+            pcfc11_atm=pf.get("PCFC11_ATM", float, 270.0e-12, units="atm"),
+            pcfc12_atm=pf.get("PCFC12_ATM", float, 465.0e-12, units="atm"),
+            **dev))
+    if use_marbl or use_npzd:
+        bgc, bgc_tracers = build_bgc_coupler(
+            pf, grid, shape, registry, use_marbl=use_marbl,
+            use_npzd=use_npzd, use_cfc_coupled=use_cfc and use_marbl, **dev)
+        if bgc is not None:
+            tracers.update(bgc_tracers)
+            ocean_cfg = dataclasses.replace(ocean_cfg, bgc=bgc)
     # a z-space file variable named as a registered tracer gives that
     # tracer's initial state (regridded, remapped onto the layers)
     trz_file = pf.get("TRACER_Z_INIT_FILE", str, "")

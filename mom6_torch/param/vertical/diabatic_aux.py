@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from mom6_torch.param.vertical.opacity import sw_absorption_profile
+from mom6_torch.parallel.domain import tree_map
 
 __all__ = ["FrazilCfg", "t_freeze", "make_frazil", "BoundaryFluxResult",
            "apply_boundary_fluxes"]
@@ -109,8 +110,7 @@ def apply_boundary_fluxes(h, T, S, fluxes, dt, rho0: float,
         scale = torch.clamp(torch.sum(h, dim=0) / depth_limit_fluxes,
                             max=1.0)
         fluxes = type(fluxes)(**{
-            f.name: None if getattr(fluxes, f.name) is None
-            else getattr(fluxes, f.name) * scale
+            f.name: tree_map(lambda a: a * scale, getattr(fluxes, f.name))
             for f in dataclasses.fields(fluxes)})
 
     heat_nonpen = zero

@@ -4,7 +4,7 @@
                                      [--dynamics rk2|rk2b|unsplit|b1|
                                                  nonbouss|obc|stoch|b3|
                                                  b3pp81|bml|b4|b4v|hybgen|
-                                                 adapt|unmix|file]]
+                                                 adapt|unmix|file|bgc]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
                                      [--count-ops]
@@ -31,7 +31,9 @@ mixed layer), or with the lateral parameterizations of the fourth
 filter and the internal tides with Z* ALE; ``b4v``: layered, the
 Visbeck diffusivities and the mixed layer's epipycnal diffusion), or
 set up and forced from files (``file``: the ALE sponge, the file wind
-and buoyancy fluxes interpolated in time, the data_table's overrides).
+and buoyancy fluxes interpolated in time, the data_table's overrides),
+or with biogeochemistry (``bgc``: the MARBL-shaped coupler's column
+physics and its restoring remap, with 13 passive tracers).
 After two warm-up steps it
 measures:
 
@@ -101,6 +103,7 @@ from mom6_torch.param.vertical import diabatic as dia
 from mom6_torch.param.vertical import set_diffusivity as sdm
 from mom6_torch.parallel.domain import Domain
 from mom6_torch.tracer import hor_diff as hdm
+from mom6_torch.tracer.marbl_driver import BGCCoupler, RestoringData
 
 # (module, function, range name): the functions wrapped in a range
 SLICE1 = tuple((dyn, n, n) for n in (
@@ -126,7 +129,8 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "hybgen": (dyn, "step_dyn_split_rk2"),
             "adapt": (dyn, "step_dyn_split_rk2"),
             "unmix": (dyn, "step_dyn_split_rk2"),
-            "file": (dyn, "step_dyn_split_rk2")}
+            "file": (dyn, "step_dyn_split_rk2"),
+            "bgc": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential",
@@ -186,7 +190,11 @@ SLICE2 = (
     (orch, "apply_eta_sponge", "sponge_eta"),
     (ExternalField, "at", "file_forcing"),
     (DataOverride, "mech", "data_override/mech"),
-    (DataOverride, "fluxes", "data_override/fluxes"))
+    (DataOverride, "fluxes", "data_override/fluxes"),
+    # the seventh breadth item: the BGC coupler's column physics and, in
+    # it, the restoring's remap from the file's z-grid
+    (BGCCoupler, "column_physics", "bgc"),
+    (RestoringData, "tendencies", "bgc/restoring"))
 
 
 def slice2_targets(dynamics: str):

@@ -1,7 +1,9 @@
 """Analytic user configurations (counterpart of the JAX package's
 ``user/configs.py`` for the cases the port runs): the ``benchmark`` and
-``halfpipe`` topographies (TOPO_CONFIG) and the benchmark thicknesses
-and temperatures (THICKNESS_CONFIG and TS_CONFIG ``benchmark``).  They
+``halfpipe`` topographies (TOPO_CONFIG), the benchmark thicknesses
+and temperatures (THICKNESS_CONFIG and TS_CONFIG ``benchmark``) and the
+circle_obcs thicknesses; ``thickness_registry`` names the ported
+THICKNESS_CONFIG initializers.  They
 work on float64 numpy arrays at h points, as the builder's grid
 functions do; ``ctx`` holds the domain's extent and depths and, for the
 initializers, the grid, vertical grid and equation of state."""
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["topo_benchmark", "topo_halfpipe", "init_benchmark",
-           "init_benchmark_ts"]
+           "init_benchmark_ts", "init_circle_obcs", "thickness_registry"]
 
 
 def topo_benchmark(lon, lat, ctx):
@@ -126,3 +128,47 @@ def init_benchmark_ts(ctx, shape):
     T = np.broadcast_to(T0[:, None, None], shape).copy()
     T[:k1] = sst
     return T, np.full(shape, S0[0])
+
+
+def init_circle_obcs(ctx):
+    """Uniform z-interfaces cut by the bottom, with a cosine-bell
+    displacement of DISK_IC_AMPLITUDE [m] over a disk of DISK_RADIUS
+    (axis units) in the domain's centre.  Returns {"h": float64 numpy
+    array}."""
+    grid, vgrid = ctx["grid"], ctx["vgrid"]
+    nk = vgrid.nk
+    depth = grid.bathyT.detach().cpu().double().numpy()
+    diskrad = ctx.get("disk_radius", 0.25 * ctx["lenlon"])
+    ic_amp = ctx.get("disk_ic_amplitude", 5.0)
+    angstrom = vgrid.angstrom
+    lonT = grid.geoLonT.detach().cpu().double().numpy()
+    latT = grid.geoLatT.detach().cpu().double().numpy()
+
+    e0 = -(ctx["max_depth"] * np.arange(nk) / nk)
+    eta = np.zeros((nk + 1,) + depth.shape)
+    eta[nk] = -depth
+    h = np.zeros((nk,) + depth.shape)
+    for k in range(nk - 1, -1, -1):
+        eta[k] = np.maximum(e0[k] * np.ones_like(depth),
+                            eta[k + 1] + angstrom)
+        h[k] = np.maximum(eta[k] - eta[k + 1], angstrom)
+
+    lonc = ctx["west"] + 0.5 * ctx["lenlon"]
+    latc = ctx["south"] + 0.5 * ctx["lenlat"]
+    rad = np.sqrt((lonT - lonc) ** 2 + (latT - latc) ** 2) / diskrad
+    bell = 0.5 * (1.0 + np.cos(np.minimum(rad, 1.0) * np.pi))
+    if nk == 1:
+        h[0] = h[0] + ic_amp * bell
+    else:
+        for k in range(nk):
+            h[k] = h[k] - bell * ic_amp * (2 * (k + 1) - nk)
+        h = np.maximum(h, angstrom)
+    return dict(h=h)
+
+
+# the ported THICKNESS_CONFIG initializers (the JAX package's
+# thickness_registry has the others too)
+thickness_registry = {
+    "benchmark": init_benchmark,
+    "circle_obcs": init_circle_obcs,
+}

@@ -194,17 +194,18 @@ def test_build_model_matches_jax(name):
 # (tests/test_torch_breadth4.py), and the TEOS10 and UNESCO equations of
 # state and the ADAPTIVE coordinate (tests/test_torch_eos_forms.py,
 # test_torch_hybgen.py), and the mosaic grid and the sponges
-# (tests/test_torch_breadth9.py): their cases now name options still
-# refused
+# (tests/test_torch_breadth9.py), and the tracer packages, COORD_CONFIG
+# layer_ref and THICKNESS_CONFIG circle_obcs (tests/test_torch_bgc.py,
+# test_torch_ref_tc3.py): their cases now name options still refused
 @pytest.mark.parametrize("line,name", [
     ("#override THICKNESS_CONFIG = phillips", "THICKNESS_CONFIG"),
     ("ICE_SHELF = True", "ICE_SHELF"),
-    ("USE_REGIONAL_DYES = True", "USE_REGIONAL_DYES"),
-    ("USE_OCMIP2_CFC = True", "USE_OCMIP2_CFC"),
+    ("#override THICKNESS_CONFIG = sloshing", "THICKNESS_CONFIG"),
+    ("#override WIND_CONFIG = SCM_CVMix_tests", "WIND_CONFIG"),
     ("#override BUOY_CONFIG = const_heat", "BUOY_CONFIG"),
     ("#override TOPO_CONFIG = seamount", "TOPO_CONFIG"),
-    ("COORD_CONFIG = layer_ref", "COORD_CONFIG"),
-    ("USE_DOME_TRACER = True", "USE_DOME_TRACER"),
+    ("COORD_CONFIG = BFB", "COORD_CONFIG"),
+    ("PHASED_JIT = True", "PHASED_JIT"),
     ("#override WIND_CONFIG = file\nWIND_STAGGER = A", "WIND_STAGGER"),
 ])
 def test_options_outside_the_slice_raise(line, name):

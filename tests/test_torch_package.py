@@ -174,19 +174,20 @@ def test_nonboussinesq_and_porous_raise():
 # once cases here, are ported (tests/test_torch_debug.py), and so are
 # U_TRUNC_FILE, RESTINT (read and, as in the JAX driver, without periodic
 # restarts) and USE_MEKE (tests/test_torch_breadth4.py), and DEBUG_NANS,
-# READ_DEPTH_LIST, SPONGE and the data_table (tests/test_torch_breadth9.py):
-# their cases now name options still refused
+# READ_DEPTH_LIST, SPONGE and the data_table (tests/test_torch_breadth9.py),
+# and offline tracer mode, WRITE_OFFLINE_FIELDS and the tracer packages
+# (tests/test_torch_bgc.py): their cases now name options still refused
 @pytest.mark.parametrize("line,name", [
     ("USE_PARTICLES = True", "USE_PARTICLES"),
-    ("OFFLINE_TRACER_MODE = True", "OFFLINE_TRACER_MODE"),
-    ("WRITE_OFFLINE_FIELDS = True", "WRITE_OFFLINE_FIELDS"),
-    ("USE_OIL_TRACER = True", "USE_OIL_TRACER"),
+    ("TRIPOLAR_N = True", "TRIPOLAR_N"),
+    ('MASKTABLE = "mask_table.2.4x4"', "MASKTABLE"),
+    ("AUTO_MASKTABLE = True", "AUTO_MASKTABLE"),
     ("ICE_SHELF = True", "ICE_SHELF"),
-    ("USE_MARBL_TRACERS = True", "USE_MARBL_TRACERS"),
-    ("USE_NPZD = True", "USE_NPZD"),
-    ("USE_ADVECTION_TEST_TRACER = True", "USE_ADVECTION_TEST_TRACER"),
+    ('#override THICKNESS_CONFIG = "phillips"', "THICKNESS_CONFIG"),
+    ('COORD_CONFIG = "BFB"', "COORD_CONFIG"),
+    ('#override WIND_CONFIG = "SCM_CVMix_tests"', "WIND_CONFIG"),
     ('#override TOPO_CONFIG = "seamount"', "TOPO_CONFIG"),
-    ("USE_BOUNDARY_IMPULSE_TRACER = True", "USE_BOUNDARY_IMPULSE_TRACER"),
+    ("PHASED_JIT = True", "PHASED_JIT"),
 ])
 def test_driver_rejects_unported_options(tmp_path, line, name):
     case = ROOT / "cases" / "double_gyre"
