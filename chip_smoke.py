@@ -207,6 +207,30 @@ order; any failure ends the script with a non-zero exit:
    step.offline_fields(), ms a step by CUDA events, no kernel launched,
    and each tracer without a column function keeping its content over a
    step to 1e-5 (fp32);
+6z. the eighth breadth item: configs.BENCH_CONFIG_SHELF (bench.py's
+   CONFIG under a 500 m ice shelf over the ISOMIP profile, closed in x)
+   through entry.build_full at 32x32x6 in fp64 for 3 steps, card against
+   CPU (2.5e-12 on every field and tracer; launches K1 4, K2 1, K3m 2 a
+   step); then the shelf's modules card against CPU in fp64 at SSA_TOL
+   (7.5e-14, ten times the JAX package's own spread on a default SSA
+   solve): three_equation_melt, the default SSA solve and two steps of
+   step_shelf (grounding, Coulomb friction, melt, the front advancing,
+   the ice temperature) on tests/test_isomip_shelf.py's 48x8 ISOMIP
+   cavity, and the shelf-only driver on tests/test_shelf_coupling.py's
+   case (its shelf.stats lines and shelf_final.nc);
+7l. BENCH_CONFIG_SHELF at full width, 512x512x25 fp32, as in 7b
+   (launches a step asserted: K1 4, K2 1, K3m 2), its ms/step and peak
+   memory beside bench.py's CONFIG of phase 7, the melt rate's range
+   under the shelf, and one thermodynamic step under the profiler with
+   profile_step's ranges: the shelf's coupling (ice_shelf/fluxes) beside
+   the pressure force, the diabatic driver and the ALE call;
+7m. the shelf-only step (drivers/shelf_solo.py's build) at full width:
+   512x512 cells of 2 km, an 800 m channel profile over 512 km, the flat
+   1000 m bed with grounding on, 12 h steps in fp64: SHELF_SOLO_STEPS
+   steps by CUDA events (no kernel of csrc launched), the last CG
+   residual norm of each Picard refresh, the ice volume kept to 1e-8,
+   and one more step under the profiler (profile_step's ice_shelf/ssa
+   range): its kernels and idle share;
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -251,8 +275,10 @@ order; any failure ends the script with a non-zero exit:
    WRITE_OFFLINE_FIELDS on the card, then OFFLINE_TRACER_MODE from its
    files on the card and with --cpu (no kernel launched), the uniform dye
    equal to the online dye to 1e-10, a dye in a box equal to the --cpu
-   run's to 1e-12, the content of each kept to 1e-12.  Each run has
-   every launch counter zeroed just before it and read just after.
+   run's to 1e-12, the content of each kept to 1e-12; last,
+   cases/phillips for its 2 days in fp64 on the card against the JAX
+   driver's ocean.stats (PHILLIPS_JAX_STATS, held as tc4's).  Each run
+   has every launch counter zeroed just before it and read just after.
 
 The line before the last is the JSON ``kernels`` record (the porous K1
 instance and K3's open-face instance have records of their own); the
@@ -379,8 +405,8 @@ FILE_PHASES = ("sponge", "sponge_eta", "file_forcing", "data_override/mech",
                "diabatic")
 FILE_NEEDED = ("sponge", "file_forcing", "data_override/mech",
                "data_override/fluxes")
-# the seventh breadth item: the same kernels again
-PER_STEP["bgc"] = PER_STEP["b3"]
+# the seventh and eighth breadth items: the same kernels again
+PER_STEP["bgc"] = PER_STEP["shelf"] = PER_STEP["b3"]
 # the profile_step ranges of a thermodynamic step of BENCH_CONFIG_BGC,
 # each of which it must run: the coupler's column physics and its
 # restoring remap, and the phases whose work grows with the tracer count
@@ -453,6 +479,46 @@ TC4_JAX_STATS = """\
 # eager runs of this case part by 2.2e-5 in T after one step)
 TC2_JAX_STEPS = [(0, 0.0), (6, 0.062), (12, 0.125), (18, 0.188),
                  (24, 0.25)]
+# cases/phillips (DAYMAX 2, 96 steps) through the JAX driver on the CPU in
+# fp64 (most XLA optimizations off): phase 8 holds the port's run to it
+PHILLIPS_JAX_STATS = """\
+     0,      0.000,       0, En 3.2305830439E-02, CFL  0.00720, SL  0.0000E+00, M 3.179520E+17, S   0.0000, T   0.0000, Me  0.00E+00
+    24,      0.500,       0, En 3.1411820636E-02, CFL  0.00888, SL -1.5247E-14, M 3.179520E+17, S   0.0000, T   0.0000, Me  0.00E+00
+    48,      1.000,       0, En 3.0546423789E-02, CFL  0.01139, SL -1.0658E-14, M 3.179520E+17, S   0.0000, T   0.0000, Me  0.00E+00
+    72,      1.500,       0, En 3.0200096982E-02, CFL  0.00595, SL -1.1843E-14, M 3.179520E+17, S   0.0000, T   0.0000, Me  0.00E+00
+    96,      2.000,       0, En 3.0447779283E-02, CFL  0.00682, SL -2.2501E-14, M 3.179520E+17, S   0.0000, T   0.0000, Me  0.00E+00
+"""
+# the ice shelf of the eighth breadth item: the same kernels again
+SHELF_PHASES = ("ice_shelf/fluxes", "dynamics/pressure_force", "diabatic",
+                "ale")
+# the shelf-only step at full width: 512x512 cells of 2 km, an 800 m
+# channel profile over 512 km, the driver's flat 1000 m bed with
+# grounding on, 12 h steps (drivers/shelf_solo.py), fp64
+SHELF_SOLO_TEXT = """NIGLOBAL = 512
+NJGLOBAL = 512
+LENLON = 1024.0
+LENLAT = 1024.0
+DT_ICE_DYNAMICS = 43200.0
+DAYMAX = 1.5
+ICE_PROFILE_CONFIG = channel
+SHELF_MAX_THICKNESS = 800.0
+SHELF_LENGTH_LON = 512.0
+"""
+SHELF_SOLO_STEPS = 3
+# tests/test_shelf_coupling.py's shelf-only case, card against CPU
+SHELF_SOLO_SMALL = """NIGLOBAL = 12
+NJGLOBAL = 8
+LENLON = 120.0
+LENLAT = 80.0
+DT_ICE_DYNAMICS = 43200.0
+DAYMAX = 1.0
+ICE_PROFILE_CONFIG = channel
+SHELF_MAX_THICKNESS = 400.0
+SHELF_LENGTH_LON = 60.0
+"""
+# ten times the JAX package's own spread on a default SSA solve
+# (tools/ssa_spread.py; tests/test_torch_ice_shelf.py's SOLVE_TOL)
+SSA_TOL = 7.5e-14
 EOS_FORMS = ("LINEAR", "WRIGHT", "WRIGHT_FULL", "WRIGHT_RED", "UNESCO",
              "JACKETT_06", "ROQUET_RHO", "ROQUET_SPV", "TEOS10")
 # the column texts at 32x32x6 take a weakly stratified 400 m column, as
@@ -2562,6 +2628,297 @@ def bgc_extra(m, cur, fstep, n_done, wrappers):
         bgc_min=lows, offline_ms=ms, offline_conservation=worst)
 
 
+def isomip_cavity(device):
+    """tests/test_isomip_shelf.py's ISOMIP cavity in fp64 on ``device``:
+    48x8 cells of 10 km over the ISOMIP bed (540 m at the west wall to
+    900 m), the ice 800 m at the wall thinning to 200 m at 55 % of the
+    channel; (domain, grid, h, mask)."""
+    import numpy as np
+    import torch
+    from mom6_torch.core.grid import cartesian_grid
+    from mom6_torch.parallel.domain import Domain
+    from mom6_torch.user.configs import topo_isomip
+    d = Domain(ni=48, nj=8, halo=4)
+    ctx = {"max_depth": 900.0, "west": 0.0, "lenlon": 480.0}
+    g = cartesian_grid(d, 480.0, 80.0, f0=-1.4e-4, beta=0.0, max_depth=900.0,
+                       depth_fn=lambda lo, la: topo_isomip(lo, la, ctx),
+                       device=device, dtype=torch.float64)
+    lon = g.geoLonT.cpu().numpy()
+    xn = np.clip((lon - lon.min()) / 480.0, 0.0, 1.0)
+    h = np.where(xn < 0.55, 800.0 + (200.0 - 800.0) * xn / 0.55, 0.0) \
+        * g.mask2dT.cpu().numpy()
+    h = d.fill_halos(torch.as_tensor(h, device=device, dtype=torch.float64))
+    return d, g, h, (h > 1e-3).double()
+
+
+def check_shelf_modules(tmp):
+    """The ice shelf's modules card against CPU in fp64, at SSA_TOL:
+    three_equation_melt on seeded inputs; the default SSA solve (24
+    Picard refreshes of 200 CG iterations, Weertman drag over the
+    grounded cells) on the ISOMIP cavity; two steps of step_shelf there
+    with grounding on the bed, Coulomb friction, the ISOMIP profile's
+    melt, the front advancing and the ice temperature evolving; then the
+    shelf-only driver on tests/test_shelf_coupling.py's case on the card
+    and with --cpu: the shelf.stats lines (the volume to 1e-12, the
+    speed as printed) and shelf_final.nc."""
+    import numpy as np
+    import torch
+    from mom6_torch.drivers import shelf_solo
+    from mom6_torch.framework.io import read_field
+    from mom6_torch.ice_shelf import dynamics, shelf_main, thermo
+    worst = {}
+
+    def hold(name, ref, out, H=4, tol=SSA_TOL):
+        err = rel_err(ref, out.cpu(), H)[0]
+        worst[name] = err
+        if not err <= tol:
+            raise AssertionError(f"shelf {name}: card vs cpu {err:.3e} > "
+                                 f"{tol:.1e}")
+
+    rng = np.random.default_rng(3)
+    t_w, s_w, p_b = (torch.as_tensor(a, dtype=torch.float64) for a in (
+        rng.uniform(-2.5, 2.0, (64, 64)), rng.uniform(30.0, 35.0, (64, 64)),
+        rng.uniform(0.0, 9e6, (64, 64))))
+    mask = torch.as_tensor((rng.random((64, 64)) < 0.6).astype(np.float64))
+    cfg = thermo.IceShelfCfg()
+    cpu = thermo.three_equation_melt(cfg, t_w, s_w, p_b, mask)
+    card = thermo.three_equation_melt(cfg, *(a.to(DEV) for a in (
+        t_w, s_w, p_b, mask)))
+    for name, a, b in zip(cpu._fields, cpu, card):
+        hold(f"melt {name}", a, b, H=0)
+    runs = {}
+    for dev in ("cpu", DEV):
+        d, g, h, m = isomip_cavity(dev)
+        scfg = shelf_main.ShelfCfg(ssa=dynamics.SSACfg(c_basal=1e10))
+        st = shelf_main.ShelfState(h_shelf=h, bed_elev=g.bathyT)
+        gf = shelf_main.update_grounding(scfg, st)[1]
+        res = dynamics.ssa_velocity_solve(scfg.ssa, g, h, m, ground_frac=gf,
+                                          bed_elev=g.bathyT)
+        kw = dict(n_outer=3, n_inner=20, c_basal=1e10, coulomb=True)
+        scfg = shelf_main.ShelfCfg(ssa=dynamics.SSACfg(**kw),
+                                   evolve_temp=True)
+        t_sh = torch.where(m > 0, torch.as_tensor(np.random.default_rng(
+            13).uniform(-25.0, -5.0, tuple(h.shape)), dtype=h.dtype,
+            device=dev), -10.0)
+        st = shelf_main.ShelfState(h_shelf=h, area_frac=m,
+                                   bed_elev=g.bathyT, t_shelf=t_sh)
+        u = v = None
+        for _ in range(2):
+            draft, pb = thermo.shelf_draft(scfg.thermo, st.h_shelf)
+            frac = torch.clamp(draft / 900.0, 0.0, 1.0)
+            melt = thermo.three_equation_melt(
+                scfg.thermo, -1.9 + 2.9 * frac, 33.8 + 0.75 * frac, pb,
+                shelf_mask=st.mask(scfg.min_thickness)).melt
+            st, u, v = shelf_main.step_shelf(d, g, st, scfg, 10.0 * 86400.0,
+                                             melt=melt, u0=u, v0=v)
+        runs[dev] = (res, st, u, v)
+    (r0, s0, u0, v0), (r1, s1, u1, v1) = runs["cpu"], runs[DEV]
+    for name, a, b in zip(r0._fields, r0, r1):
+        hold(f"ssa {name}", a, b)
+    for name in ("h_shelf", "area_frac", "t_shelf"):
+        hold(f"step_shelf {name}", getattr(s0, name), getattr(s1, name))
+    hold("step_shelf u", u0, u1)
+    hold("step_shelf v", v0, v1)
+    a = s1.area_frac[4:-4, 4:-4]
+    if not bool(((a > 0) & (a < 1)).any()):
+        raise AssertionError("step_shelf: no partial front cell")
+    dirs = {}
+    for name in ("card", "cpu"):
+        dirs[name] = Path(case_dir(tmp, f"shelf_solo_{name}",
+                                   SHELF_SOLO_SMALL))
+        shelf_solo.main([str(dirs[name])] + (["--cpu"] if "cpu" in (
+            name, DEV) else []))
+    rows = {k: [[float(c) for c in r.split(",")] for r in (
+        v / "shelf.stats").read_text().splitlines()[1:]]
+        for k, v in dirs.items()}
+    for w, g in zip(rows["cpu"], rows["card"]):
+        if g[:2] != w[:2] or abs(g[2] - w[2]) > 1e-12 * abs(w[2]) \
+                or abs(g[3] - w[3]) > 1.5e-4:
+            raise AssertionError(f"shelf_solo: card {g} against cpu {w}")
+    for var in ("thick", "u", "v"):
+        hold(f"shelf_solo {var}", torch.as_tensor(read_field(
+            str(dirs["cpu"] / "shelf_final.nc"), var)), torch.as_tensor(
+            read_field(str(dirs["card"] / "shelf_final.nc"), var)), H=0)
+    log("  shelf modules card vs cpu max rel err (limit %.1e): " % SSA_TOL
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    log(f"  shelf-only driver, {len(rows['card'])} shelf.stats lines equal "
+        f"card against cpu: last {rows['card'][-1]}")
+    return worst
+
+
+def shelf_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_SHELF: the melt rate's range under the shelf on
+    the last state, and one thermodynamic step under the profiler with
+    profile_step's ranges: the device time, host time and kernels of the
+    shelf's coupling (ice_shelf/fluxes) beside the pressure force, the
+    diabatic driver and the ALE call, and the step's idle share."""
+    import torch
+    from mom6_torch import profile_step
+    from mom6_torch.ice_shelf import shelf_main
+    st = cur[0]
+    sc, ss = m.shelf_cfg, m.ice_shelf
+    under = ss.mask(sc.min_thickness)[4:-4, 4:-4] > 0
+    melt = shelf_main.shelf_fluxes(sc, ss, st.T[0], st.S[0])[2][4:-4, 4:-4]
+    mr = melt[under]
+    if not bool(torch.isfinite(mr).all()):
+        raise AssertionError("shelf: the melt rate is not finite")
+    rate = (mr.double() / sc.thermo.rho_ice * 365.0 * 86400.0)
+    log(f"  melt under the shelf ({int(under.sum())} cells): "
+        f"[{float(mr.min())!r}, {float(mr.max())!r}] kg m-2 s-1, mean "
+        f"{float(rate.mean()):.3f} m of ice a year; top layer T there "
+        f"[{float(st.T[0][4:-4, 4:-4][under].min()):.4f}, "
+        f"{float(st.T[0][4:-4, 4:-4][under].max()):.4f}] degC")
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm != 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets(
+        "shelf"), "shelf thermo", None)
+    ph = summary.get("phases", {})
+    got = {k: ph[k] for k in SHELF_PHASES if k in ph}
+    log(f"  profiled thermodynamic step: device busy "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+        f"{summary.get('kernels', 0)} kernels; "
+        + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                    f"{v['device_ms']:.4f} ms device, {v['host_ms']:.3f} "
+                    "ms host" for k, v in got.items()))
+    if "ice_shelf/fluxes" not in got:
+        raise AssertionError("shelf: no ice_shelf/fluxes in a "
+                             "thermodynamic step")
+    return dict(melt_range=[float(mr.min()), float(mr.max())],
+                melt_m_per_year=float(rate.mean()),
+                profiled_thermo=dict(
+                    device_busy_ms=summary.get("device_busy_ms"),
+                    idle_share=summary.get("idle_share_profiled"),
+                    kernels=summary.get("kernels"), phases=got))
+
+
+def run_shelf_solo(tmp, wrappers):
+    """The shelf-only step at full width (SHELF_SOLO_TEXT, fp64), built
+    as drivers/shelf_solo.py builds it: SHELF_SOLO_STEPS steps, each
+    between two CUDA events, with every launch counter zeroed just
+    before and read just after (the step runs none of the kernels); the
+    last CG residual norm of each Picard refresh of each step; the ice
+    volume (thickness times the covered fraction) kept to 1e-8 relative,
+    as tests/test_shelf_coupling.py keeps it; then one more step under
+    the profiler with profile_step's ice_shelf/ssa range: its kernels
+    and idle share."""
+    import torch
+    from mom6_torch import profile_step
+    from mom6_torch.drivers import shelf_solo
+    from mom6_torch.framework.config import ParamFile
+    from mom6_torch.ice_shelf import shelf_main
+    case = shelf_solo.build_shelf_case(
+        ParamFile(case_dir(tmp, "shelf_solo_full", SHELF_SOLO_TEXT)
+                  + "/MOM_input"), device=DEV)
+    d, g, cfg, dt = case.domain, case.grid, case.cfg, case.dt
+
+    def volume(s):
+        return float(torch.sum(d.interior(s.h_shelf * s.area_frac
+                                          * g.areaT)))
+
+    cur = [case.shelf, None, None]
+    vol0 = volume(cur[0])
+    residuals = []
+
+    def step(res=None):
+        r = shelf_main.step_shelf(d, g, cur[0], cfg, dt, u0=cur[1],
+                                  v0=cur[2], residuals=res)
+        cur[:] = [r.state, r.u, r.v]
+
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SHELF_SOLO_STEPS + 1)]
+    events[0].record()
+    for i in range(SHELF_SOLO_STEPS):
+        res = []
+        step(res)
+        events[i + 1].record()
+        residuals.append(res)
+    torch.cuda.synchronize()
+    counts = read_counts(wrappers)
+    if any(counts.values()):
+        raise AssertionError(f"shelf-only step launched kernels {counts}")
+    per = [events[i].elapsed_time(events[i + 1])
+           for i in range(SHELF_SOLO_STEPS)]
+    vol1 = volume(cur[0])
+    check_finite([("h_shelf", cur[0].h_shelf), ("u", cur[1]),
+                  ("v", cur[2])], (1,) + tuple(cur[0].h_shelf.shape))
+    if not abs(vol1 - vol0) <= 1e-8 * abs(vol0):
+        raise AssertionError(f"shelf-only: ice volume {vol1!r} against "
+                             f"{vol0!r}")
+    res_norms = [[float(r) for r in rs] for rs in residuals]
+    spd = float(torch.sqrt(cur[1] ** 2 + cur[2] ** 2).max()) * 3.15e7
+    log(f"  {SHELF_SOLO_STEPS} steps of {dt:g} s: "
+        + ", ".join(f"{t:.3f}" for t in per) + f" ms (CUDA events), mean "
+        f"{sum(per) / len(per):.3f} ms a step; ice volume {vol1!r} m3 "
+        f"against {vol0!r} (rel {abs(vol1 - vol0) / vol0:.3e}); max speed "
+        f"{spd:.4f} m/a; launches {counts}")
+    for i, rs in enumerate(res_norms):
+        log(f"  step {i + 1}: last CG residual norm of each of the "
+            f"{len(rs)} Picard refreshes: "
+            + ", ".join(f"{r:.3e}" for r in rs))
+    t0 = time.perf_counter()
+    summary = profile_step._profile(step, profile_step.SHELF_SOLO,
+                                    "shelf-only", None)
+    ssa = summary.get("phases", {}).get("ice_shelf/ssa", {})
+    log(f"  profiled step ({time.perf_counter() - t0:.1f} s with the "
+        f"profiler and its trace): {summary.get('kernels', 0)} kernels, "
+        f"device busy {summary.get('device_busy_ms', 0.0):.3f} ms of "
+        f"{summary.get('profiled_step_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}; "
+        f"ice_shelf/ssa {ssa.get('kernels', 0)} kernels, "
+        f"{ssa.get('device_ms', 0.0):.3f} ms device")
+    if not summary.get("kernels"):
+        raise AssertionError("shelf-only: the profiler traced no kernel")
+    return dict(ms_steps=per, ms_step=sum(per) / len(per), volume=vol1,
+                volume0=vol0, residuals=res_norms, launches=counts,
+                kernels=summary["kernels"],
+                idle_share=summary["idle_share_profiled"],
+                device_busy_ms=summary["device_busy_ms"],
+                ssa_kernels=ssa.get("kernels"))
+
+
+def run_phillips(tmp, wrappers):
+    """cases/phillips (a reentrant two-layer channel, the thermal-wind
+    jet over a sloped interface) through the solo driver for its 2 days
+    in fp64 on the card, every launch counter zeroed just before and read
+    just after, against the JAX driver's ocean.stats (PHILLIPS_JAX_STATS:
+    the same steps, days and truncations, En, CFL, M, S and T to 1e-9
+    relative, SL and Me to 1e-12 absolute).  Returns the launches."""
+    from mom6_torch.drivers import solo
+    d = case_dir(tmp, "phillips_card",
+                 (ROOT / "cases" / "phillips" / "MOM_input").read_text())
+    zero_counts(wrappers)
+    run = solo.main([d])
+    n = run["steps"]
+    launches = check_driver_launches(
+        "driver phillips", wrappers,
+        {k: v * n for k, v in {"K1": 4, "K2": 1, "K3": 2, "K3m": 0}.items()})
+    got = read_stats(Path(d) / "ocean.stats")
+    want = parse_stats(PHILLIPS_JAX_STATS)
+    if [s for s, _ in got] != [s for s, _ in want]:
+        raise AssertionError(f"driver phillips: stats steps {got} against "
+                             f"{want}")
+    worst = {}
+    for (step, w), (_, g) in zip(want, got):
+        for k, a in w.items():
+            absolute = k in ("SL", "Me")
+            err = abs(g[k] - a) if absolute or a == 0.0 else \
+                abs(g[k] - a) / abs(a)
+            worst[k] = max(worst.get(k, 0.0), err)
+            if k in ("day", "truncs") and g[k] != a or \
+                    not err <= (1e-12 if absolute else 1e-9):
+                raise AssertionError(f"driver phillips step {step} {k}: "
+                                     f"{g[k]!r} against the JAX {a!r}")
+    log(f"  phillips: {n} steps, card against the JAX driver's "
+        "ocean.stats: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (SL [m] and Me absolute); last En {got[-1][1]['En']!r}; "
+        f"driver loop {run['loop_seconds'] / n * 1e3:.3f} ms/step; "
+        f"launches {launches}")
+    return launches
+
+
 def run_offline_cases(tmp, wrappers):
     """The offline round trip of tests/test_offline_driver.py through the
     solo driver in fp64 on the card: online with WRITE_OFFLINE_FIELDS
@@ -3399,6 +3756,36 @@ def main():
     log("phase 6y the tracer packages, the BGC coupler, NPZD, the restoring "
         "and step_offline, card vs cpu fp64")
     check_bgc_modules()
+    # 6z. the eighth breadth item's text at 32x32x6 fp64, then the shelf's
+    # modules and the shelf-only driver
+    log("phase 6z SHELF (configs.BENCH_CONFIG_SHELF) %dx%dx%d fp64, "
+        % SMALL_FULL + f"{n} steps: card vs cpu")
+    zero_counts(wrappers)
+    gst, gsp, gtr = run_full(*SMALL_FULL, torch.float64, DEV, n, seed=3,
+                             regridding=True, dynamics="shelf")
+    counts = read_counts(wrappers)
+    cst, csp, ctr = run_full(*SMALL_FULL, torch.float64, "cpu", n, seed=3,
+                             regridding=True, dynamics="shelf")
+    worst_shelf = {}
+    for name, a, b in ([(k, getattr(cst, k), getattr(gst, k))
+                        for k in ("h", "u", "v", "T", "S")]
+                       + [(k, getattr(csp, k), getattr(gsp, k))
+                          for k in ("eta", "uh", "vh")]
+                       + [(k, ctr[k], gtr[k]) for k in ctr]):
+        worst_shelf[name] = rel_err(a, b.cpu())[0]
+    log("  SHELF card vs cpu max rel err (limit 2.5e-12): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst_shelf.items()))
+    bad = {k: v for k, v in worst_shelf.items() if not v <= 2.5e-12}
+    if bad:
+        raise AssertionError(f"SHELF card vs cpu above 2.5e-12: {bad}")
+    expect = {k: v * n for k, v in PER_STEP["shelf"].items()}
+    if counts != expect:
+        raise AssertionError(f"SHELF: launches {counts}, expected {expect}")
+    log(f"  SHELF on the card: launches {counts}")
+    log("phase 6z three_equation_melt, the SSA solve, step_shelf and the "
+        "shelf-only driver, card vs cpu fp64")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_shelf_modules(tmp)
 
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
@@ -3523,6 +3910,25 @@ def main():
         + f"); peak {full['bgc']['peak_bytes'] / 2**30:.3f} against "
         f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
 
+    # 7l. the ice shelf at full width, beside bench.py's CONFIG of phase 7
+    log("phase 7l shelf (configs.BENCH_CONFIG_SHELF, Z* ALE, walls in x) "
+        "%dx%dx%d fp32" % MAIN)
+    full["shelf"] = run_new_timed("shelf", wrappers, shape, shelf_extra)
+    torch.cuda.empty_cache()
+    log(f"  shelf against bench.py's CONFIG (phase 7, Z* ALE), same "
+        f"process: {full['shelf']['ms_step']:.3f} against "
+        f"{full['ale']['ms_step']:.3f} ms/step ("
+        + ", ".join(f"{k} {v:.3f} against {full['ale']['by_kind'][k]:.3f}"
+                    for k, v in full["shelf"]["by_kind"].items())
+        + f"); peak {full['shelf']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB")
+    # 7m. the shelf-only step at full width
+    log("phase 7m the shelf-only step (drivers/shelf_solo.py) 512x512 "
+        f"fp64, {SHELF_SOLO_STEPS} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        shelf_solo = run_shelf_solo(tmp, wrappers)
+    torch.cuda.empty_cache()
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
@@ -3576,6 +3982,10 @@ def main():
         log("phase 8 driver: the offline round trip of "
             "tests/test_offline_driver.py fp64 on the card")
         launches_offline = run_offline_cases(tmp, wrappers)
+        log("phase 8 driver: cases/phillips (the Phillips two-layer "
+            "channel) fp64 on the card, against the JAX driver's "
+            "ocean.stats")
+        launches_layer["phillips"] = run_phillips(tmp, wrappers)
     torch.cuda.empty_cache()
 
     nk, njh, nih = shape_main
@@ -3654,7 +4064,10 @@ def main():
                 "bgc_full_step": full["bgc"]["launches"][k],
                 "solo_ref_tc3": launches_layer["ref_tc3"][k],
                 "solo_offline_online_run": launches_offline["box"][k],
-                "offline_mode": 0},
+                "offline_mode": 0,
+                "shelf_full_step": full["shelf"]["launches"][k],
+                "shelf_solo_step": shelf_solo["launches"][k],
+                "solo_phillips": launches_layer["phillips"][k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
@@ -3704,12 +4117,15 @@ def main():
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
     for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml", "b4", "b4v",
-                "hybgen", "adapt", "file", "bgc"):
+                "hybgen", "adapt", "file", "bgc", "shelf"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())
             + f", peak {r['peak_bytes'] / 2**30:.3f} GiB, launches "
             f"{r['launches']}")
+    log(f"  shelf-only: {shelf_solo['ms_step']:.3f} ms a step, "
+        f"{shelf_solo['kernels']} kernels a step, idle share "
+        f"{shelf_solo['idle_share']:.1%}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -103,6 +103,22 @@ with a 30-day timescale over the N and S strips, monthly river sources
 along the two walls, monthly dust and nitrogen deposition and a static
 sediment iron flux.
 
+``BENCH_CONFIG_SHELF`` is bench.py's configuration under an ice shelf,
+the cavity that ice-ocean users run: a channel profile 500 m thick at
+the west wall thinning to nothing over the default SHELF_LENGTH_LON (a
+quarter of LENLON), its pressure on the surface (the columns depressed
+into isostatic balance at the start, the top layers ~443 m down),
+the wind shielded under it, and the three-equation melt of the top
+layer every thermodynamic step, over the ISOMIP+ Ocean0 (warm) profile
+of TS_CONFIG ISOMIP, -1.9 degC and 33.8 at the surface to 1.0 degC and
+34.7 at the bottom (Asay-Davis et al. 2016, GMD 9, 2471).  The
+channel is closed in x, as ISOMIP's is: across a reentrant seam the
+shelf would end in a 500 m ice cliff, whose pressure the depressed
+surface balances only to (1 - rho/RHO_0), ~35 kPa over one cell, and
+the JAX package too reaches the velocity truncation in one step there
+(``tools/shelf_text_bounded.py --extra "#override REENTRANT_X = True"``).
+The bottom stays flat; T_RANGE stays in the text unread.
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
@@ -120,7 +136,7 @@ __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "write_file_inputs", "BENCH_CONFIG_BGC", "BGC_LINES",
            "BGC_RIVERS", "bgc_fields", "write_bgc_inputs", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
-           "write_topog_edge"]
+           "write_topog_edge", "BENCH_CONFIG_SHELF", "SHELF_LINES"]
 
 BENCH_CONFIG = """
 NIGLOBAL = 512
@@ -545,6 +561,21 @@ MARBL_FESEDFLUX_FILE = bgc_fesed.nc
 """
 
 BENCH_CONFIG_BGC = BENCH_CONFIG + BGC_LINES
+
+# an ice shelf over bench.py's configuration, with the ISOMIP+ Ocean0
+# profile
+SHELF_LINES = """#override REENTRANT_X = False
+ICE_SHELF = True
+ICE_PROFILE_CONFIG = channel
+SHELF_MAX_THICKNESS = 500.0
+#override TS_CONFIG = ISOMIP
+ISOMIP_T_SUR = -1.9
+ISOMIP_S_SUR = 33.8
+ISOMIP_T_BOT = 1.0
+ISOMIP_S_BOT = 34.7
+"""
+
+BENCH_CONFIG_SHELF = BENCH_CONFIG + SHELF_LINES
 
 # the tracers of the river file, and each one's source strength at a
 # river mouth [mmol m-2 s-1]

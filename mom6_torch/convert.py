@@ -3,8 +3,8 @@ port's containers.
 
 Each ``*_from_numpy`` takes a dict of numpy arrays keyed by the field
 names of the matching ``mom6_tpu`` container (Grid, State,
-SplitDynState, SplitBDynState, BTContFaces) and returns the port's container on the
-given device and dtype; ``tracers_from_numpy`` does the same for a
+SplitDynState, SplitBDynState, BTContFaces, ShelfState) and returns the
+port's container on the given device and dtype; ``tracers_from_numpy`` does the same for a
 tracer dict, and ``sal_from_numpy`` for the SAL operator's basis,
 weights, Love scaling and shape; ``to_numpy`` goes back.  Fields that are None or missing
 (optional fields only) stay None.  ``model_with_state`` carries a whole
@@ -13,7 +13,8 @@ that model's device and dtype.
 
 ``config_from_values`` builds one of the port's configuration
 dataclasses from a nested dict of plain values keyed like the JAX
-package's (``dataclasses.asdict`` of a ``mom6_tpu`` config): the
+package's (``dataclasses.asdict`` of a ``mom6_tpu`` config, the
+ice shelf's ``ShelfCfg``, ``SSACfg`` and ``IceShelfCfg`` among them): the
 fields the port has are taken over, and every other key must hold its
 default (the matching entry of ``defaults``), unless it is one of the
 JAX package's switches between a Pallas kernel and its jnp path (the
@@ -35,11 +36,13 @@ from mom6_torch.core.dynamics_split_rk2 import SplitDynState
 from mom6_torch.core.dynamics_split_rk2b import SplitBDynState
 from mom6_torch.core.grid import Grid
 from mom6_torch.core.state import State
+from mom6_torch.ice_shelf.shelf_main import ShelfState
 from mom6_torch.param.lateral.self_attr_load import SALHarmonics
 from mom6_torch.parallel.domain import Domain
 
 __all__ = ["grid_from_numpy", "state_from_numpy", "split_state_from_numpy",
            "split_b_state_from_numpy", "bt_cont_from_numpy", "tracers_from_numpy",
+           "shelf_state_from_numpy",
            "sal_from_numpy", "model_with_state",
            "config_from_values", "to_numpy"]
 
@@ -89,6 +92,11 @@ def split_b_state_from_numpy(arrays: dict, *, device,
 def bt_cont_from_numpy(arrays: dict, *, device,
                        dtype: torch.dtype) -> BTContFaces:
     return _build(BTContFaces, arrays, device, dtype)
+
+
+def shelf_state_from_numpy(arrays: dict, *, device,
+                           dtype: torch.dtype) -> ShelfState:
+    return _build(ShelfState, arrays, device, dtype)
 
 
 def tracers_from_numpy(arrays: dict, *, device,

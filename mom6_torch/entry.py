@@ -49,7 +49,8 @@ from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_ADAPT,
                                 BENCH_CONFIG_FILE,
                                 BENCH_CONFIG_HYBGEN,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
-                                BENCH_CONFIG_RK2B, BENCH_CONFIG_STOCH,
+                                BENCH_CONFIG_RK2B, BENCH_CONFIG_SHELF,
+                                BENCH_CONFIG_STOCH,
                                 BENCH_CONFIG_UNMIX, BENCH_CONFIG_UNSPLIT,
                                 obc_strip, write_bgc_inputs,
                                 write_file_inputs, write_obc_data,
@@ -82,10 +83,11 @@ DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "bml": BENCH_CONFIG_BML, "b4": BENCH_CONFIG_B4,
             "b4v": BENCH_CONFIG_B4V, "hybgen": BENCH_CONFIG_HYBGEN,
             "adapt": BENCH_CONFIG_ADAPT, "unmix": BENCH_CONFIG_UNMIX,
-            "file": BENCH_CONFIG_FILE, "bgc": BENCH_CONFIG_BGC}
+            "file": BENCH_CONFIG_FILE, "bgc": BENCH_CONFIG_BGC,
+            "shelf": BENCH_CONFIG_SHELF}
 # the texts on the split RK2 dynamics
 SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml",
-             "b4", "b4v", "hybgen", "adapt", "unmix", "file", "bgc")
+             "b4", "b4v", "hybgen", "adapt", "unmix", "file", "bgc", "shelf")
 # the texts that read files from INPUTDIR, and each one's writer
 INPUT_WRITERS = {
     "b1": lambda d, ni, nj: write_topog_edge(os.path.join(d, "topog_edge.nc"),
@@ -203,7 +205,8 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     (``BENCH_CONFIG_BGC``: the MARBL-shaped coupler, the coupled CFCs and
     pseudo-salt, its restoring, river, deposition and sediment files
     written from seed 0 by ``configs.write_bgc_inputs`` into a temporary
-    directory).
+    directory) or "shelf" (``BENCH_CONFIG_SHELF``: an ice shelf's
+    pressure, stress shielding and melt over the ISOMIP profile).
     ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).

@@ -12,12 +12,15 @@ It follows the JAX builder on the branches that bench.py's CONFIG (with
 and without USE_REGRIDDING, BT_WIDE_HALO_PERIOD 1 or 2),
 ``cases/double_gyre``, ``cases/tc0``, ``cases/ref_tc0``,
 ``cases/layer_mode``, ``cases/benchmark``, ``cases/ref_tc1``,
-``cases/ref_tc2``, ``cases/tc1``, ``cases/tc2``, ``cases/tc4``,
-``cases/ref_tc4`` and the texts of ``configs.py`` take: a single-device
+``cases/ref_tc2``, ``cases/ref_tc3``, ``cases/ref_tc4``, ``cases/tc1`` to
+``cases/tc4``, ``cases/phillips`` and the texts of ``configs.py`` take: a
+single-device
 cartesian grid in km or degrees, or a spherical or Mercator grid
 (GRID_CONFIG, ISOTROPIC, an f/beta plane with ROTATION = beta), or an
 FMS mosaic supergrid file (GRID_CONFIG mosaic),
-TOPO_CONFIG flat, bowl, spoon, benchmark, halfpipe or file, with
+TOPO_CONFIG flat, bowl, spoon, file, basin_builder (BBUILDER_*) or any
+topography of ``user/configs.py`` (seamount, dome2d, dumbbell, benchmark,
+halfpipe, dome, isomip, dense_water, neverworld, shelfwave), with
 porous-barrier face topography from a TOPO_AT_VEL file
 (SUBGRID_TOPO_AT_VEL), Boussinesq or not, split RK2, split RK2b
 (SPLIT_RK2B) or unsplit (SPLIT = False) dynamics with every Coriolis and
@@ -32,11 +35,15 @@ ADD_LES_VISCOSITY, anisotropic, ZB2020), open boundaries (OBC segments,
 whole or partial, with constant or file data, OBC_USER_CONFIG updates,
 the OBC viscosity flags and the dyed OBC tracers of NUM_DYE_TRACERS),
 every EQN_OF_STATE form of ``mom6_torch/eos``, COORD_CONFIG ts_range or
-linear (or the uniform GINT stacking), THICKNESS_CONFIG uniform or
-benchmark, or z-space initial T/S from a file remapped onto the z*
-layers (INIT_LAYERS_FROM_Z_FILE with Z_INIT_ALE_REMAPPING,
-TRACER_Z_INIT_FILE), TS_CONFIG uniform, linear, benchmark or from_file,
-VELOCITY_CONFIG zero or file, WIND_CONFIG zero/constant/gyres/2gyre or
+linear (or the uniform GINT stacking), THICKNESS_CONFIG uniform, sigma or
+any initializer of ``user/configs.py`` (with its own T/S and velocities),
+or z-space initial T/S from a file remapped onto the z* layers
+(INIT_LAYERS_FROM_Z_FILE with Z_INIT_ALE_REMAPPING, TRACER_Z_INIT_FILE),
+TS_CONFIG uniform, linear, from_file, benchmark, ISOMIP, baroclinic_zone,
+SCM_CVMix_tests or the thickness initializer's own, VELOCITY_CONFIG zero,
+uniform, circular or file, an ice shelf over the ocean (ICE_SHELF: its
+pressure, the stress shielding and the melt fluxes, the shelf itself held
+static as in the JAX Model), WIND_CONFIG zero/constant/gyres/2gyre or
 file, BUOY_CONFIG zero, linear restoring or file, a data_table of
 overrides in the case directory, ALE
 with the coordinates and remap schemes of ``mom6_torch/ale`` (hybgen
@@ -102,6 +109,11 @@ from mom6_torch.framework.config import ParamFile
 from mom6_torch.framework.error_handler import FATAL, WARNING, MOM_error
 from mom6_torch.framework.data_override import DataOverride
 from mom6_torch.framework.io import field_names, read_field
+from mom6_torch.ice_shelf import shelf_main
+from mom6_torch.ice_shelf.dynamics import SSACfg
+from mom6_torch.ice_shelf.shelf_main import (ShelfCfg, ShelfState,
+                                             init_shelf_thickness)
+from mom6_torch.ice_shelf.thermo import IceShelfCfg
 from mom6_torch.initialization import (temp_salt_from_z,
                                        thickness_from_z_edges, tracer_from_z,
                                        z_edges_from_centers)
@@ -139,7 +151,7 @@ from mom6_torch.param.vertical.tidal_mixing import TidalMixingCfg
 from mom6_torch.param.vertical.user_change_diff import UserKdCfg
 from mom6_torch.param.waves.wave_interface import WavesCfg
 from mom6_torch.parallel.domain import Domain
-from mom6_torch.parallel.stencil import ip1, jp1
+from mom6_torch.parallel.stencil import im1, ip1, jm1, jp1
 from mom6_torch.tracer.advect import TracerAdvectCfg
 from mom6_torch.tracer.hor_bnd_diffusion import HorBndDiffCfg
 from mom6_torch.tracer.hor_diff import TracerHorDiffCfg
@@ -148,8 +160,10 @@ from mom6_torch.tracer import ideal
 from mom6_torch.tracer.cfc import register_cfcs
 from mom6_torch.tracer.marbl_driver import build_bgc_coupler
 from mom6_torch.tracer.registry import TracerRegistry
-from mom6_torch.user.configs import (init_benchmark_ts, thickness_registry,
-                                     topo_benchmark, topo_halfpipe)
+from mom6_torch.user.basin_builder import basin_builder_topography
+from mom6_torch.user.configs import (baroclinic_zone_ts, init_benchmark_ts,
+                                     isomip_ts, scm_cvmix_ts,
+                                     thickness_registry, topo_registry)
 
 __all__ = ["Model", "build_model", "default_only"]
 
@@ -193,14 +207,9 @@ _PARITY_UNIMPL = (("LIMIT_BUFFER_DETRAIN", bool, False),)
 
 
 def _topo_fn(config: str, max_depth: float, min_depth: float,
-             lenlon: float, lenlat: float, west: float, south: float,
-             user_ctx: dict | None = None):
-    """TOPO_CONFIG flat, bowl and spoon (the JAX builder's ``_topo_fn``),
-    and the user topographies benchmark and halfpipe on ``user_ctx``."""
-    user = {"benchmark": topo_benchmark, "halfpipe": topo_halfpipe}
-    if config.lower() in user:
-        fn = user[config.lower()]
-        return lambda lon, lat: fn(lon, lat, user_ctx)
+             lenlon: float, lenlat: float, west: float, south: float):
+    """TOPO_CONFIG flat, bowl and spoon (the JAX builder's
+    ``_topo_fn``)."""
     if config == "flat":
         return lambda lon, lat: np.full_like(lat, max_depth)
     if config == "bowl":
@@ -277,6 +286,10 @@ class Model:
     forces_fn: Any = None
     fluxes_fn: Any = None
     data_override: Optional[DataOverride] = None
+    # the ice shelf over the ocean (ICE_SHELF): its state and
+    # configuration, None without one
+    ice_shelf: Optional[ShelfState] = None
+    shelf_cfg: Optional[ShelfCfg] = None
 
     def fluxes(self, state: State, t: float = 0.0) -> Optional[Fluxes]:
         """Buoyancy fluxes on the given state at model time ``t`` [s]
@@ -292,7 +305,8 @@ class Model:
     def forcing(self, state: State, t: float, do_thermo: bool):
         """(MechForcing, Fluxes or None) of a step centred at ``t`` [s]:
         the file wind (or the static stresses), the buoyancy fluxes on
-        thermodynamic steps, then the data_table's overrides."""
+        thermodynamic steps, then the data_table's overrides, then the
+        ice shelf's coupling (``shelf_forcing``)."""
         fc = self.forces_fn(t) if self.forces_fn is not None \
             else self.forces
         fl = self.fluxes(state, t) if do_thermo else None
@@ -301,6 +315,37 @@ class Model:
             fc = dov.mech(fc, t, self.grid)
             if do_thermo and state.T is not None:
                 fl = dov.fluxes(fl, t, self.grid)
+        if self.ice_shelf is not None:
+            fc, fl = self.shelf_forcing(state, fc, fl, do_thermo)
+        return fc, fl
+
+    def shelf_forcing(self, state: State, fc: MechForcing,
+                      fl: Optional[Fluxes], do_thermo: bool):
+        """The ice shelf's coupling on top of the forcing: its pressure
+        added to p_surf, the wind stress shielded under it (to
+        SHELF_STRESS_FRACTION, with the mask averaged onto the faces),
+        and on thermodynamic steps the three-equation melt of the top
+        layer's T and S, its heat added to ``sensible`` and its
+        freshwater to ``lprec``."""
+        sc, ss = self.shelf_cfg, self.ice_shelf
+        smask = ss.mask(sc.min_thickness)
+        p_shelf = shelf_main.shelf_surface_pressure(sc, ss)
+        shield = 1.0 - sc.stress_frac
+        fc = dataclasses.replace(
+            fc, p_surf=(fc.p_surf if fc.p_surf is not None else 0.0)
+            + p_shelf,
+            taux=None if fc.taux is None
+            else fc.taux * (1.0 - shield * 0.5 * (smask + ip1(smask))),
+            tauy=None if fc.tauy is None
+            else fc.tauy * (1.0 - shield * 0.5 * (smask + jp1(smask))))
+        if do_thermo and state.T is not None:
+            heat, fw, _ = shelf_main.shelf_fluxes(sc, ss, state.T[0],
+                                                  state.S[0])
+            fl = fl if fl is not None else Fluxes()
+            fl = dataclasses.replace(
+                fl, sensible=(fl.sensible if fl.sensible is not None
+                              else 0.0) + heat,
+                lprec=(fl.lprec if fl.lprec is not None else 0.0) + fw)
         return fc, fl
 
     def reset_dtbt(self, state: State) -> int:
@@ -731,7 +776,38 @@ def build_model(pf: ParamFile, *, device="cuda",
     if topo_config in ("halfpipe", "benchmark"):
         user_ctx["edge_depth"] = pf.get("EDGE_DEPTH", float, 100.0,
                                         units="m")
-    if topo_config == "file":
+    if pf.has("SHELF_DEPTH"):
+        user_ctx["shelf_depth"] = pf.get("SHELF_DEPTH", float, units="m")
+    # the user configurations' shape parameters, read once and shared by
+    # the topographies and the thickness and T/S initializers
+    for key, dflt, un in (
+            ("DOME2D_SHELF_WIDTH", 0.1, "nondim"),
+            ("DOME2D_BASIN_WIDTH", 0.3, "nondim"),
+            ("DOME2D_SHELF_DEPTH", 0.2, "nondim"),
+            ("DUMBBELL_LEN", 600.0, "km"),
+            ("DUMBBELL_FRACTION", 0.5, "nondim"),
+            ("NL_CONTINENT_AMP", 1.0, "nondim"),
+            ("NL_ROUGHNESS_AMP", 0.05, "nondim"),
+            ("NL_THICKNESS_PERT_AMP", 0.0, "nondim"),
+            ("SHELFWAVE_Y_LENGTH_SCALE", 50.0, "km")):
+        if pf.has(key):
+            user_ctx[key.lower()] = pf.get(key, float, dflt, units=un)
+    if pf.has("DUMBBELL_ROTATION"):
+        user_ctx["dumbbell_rotation"] = pf.get("DUMBBELL_ROTATION", bool,
+                                               False)
+    topo_lut = {k.lower(): v for k, v in topo_registry.items()}
+    if topo_config == "basin_builder":
+        # the BBUILDER_* pieces are read when the grid evaluates the
+        # depths, as in the JAX builder
+        pf.module("basin_builder")
+
+        def depth_fn(lon, lat, _H=max_depth):
+            return basin_builder_topography(lon, lat, pf, _H)
+        pf.module("MOM_grid_init")
+    elif topo_config.lower() in topo_lut:
+        def depth_fn(lon, lat, _fn=topo_lut[topo_config.lower()]):
+            return _fn(lon, lat, user_ctx)
+    elif topo_config == "file":
         # the bottom depth at the cell centres from a file
         topo_file = pf.get("TOPO_FILE", str, "topog.nc")
         topo_var = pf.get("TOPO_VARNAME", str, "depth")
@@ -746,7 +822,7 @@ def build_model(pf: ParamFile, *, device="cuda",
             return depth_pad
     else:
         depth_fn = _topo_fn(topo_config, max_depth, min_depth, lenlon,
-                            lenlat, west, south, user_ctx)
+                            lenlat, west, south)
     # ISOTROPIC selects Mercator metrics on spherical grids
     isotropic = pf.get("ISOTROPIC", bool, False,
                        desc="isotropic (Mercator) spacing: dy tracks "
@@ -1056,13 +1132,62 @@ def build_model(pf: ParamFile, *, device="cuda",
         unsplit_cfg = UnsplitCfg(continuity=cont, coriolis=cor, vertvisc=vv,
                                  horvisc=hv, pressure=pgf_cfg,
                                  tides_fn=tides)
-    default_only(pf, "ICE_SHELF", bool, False)
+    # the ice shelf over the ocean: its pressure on the surface, the
+    # stress shielding and the melt fluxes (Model.forcing); the JAX
+    # Model holds the shelf itself static (DYNAMIC_SHELF and
+    # EVOLVE_ICE_TEMP are read and inert), and so does the port
+    ice_shelf = shelf_cfg = None
+    if pf.get("ICE_SHELF", bool, False):
+        shelf_cfg = ShelfCfg(
+            thermo=IceShelfCfg(
+                gamma_t=pf.get("SHELF_3EQ_GAMMA_T", float, 1e-4,
+                               units="m s-1"),
+                rho_ice=pf.get("DENSITY_ICE", float, 918.0,
+                               units="kg m-3"),
+                rho0=rho0),
+            ssa=SSACfg(
+                c_basal=pf.get("C_BASAL_FRICTION", float, 0.0,
+                               units="Pa (m s-1)^-n"),
+                n_basal=pf.get("BASAL_FRICTION_EXP", float, 1.0),
+                coulomb=pf.get("USE_COULOMB_FRICTION", bool, False),
+                cf_min_n=pf.get("CF_MinN", float, 1.0, units="Pa"),
+                cf_post_peak=pf.get("CF_PostPeak", float, 1.0),
+                cf_max=pf.get("CF_Max", float, 0.5)),
+            dynamic=pf.get("DYNAMIC_SHELF", bool, False),
+            g=g_earth,
+            stress_frac=pf.get("SHELF_STRESS_FRACTION", float, 0.0),
+            evolve_temp=pf.get("EVOLVE_ICE_TEMP", bool, False,
+                               desc="advect/evolve the vertically "
+                               "integrated ice temperature and feed "
+                               "it back on the Glen rheology"),
+            t_surf=pf.get("ICE_SURFACE_TEMP", float, -20.0, units="degC"),
+            t_shelf_missing=pf.get("T_SHELF_MISSING", float, -10.0,
+                                   units="degC"))
+        icfg = pf.get("ICE_PROFILE_CONFIG", str, "channel")
+        tfile = pf.get("ICE_THICKNESS_FILE", str, "")
+        h_ice = init_shelf_thickness(
+            icfg if not tfile else "file", grid,
+            max_thick=pf.get("SHELF_MAX_THICKNESS", float, 500.0, units="m"),
+            lon_extent=pf.get("SHELF_LENGTH_LON", float, 0.25 * lenlon),
+            west=west,
+            thick_file=os.path.join(pf.get("INPUTDIR", str, "."), tfile)
+            if tfile else None,
+            var=pf.get("ICE_THICKNESS_VARNAME", str, "thick"), halo=halo)
+        covered = h_ice > shelf_cfg.min_thickness
+        t_shelf = None
+        if shelf_cfg.evolve_temp:
+            t_shelf = torch.where(
+                covered, torch.full_like(h_ice, pf.get(
+                    "T_SHELF_INIT", float, -15.0, units="degC")),
+                torch.full_like(h_ice, shelf_cfg.t_shelf_missing))
+        ice_shelf = ShelfState(h_shelf=h_ice, area_frac=covered.to(dtype),
+                               bed_elev=grid.bathyT, t_shelf=t_shelf)
 
     pf.module("MOM_state_initialization")
     thick_cfg = pf.get("THICKNESS_CONFIG", str, "uniform")
     init_from_z = pf.get("INIT_LAYERS_FROM_Z_FILE", bool, False)
     thick_lut = {k.lower(): v for k, v in thickness_registry.items()}
-    if not init_from_z and thick_cfg != "uniform" \
+    if not init_from_z and thick_cfg not in ("uniform", "sigma") \
             and thick_cfg.lower() not in thick_lut:
         raise NotImplementedError(f"THICKNESS_CONFIG = {thick_cfg!r}: "
                                   "option not ported")
@@ -1108,8 +1233,16 @@ def build_model(pf: ParamFile, *, device="cuda",
         for k in _USER_IC_KEYS:
             if pf.has(k):
                 user_ctx2[k.lower()] = pf.get(k, float)
+        if thick_cfg.lower() == "neverworld" \
+                and pf.has("INIT_THICKNESS_PROFILE"):
+            user_ctx2["init_thickness_profile"] = pf.get(
+                "INIT_THICKNESS_PROFILE", list, units="m")
         fields = thick_lut[thick_cfg.lower()](user_ctx2)
         h = torch.clamp(torch.as_tensor(fields["h"], **f64),
+                        min=vgrid.angstrom)
+    elif thick_cfg == "sigma":
+        # terrain-following: the column split evenly
+        h = torch.clamp((grid.bathyT.double() / nk).expand(shape),
                         min=vgrid.angstrom)
     else:
         # uniform nominal dz in depth, clipped by the local bathymetry
@@ -1119,8 +1252,7 @@ def build_model(pf: ParamFile, *, device="cuda",
         h = torch.clamp(z_cap[1:] - z_cap[:-1], min=vgrid.angstrom)
     h = domain.fill_halos(h.to(dtype))
     if thermo and not init_from_z:
-        ts_cfg = _one_of("TS_CONFIG", pf.get("TS_CONFIG", str, "uniform"),
-                         ("uniform", "linear", "benchmark", "from_file"))
+        ts_cfg = pf.get("TS_CONFIG", str, "uniform")
         T0 = pf.get("T_REF", float, 10.0, units="degC")
         S0 = pf.get("S_REF", float, 35.0, units="ppt")
         one = torch.ones(shape, **f64)
@@ -1141,20 +1273,92 @@ def build_model(pf: ParamFile, *, device="cuda",
             k_frac = (torch.arange(nk, **f64) + 0.5) / nk
             T = (T0 + T_range * (0.5 - k_frac)).reshape(-1, 1, 1) * one
             S = (S0 + S_range * (k_frac - 0.5)).reshape(-1, 1, 1) * one
-        elif thick_cfg == "benchmark":
-            # T and S come with the benchmark thicknesses
+        elif ts_cfg.lower() == thick_cfg.lower() and "T" in fields:
+            # T and S come with the user initializer's thicknesses
             T, S = (torch.as_tensor(fields[k], **f64) for k in ("T", "S"))
-        else:
+        elif ts_cfg == "SCM_CVMix_tests":
+            pf.module("SCM_CVMix_tests")
+            # the L1 values are read, the profile takes the L2 ones
+            pf.get("SCM_L1_TEMP", float, 20.0, units="degC")
+            pf.get("SCM_L1_SALT", float, 35.0, units="ppt")
+            T, S = scm_cvmix_ts(
+                h.double(),
+                t_mld=pf.get("SCM_TEMP_MLD", float, 0.0, units="m"),
+                s_mld=pf.get("SCM_SALT_MLD", float, 0.0, units="m"),
+                l2_temp=pf.get("SCM_L2_TEMP", float, 20.0, units="degC"),
+                l2_salt=pf.get("SCM_L2_SALT", float, 35.0, units="ppt"),
+                dtdz=pf.get("SCM_L2_DTDZ", float, 0.0, units="degC m-1"),
+                dsdz=pf.get("SCM_L2_DSDZ", float, 0.0, units="ppt m-1"),
+                min_temp=pf.get("SCM_L2_MINTEMP", float, 4.0,
+                                units="degC"))
+            pf.module("MOM_state_initialization")
+        elif ts_cfg == "benchmark":
             T, S = (torch.as_tensor(a, **f64) for a in init_benchmark_ts(
                 dict(user_ctx, grid=grid, vgrid=vgrid, eos=eos,
                      nk_rho_varies=nk_rho_varies, p_ref=p_ref, s_ref=S0),
                 shape))
+        elif ts_cfg.upper() == "ISOMIP":
+            pf.module("ISOMIP_initialization")
+            ctx_ts = dict(user_ctx, grid=grid)
+            for k in ("ISOMIP_T_SUR", "ISOMIP_S_SUR", "ISOMIP_T_BOT",
+                      "ISOMIP_S_BOT"):
+                if pf.has(k):
+                    ctx_ts[k.lower()] = pf.get(k, float)
+            pf.module("MOM_state_initialization")
+            T, S = (torch.as_tensor(a, **f64) for a in isomip_ts(ctx_ts, h))
+        elif ts_cfg == "baroclinic_zone":
+            # the BCZIC% block
+            pf.module("baroclinic_zone_initialization")
+            ctx_ts = dict(user_ctx, grid=grid, t_ref=T0, s_ref=S0)
+            for key, name in (("bcz_dtdz", "BCZIC%DTDZ"),
+                              ("bcz_delta_t", "BCZIC%DELTA_T"),
+                              ("bcz_dtdx", "BCZIC%DTDX"),
+                              ("bcz_dsdz", "BCZIC%DSDZ"),
+                              ("bcz_delta_s", "BCZIC%DELTA_S"),
+                              ("bcz_dsdx", "BCZIC%DSDX")):
+                ctx_ts[key] = pf.get(name, float, 0.0)
+            ctx_ts["bcz_l_zone"] = pf.get("BCZIC%L_ZONE", float, 0.5 * lenlat)
+            pf.module("MOM_state_initialization")
+            T, S = (torch.as_tensor(a, **f64)
+                    for a in baroclinic_zone_ts(ctx_ts, h))
+        else:
+            raise NotImplementedError(f"TS_CONFIG = {ts_cfg!r}: option not "
+                                      "ported")
         T, S = T.to(dtype), S.to(dtype)
+    # the user initializer's velocities, unless VELOCITY_CONFIG sets them
+    u0 = v0 = torch.zeros_like(h)
+    if "u" in fields:
+        u0 = torch.as_tensor(fields["u"], **dev)
+    if "v" in fields:
+        v0 = torch.as_tensor(fields["v"], **dev)
     vel_cfg = _one_of("VELOCITY_CONFIG",
                       pf.get("VELOCITY_CONFIG", str, "zero"),
-                      ("zero", "file"))
-    u0 = v0 = torch.zeros_like(h)
-    if vel_cfg == "file":
+                      ("zero", "uniform", "circular", "file"))
+    if vel_cfg == "uniform":
+        u0 = torch.full(shape, pf.get("INITIAL_U_CONST", float, 0.0,
+                                      units="m s-1"), **dev)
+        v0 = torch.full(shape, pf.get("INITIAL_V_CONST", float, 0.0,
+                                      units="m s-1"), **dev)
+    elif vel_cfg == "circular":
+        # the azimuthal flow of the streamfunction psi(r) = A (1 -
+        # cos(pi r)) / 2, r the normalized distance from the centre
+        cmax = pf.get("CIRCULAR_MAX_U", float, 0.0, units="m s-1")
+        lon0 = float(torch.min(grid.geoLonBu))
+        lat0 = float(torch.min(grid.geoLatBu))
+        len_lon = float(torch.max(grid.geoLonBu)) - lon0
+        len_lat = float(torch.max(grid.geoLatBu)) - lat0
+        xq = 2.0 * (grid.geoLonBu - lon0) / max(len_lon, 1e-30) - 1.0
+        yq = 2.0 * (grid.geoLatBu - lat0) / max(len_lat, 1e-30) - 1.0
+        r = torch.clamp(torch.sqrt(xq * xq + yq * yq), max=1.0)
+        # the axis length in m: km axes, or ~111 km a degree
+        unit_m = 1.0e3 if axis_units.startswith("k") else 111.0e3
+        psi = 0.5 * (1.0 - torch.cos(math.pi * r)) \
+            * (cmax * len_lon * unit_m / math.pi)
+        u2d = (psi - jm1(psi)) / torch.clamp(grid.dyCu, min=1e-30)
+        v2d = (im1(psi) - psi) / torch.clamp(grid.dxCv, min=1e-30)
+        u0 = (u2d[None] * grid.mask2dCu).expand(shape) + 0.0
+        v0 = (v2d[None] * grid.mask2dCv).expand(shape) + 0.0
+    elif vel_cfg == "file":
         # velocities on the compute domain, zero halos, masked
         vfile = os.path.join(pf.get("INPUTDIR", str, "."),
                              pf.get("VELOCITY_FILE", str, "velocity.nc"))
@@ -1167,6 +1371,16 @@ def build_model(pf: ParamFile, *, device="cuda",
         # the accumulated frazil is allocated up front, so that the state
         # (and its restarts) has the same fields from step 0
         state = state.replace(frazil=torch.zeros_like(h[0]))
+    if ice_shelf is not None:
+        # the free surface depressed into isostatic balance with the
+        # ice's load, eta = -p_shelf / (rho0 g): each column scaled
+        htot = torch.sum(state.h, dim=0)
+        eta0 = -shelf_main.shelf_surface_pressure(shelf_cfg, ice_shelf) \
+            / (rho0 * g_earth)
+        target = torch.clamp(grid.bathyT + eta0, min=1e-3)
+        scale = torch.where(htot > 0, target / torch.clamp(htot, min=1e-30),
+                            1.0)
+        state = state.replace(h=state.h * scale[None])
 
     pf.module("MOM_surface_forcing")
     sf_cfg = SurfaceForcingCfg(
@@ -1752,4 +1966,5 @@ def build_model(pf: ParamFile, *, device="cuda",
                  dt=dt, dt_therm=dt_therm, dt_forcing=dt_forcing,
                  daymax=daymax, thermo=thermo, obc=obc,
                  obc_update_fn=obc_update_fn, forces_fn=forces_fn,
-                 fluxes_fn=fluxes_fn, data_override=data_override)
+                 fluxes_fn=fluxes_fn, data_override=data_override,
+                 ice_shelf=ice_shelf, shelf_cfg=shelf_cfg)

@@ -4,7 +4,8 @@
                                      [--dynamics rk2|rk2b|unsplit|b1|
                                                  nonbouss|obc|stoch|b3|
                                                  b3pp81|bml|b4|b4v|hybgen|
-                                                 adapt|unmix|file|bgc]]
+                                                 adapt|unmix|file|bgc|
+                                                 shelf]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
                                      [--count-ops]
@@ -33,7 +34,9 @@ Visbeck diffusivities and the mixed layer's epipycnal diffusion), or
 set up and forced from files (``file``: the ALE sponge, the file wind
 and buoyancy fluxes interpolated in time, the data_table's overrides),
 or with biogeochemistry (``bgc``: the MARBL-shaped coupler's column
-physics and its restoring remap, with 13 passive tracers).
+physics and its restoring remap, with 13 passive tracers), or under an
+ice shelf (``shelf``: its pressure, stress shielding and melt fluxes,
+the ``ice_shelf/fluxes`` range).
 After two warm-up steps it
 measures:
 
@@ -98,6 +101,8 @@ from mom6_torch.core import pressure_force as pfm
 from mom6_torch.eos.poly import Poly3
 from mom6_torch.framework.data_override import DataOverride
 from mom6_torch.framework.interp_external import ExternalField
+from mom6_torch.ice_shelf import shelf_main
+from mom6_torch.model import Model
 from mom6_torch.param.lateral import hor_visc as hvm
 from mom6_torch.param.vertical import diabatic as dia
 from mom6_torch.param.vertical import set_diffusivity as sdm
@@ -130,7 +135,8 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "adapt": (dyn, "step_dyn_split_rk2"),
             "unmix": (dyn, "step_dyn_split_rk2"),
             "file": (dyn, "step_dyn_split_rk2"),
-            "bgc": (dyn, "step_dyn_split_rk2")}
+            "bgc": (dyn, "step_dyn_split_rk2"),
+            "shelf": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential",
@@ -194,7 +200,12 @@ SLICE2 = (
     # the seventh breadth item: the BGC coupler's column physics and, in
     # it, the restoring's remap from the file's z-grid
     (BGCCoupler, "column_physics", "bgc"),
-    (RestoringData, "tendencies", "bgc/restoring"))
+    (RestoringData, "tendencies", "bgc/restoring"),
+    # the ice shelf's coupling: its pressure, the stress shielding and
+    # the three-equation melt of the forcing
+    (Model, "shelf_forcing", "ice_shelf/fluxes"))
+# the shelf-only step (drivers/shelf_solo.py): its SSA solve
+SHELF_SOLO = ((shelf_main, "ssa_velocity_solve", "ice_shelf/ssa"),)
 
 
 def slice2_targets(dynamics: str):

@@ -196,14 +196,16 @@ def test_build_model_matches_jax(name):
 # test_torch_hybgen.py), and the mosaic grid and the sponges
 # (tests/test_torch_breadth9.py), and the tracer packages, COORD_CONFIG
 # layer_ref and THICKNESS_CONFIG circle_obcs (tests/test_torch_bgc.py,
-# test_torch_ref_tc3.py): their cases now name options still refused
+# test_torch_ref_tc3.py), and ICE_SHELF, THICKNESS_CONFIG phillips and
+# sloshing and TOPO_CONFIG seamount (tests/test_torch_ice_shelf.py,
+# test_torch_user_configs.py): their cases now name options still refused
 @pytest.mark.parametrize("line,name", [
-    ("#override THICKNESS_CONFIG = phillips", "THICKNESS_CONFIG"),
-    ("ICE_SHELF = True", "ICE_SHELF"),
-    ("#override THICKNESS_CONFIG = sloshing", "THICKNESS_CONFIG"),
+    ("#override BUOY_CONFIG = dumbbell", "BUOY_CONFIG"),
+    ("#override WIND_CONFIG = ideal_hurr", "WIND_CONFIG"),
+    ("#override BUOY_CONFIG = SCM_CVMix_tests", "BUOY_CONFIG"),
     ("#override WIND_CONFIG = SCM_CVMix_tests", "WIND_CONFIG"),
     ("#override BUOY_CONFIG = const_heat", "BUOY_CONFIG"),
-    ("#override TOPO_CONFIG = seamount", "TOPO_CONFIG"),
+    ("#override BUOY_CONFIG = BFB", "BUOY_CONFIG"),
     ("COORD_CONFIG = BFB", "COORD_CONFIG"),
     ("PHASED_JIT = True", "PHASED_JIT"),
     ("#override WIND_CONFIG = file\nWIND_STAGGER = A", "WIND_STAGGER"),

@@ -176,17 +176,19 @@ def test_nonboussinesq_and_porous_raise():
 # restarts) and USE_MEKE (tests/test_torch_breadth4.py), and DEBUG_NANS,
 # READ_DEPTH_LIST, SPONGE and the data_table (tests/test_torch_breadth9.py),
 # and offline tracer mode, WRITE_OFFLINE_FIELDS and the tracer packages
-# (tests/test_torch_bgc.py): their cases now name options still refused
+# (tests/test_torch_bgc.py), and ICE_SHELF, THICKNESS_CONFIG phillips and
+# TOPO_CONFIG seamount (tests/test_torch_ice_shelf.py,
+# test_torch_user_configs.py): their cases now name options still refused
 @pytest.mark.parametrize("line,name", [
     ("USE_PARTICLES = True", "USE_PARTICLES"),
     ("TRIPOLAR_N = True", "TRIPOLAR_N"),
     ('MASKTABLE = "mask_table.2.4x4"', "MASKTABLE"),
     ("AUTO_MASKTABLE = True", "AUTO_MASKTABLE"),
-    ("ICE_SHELF = True", "ICE_SHELF"),
-    ('#override THICKNESS_CONFIG = "phillips"', "THICKNESS_CONFIG"),
+    ('#override WIND_CONFIG = "ideal_hurr"', "WIND_CONFIG"),
+    ('#override WIND_CONFIG = "dumbbell"', "WIND_CONFIG"),
     ('COORD_CONFIG = "BFB"', "COORD_CONFIG"),
     ('#override WIND_CONFIG = "SCM_CVMix_tests"', "WIND_CONFIG"),
-    ('#override TOPO_CONFIG = "seamount"', "TOPO_CONFIG"),
+    ('#override WIND_CONFIG = "file"\nWIND_STAGGER = "A"', "WIND_STAGGER"),
     ("PHASED_JIT = True", "PHASED_JIT"),
 ])
 def test_driver_rejects_unported_options(tmp_path, line, name):
