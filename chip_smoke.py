@@ -218,6 +218,21 @@ order; any failure ends the script with a non-zero exit:
    the ice temperature) on tests/test_isomip_shelf.py's 48x8 ISOMIP
    cavity, and the shelf-only driver on tests/test_shelf_coupling.py's
    case (its shelf.stats lines and shelf_final.nc);
+6t. the rest of the tenth breadth item at 32x32x6 in fp64, card against
+   CPU: the forcing library (the HURR text's hurricane at two times,
+   its single-column and BR-benchmark variants, the CVMix tests' wind
+   and fluxes, the BFB restoring and the dumbbell's seesaw and
+   restoring) to 1e-12; configs.BENCH_CONFIG_HURR over 3 steps to
+   2.5e-12 (launches a step asserted); one ODA cycle (2 members, 2
+   steps, the EnKF against a synthetic SST) and one coupling interval of
+   the NUOPC-shaped cap (2 steps under seeded import fields), both from
+   the seeded perturbation of phase 6's state, to 2.5e-12 (the exported
+   sea-level slopes to twice the sea level's own difference over the
+   spacing: the sea level is sum(h) minus the 4000 m depth); the cap's
+   interval from rest, its u, v, sea level and slopes each to 4 times
+   the absolute difference that one ulp of the initial h makes on the
+   CPU, with the largest difference's place logged; particles after 4
+   RK2 steps in the same flow to 1e-12;
 7l. BENCH_CONFIG_SHELF at full width, 512x512x25 fp32, as in 7b
    (launches a step asserted: K1 4, K2 1, K3m 2), its ms/step and peak
    memory beside bench.py's CONFIG of phase 7, the melt rate's range
@@ -231,6 +246,23 @@ order; any failure ends the script with a non-zero exit:
    residual norm of each Picard refresh, the ice volume kept to 1e-8,
    and one more step under the profiler (profile_step's ice_shelf/ssa
    range): its kernels and idle share;
+7n. BENCH_CONFIG_HURR at full width, 512x512x25 fp32, as in 7b
+   (launches a step asserted: K1 4, K2 1, K3m 2), its ms/step and peak
+   memory beside bench.py's CONFIG of phase 7, the storm's peak stress,
+   and one thermodynamic step under the profiler with profile_step's
+   ranges: the hurricane's stress (forcing/hurricane) beside the
+   pressure force, the diabatic driver and the ALE call;
+7o. the NUOPC-shaped cap (drivers/nuopc_cap.py) on bench.py's CONFIG at
+   full width in fp32: realize, then CAP_INTERVALS timed coupling
+   intervals of CAP_STEPS steps each (import of fields made from a seed
+   with numpy, advance, export), launches asserted, ms per interval,
+   peak memory, the export fields finite on the compute domain, and one
+   device kernel per launch in a traced interval;
+7p. the ODA ensemble (oda/driver.py) over bench.py's CONFIG at full
+   width in fp32: ODA_MEMBERS members stepped in turn, ODA_CYCLES
+   cycles of ODA_STEPS steps with the EnKF against a synthetic SST,
+   launches asserted, ms per member step, peak memory beside one
+   state's size, the cycles' SST mean and spread;
 8. the solo driver (``python -m mom6_torch.drivers.solo``) on temporary
    case directories: cases/double_gyre for 0.5 days (36 steps, fp64) on
    the card and with --cpu, every ocean.stats field agreeing to 1e-9
@@ -277,8 +309,10 @@ order; any failure ends the script with a non-zero exit:
    equal to the online dye to 1e-10, a dye in a box equal to the --cpu
    run's to 1e-12, the content of each kept to 1e-12; last,
    cases/phillips for its 2 days in fp64 on the card against the JAX
-   driver's ocean.stats (PHILLIPS_JAX_STATS, held as tc4's).  Each run
-   has every launch counter zeroed just before it and read just after.
+   driver's ocean.stats (PHILLIPS_JAX_STATS, held as tc4's); and a copy
+   of cases/double_gyre with USE_PARTICLES for 0.5 days in fp64, on the
+   card and with --cpu, particles.nc equal to 1e-12.  Each run has every
+   launch counter zeroed just before it and read just after.
 
 The line before the last is the JSON ``kernels`` record (the porous K1
 instance and K3's open-face instance have records of their own); the
@@ -516,6 +550,21 @@ ICE_PROFILE_CONFIG = channel
 SHELF_MAX_THICKNESS = 400.0
 SHELF_LENGTH_LON = 60.0
 """
+# the tenth breadth item: HURR runs the same kernels as bench.py's
+# CONFIG; the cap's and the ODA ensemble's steps are all thermodynamic,
+# with the same kernels again
+PER_STEP["hurr"] = PER_STEP["b3"]
+HURR_PHASES = ("forcing", "forcing/hurricane", "dynamics/pressure_force",
+               "diabatic", "ale")
+CAP_STEPS = 2                  # steps a coupling interval of the cap
+CAP_ROUNDOFF_TIMES = 4         # 6t: the cap from rest, card vs cpu, over
+                               # the difference one ulp of h makes
+CAP_INTERVALS = 3              # timed intervals, after one warm-up
+ODA_MEMBERS, ODA_CYCLES, ODA_STEPS = 4, 2, 2
+# the particles of phase 8's copy of cases/double_gyre, in the top layer,
+# recorded every 6 steps
+PARTICLE_LINES = ("USE_PARTICLES = True\nPARTICLES_NX = 8\n"
+                  "PARTICLES_NY = 6\n#override ENERGYSAVEDAYS = 0.0833333\n")
 # ten times the JAX package's own spread on a default SSA solve
 # (tools/ssa_spread.py; tests/test_torch_ice_shelf.py's SOLVE_TOL)
 SSA_TOL = 7.5e-14
@@ -1636,12 +1685,24 @@ def run_new_timed(dynamics, wrappers, shape, extra=None):
            f", max |eta| {float(sp.eta.abs().max()):.4f} m"))
     # one device kernel per launch over 2 traced steps (after 2 warm-up
     # steps under the profiler)
+    one_kernel_per_launch(dynamics, lambda: (fstep(), fstep()), wrappers,
+                          "2 steps")
+    more = {} if extra is None else extra(m, cur, fstep, n_done)
+    return dict(ms_step=ms_full, by_kind={k: sum(v) / len(v)
+                                          for k, v in by_kind.items() if v},
+                launches=counts, peak_bytes=peak, **more)
+
+
+def one_kernel_per_launch(label, fn, wrappers, what):
+    """Trace ``fn`` (after one warm-up round of it under the profiler)
+    and require one device kernel per launch of K1, K2 and the K3/K3m
+    subcycle: a trace that has another count is taken again
+    (TRACE_ATTEMPTS)."""
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        kern = traced_kernels(lambda: (fstep(), fstep()),
-                              before=lambda: zero_counts(wrappers))
-        counts2 = read_counts(wrappers)
-        want = {"sweep_kernel": counts2["K1"],
-                "bt_cont_kernel": counts2["K2"],
+        kern = traced_kernels(fn, before=lambda: zero_counts(wrappers))
+        counts = read_counts(wrappers)
+        want = {"sweep_kernel": counts["K1"],
+                "bt_cont_kernel": counts["K2"],
                 "subcycle_kernel": wrappers["K3"].device_launches
                 + wrappers["K3m"].device_launches}
         got = {k: sum(k in name for name, _ in kern) for k in want}
@@ -1650,14 +1711,10 @@ def run_new_timed(dynamics, wrappers, shape, extra=None):
         log(f"  trace {attempt}: device kernels {got} for launches "
             f"{want}: traced again")
     if got != want:
-        raise AssertionError(f"{dynamics}: torch.profiler traced {got} "
+        raise AssertionError(f"{label}: torch.profiler traced {got} "
                              f"device kernels for launches {want}")
-    log(f"  torch.profiler over 2 steps: device kernels {got}, one per "
+    log(f"  torch.profiler over {what}: device kernels {got}, one per "
         "launch")
-    more = {} if extra is None else extra(m, cur, fstep, n_done)
-    return dict(ms_step=ms_full, by_kind={k: sum(v) / len(v)
-                                          for k, v in by_kind.items() if v},
-                launches=counts, peak_bytes=peak, **more)
 
 
 def obc_extra(m, cur, fstep, n_done):
@@ -2985,6 +3042,450 @@ def run_offline_cases(tmp, wrappers):
     return out
 
 
+def cap_text(ni, nj, nk):
+    """bench.py's CONFIG with BT_WIDE_HALO_PERIOD = 2 at ni x nj x nk
+    with 10 km cells: the text the cap and the ODA phases build."""
+    from mom6_torch.configs import BENCH_CONFIG
+    return BENCH_CONFIG + (
+        f"BT_WIDE_HALO_PERIOD = 2\n#override NIGLOBAL = {ni}\n"
+        f"#override NJGLOBAL = {nj}\n#override NK = {nk}\n"
+        f"#override LENLON = {ni * 10.0}\n#override LENLAT = {nj * 10.0}\n")
+
+
+def cap_fields(shape, seed):
+    """The cap's import fields on (njh, nih) from a seed, with numpy:
+    stresses of the gyre wind's size, a sensible heat loss, four
+    shortwave bands, rain and the sea-level pressure."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0.0, 1.0, shape[0])[:, None] * np.ones(shape)
+    out = {"Foxx_taux": 0.1 * -np.cos(2.0 * np.pi * y)
+           + 0.01 * rng.standard_normal(shape),
+           "Foxx_tauy": 0.01 * rng.standard_normal(shape),
+           "Foxx_sen": -20.0 + 5.0 * rng.standard_normal(shape),
+           "Faxa_rain": 1e-5 * rng.random(shape),
+           "Sa_pslv": 101325.0 + 100.0 * rng.standard_normal(shape)}
+    for band in ("vdr", "vdf", "idr", "idf"):
+        out[f"Foxx_swnet_{band}"] = 25.0 + 25.0 * rng.random(shape)
+    return out
+
+
+def cap_interval(device, seeded=False, nudge=False, pslv_noise=True):
+    """One interval of the cap (CAP_STEPS steps) over cap_text at
+    SMALL_FULL in fp64 under cap_fields(..., 11), from rest or from
+    run_full's seeded state.  ``nudge`` moves the initial h by one ulp in
+    each cell, up or down by a seeded sign; without ``pslv_noise`` Sa_pslv
+    is a uniform 101325 Pa.  Returns u, v, the sea level and the
+    exported slopes, on the CPU."""
+    import numpy as np
+    import torch
+    from mom6_torch import entry
+    from mom6_torch.drivers import nuopc_cap, ocean_model
+    f64 = torch.float64
+    cap = nuopc_cap.MOM6Cap().realize(text=cap_text(*SMALL_FULL),
+                                      device=device, dtype=f64)
+    if seeded:
+        m = entry.build_full(*SMALL_FULL, seed=3, device=device, dtype=f64)
+        cap._state, cap._split = m.state, m.split
+    if nudge:
+        h = cap._state.h
+        sign = torch.as_tensor(np.random.default_rng(5).choice(
+            [-1.0, 1.0], tuple(h.shape)), dtype=f64, device=device)
+        cap._state = cap._state.replace(
+            h=h + sign * (torch.nextafter(h, 2.0 * h) - h))
+    fields = cap_fields(tuple(cap._state.h.shape[1:]), 11)
+    if not pslv_noise:
+        fields["Sa_pslv"] = np.full_like(fields["Sa_pslv"], 101325.0)
+    cap.import_fields(_to(fields, device, f64))
+    cap.advance(CAP_STEPS * cap.model.dt)
+    out = cap.export_fields()
+    lev = ocean_model.extract_surface_state(cap.model, cap._state).sea_lev
+    return {"u": cap._state.u.cpu(), "v": cap._state.v.cpu(),
+            "sea level": lev.cpu(), "So_dhdx": out["So_dhdx"].cpu(),
+            "So_dhdy": out["So_dhdy"].cpu()}
+
+
+def abs_err_at(ref, out, H=4):
+    """(max |ref|, max |ref - out|, its padded index) on the compute
+    domain of halo ``H``."""
+    import torch
+    a, b = ref[..., H:-H, H:-H].double(), out[..., H:-H, H:-H].double()
+    d = (a - b).abs()
+    at = [int(i) for i in torch.unravel_index(torch.argmax(d), d.shape)]
+    at[-2:] = [at[-2] + H, at[-1] + H]
+    return float(a.abs().max()), float(d.max()), tuple(at)
+
+
+def _to(fields, device, dtype):
+    import torch
+    return {k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in fields.items()}
+
+
+def _worst(label, pairs, limit):
+    """The largest relative error on the compute domain of each (name,
+    cpu, card) pair, logged; raises above ``limit``."""
+    worst = {name: rel_err(a, b.cpu())[0] for name, a, b in pairs}
+    log(f"  {label} card vs cpu max rel err (limit {limit:g}): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()))
+    bad = {k: v for k, v in worst.items() if not v <= limit}
+    if bad:
+        raise AssertionError(f"{label} card vs cpu above {limit:g}: {bad}")
+    return worst
+
+
+def check_tenth(wrappers):
+    """Phase 6t: the forcing library, HURR over 3 steps, one ODA cycle,
+    one coupling interval of the cap and the particles, card against
+    CPU in fp64 at SMALL_FULL."""
+    import torch
+    from mom6_torch import entry
+    from mom6_torch.drivers import nuopc_cap, ocean_model
+    from mom6_torch.drivers import surface_forcing as sf
+    from mom6_torch.oda import driver as oda, ensemble
+    from mom6_torch.tracer import particles
+    f64 = torch.float64
+    ms = {dev: entry.build_full(*SMALL_FULL, seed=3, dynamics="hurr",
+                                device=dev, dtype=f64)
+          for dev in (DEV, "cpu")}
+    g = {dev: m.grid for dev, m in ms.items()}
+    pairs = []
+    for t in (300.0, 3900.0):
+        fc = {dev: m.forces_fn(t) for dev, m in ms.items()}
+        pairs += [(f"hurr {k} t={t:g}", getattr(fc["cpu"], k),
+                   getattr(fc[DEV], k)) for k in ("taux", "tauy")]
+    x0 = SMALL_FULL[0] * 5e3
+    for name, kw in (("scm", dict(scm_mode=True, x0=-3e4, y0=1e4,
+                                  dy_from_center=2.5e4)),
+                     ("br_bench", dict(br_bench=True, rad_max_wind=2e4,
+                                       x0=x0, y0=x0))):
+        fc = {dev: sf.idealized_hurricane_fn(sf.HurricaneCfg(**kw), g[dev])(
+            1800.0) for dev in g}
+        pairs += [(f"{name} {k}", getattr(fc["cpu"], k), getattr(fc[DEV], k))
+                  for k in ("taux", "tauy")]
+    st = {dev: m.state for dev, m in ms.items()}
+    fl = {dev: sf.scm_buoyancy_fn(g[dev], heat_flux=-2e-5, evaporation=1e-7,
+                                  max_sw=4e-5)(st[dev], 43500.0) for dev in g}
+    pairs += [(f"scm {k}", getattr(fl["cpu"], k), getattr(fl[DEV], k))
+              for k in ("sensible", "evap", "sw")]
+    fl = {dev: sf.bfb_buoyancy_fn(g[dev], lfr_slat=50.0, lfr_nlat=250.0,
+                                  flux_const=0.5)(st[dev], 0.0) for dev in g}
+    pairs.append(("bfb sensible", fl["cpu"].sensible, fl[DEV].sensible))
+    db = {dev: sf.dumbbell_forcing(sf.DumbbellForcingCfg(flux_const=1.0),
+                                   g[dev], 0.0, 320.0, 0.0, 320.0)
+          for dev in g}
+    pairs += [("dumbbell p_surf", db["cpu"][0](3600.0).p_surf,
+               db[DEV][0](3600.0).p_surf),
+              ("dumbbell lprec", db["cpu"][1](st["cpu"], 0.0).lprec,
+               db[DEV][1](st[DEV], 0.0).lprec)]
+    _worst("forcing library", pairs, 1e-12)
+
+    n = 3
+    log(f"phase 6t HURR (configs.BENCH_CONFIG_HURR) %dx%dx%d fp64, "
+        % SMALL_FULL + f"{n} steps: card vs cpu")
+    zero_counts(wrappers)
+    gst, gsp, gtr = run_full(*SMALL_FULL, f64, DEV, n, seed=3,
+                             regridding=True, dynamics="hurr")
+    counts = read_counts(wrappers)
+    cst, csp, ctr = run_full(*SMALL_FULL, f64, "cpu", n, seed=3,
+                             regridding=True, dynamics="hurr")
+    expect = {k: v * n for k, v in PER_STEP["hurr"].items()}
+    if counts != expect:
+        raise AssertionError(f"HURR: launches {counts}, expected {expect}")
+    _worst("HURR", [(k, getattr(cst, k), getattr(gst, k))
+                    for k in ("h", "u", "v", "T", "S")]
+           + [(k, getattr(csp, k), getattr(gsp, k))
+              for k in ("eta", "uh", "vh")]
+           + [(k, ctr[k], gtr[k]) for k in ctr], 2.5e-12)
+    log(f"  HURR on the card: launches {counts}, max |u| "
+        f"{float(gst.u.abs().max()):.4f} m/s")
+
+    log("phase 6t one ODA cycle (2 members, 2 steps) and one coupling "
+        "interval of the cap (2 steps): card vs cpu")
+    text = cap_text(*SMALL_FULL)
+    H = 4
+    ji = (H + SMALL_FULL[1] // 2, H + SMALL_FULL[0] // 2)
+    runs, caps = {}, {}
+    for dev in (DEV, "cpu"):
+        # both from the seeded perturbation of run_full's state, as
+        # phase 6's paths; the cap from rest is checked below
+        seeded = entry.build_full(*SMALL_FULL, seed=3, device=dev,
+                                  dtype=f64)
+        zero_counts(wrappers)
+        m = ocean_model.ocean_model_init(text=text, device=dev, dtype=f64)
+        m.state, m.split = seeded.state, seeded.split
+        obs = [float(m.state.T[0, ji[0], ji[1]]) + 0.5]
+        runs[dev] = oda.run_oda_cycles(m, ensemble.EnsembleCfg(2), 1, 2,
+                                       obs, ji, t_pert=0.5, seed=7)
+        if dev == DEV:
+            oda_counts = read_counts(wrappers)
+        cap = nuopc_cap.MOM6Cap().realize(text=text, device=dev, dtype=f64)
+        cap._state, cap._split = seeded.state, seeded.split
+        cap.import_fields(_to(cap_fields(tuple(m.state.h.shape[1:]), 11),
+                              dev, f64))
+        zero_counts(wrappers)
+        cap.advance(CAP_STEPS * m.dt)
+        if dev == DEV:
+            cap_counts = read_counts(wrappers)
+        caps[dev] = (cap.export_fields(), cap._state,
+                     ocean_model.extract_surface_state(cap.model,
+                                                       cap._state).sea_lev,
+                     cap.model.grid)
+    for label, c, per in (("ODA", oda_counts, 2 * 2), ("cap", cap_counts,
+                                                       CAP_STEPS)):
+        expect = {k: v * per for k, v in PER_STEP["hurr"].items()}
+        if c != expect:
+            raise AssertionError(f"{label}: launches {c}, expected {expect}")
+    a, b = runs["cpu"], runs[DEV]
+    _worst("ODA", [(f"{k}[{mm}]", getattr(a.states, k)[mm],
+                    getattr(b.states, k)[mm])
+                   for k in ("h", "u", "v", "T", "S") for mm in range(2)]
+           + [(f"eta[{mm}]", a.splits.eta[mm], b.splits.eta[mm])
+              for mm in range(2)], 2.5e-12)
+    log(f"  ODA SST mean {b.sst_mean} (cpu {a.sst_mean}), spread "
+        f"{b.sst_spread} (cpu {a.sst_spread}); launches {oda_counts}")
+    (ea, sa, la, ga), (eb, sb, lb, _) = caps["cpu"], caps[DEV]
+    slopes = ("So_dhdx", "So_dhdy")
+    _worst("cap", [(k, ea[k], eb[k]) for k in ea if k not in slopes]
+           + [("sea level", la, lb)]
+           + [(k, getattr(sa, k), getattr(sb, k))
+              for k in ("h", "u", "v", "T", "S")], 2.5e-12)
+    # the sea level is sum(h) - D: its card vs cpu difference is a few
+    # ulps of the 4000 m depth (the order of the layer sum), and its
+    # slopes take the difference of two of them over a cell: each slope
+    # is held to twice the sea level's largest difference over the
+    # smallest spacing
+    d_lev = float((la - lb.cpu())[4:-4, 4:-4].abs().max())
+    for k, idx in zip(slopes, (ga.IdxCu, ga.IdyCv)):
+        err = float((ea[k] - eb[k].cpu())[4:-4, 4:-4].abs().max())
+        lim = 2.0 * d_lev * float(idx.max()) * 1.01
+        log(f"  cap {k}: max abs err {err:.3e} (limit {lim:.3e}: twice "
+            f"the sea level's {d_lev:.3e} m over the spacing), rel "
+            f"{rel_err(ea[k], eb[k].cpu())[0]:.3e}")
+        if not err <= lim:
+            raise AssertionError(f"cap {k}: card vs cpu {err:.3e} > "
+                                 f"{lim:.3e}")
+    log(f"  cap launches {cap_counts}")
+    # from rest, one interval leaves small fields (max |u| ~0.02 m/s)
+    # with the same absolute card vs cpu difference as the seeded start:
+    # the one a change of the initial h by one ulp leaves on the CPU
+    # (tools/cap_roundoff.py).  Each field is held to CAP_ROUNDOFF_TIMES
+    # that difference, measured here
+    base, nudged = (cap_interval("cpu", nudge=b) for b in (False, True))
+    card = cap_interval(DEV)
+    for k in base:
+        scale, err, at = abs_err_at(base[k], card[k])
+        floor = abs_err_at(base[k], nudged[k])[1]
+        log(f"  cap from rest {k}: max |x| {scale:.4e}, card vs cpu abs err "
+            f"{err:.3e} at {at} (rel {err / scale:.3e}), one ulp of h on "
+            f"the cpu {floor:.3e} (limit {CAP_ROUNDOFF_TIMES} times)")
+        if not err <= CAP_ROUNDOFF_TIMES * floor:
+            raise AssertionError(f"cap from rest {k}: card vs cpu {err:.3e}"
+                                 f" > {CAP_ROUNDOFF_TIMES} x {floor:.3e}")
+
+    # particles: 4 RK2 steps in the CPU run's HURR flow on both devices
+    xs = torch.linspace(0.25, SMALL_FULL[0] - 0.05, 40, dtype=f64)
+    ys = torch.linspace(0.5, SMALL_FULL[1] - 0.5, 40, dtype=f64)
+    ks = torch.arange(40) % SMALL_FULL[2]
+    pos = {}
+    for dev in (DEV, "cpu"):
+        m = ms[dev]
+        p = particles.init_particles(xs, ys, ks, device=dev)
+        u, v = cst.u.to(dev), cst.v.to(dev)
+        for _ in range(4):
+            p = particles.advect_particles(m.domain, m.grid, p, u, v,
+                                           3600.0)
+        pos[dev] = p
+    worst = {k: rel_err(getattr(pos["cpu"], k)[None],
+                        getattr(pos[DEV], k)[None].cpu(), H=0)[0]
+             for k in ("x", "y")}
+    moved = float((pos["cpu"].x - xs).abs().max())
+    log("  particles after 4 steps card vs cpu max rel err (limit 1e-12): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; largest move in x {moved:.4f} cells")
+    if not max(worst.values()) <= 1e-12:
+        raise AssertionError(f"particles card vs cpu above 1e-12: {worst}")
+
+
+def hurr_extra(m, cur, fstep, n_done):
+    """For BENCH_CONFIG_HURR: the storm's stress at the current time and
+    one thermodynamic step under the profiler with profile_step's
+    ranges: the device time, host time and kernels of the hurricane's
+    stress (forcing/hurricane) beside the pressure force, the diabatic
+    driver and the ALE call, and the step's idle share."""
+    from mom6_torch import profile_step
+    t = (n_done[0] + 0.5) * m.dt
+    fc = m.forces_fn(t)
+    tau = max(float(fc.taux.abs().max()), float(fc.tauy.abs().max()))
+    log(f"  storm at t = {t:g} s: peak stress {tau:.4f} Pa")
+    if not tau > 1.0:
+        raise AssertionError(f"hurr: peak stress {tau} Pa")
+    while (n_done[0] + 1) % m.cfg.n_dyn_per_therm != 0:
+        fstep()
+    summary = profile_step._profile(fstep, profile_step.slice2_targets(
+        "hurr"), "hurr thermo", None)
+    ph = summary.get("phases", {})
+    got = {k: ph[k] for k in HURR_PHASES if k in ph}
+    log(f"  profiled thermodynamic step: device busy "
+        f"{summary.get('device_busy_ms', 0.0):.3f} ms, idle share "
+        f"{summary.get('idle_share_profiled', float('nan')):.1%}, "
+        f"{summary.get('kernels', 0)} kernels; "
+        + "; ".join(f"{k} x{v['calls']}: {v['kernels']} kernels "
+                    f"{v['device_ms']:.4f} ms device, {v['host_ms']:.3f} "
+                    "ms host" for k, v in got.items()))
+    if "forcing/hurricane" not in got:
+        raise AssertionError("hurr: no forcing/hurricane in a "
+                             "thermodynamic step")
+    return dict(peak_stress_pa=tau, profiled_thermo=dict(
+        device_busy_ms=summary.get("device_busy_ms"),
+        idle_share=summary.get("idle_share_profiled"),
+        kernels=summary.get("kernels"), phases=got))
+
+
+def run_cap_timed(wrappers, shape):
+    """Phase 7o: the cap on bench.py's CONFIG at full width in fp32."""
+    import torch
+    from mom6_torch.drivers import nuopc_cap
+    t0 = time.perf_counter()
+    cap = nuopc_cap.MOM6Cap().realize(text=cap_text(*MAIN), device=DEV,
+                                      dtype=torch.float32)
+    build_s = time.perf_counter() - t0
+    m = cap.model
+    shp = tuple(m.state.h.shape[1:])
+    fields = [cap_fields(shp, 100 + i) for i in range(CAP_INTERVALS + 2)]
+
+    def interval(i):
+        cap.import_fields(_to(fields[i], DEV, torch.float32))
+        cap.advance(CAP_STEPS * m.dt)
+        return cap.export_fields()
+
+    interval(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(CAP_INTERVALS + 1)]
+    ev[0].record()
+    for i in range(CAP_INTERVALS):
+        out = interval(1 + i)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    counts = read_counts(wrappers)
+    device = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: v * CAP_STEPS * CAP_INTERVALS
+              for k, v in PER_STEP["hurr"].items()}
+    if counts != expect:
+        raise AssertionError(f"cap: launches {counts}, expected {expect}")
+    check_device_launches("cap", device, counts)
+    per = [ev[i].elapsed_time(ev[i + 1]) for i in range(CAP_INTERVALS)]
+    check_finite([(k, v[4:-4, 4:-4]) for k, v in out.items()],
+                 (shape[0], shape[1] - 8, shape[2] - 8))
+    log(f"  build {build_s:.1f} s; {CAP_INTERVALS} intervals of "
+        f"{CAP_STEPS} steps: {sum(per) / len(per):.3f} ms an interval "
+        f"(CUDA events: import, advance, export; "
+        + ", ".join(f"{x:.3f}" for x in per)
+        + f"), {sum(per) / len(per) / CAP_STEPS:.3f} ms a step; launches "
+        f"{counts}; peak memory {peak / 2**30:.3f} GiB; export SST "
+        f"[{float(out['So_t'][4:-4, 4:-4].min()):.4f}, "
+        f"{float(out['So_t'][4:-4, 4:-4].max()):.4f}] degC, max |dh/dx| "
+        f"{float(out['So_dhdx'].abs().max()):.3e}, boundary layer "
+        f"[{float(out['So_bldepth'][4:-4, 4:-4].min()):.2f}, "
+        f"{float(out['So_bldepth'][4:-4, 4:-4].max()):.2f}] m")
+    one_kernel_per_launch("cap", lambda: interval(CAP_INTERVALS + 1),
+                          wrappers, "one interval")
+    return dict(ms_interval=sum(per) / len(per), ms_intervals=per,
+                launches=counts, peak_bytes=peak)
+
+
+def run_oda_timed(wrappers):
+    """Phase 7p: the ODA ensemble over bench.py's CONFIG at full width
+    in fp32, the members stepped in turn."""
+    import torch
+    from mom6_torch.drivers import ocean_model
+    from mom6_torch.oda import driver as oda, ensemble
+    m = ocean_model.ocean_model_init(text=cap_text(*MAIN), device=DEV,
+                                     dtype=torch.float32)
+    H = 4
+    ji = (H + MAIN[1] // 2, H + 3 * MAIN[0] // 4)
+    t0 = float(m.state.T[0, ji[0], ji[1]])
+    obs = [t0 + 0.3 * (c + 1) for c in range(ODA_CYCLES)]
+    state_bytes = sum(x.numel() * x.element_size() for x in (
+        m.state.h, m.state.u, m.state.v, m.state.T, m.state.S))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts(wrappers)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    run = oda.run_oda_cycles(m, ensemble.EnsembleCfg(ODA_MEMBERS),
+                             ODA_CYCLES, ODA_STEPS, obs, ji, t_pert=0.5,
+                             seed=0)
+    ev1.record()
+    torch.cuda.synchronize()
+    counts = read_counts(wrappers)
+    device = {k: wrappers[k].device_launches for k in DEVICE_COUNTED}
+    peak = torch.cuda.max_memory_allocated()
+    n = ODA_MEMBERS * ODA_CYCLES * ODA_STEPS
+    expect = {k: v * n for k, v in PER_STEP["hurr"].items()}
+    if counts != expect:
+        raise AssertionError(f"ODA: launches {counts}, expected {expect}")
+    check_device_launches("ODA", device, counts)
+    ms = ev0.elapsed_time(ev1)
+    check_finite([(f"{k}[{i}]", getattr(run.states, k)[i][..., 4:-4, 4:-4])
+                  for k in ("h", "u", "v", "T", "S")
+                  for i in range(ODA_MEMBERS)],
+                 (MAIN[2], MAIN[1], MAIN[0]))
+    log(f"  {ODA_CYCLES} cycles of {ODA_STEPS} steps, {ODA_MEMBERS} "
+        f"members: {ms:.1f} ms in all, {ms / n:.3f} ms a member step (CUDA "
+        f"events, the EnKF and the cycles' host reads included); launches "
+        f"{counts}; peak {peak / 2**30:.3f} GiB (before the run "
+        f"{base / 2**30:.3f}, one state's h, u, v, T, S "
+        f"{state_bytes / 2**30:.3f}); observations {obs}, SST mean "
+        f"{run.sst_mean}, spread {run.sst_spread}")
+    return dict(ms_member_step=ms / n, ms_total=ms, launches=counts,
+                peak_bytes=peak, base_bytes=base, state_bytes=state_bytes,
+                sst_mean=run.sst_mean, sst_spread=run.sst_spread)
+
+
+def run_particles_case(tmp, wrappers):
+    """A copy of cases/double_gyre with PARTICLE_LINES for GYRE_DAYS in
+    fp64 on the card, every launch counter zeroed just before and read
+    just after, and with --cpu: particles.nc's positions agree to
+    1e-12."""
+    import numpy as np
+    from mom6_torch.drivers import solo
+    from mom6_torch.framework.io import read_field
+    text = (ROOT / "cases" / "double_gyre" / "MOM_input").read_text() \
+        + PARTICLE_LINES
+    d_card = case_dir(tmp, "particles_card", text)
+    d_cpu = case_dir(tmp, "particles_cpu", text)
+    zero_counts(wrappers)
+    card = solo.main([d_card, "--days", GYRE_DAYS])
+    n = card["steps"]
+    launches = check_driver_launches(
+        "driver particles", wrappers,
+        {k: v * n for k, v in {"K1": 4, "K2": 1, "K3": 2, "K3m": 0}.items()})
+    solo.main([d_cpu, "--days", GYRE_DAYS, "--cpu"])
+    worst = {}
+    for v in ("part_x", "part_y"):
+        a = np.asarray(read_field(str(Path(d_cpu) / "particles.nc"), v))
+        b = np.asarray(read_field(str(Path(d_card) / "particles.nc"), v))
+        if a.shape != b.shape or a.shape[1] != 48:
+            raise AssertionError(f"driver particles {v}: shapes {b.shape} "
+                                 f"against {a.shape}")
+        worst[v] = float(np.abs(a - b).max() / np.abs(a).max())
+        if not worst[v] <= 1e-12:
+            raise AssertionError(f"driver particles {v}: {worst[v]:.3e}")
+    moved = float(np.abs(b[-1] - b[0]).max())
+    log(f"  {n} steps, {a.shape[0]} records of {a.shape[1]} particles, "
+        f"card against cpu: " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in worst.items())
+        + f"; largest move {moved:.4f} cells; driver loop "
+        f"{card['loop_seconds'] / n * 1e3:.3f} ms/step; launches {launches}")
+    return launches
+
+
 def check_ale(m, st, sp, tr):
     """The ALE regrid/remap alone on the full step's last state (CUDA
     events, and its peak memory above what was allocated), and the
@@ -3786,6 +4287,11 @@ def main():
         "shelf-only driver, card vs cpu fp64")
     with tempfile.TemporaryDirectory() as tmp:
         check_shelf_modules(tmp)
+    # 6t. the rest of the tenth breadth item
+    log("phase 6t the forcing library (HURR's hurricane, its single-column "
+        "and BR-benchmark variants, the CVMix tests' wind and fluxes, BFB, "
+        "the dumbbell), card vs cpu fp64 %dx%dx%d" % SMALL_FULL)
+    check_tenth(wrappers)
 
     # 7. slice 2 at full width, fp32, with ALE and layered
     full = {}
@@ -3929,6 +4435,35 @@ def main():
         shelf_solo = run_shelf_solo(tmp, wrappers)
     torch.cuda.empty_cache()
 
+    # 7n. the hurricane at full width, beside bench.py's CONFIG of phase 7
+    log("phase 7n hurr (configs.BENCH_CONFIG_HURR, Z* ALE) %dx%dx%d fp32"
+        % MAIN)
+    t0 = time.perf_counter()
+    full["hurr"] = run_new_timed("hurr", wrappers, shape, hurr_extra)
+    torch.cuda.empty_cache()
+    log(f"  hurr against bench.py's CONFIG (phase 7, Z* ALE), same "
+        f"process: {full['hurr']['ms_step']:.3f} against "
+        f"{full['ale']['ms_step']:.3f} ms/step ("
+        + ", ".join(f"{k} {v:.3f} against {full['ale']['by_kind'][k]:.3f}"
+                    for k, v in full["hurr"]["by_kind"].items())
+        + f"); peak {full['hurr']['peak_bytes'] / 2**30:.3f} against "
+        f"{full['ale']['peak_bytes'] / 2**30:.3f} GiB; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    # 7o. the NUOPC-shaped cap at full width
+    log(f"phase 7o the cap (drivers/nuopc_cap.py) on bench.py's CONFIG "
+        f"%dx%dx%d fp32, {CAP_STEPS} steps an interval" % MAIN)
+    t0 = time.perf_counter()
+    cap_run = run_cap_timed(wrappers, shape)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+    # 7p. the ODA ensemble at full width
+    log(f"phase 7p the ODA ensemble (oda/driver.py) on bench.py's CONFIG "
+        f"%dx%dx%d fp32, {ODA_MEMBERS} members" % MAIN)
+    t0 = time.perf_counter()
+    oda_run = run_oda_timed(wrappers)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+
     # 8. the solo driver: cases/double_gyre, then bench.py's CONFIG
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 8 driver: cases/double_gyre %dx%dx%d fp64, " % GYRE
@@ -3986,6 +4521,11 @@ def main():
             "channel) fp64 on the card, against the JAX driver's "
             "ocean.stats")
         launches_layer["phillips"] = run_phillips(tmp, wrappers)
+        log("phase 8 driver: cases/double_gyre with USE_PARTICLES fp64, "
+            f"{GYRE_DAYS} days, card vs cpu (particles.nc)")
+        t0 = time.perf_counter()
+        launches_layer["particles"] = run_particles_case(tmp, wrappers)
+        log(f"  phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     nk, njh, nih = shape_main
@@ -4067,7 +4607,12 @@ def main():
                 "offline_mode": 0,
                 "shelf_full_step": full["shelf"]["launches"][k],
                 "shelf_solo_step": shelf_solo["launches"][k],
-                "solo_phillips": launches_layer["phillips"][k]},
+                "solo_phillips": launches_layer["phillips"][k],
+                "hurr_full_step": full["hurr"]["launches"][k],
+                "cap_coupling_intervals": cap_run["launches"][k],
+                "oda_member_steps": oda_run["launches"][k],
+                "solo_double_gyre_particles":
+                    launches_layer["particles"][k]},
             max_abs_err=res.err[k]["float32"][1],
             max_rel_err_fp32=res.err[k]["float32"][0],
             max_rel_err_fp64=res.err[k]["float64"][0],
@@ -4117,12 +4662,18 @@ def main():
         profiled_kernels_per_call=n_prof / PROFILE_REPS,
         ptxas=subcycle_ptxas))
     for dyn in ("b1", "nonbouss", "obc", "stoch", "b3", "bml", "b4", "b4v",
-                "hybgen", "adapt", "file", "bgc", "shelf"):
+                "hybgen", "adapt", "file", "bgc", "shelf", "hurr"):
         r = full[dyn]
         log(f"  {dyn}: {r['ms_step']:.3f} ms/step, "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["by_kind"].items())
             + f", peak {r['peak_bytes'] / 2**30:.3f} GiB, launches "
             f"{r['launches']}")
+    log(f"  cap: {cap_run['ms_interval']:.3f} ms a coupling interval of "
+        f"{CAP_STEPS} steps, peak {cap_run['peak_bytes'] / 2**30:.3f} GiB, "
+        f"launches {cap_run['launches']}")
+    log(f"  ODA: {oda_run['ms_member_step']:.3f} ms a member step, peak "
+        f"{oda_run['peak_bytes'] / 2**30:.3f} GiB, launches "
+        f"{oda_run['launches']}")
     log(f"  shelf-only: {shelf_solo['ms_step']:.3f} ms a step, "
         f"{shelf_solo['kernels']} kernels a step, idle share "
         f"{shelf_solo['idle_share']:.1%}")

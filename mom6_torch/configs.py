@@ -119,6 +119,21 @@ the JAX package too reaches the velocity truncation in one step there
 (``tools/shelf_text_bounded.py --extra "#override REENTRANT_X = True"``).
 The bottom stays flat; T_RANGE stays in the text unread.
 
+``BENCH_CONFIG_HURR`` is bench.py's configuration under an idealized
+translating tropical cyclone, the case ocean modellers use to study the
+upper ocean's response to a storm (cooling, near-inertial currents, the
+cold wake): WIND_CONFIG ideal_hurr in place of the gyre wind, a storm of
+the default Holland profile (96,800 Pa at its centre against 101,200,
+65 m/s at 50 km) heading west at 5 m/s from three quarters of the way
+east and mid-basin (IDL_HURR_X0 = 3.84e6 m and IDL_HURR_Y0 = 2.56e6 m on
+the 5,120 km basin; the grid's km times the reference's 1000; at its
+default origin the storm would start at the south-west corner and leave
+the basin at once), and BUOY_CONFIG const_heat with a uniform surface
+heat loss of 100 W m-2 in place of the restoring.  ``entry.build_full``
+moves the storm's origin with the basin at other widths.  At 16x16x4
+(the storm's origin moved with the basin) the JAX package keeps it
+bounded over 12 steps (``tools/hurr_text_bounded.py``).
+
 A test holds each to ``BENCH_CONFIG`` plus exactly its lines.
 """
 
@@ -136,7 +151,8 @@ __all__ = ["BENCH_CONFIG", "BENCH_CONFIG_RK2B", "BENCH_CONFIG_UNSPLIT",
            "write_file_inputs", "BENCH_CONFIG_BGC", "BGC_LINES",
            "BGC_RIVERS", "bgc_fields", "write_bgc_inputs", "obc_strip",
            "obc_east_fields", "topog_edge_fields", "write_obc_data",
-           "write_topog_edge", "BENCH_CONFIG_SHELF", "SHELF_LINES"]
+           "write_topog_edge", "BENCH_CONFIG_SHELF", "SHELF_LINES",
+           "BENCH_CONFIG_HURR", "HURR_LINES"]
 
 BENCH_CONFIG = """
 NIGLOBAL = 512
@@ -576,6 +592,16 @@ ISOMIP_S_BOT = 34.7
 """
 
 BENCH_CONFIG_SHELF = BENCH_CONFIG + SHELF_LINES
+
+# the tropical cyclone: ideal_hurr in place of the gyre wind, a constant
+# surface heat loss in place of the restoring
+HURR_LINES = """#override WIND_CONFIG = ideal_hurr
+IDL_HURR_X0 = 3.84e6
+IDL_HURR_Y0 = 2.56e6
+#override BUOY_CONFIG = const_heat
+SENSIBLE_HEAT_FLUX = -100.0
+"""
+BENCH_CONFIG_HURR = BENCH_CONFIG + HURR_LINES
 
 # the tracers of the river file, and each one's source strength at a
 # river mouth [mmol m-2 s-1]

@@ -43,9 +43,13 @@ OFFLINE_TRACER_MODE the driver advances only the registered tracers,
 from those files in OFFLINEDIR (``tracer/offline.py``), looping over
 their NUMTIME records with DT_OFFLINE steps, writes the tracers' totals
 to ``ocean.stats`` at the end of each loop and the tracers to the
-restart.  Particles are not ported yet and raise
-``NotImplementedError``, and so does any parameter the case sets that
-neither the builder nor the driver reads.
+restart.  USE_PARTICLES seeds drifters on the cell centres of a
+PARTICLES_NX x PARTICLES_NY lattice in PARTICLES_LAYER, advects them
+after every step (``tracer/particles.py``, the ``particles`` clock) and
+writes their positions of every stats interval to ``particles.nc``
+(``part_x``, ``part_y`` over (rec, particle), in cell units).  Any
+parameter the case sets that neither the builder nor the driver reads
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,8 +78,9 @@ from mom6_torch.framework.error_handler import (MOM_error, NOTE,
                                                 set_verbosity)
 from mom6_torch.framework.io import read_field, write_fields
 from mom6_torch.framework.restart import restore_restart, save_restart
-from mom6_torch.model import default_only, build_model
+from mom6_torch.model import build_model
 from mom6_torch.tracer.offline import OfflineCfg, step_offline
+from mom6_torch.tracer.particles import advect_particles, init_particles
 
 __all__ = ["read_driver_params", "main"]
 
@@ -95,7 +100,11 @@ def read_driver_params(pf: ParamFile, model) -> dict:
     p["nz_diag"] = pf.get("NK_ZSPACE", int, model.vgrid.nk,
                           desc="z levels for _z diagnostics")
     pf.module("MOM_particles")
-    default_only(pf, "USE_PARTICLES", bool, False)
+    p["use_particles"] = pf.get("USE_PARTICLES", bool, False)
+    if p["use_particles"]:
+        p["particles_nx"] = pf.get("PARTICLES_NX", int, 8)
+        p["particles_ny"] = pf.get("PARTICLES_NY", int, 8)
+        p["particles_layer"] = pf.get("PARTICLES_LAYER", int, 0)
     pf.module("MOM")
     p["offline_mode"] = pf.get("OFFLINE_TRACER_MODE", bool, False)
     p["off_cfg"] = None
@@ -283,6 +292,17 @@ def main(argv=None) -> dict:
                   f"DAYMAX {daymax} days, DT = {dt} s")
         return summary
     stats_every = max(1, int(round(dp["energysavedays"] * 86400.0 / dt)))
+    # USE_PARTICLES: drifters seeded on the cell centres of a PARTICLES_NX
+    # x PARTICLES_NY lattice in PARTICLES_LAYER, advected after every
+    # step, their positions recorded every stats interval
+    particles, part_traj = None, []
+    if dp["use_particles"]:
+        pnx, pny = dp["particles_nx"], dp["particles_ny"]
+        xs, ys = np.meshgrid((np.arange(pnx) + 0.5) * d.ni / pnx,
+                             (np.arange(pny) + 0.5) * d.nj / pny)
+        particles = init_particles(xs.ravel(), ys.ravel(),
+                                   np.full(pnx * pny, dp["particles_layer"]),
+                                   device=state.h.device)
     dtbt_reset = dp["dtbt_reset"]
     maxcpu = dp["maxcpu"]
 
@@ -367,6 +387,13 @@ def main(argv=None) -> dict:
                 f"DEBUG_NANS: step {n} made a NaN outside the aten "
                 "operations")
         state, split, tracers = out
+        if particles is not None:
+            with clock("particles"):
+                particles = advect_particles(d, g, particles, state.u,
+                                             state.v, dt)
+            if n % stats_every == 0:
+                part_traj.append((particles.x.cpu().numpy(),
+                                  particles.y.cpu().numpy()))
         if dp["u_trunc_file"] and step.truncations() > truncs_before:
             dump_worst_column(
                 os.path.join(args.case_dir, dp["u_trunc_file"]), d, g,
@@ -396,6 +423,12 @@ def main(argv=None) -> dict:
         loop_seconds = time.perf_counter() - wall0
     if dp["write_offline"] and off_records:
         _write_offline_fields(args.case_dir, off_records)
+    if part_traj:
+        write_fields(os.path.join(args.case_dir, "particles.nc"),
+                     {"part_x": np.stack([x for x, _ in part_traj]),
+                      "part_y": np.stack([y for _, y in part_traj])},
+                     dims={"part_x": ("rec", "particle"),
+                           "part_y": ("rec", "particle")})
     nran = n - step0
     pts = d.ni * d.nj * vg.nk * max(nran, 1)
     print(f"run complete: {nran} of {nsteps} steps, {loop_seconds:.2f}s "

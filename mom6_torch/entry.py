@@ -46,7 +46,7 @@ from mom6_torch.configs import (BENCH_CONFIG, BENCH_CONFIG_ADAPT,
                                 BENCH_CONFIG_B1, BENCH_CONFIG_B3,
                                 BENCH_CONFIG_B4, BENCH_CONFIG_B4V,
                                 BENCH_CONFIG_BGC, BENCH_CONFIG_BML,
-                                BENCH_CONFIG_FILE,
+                                BENCH_CONFIG_FILE, BENCH_CONFIG_HURR,
                                 BENCH_CONFIG_HYBGEN,
                                 BENCH_CONFIG_NONBOUSS, BENCH_CONFIG_OBC,
                                 BENCH_CONFIG_RK2B, BENCH_CONFIG_SHELF,
@@ -84,10 +84,11 @@ DYNAMICS = {"rk2": BENCH_CONFIG, "rk2b": BENCH_CONFIG_RK2B,
             "b4v": BENCH_CONFIG_B4V, "hybgen": BENCH_CONFIG_HYBGEN,
             "adapt": BENCH_CONFIG_ADAPT, "unmix": BENCH_CONFIG_UNMIX,
             "file": BENCH_CONFIG_FILE, "bgc": BENCH_CONFIG_BGC,
-            "shelf": BENCH_CONFIG_SHELF}
+            "shelf": BENCH_CONFIG_SHELF, "hurr": BENCH_CONFIG_HURR}
 # the texts on the split RK2 dynamics
 SPLIT_RK2 = ("rk2", "b1", "nonbouss", "obc", "stoch", "b3", "b3pp81", "bml",
-             "b4", "b4v", "hybgen", "adapt", "unmix", "file", "bgc", "shelf")
+             "b4", "b4v", "hybgen", "adapt", "unmix", "file", "bgc", "shelf",
+             "hurr")
 # the texts that read files from INPUTDIR, and each one's writer
 INPUT_WRITERS = {
     "b1": lambda d, ni, nj: write_topog_edge(os.path.join(d, "topog_edge.nc"),
@@ -206,7 +207,10 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     pseudo-salt, its restoring, river, deposition and sediment files
     written from seed 0 by ``configs.write_bgc_inputs`` into a temporary
     directory) or "shelf" (``BENCH_CONFIG_SHELF``: an ice shelf's
-    pressure, stress shielding and melt over the ISOMIP profile).
+    pressure, stress shielding and melt over the ISOMIP profile) or
+    "hurr" (``BENCH_CONFIG_HURR``: a translating hurricane's wind and a
+    constant surface heat loss; the storm starts at 0.75 LENLON, 0.5
+    LENLAT whatever the width).
     ``wide_halo_period`` sets BT_WIDE_HALO_PERIOD of
     the split texts (1: kernel K3 in place of K3m; open boundaries run K3
     whatever it says).
@@ -231,6 +235,10 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
     else:
         text += (f"#override LENLON = {ni * 10.0}\n"
                  f"#override LENLAT = {nj * 10.0}\n")
+    if dynamics == "hurr":
+        # the storm starts three quarters of the way east, mid-basin
+        text += (f"#override IDL_HURR_X0 = {0.75 * ni * 1e4!r}\n"
+                 f"#override IDL_HURR_Y0 = {0.5 * nj * 1e4!r}\n")
     if dynamics == "obc":
         text += obc_strip(ni)
     elif not regridding:
@@ -247,7 +255,11 @@ def build_full(ni: int = 512, nj: int = 512, nk: int = 25, *,
             pf = ParamFile(path)
         else:
             pf = ParamFile(text=text + extra)
-        m = build_model(pf, device=device, dtype=dtype)
+        # USE_PP81 passes the obsolete-parameter guard only without its
+        # "Use_PP81" entry (build_model)
+        m = build_model(pf, device=device, dtype=dtype,
+                        allow_obsolete=("Use_PP81",) if dynamics == "b3pp81"
+                        else ())
     if seed is not None:
         d, g = m.domain, m.grid
         rng = np.random.default_rng(seed)

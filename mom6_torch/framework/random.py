@@ -13,7 +13,10 @@ own, in plain PyTorch:
 * ``fold_in(key, m)`` hashes the counter pair (0, m) under the key;
 * draw i of a cell hashes the counter pair (0, i) under the cell's key
   (the partitionable counter layout): 64-bit values take the two hashed
-  words as high and low half, 32-bit values their exclusive or;
+  words as high and low half, 32-bit values their exclusive or; a draw
+  of a whole shape from one key (``uniform``, ``normal``: the ensemble's
+  perturbations) hashes each value's flat index, split into its high
+  and low words;
 * ``uniform`` keeps the top mantissa bits under the exponent of 1.0 and
   subtracts 1; ``normal`` is sqrt(2) erfinv(u) with u uniform on
   (nextafter(-1, 0), 1), erfinv by the polynomials that XLA evaluates
@@ -36,7 +39,8 @@ import torch
 
 from mom6_torch.parallel.domain import Domain
 
-__all__ = ["gridded_normal", "gridded_uniform"]
+__all__ = ["gridded_normal", "gridded_uniform", "key", "fold_in",
+           "uniform", "normal"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -141,6 +145,61 @@ def _seed_key(seed: int):
     return (seed >> 32) & _MASK, seed & _MASK
 
 
+def key(seed: int) -> tuple:
+    """The key of ``seed`` (``jax.random.key(seed)``): two uint32 words
+    as Python ints."""
+    return _seed_key(seed)
+
+
+def fold_in(k: tuple, m: int) -> tuple:
+    """``jax.random.fold_in(k, m)``: the counter pair (0, m) hashed
+    under the key."""
+    return tuple(int(w) for w in threefry2x32(k[0], k[1], 0, int(m) & _MASK))
+
+
+def _shape_bits(k: tuple, shape, dtype, device):
+    """Floats in [1, 2) of a whole ``shape`` drawn from one key: the
+    counter of each value is its flat index, split into its high and low
+    32-bit words (the partitionable layout)."""
+    n = int(np.prod(shape, dtype=np.int64))
+    i = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    b0, b1 = threefry2x32(k[0], k[1], i >> 32, i & _MASK)
+    return _float_bits(b0, b1, dtype)
+
+
+def _float_bits(b0, b1, dtype):
+    if dtype == torch.float64:
+        # the 64-bit word (b0 << 32 | b1) shifted right by 12
+        bits = (b0 << 20) | (b1 >> 12) | 0x3FF0000000000000
+        return bits.view(torch.float64)
+    if dtype == torch.float32:
+        bits = ((b0 ^ b1) >> 9) | 0x3F800000
+        return bits.to(torch.int32).view(torch.float32)
+    raise ValueError(f"random values in {dtype}: float32 or float64 only")
+
+
+def uniform(k: tuple, shape=(), *, dtype: torch.dtype = torch.float64,
+            device="cpu"):
+    """``jax.random.uniform(k, shape, dtype)``: values in [0, 1)."""
+    return _shape_bits(k, tuple(shape), dtype, device) - 1.0
+
+
+def normal(k: tuple, shape=(), *, dtype: torch.dtype = torch.float64,
+           device="cpu"):
+    """``jax.random.normal(k, shape, dtype)``: standard normal values,
+    sqrt(2) erfinv of uniforms on (nextafter(-1, 0), 1)."""
+    return _normal_from(_shape_bits(k, tuple(shape), dtype, device) - 1.0,
+                        dtype)
+
+
+def _normal_from(u, dtype):
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    lo = np.nextafter(npt(-1.0), npt(0.0))
+    span = npt(1.0) - lo
+    u = torch.clamp(u * float(span) + float(lo), min=float(lo))
+    return erfinv(u) * float(npt(np.sqrt(2.0)))
+
+
 def _cell_keys(domain: Domain, seed: int, i0: int, j0: int, device):
     """(njh, nih) key words of every cell from its global index."""
     H = domain.halo
@@ -158,15 +217,7 @@ def _uniform_bits(domain, seed, nk, i0, j0, dtype, device):
     c0, c1 = _cell_keys(domain, seed, i0, j0, device)
     i = torch.arange(nk, dtype=torch.int64, device=device).reshape(-1, 1, 1)
     b0, b1 = threefry2x32(c0[None], c1[None], torch.zeros_like(i), i)
-    if dtype == torch.float64:
-        # the 64-bit word (b0 << 32 | b1) shifted right by 12
-        bits = (b0 << 20) | (b1 >> 12) | 0x3FF0000000000000
-        return bits.view(torch.float64)
-    if dtype == torch.float32:
-        bits = ((b0 ^ b1) >> 9) | 0x3F800000
-        return bits.to(torch.int32).view(torch.float32)
-    raise ValueError(f"gridded random fields in {dtype}: float32 or "
-                     "float64 only")
+    return _float_bits(b0, b1, dtype)
 
 
 def gridded_uniform(domain: Domain, seed: int, nk: int = 1, i0: int = 0,
@@ -181,9 +232,5 @@ def gridded_normal(domain: Domain, seed: int, nk: int = 1, i0: int = 0,
                    j0: int = 0, *, dtype: torch.dtype = torch.float64,
                    device="cpu"):
     """(nk, njh, nih) standard normal values, layout-invariant."""
-    npt = np.float64 if dtype == torch.float64 else np.float32
-    lo = np.nextafter(npt(-1.0), npt(0.0))
-    span = npt(1.0) - lo
-    u = _uniform_bits(domain, seed, nk, i0, j0, dtype, device) - 1.0
-    u = torch.clamp(u * float(span) + float(lo), min=float(lo))
-    return erfinv(u) * float(npt(np.sqrt(2.0)))
+    return _normal_from(
+        _uniform_bits(domain, seed, nk, i0, j0, dtype, device) - 1.0, dtype)

@@ -34,17 +34,21 @@ horizontal-viscosity options (velocity scales, Leith and modified Leith,
 ADD_LES_VISCOSITY, anisotropic, ZB2020), open boundaries (OBC segments,
 whole or partial, with constant or file data, OBC_USER_CONFIG updates,
 the OBC viscosity flags and the dyed OBC tracers of NUM_DYE_TRACERS),
-every EQN_OF_STATE form of ``mom6_torch/eos``, COORD_CONFIG ts_range or
-linear (or the uniform GINT stacking), THICKNESS_CONFIG uniform, sigma or
-any initializer of ``user/configs.py`` (with its own T/S and velocities),
-or z-space initial T/S from a file remapped onto the z* layers
+every EQN_OF_STATE form of ``mom6_torch/eos``, COORD_CONFIG ts_range,
+linear, layer_ref or BFB (or the uniform GINT stacking),
+THICKNESS_CONFIG uniform, sigma or any initializer of
+``user/configs.py`` (with its own T/S and velocities), or z-space
+initial T/S from a file remapped onto the z* layers
 (INIT_LAYERS_FROM_Z_FILE with Z_INIT_ALE_REMAPPING, TRACER_Z_INIT_FILE),
 TS_CONFIG uniform, linear, from_file, benchmark, ISOMIP, baroclinic_zone,
 SCM_CVMix_tests or the thickness initializer's own, VELOCITY_CONFIG zero,
 uniform, circular or file, an ice shelf over the ocean (ICE_SHELF: its
 pressure, the stress shielding and the melt fluxes, the shelf itself held
-static as in the JAX Model), WIND_CONFIG zero/constant/gyres/2gyre or
-file, BUOY_CONFIG zero, linear restoring or file, a data_table of
+static as in the JAX Model), every WIND_CONFIG (zero, constant, gyres,
+2gyre, file with WIND_STAGGER read and, as in the JAX builder, unused,
+SCM_CVMix_tests, ideal_hurr, SCM_ideal_hurr, dumbbell) and BUOY_CONFIG
+(zero, linear restoring, file, const_heat, SCM_CVMix_tests, BFB,
+dumbbell) of the JAX package, a data_table of
 overrides in the case directory, ALE
 with the coordinates and remap schemes of ``mom6_torch/ale`` (hybgen
 with HYBGEN_*, ADAPTIVE with ADAPT_*, HYBGEN_UNMIX under HYCOM1) and
@@ -63,7 +67,9 @@ fourth breadth item: MEKE, VarMix with Visbeck and RESOLN_SCALED_*,
 KHTR_SLOPE_CFF, DIFFUSE_ML_TO_INTERIOR, the interface filter, neutral
 and boundary diffusion and the internal tides. Every other value of an
 option it reads raises ``NotImplementedError`` naming the parameter; an
-option set to its default is read and accepted. A parameter it does not
+option set to its default is read and accepted. An obsolete parameter
+of the reference fails with its hint text (``framework/obsolete_params``),
+as in the JAX builder. A parameter it does not
 read at all is left for the caller's unused-parameter audit (the solo
 driver raises on it).
 
@@ -102,13 +108,16 @@ from mom6_torch.core.state import State
 from mom6_torch.core.vert_friction import VertViscCfg
 from mom6_torch.core.vertical_grid import VerticalGrid
 from mom6_torch.drivers.surface_forcing import (
-    _BUOY_FILE_FIELDS, SurfaceForcingCfg, build_wind, buoyancy_restoring,
-    buoyancy_forcing_from_files, wind_forcing_from_file)
+    _BUOY_FILE_FIELDS, DumbbellForcingCfg, HurricaneCfg, SurfaceForcingCfg,
+    bfb_buoyancy_fn, build_wind, buoyancy_restoring,
+    buoyancy_forcing_from_files, dumbbell_forcing, idealized_hurricane_fn,
+    scm_buoyancy_fn, scm_wind, wind_forcing_from_file)
 from mom6_torch.eos import EOS, make_eos
 from mom6_torch.framework.config import ParamFile
 from mom6_torch.framework.error_handler import FATAL, WARNING, MOM_error
 from mom6_torch.framework.data_override import DataOverride
 from mom6_torch.framework.io import field_names, read_field
+from mom6_torch.framework.obsolete_params import check_obsolete_params
 from mom6_torch.ice_shelf import shelf_main
 from mom6_torch.ice_shelf.dynamics import SSACfg
 from mom6_torch.ice_shelf.shelf_main import (ShelfCfg, ShelfState,
@@ -167,7 +176,10 @@ from mom6_torch.user.configs import (baroclinic_zone_ts, init_benchmark_ts,
 
 __all__ = ["Model", "build_model", "default_only"]
 
-_WINDS = ("zero", "constant", "gyres", "2gyre", "file")
+_WINDS = ("zero", "constant", "gyres", "2gyre", "file", "SCM_CVMix_tests",
+          "ideal_hurr", "SCM_ideal_hurr", "dumbbell")
+_BUOYS = ("linear_restoring", "linear", "file", "const_heat",
+          "SCM_CVMix_tests", "BFB", "dumbbell")
 # parameters the reference cases set that change nothing here by design
 # (solver tolerances, file names and run guards of the driver, answer-date
 # and bug-compatibility switches, IO layout hints), read when present so
@@ -293,14 +305,17 @@ class Model:
 
     def fluxes(self, state: State, t: float = 0.0) -> Optional[Fluxes]:
         """Buoyancy fluxes on the given state at model time ``t`` [s]
-        (BUOY_CONFIG), None without buoyancy forcing."""
-        if not self.thermo or state.T is None \
-                or self.forcing_cfg.buoy_config in ("zero", "NONE"):
+        (BUOY_CONFIG), None without buoyancy forcing (also under
+        BUOY_CONFIG dumbbell with no FLUXCONST, as in the JAX Model)."""
+        if not self.thermo or state.T is None:
             return None
         if self.fluxes_fn is not None:
             return self.fluxes_fn(state, t)
-        return buoyancy_restoring(self.forcing_cfg, self.grid, state.T[0],
-                                  self.south, self.lenlat, sss=state.S[0])
+        if self.forcing_cfg.buoy_config in ("linear_restoring", "linear"):
+            return buoyancy_restoring(self.forcing_cfg, self.grid,
+                                      state.T[0], self.south, self.lenlat,
+                                      sss=state.S[0])
+        return None
 
     def forcing(self, state: State, t: float, do_thermo: bool):
         """(MechForcing, Fluxes or None) of a step centred at ``t`` [s]:
@@ -729,9 +744,14 @@ def _sponge_data(pf: ParamFile, domain: Domain, grid: Grid,
 
 
 def build_model(pf: ParamFile, *, device="cuda",
-                dtype: torch.dtype = torch.float64) -> Model:
+                dtype: torch.dtype = torch.float64,
+                allow_obsolete: tuple = ()) -> Model:
     """The model that the parameters describe, on ``device`` in
-    ``dtype``."""
+    ``dtype``.  The obsolete-parameter guard runs last, as in the JAX
+    builder; ``allow_obsolete`` names entries of its table to skip
+    (``("Use_PP81",)`` lets USE_PP81 through: the guard's keys match
+    case-insensitively, so its "Use_PP81" entry refuses USE_PP81
+    itself, in both packages)."""
     dev = dict(device=device, dtype=dtype)
     f64 = dict(device=device, dtype=torch.float64)
 
@@ -928,9 +948,6 @@ def build_model(pf: ParamFile, *, device="cuda",
 
     pf.module("MOM_coord_initialization")
     coord_cfg = pf.get("COORD_CONFIG", str, "none")
-    if coord_cfg == "BFB":
-        raise NotImplementedError(f"COORD_CONFIG = {coord_cfg!r}: option "
-                                  "not ported")
     p_ref = pf.get("P_REF", float, 2.0e7, units="Pa")
     if coord_cfg == "layer_ref":
         # layer densities evenly spaced over RLAY_RANGE from the lightest
@@ -947,6 +964,20 @@ def build_model(pf: ParamFile, *, device="cuda",
         vgrid = VerticalGrid.from_rlay(
             light + rrange * (np.arange(nk) + 0.5) / nk, g_Earth=g_earth,
             Rho0=rho0, boussinesq=boussinesq, **dev)
+    elif coord_cfg == "BFB":
+        # layer densities linear between those that the linear EOS gives
+        # SST_S (top) and T_BOT (bottom) at S_REF
+        drho_dt = pf.get("DRHO_DT", float, -0.2, units="kg m-3 K-1")
+        drho_ds = pf.get("DRHO_DS", float, 0.8, units="kg m-3 ppt-1")
+        rho_t0_s0 = pf.get("RHO_T0_S0", float, 1000.0, units="kg m-3")
+        sst_s = pf.get("SST_S", float, 20.0, units="degC")
+        t_bot = pf.get("T_BOT", float, 5.0, units="degC")
+        s_ref0 = pf.get("S_REF", float, 35.0, units="ppt")
+        rho_top = (rho_t0_s0 + drho_ds * s_ref0) + drho_dt * sst_s
+        rho_bot = (rho_t0_s0 + drho_ds * s_ref0) + drho_dt * t_bot
+        vgrid = VerticalGrid.from_rlay(
+            rho_top + (rho_bot - rho_top) * np.arange(nk) / max(nk - 1, 1),
+            g_Earth=g_earth, Rho0=rho0, boussinesq=boussinesq, **dev)
     elif coord_cfg == "ts_range":
         vgrid = VerticalGrid.from_rlay(
             _ts_range_rlay(pf, nk, nk_rho_varies, p_ref, eos),
@@ -1404,31 +1435,113 @@ def build_model(pf: ParamFile, *, device="cuda",
         cp=pf.get("C_P", float, 3991.86795711963, units="J kg-1 K-1"))
     indir = pf.get("INPUTDIR", str, ".")
     _one_of("WIND_CONFIG", sf_cfg.wind_config, _WINDS)
-    forces_fn = fluxes_fn = None
+    forces_fn = fluxes_fn = db_fluxes_fn = None
     if sf_cfg.wind_config.lower() == "file":
-        # the file's shape decides: stresses on the compute domain sit on
-        # the u and v points, any other shape is regridded to them from
-        # the file's lon/lat; an A-grid file of on-grid shape is not
-        # ported
-        if pf.get("WIND_STAGGER", str, "C").upper() != "C":
-            raise NotImplementedError(
-                "WIND_STAGGER: only C (on-grid stresses at the u and v "
-                "points, or stresses regridded from the file's lon/lat) "
-                "is ported")
+        wind_file = os.path.join(indir, pf.get("WIND_FILE", str))
+        x_var = pf.get("WINDSTRESS_X_VAR", str, "STRESS_X")
+        y_var = pf.get("WINDSTRESS_Y_VAR", str, "STRESS_Y")
+        # read but unused: ROADMAP.md "Reference faults", WIND_STAGGER
+        pf.get("WIND_STAGGER", str, "C")
         forces_fn = wind_forcing_from_file(
-            grid, os.path.join(indir, pf.get("WIND_FILE", str)),
-            pf.get("WINDSTRESS_X_VAR", str, "STRESS_X"),
-            pf.get("WINDSTRESS_Y_VAR", str, "STRESS_Y"),
+            grid, wind_file, x_var, y_var,
             scale=pf.get("WINDSTRESS_SCALE", float, 1.0))
         forces = forces_fn(0.0)
         if not forces_fn.time_varying:
             forces_fn = None            # a static file wind is baked in
+    elif sf_cfg.wind_config == "SCM_CVMix_tests":
+        pf.module("SCM_CVMix_tests")
+        pf.get("SCM_USE_WIND_STRESS", bool, True)
+        forces = scm_wind(grid, pf.get("SCM_TAU_X", float, 0.0, units="Pa"),
+                          pf.get("SCM_TAU_Y", float, 0.0, units="Pa"))
+        pf.module("MOM_surface_forcing")
+    elif sf_cfg.wind_config in ("ideal_hurr", "SCM_ideal_hurr"):
+        pf.module("idealized_hurricane")
+        hcfg = HurricaneCfg(
+            rho_air=pf.get("IDL_HURR_RHO_AIR", float, 1.2, units="kg m-3"),
+            p_ambient=pf.get("IDL_HURR_AMBIENT_PRESSURE", float, 101200.0,
+                             units="Pa"),
+            p_central=pf.get("IDL_HURR_CENTRAL_PRESSURE", float, 96800.0,
+                             units="Pa"),
+            rad_max_wind=pf.get("IDL_HURR_RAD_MAX_WIND", float, 50.0e3,
+                                units="m"),
+            max_windspeed=pf.get("IDL_HURR_MAX_WIND", float, 65.0,
+                                 units="m s-1"),
+            translation_spd=pf.get("IDL_HURR_TRAN_SPEED", float, 5.0,
+                                   units="m s-1"),
+            translation_dir=pf.get("IDL_HURR_TRAN_DIR", float, 180.0,
+                                   units="deg"),
+            x0=pf.get("IDL_HURR_X0", float, 0.0, units="m"),
+            y0=pf.get("IDL_HURR_Y0", float, 0.0, units="m"),
+            scm_mode=(sf_cfg.wind_config == "SCM_ideal_hurr")
+            or pf.get("IDL_HURR_SCM", bool, False),
+            br_bench=pf.get("IDL_HURR_SCM_BR_BENCH", bool, False),
+            dy_from_center=pf.get("IDL_HURR_SCM_LOCY", float, 50.0e3,
+                                  units="m"))
+        pf.module("MOM_surface_forcing")
+        forces_fn = idealized_hurricane_fn(hcfg, grid)
+        forces = forces_fn(0.0)
+    elif sf_cfg.wind_config == "dumbbell":
+        pf.module("dumbbell_surface_forcing")
+        db_cfg = DumbbellForcingCfg(
+            slp_amplitude=pf.get("DUMBBELL_SLP_AMP", float, 10000.0,
+                                 units="Pa"),
+            slp_period=pf.get("DUMBBELL_SLP_PERIOD", float, 1.0,
+                              units="days"),
+            s_surf=pf.get("INITIAL_SSS", float, 34.0, units="ppt"),
+            s_range=pf.get("INITIAL_S_RANGE", float, 2.0, units="ppt"),
+            flux_const=sf_cfg.fluxconst if sf_cfg.restore_sst else 0.0,
+            rho_restore=pf.get("RESTORE_FLUX_RHO", float, rho0,
+                               units="kg m-3"),
+            rotate=pf.get("DUMBBELL_ROTATION", bool, False))
+        pf.module("MOM_surface_forcing")
+        forces_fn, db_fluxes_fn = dumbbell_forcing(db_cfg, grid, west,
+                                                   lenlon, south, lenlat)
+        forces = forces_fn(0.0)
     else:
         forces = build_wind(sf_cfg, grid, south, lenlat)
     if thermo and sf_cfg.buoy_config not in ("zero", "NONE"):
-        _one_of("BUOY_CONFIG", sf_cfg.buoy_config,
-                ("linear_restoring", "linear", "file"))
-        if sf_cfg.buoy_config == "file":
+        _one_of("BUOY_CONFIG", sf_cfg.buoy_config, _BUOYS)
+        if sf_cfg.buoy_config == "const_heat":
+            def fluxes_fn(state, t, _q=sf_cfg.sensible_heat, _g=grid):
+                return Fluxes(sensible=torch.full_like(state.h[0], _q)
+                              * _g.mask2dT)
+        elif sf_cfg.buoy_config == "SCM_CVMix_tests":
+            pf.module("SCM_CVMix_tests")
+            use_hf = pf.get("SCM_USE_HEAT_FLUX", bool, False)
+            use_ev = pf.get("SCM_USE_EVAPORATION", bool, False)
+            use_sw = pf.get("SCM_USE_DIURNAL_SW", bool, False)
+            fluxes_fn = scm_buoyancy_fn(
+                grid,
+                heat_flux=pf.get("SCM_HEAT_FLUX", float, 0.0,
+                                 units="m degC s-1") if use_hf else 0.0,
+                evaporation=pf.get("SCM_EVAPORATION", float, 0.0,
+                                   units="m s-1") if use_ev else 0.0,
+                max_sw=pf.get("SCM_DIURNAL_SW_MAX", float, 0.0,
+                              units="m degC s-1") if use_sw else 0.0,
+                rho_restore=pf.get("RESTORE_FLUX_RHO", float, rho0,
+                                   units="kg m-3"),
+                cp=sf_cfg.cp)
+            pf.module("MOM_surface_forcing")
+        elif sf_cfg.buoy_config == "BFB":
+            pf.module("BFB_surface_forcing")
+            fluxes_fn = bfb_buoyancy_fn(
+                grid, sst_s=pf.get("SST_S", float, 20.0, units="degC"),
+                sst_n=pf.get("SST_N", float, 10.0, units="degC"),
+                lfr_slat=pf.get("LFR_SLAT", float, 20.0, units="degrees"),
+                lfr_nlat=pf.get("LFR_NLAT", float, 40.0, units="degrees"),
+                flux_const=sf_cfg.fluxconst if sf_cfg.restore_sst else 0.0,
+                rho_restore=pf.get("RESTORE_FLUX_RHO", float, rho0,
+                                   units="kg m-3"),
+                cp=sf_cfg.cp)
+            pf.module("MOM_surface_forcing")
+        elif sf_cfg.buoy_config == "dumbbell":
+            # the reservoirs' salinity restoring, built with the SLP
+            # seesaw above
+            if sf_cfg.wind_config != "dumbbell":
+                raise ValueError("BUOY_CONFIG='dumbbell' requires "
+                                 "WIND_CONFIG='dumbbell'")
+            fluxes_fn = db_fluxes_fn
+        elif sf_cfg.buoy_config == "file":
             files = {}
             for fld, param, default_var in _BUOY_FILE_FIELDS:
                 if pf.has(param):
@@ -1939,6 +2052,8 @@ def build_model(pf: ParamFile, *, device="cuda",
                                 grid.bathyT.double(), state.h.double(),
                                 vgrid.angstrom)
             tracers[tname] = domain.fill_halos(trz.to(dtype)) * grid.mask2dT
+    # stale configurations fail with the reference's hint text
+    check_obsolete_params(pf, skip=allow_obsolete)
     for name, ptype, default in _PARITY_POLICY:
         if pf.has(name):
             pf.get(name, ptype, default,

@@ -5,7 +5,7 @@
                                                  nonbouss|obc|stoch|b3|
                                                  b3pp81|bml|b4|b4v|hybgen|
                                                  adapt|unmix|file|bgc|
-                                                 shelf]]
+                                                 shelf|hurr]]
                                      [--ni 512 --nj 512 --nk 25]
                                      [--steps 10] [--out DIR]
                                      [--count-ops]
@@ -36,7 +36,9 @@ and buoyancy fluxes interpolated in time, the data_table's overrides),
 or with biogeochemistry (``bgc``: the MARBL-shaped coupler's column
 physics and its restoring remap, with 13 passive tracers), or under an
 ice shelf (``shelf``: its pressure, stress shielding and melt fluxes,
-the ``ice_shelf/fluxes`` range).
+the ``ice_shelf/fluxes`` range), or under a translating hurricane
+(``hurr``: the ``forcing/hurricane`` range inside the step's
+``forcing``).
 After two warm-up steps it
 measures:
 
@@ -98,6 +100,7 @@ from mom6_torch.core import dynamics_split_rk2b as dyn_b
 from mom6_torch.core import dynamics_unsplit as dyn_u
 from mom6_torch.core import orchestrator as orch
 from mom6_torch.core import pressure_force as pfm
+from mom6_torch.drivers import surface_forcing as sf
 from mom6_torch.eos.poly import Poly3
 from mom6_torch.framework.data_override import DataOverride
 from mom6_torch.framework.interp_external import ExternalField
@@ -136,7 +139,8 @@ DYNAMICS = {"rk2": (dyn, "step_dyn_split_rk2"),
             "unmix": (dyn, "step_dyn_split_rk2"),
             "file": (dyn, "step_dyn_split_rk2"),
             "bgc": (dyn, "step_dyn_split_rk2"),
-            "shelf": (dyn, "step_dyn_split_rk2")}
+            "shelf": (dyn, "step_dyn_split_rk2"),
+            "hurr": (dyn, "step_dyn_split_rk2")}
 DYN_PHASES = ("pressure_force", "coriolis_adv", "horizontal_viscosity",
               "vertvisc", "btstep", "continuity_ppm_cuda",
               "set_up_bt_cont_cuda", "tidal_geopotential",
@@ -203,7 +207,11 @@ SLICE2 = (
     (RestoringData, "tendencies", "bgc/restoring"),
     # the ice shelf's coupling: its pressure, the stress shielding and
     # the three-equation melt of the forcing
-    (Model, "shelf_forcing", "ice_shelf/fluxes"))
+    (Model, "shelf_forcing", "ice_shelf/fluxes"),
+    # the step's forcing, and in it the hurricane's stress at the u and
+    # v points of the tenth breadth item
+    (Model, "forcing", "forcing"),
+    (sf, "_hurricane_stress", "forcing/hurricane"))
 # the shelf-only step (drivers/shelf_solo.py): its SSA solve
 SHELF_SOLO = ((shelf_main, "ssa_velocity_solve", "ice_shelf/ssa"),)
 

@@ -141,7 +141,8 @@ def _jitted(fn, *static):
 def _eager_jax():
     """Eager JAX but for btstep and kappa-shear; and the JAX builder's obsolete-parameter
     guard without its "Use_PP81" entry, which its case-insensitive keys
-    match to USE_PP81 itself (the port has no such guard)."""
+    match to USE_PP81 itself (the port's builder skips the entry by
+    ``allow_obsolete``)."""
     with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
         mp.setattr(jrk2, "btstep", _jitted_btstep(jrk2.btstep))
         mp.setattr(jsd, "kappa_shear_coeffs",
@@ -743,7 +744,8 @@ def test_text_matches_step_fn(text):
     body = {"b3": configs.BENCH_CONFIG_B3,
             "b3pp81": configs.BENCH_CONFIG_B3 + PP81}[text] + SMALL + COLUMN
     jm = j_build_model(JParamFile(text=body))
-    pm = build_model(ParamFile(text=body), device="cpu", dtype=F64)
+    pm = build_model(ParamFile(text=body), device="cpu", dtype=F64,
+                     allow_obsolete=("Use_PP81",))
     cfg = convert.config_from_values(OceanCfg,
                                      dataclasses.asdict(jm.ocean_cfg),
                                      _defaults(jm.ocean_cfg))

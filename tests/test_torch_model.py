@@ -198,22 +198,57 @@ def test_build_model_matches_jax(name):
 # layer_ref and THICKNESS_CONFIG circle_obcs (tests/test_torch_bgc.py,
 # test_torch_ref_tc3.py), and ICE_SHELF, THICKNESS_CONFIG phillips and
 # sloshing and TOPO_CONFIG seamount (tests/test_torch_ice_shelf.py,
-# test_torch_user_configs.py): their cases now name options still refused
+# test_torch_user_configs.py), and the wind and buoyancy configurations,
+# WIND_STAGGER A and COORD_CONFIG BFB (tests/test_torch_breadth10.py, and
+# test_ported_options_build below): their cases now name options still
+# refused, the multi-device ones and PHASED_JIT
 @pytest.mark.parametrize("line,name", [
-    ("#override BUOY_CONFIG = dumbbell", "BUOY_CONFIG"),
-    ("#override WIND_CONFIG = ideal_hurr", "WIND_CONFIG"),
-    ("#override BUOY_CONFIG = SCM_CVMix_tests", "BUOY_CONFIG"),
-    ("#override WIND_CONFIG = SCM_CVMix_tests", "WIND_CONFIG"),
-    ("#override BUOY_CONFIG = const_heat", "BUOY_CONFIG"),
-    ("#override BUOY_CONFIG = BFB", "BUOY_CONFIG"),
-    ("COORD_CONFIG = BFB", "COORD_CONFIG"),
+    ("TRIPOLAR_N = True", "TRIPOLAR_N"),
+    ('MASKTABLE = "mask_table.2.4x4"', "MASKTABLE"),
+    ("AUTO_MASKTABLE = True", "AUTO_MASKTABLE"),
     ("PHASED_JIT = True", "PHASED_JIT"),
-    ("#override WIND_CONFIG = file\nWIND_STAGGER = A", "WIND_STAGGER"),
 ])
 def test_options_outside_the_slice_raise(line, name):
     pf = ParamFile(text=BENCH_CONFIG + SMALL + line + "\n")
     with pytest.raises(NotImplementedError, match=name):
         build_model(pf, device="cpu", dtype=F64)
+
+
+# options that this test's list above refused until they were ported:
+# each builds and reads its parameters
+@pytest.mark.parametrize("lines,names", [
+    ("#override WIND_CONFIG = dumbbell\n#override BUOY_CONFIG = dumbbell\n"
+     "DUMBBELL_SLP_AMP = 500.0", ("DUMBBELL_SLP_AMP", "INITIAL_S_RANGE")),
+    ("#override WIND_CONFIG = ideal_hurr\nIDL_HURR_X0 = 8.0e4",
+     ("IDL_HURR_X0", "IDL_HURR_RAD_MAX_WIND")),
+    ("#override BUOY_CONFIG = SCM_CVMix_tests\nSCM_USE_HEAT_FLUX = True\n"
+     "SCM_HEAT_FLUX = 1.0e-5", ("SCM_HEAT_FLUX", "SCM_USE_DIURNAL_SW")),
+    ("#override WIND_CONFIG = SCM_CVMix_tests\nSCM_TAU_X = 0.05",
+     ("SCM_TAU_X", "SCM_USE_WIND_STRESS")),
+    ("#override BUOY_CONFIG = const_heat\nSENSIBLE_HEAT_FLUX = -20.0",
+     ("SENSIBLE_HEAT_FLUX",)),
+    ("#override BUOY_CONFIG = BFB\nLFR_NLAT = 100.0",
+     ("LFR_NLAT", "SST_S")),
+    ("COORD_CONFIG = BFB\nT_BOT = 3.0", ("T_BOT", "S_REF")),
+    ("#override WIND_CONFIG = file\nWIND_FILE = wind.nc\nWIND_STAGGER = A",
+     ("WIND_STAGGER", "WIND_FILE")),
+], ids=["buoy_dumbbell", "wind_ideal_hurr", "buoy_scm", "wind_scm",
+        "buoy_const_heat", "buoy_bfb", "coord_bfb", "wind_stagger_a"])
+def test_ported_options_build(lines, names, tmp_path):
+    from mom6_torch.framework.io import write_fields
+    write_fields(str(tmp_path / "wind.nc"),
+                 {"STRESS_X": np.full((16, 16), 0.05),
+                  "STRESS_Y": np.zeros((16, 16))},
+                 dims={"STRESS_X": ("ny", "nx"), "STRESS_Y": ("ny", "nx")})
+    pf = ParamFile(text=BENCH_CONFIG + SMALL + lines
+                   + f"\nINPUTDIR = {tmp_path}\n")
+    m = build_model(pf, device="cpu", dtype=F64)
+    assert pf.unused() == []
+    assert all(n in pf._doc for n in names)
+    fc, fl = m.forcing(m.state, 300.0, True)
+    assert fl is not None
+    assert all(torch.isfinite(x).all() for x in (fc.taux, fc.tauy, fc.p_surf)
+               if x is not None)
 
 
 # ---- reproducing sums ------------------------------------------------------

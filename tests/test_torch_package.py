@@ -178,17 +178,14 @@ def test_nonboussinesq_and_porous_raise():
 # and offline tracer mode, WRITE_OFFLINE_FIELDS and the tracer packages
 # (tests/test_torch_bgc.py), and ICE_SHELF, THICKNESS_CONFIG phillips and
 # TOPO_CONFIG seamount (tests/test_torch_ice_shelf.py,
-# test_torch_user_configs.py): their cases now name options still refused
+# test_torch_user_configs.py), and USE_PARTICLES, the wind configurations,
+# WIND_STAGGER A and COORD_CONFIG BFB (tests/test_torch_breadth10.py,
+# test_torch_coupled_oda.py, and test_driver_runs_ported_options below):
+# their cases now name options still refused
 @pytest.mark.parametrize("line,name", [
-    ("USE_PARTICLES = True", "USE_PARTICLES"),
     ("TRIPOLAR_N = True", "TRIPOLAR_N"),
     ('MASKTABLE = "mask_table.2.4x4"', "MASKTABLE"),
     ("AUTO_MASKTABLE = True", "AUTO_MASKTABLE"),
-    ('#override WIND_CONFIG = "ideal_hurr"', "WIND_CONFIG"),
-    ('#override WIND_CONFIG = "dumbbell"', "WIND_CONFIG"),
-    ('COORD_CONFIG = "BFB"', "COORD_CONFIG"),
-    ('#override WIND_CONFIG = "SCM_CVMix_tests"', "WIND_CONFIG"),
-    ('#override WIND_CONFIG = "file"\nWIND_STAGGER = "A"', "WIND_STAGGER"),
     ("PHASED_JIT = True", "PHASED_JIT"),
 ])
 def test_driver_rejects_unported_options(tmp_path, line, name):
@@ -199,3 +196,33 @@ def test_driver_rejects_unported_options(tmp_path, line, name):
     with pytest.raises(NotImplementedError, match=name):
         solo.main([str(tmp_path), "--days", "0.25", "--cpu"])
     assert not (tmp_path / "ocean.stats").exists()
+
+
+# options that the driver refused until they were ported: each runs 3
+# steps of cases/double_gyre
+@pytest.mark.parametrize("line,out", [
+    ("USE_PARTICLES = True\nPARTICLES_NX = 2\nPARTICLES_NY = 3",
+     "particles.nc"),
+    ('#override WIND_CONFIG = "ideal_hurr"\nIDL_HURR_X0 = 6.6e5\n'
+     "IDL_HURR_Y0 = 6.0e5", "ocean.stats"),
+    ('#override WIND_CONFIG = "dumbbell"', "ocean.stats"),
+    ('COORD_CONFIG = "BFB"', "ocean.stats"),
+    ('#override WIND_CONFIG = "SCM_CVMix_tests"\nSCM_TAU_Y = 0.05',
+     "ocean.stats"),
+    ('#override WIND_CONFIG = "file"\nWIND_FILE = "wind.nc"\n'
+     'WIND_STAGGER = "A"', "ocean.stats"),
+], ids=["particles", "ideal_hurr", "dumbbell", "coord_bfb", "scm",
+        "wind_stagger_a"])
+def test_driver_runs_ported_options(tmp_path, line, out):
+    from mom6_torch.framework.io import write_fields
+    case = ROOT / "cases" / "double_gyre"
+    shutil.copy(case / "MOM_input", tmp_path / "MOM_input")
+    write_fields(str(tmp_path / "wind.nc"),
+                 {"STRESS_X": np.full((40, 44), 0.1),
+                  "STRESS_Y": np.zeros((40, 44))},
+                 dims={"STRESS_X": ("ny", "nx"), "STRESS_Y": ("ny", "nx")})
+    with open(tmp_path / "MOM_input", "a") as f:
+        f.write(line + f'\nINPUTDIR = "{tmp_path}"\n')
+    run = solo.main([str(tmp_path), "--days", "0.0417", "--cpu"])
+    assert run["steps"] == 3 and (tmp_path / out).exists()
+    assert bool(torch.isfinite(run["state"].u).all())
